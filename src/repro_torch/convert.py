@@ -1,0 +1,62 @@
+"""Carry containers between the JAX package and the port as numpy arrays.
+
+The JAX package's containers hand over their arrays with ``np.asarray``
+(``DistVector.data``/``.n``; ``DistHashMap.table.keys/vals/overflow`` and
+``.reducer_name``); these functions build the port's containers from them
+and turn the port's back into numpy, so a table built by one package can be
+merged into by the other.  bf16 arrays travel as float32 (exact both ways).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.containers import (
+    DistHashMap,
+    DistVector,
+    HashTable,
+    resolve_device,
+)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":  # numpy has no bf16; torch.from_numpy refuses it
+        return torch.from_numpy(x.astype(np.float32)).to(device, torch.bfloat16)
+    # A copy: arrays handed over by JAX are read-only, torch tensors are not.
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().cpu().numpy()
+
+
+def dist_vector(data, n: int, device=None) -> DistVector:
+    """A ``DistVector`` from its padded data ``[S * per, ...]`` and true
+    length ``n``."""
+    return DistVector(_tensor(data, resolve_device(device)), int(n))
+
+
+def dist_hashmap(keys, vals, overflow, reducer_name: str, device=None) -> DistHashMap:
+    """A ``DistHashMap`` from ``keys [S, C]``, ``vals [S, C, ...]``,
+    ``overflow [S]`` and the reducer's name."""
+    dev = resolve_device(device)
+    table = HashTable(
+        _tensor(np.asarray(keys, np.int32), dev),
+        _tensor(vals, dev),
+        _tensor(np.asarray(overflow, np.int32), dev),
+    )
+    return DistHashMap(table, reducer_name=reducer_name)
+
+
+def to_numpy(container):
+    """``(data, n)`` for a ``DistVector``; ``(keys, vals, overflow,
+    reducer_name)`` for a ``DistHashMap``."""
+    if isinstance(container, DistVector):
+        return _numpy(container.data), container.n
+    if isinstance(container, DistHashMap):
+        t = container.table
+        return _numpy(t.keys), _numpy(t.vals), _numpy(t.overflow), container.reducer_name
+    raise TypeError(f"cannot convert {type(container).__name__}")

@@ -1,0 +1,69 @@
+"""Monte-Carlo π estimation (paper §2.3.3, Table 1, Appendix A.2).
+
+The counterpart of ``repro/core/algorithms/pi.py``, per-op mode: a DistRange
+of sample indices, a mapper that emits ``(0, 1)`` for in-circle samples, a
+``"sum"`` reducer and a 1-element dense target.  The ``emit(0, …)`` key is a
+Python int, so every engine takes the static-key fast path (one fused
+reduction); no kernel runs.  Randomness is counter-based (splitmix32 of the
+sample index), the same bits as the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import DistRange
+from repro_torch.core.containers import hash32
+from repro_torch.core.session import BlazeSession, resolve
+
+
+def _uniform01(x: torch.Tensor, salt: int) -> torch.Tensor:
+    h = hash32((x.to(torch.int64) & 0xFFFFFFFF) ^ salt)
+    return h.to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def pi_mapper(v, emit):
+    x = _uniform01(v, 0x9E3779B9)
+    y = _uniform01(v, 0x85EBCA6B)
+    emit(0, torch.where(x * x + y * y < 1.0, 1, 0))
+
+
+def estimate_pi(
+    n_samples: int,
+    *,
+    engine: str = "eager",
+    mode: str = "per_op",
+    return_stats: bool = False,
+    session: BlazeSession | None = None,
+):
+    if mode != "per_op":
+        raise NotImplementedError(
+            f"mode={mode!r} comes with the fused-program slice of the port; "
+            "use mode='per_op'"
+        )
+    sess = resolve(session)
+    out = sess.map_reduce(
+        DistRange(0, n_samples, 1),
+        pi_mapper,
+        "sum",
+        torch.zeros((1,), dtype=torch.int32, device=sess.device),
+        engine=engine,
+        return_stats=return_stats,
+    )
+    counts, stats = out if return_stats else (out, None)
+    pi = 4.0 * float(sess.host_value(counts)[0]) / n_samples
+    return (pi, stats) if return_stats else pi
+
+
+def handrolled_count(n_samples: int, device) -> int:
+    """In-circle count of the 'hand-optimised parallel for loop' baseline
+    from Table 1: one reduction over all sample indices, no MapReduce."""
+    idx = torch.arange(n_samples, device=device)
+    x = _uniform01(idx, 0x9E3779B9)
+    y = _uniform01(idx, 0x85EBCA6B)
+    return int((x * x + y * y < 1.0).sum())
+
+
+def estimate_pi_handrolled(n_samples: int, device=None) -> float:
+    from repro_torch.core.containers import resolve_device
+
+    return 4.0 * handrolled_count(n_samples, resolve_device(device)) / n_samples

@@ -1,0 +1,598 @@
+"""Blaze MapReduce in PyTorch — eager reduction, dense fast path, hash targets.
+
+The counterpart of ``repro/core/mapreduce.py``.  ``map_reduce(source, mapper,
+reducer, target)`` keeps the paper's four-argument API:
+
+* **source** — ``DistRange`` | ``DistVector`` | ``DistHashMap``.
+* **mapper** — paper-style emit-handler function, run under
+  ``torch.func.vmap`` over every element of every shard:
+    - ``DistRange``:   ``mapper(value, emit)``            (+ ``env`` if given)
+    - ``DistVector``:  ``mapper(index, value, emit)``     (+ ``env`` if given)
+    - ``DistHashMap``: ``mapper(key, value, emit)``       (+ ``env`` if given)
+  ``emit(key, value, mask=True)`` may be called any static number of times;
+  ``key``/``value`` may be scalars or 1-D batches, ``mask`` marks the real
+  lanes.  A key passed as a Python ``int`` is static: the dense engine then
+  reduces that emit with one fused whole-axis reduction.
+* **reducer** — ``"sum" | "prod" | "min" | "max"`` or a custom ``Reducer``.
+* **target** — a dense tensor ``[K, ...]`` (key == index) or a
+  ``DistHashMap``.  The target is merged into, never cleared.
+* **env** — iteration-varying state (PageRank scores, k-means centres)
+  passed to the mapper; keeping the mapper fixed and the state in ``env``
+  lets one shard-stage plan serve every iteration.
+
+Engines: ``"eager"`` combines duplicate keys on the device before the
+shuffle (PyTorch scatter ops); ``"pallas"`` is the eager plan with every
+per-shard combine through the hand-written kernels (``Reducer.pallas_segment``
+for dense targets, ``Reducer.pallas_hash`` for hash targets, before and
+after the shuffle); ``"naive"`` ships every raw pair and reduces only at the
+destination; ``"auto"`` is resolved by ``plan.resolve_engine``.
+
+Shards are stacked on dim 0 of one device (see ``containers``), and a shard
+stage is written over all of them at once with ``LocalCollectives``.  A
+"compile" is the construction of a stage, cached by the session under the
+same signature as the JAX executable cache, so compile counts carry over.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+from torch.func import vmap
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import containers as C
+from repro_torch.core import cost
+from repro_torch.core.collectives import LocalCollectives
+from repro_torch.core.reducers import Reducer
+from repro_torch.core.serialization import narrowest_int_dtype
+from repro_torch.kernels.segment_reduce import THREADS
+
+
+@dataclasses.dataclass
+class MapReduceStats:
+    """Wire accounting + runtime counters for one map_reduce call.
+
+    Runtime fields hold device tensors until ``finalize()``, so the engine
+    never waits on the device to fill in statistics.  The ``kernel_*`` fields
+    describe the port's own launches: CTA size, lanes (pairs) processed, and
+    for hash targets the pre-shuffle table capacity and probe depth.
+    """
+
+    engine: str
+    collective: str  # which collective carried the shuffle
+    pairs_emitted: Any  # live emitted pairs
+    pairs_shipped: Any  # pairs that went on the wire after the local combine
+    shuffle_payload_bytes: Any  # bytes the shuffle moves (all shards, one call)
+    overflow: Any = None  # hash-table / bucket drops
+    compiles: int = 0  # 1 iff this call built a new shard stage
+    cache_hits: int = 0  # 1 iff this call reused a cached shard stage
+    dispatches: int = 1
+    kernel_block_n: int | None = None
+    kernel_lanes: int | None = None
+    kernel_pairs: Any = None  # live pairs entering the kernel
+    kernel_occupancy: float | None = None  # kernel_pairs / kernel_lanes
+    kernel_table_cap: int | None = None
+    kernel_probe_depth: int | None = None
+
+    def finalize(self) -> "MapReduceStats":
+        def _get(x):
+            if isinstance(x, (torch.Tensor, np.ndarray)):
+                return int(x.sum())
+            return x
+
+        kernel_pairs = _get(self.kernel_pairs)
+        occupancy = (
+            kernel_pairs / self.kernel_lanes
+            if self.kernel_lanes and kernel_pairs is not None
+            else None
+        )
+        return dataclasses.replace(
+            self,
+            pairs_emitted=_get(self.pairs_emitted),
+            pairs_shipped=_get(self.pairs_shipped),
+            shuffle_payload_bytes=_get(self.shuffle_payload_bytes),
+            overflow=_get(self.overflow),
+            kernel_pairs=kernel_pairs,
+            kernel_occupancy=occupancy,
+        )
+
+
+def _scalar(x):
+    """A reducer identity as a Python number (custom ones may be tensors)."""
+    return x.item() if isinstance(x, torch.Tensor) else x
+
+
+class _Emitter:
+    """Collects emit() calls while the mapper runs under vmap.
+
+    Keys passed as Python ints are *static*: the dense engine then skips id
+    arrays and uses a fused whole-axis reduction — the paper's §2.3.3
+    per-thread scalar accumulator (Monte-Carlo π's ``emit(0, …)``,
+    PageRank's sink/delta sums).  Keys become int32 here, as in JAX; values
+    keep their dtype until the engine casts them to the target's.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.keys: list[torch.Tensor] = []
+        self.vals: list[torch.Tensor] = []
+        self.masks: list[torch.Tensor] = []
+        self.static_keys: list[int | None] = []
+
+    def _tensor(self, x) -> torch.Tensor:
+        return x if isinstance(x, torch.Tensor) else torch.tensor(x, device=self.device)
+
+    def __call__(self, key, value, mask=True):
+        static = int(key) if isinstance(key, (int, np.integer)) else None
+        key = self._tensor(key).to(torch.int32)
+        value = self._tensor(value)
+        mask = self._tensor(mask).to(torch.bool)
+        if key.dim() == 0:
+            key = key[None]
+        width = key.shape[0]
+        if value.dim() == 0 or value.shape[:1] != (width,):
+            value = value.expand((width,) + tuple(value.shape))
+        self.keys.append(key)
+        self.vals.append(value)
+        self.masks.append(mask.expand((width,)))
+        self.static_keys.append(static)
+
+    def structured(self):
+        if not self.keys:
+            raise ValueError("mapper emitted nothing (statically)")
+        return tuple(zip(self.keys, self.vals, self.masks))
+
+
+def _run_mapper_structured(kind, source, mapper, coll, local, env):
+    """vmap the emit-style mapper over every shard → (entries, static keys).
+
+    entries: per emit call, ``(keys [S, n, w], vals [S, n, w, ...],
+    mask [S, n, w])``; static keys: per emit call, the Python int key or
+    ``None``.
+    """
+    n_shards = coll.n_shards
+    extra = (env,) if env is not None else ()
+    meta: dict = {}
+
+    def trace(*args):
+        em = _Emitter(coll.device)
+        mapper(*args, em, *extra)
+        meta["static"] = em.static_keys
+        return em.structured()
+
+    if kind == "range":
+        values, valid = source.local_values(coll.axis_index(), n_shards)
+        elem_mask = valid.reshape(-1)
+        entries = vmap(trace)(values.reshape(-1))
+    elif kind == "vector":
+        data, n_true = local
+        idx = torch.arange(data.shape[0], dtype=torch.int32, device=data.device)
+        elem_mask = idx < n_true
+        entries = vmap(trace)(idx, data)
+    elif kind == "hashmap":
+        tkeys, tvals = local
+        keys = tkeys.reshape(-1)
+        elem_mask = keys != C.EMPTY_KEY
+        entries = vmap(trace)(keys, tvals.reshape((-1,) + tuple(tvals.shape[2:])))
+    else:
+        raise TypeError(f"unsupported source kind {kind}")
+
+    per = elem_mask.shape[0] // n_shards
+    out = []
+    for k, v, m in entries:
+        m = m & elem_mask[:, None]
+        out.append((
+            k.reshape(n_shards, per, -1),
+            v.reshape((n_shards, per) + tuple(v.shape[1:])),
+            m.reshape(n_shards, per, -1),
+        ))
+    return out, meta["static"]
+
+
+def _flatten_entries(entries, n_shards):
+    """Structured emits → per-shard flat ``(keys [S, N], vals [S, N, ...],
+    mask [S, N])``."""
+    keys = torch.cat([k.reshape(n_shards, -1) for k, _, _ in entries], dim=1)
+    vals = torch.cat(
+        [v.reshape((n_shards, -1) + tuple(v.shape[3:])) for _, v, _ in entries],
+        dim=1,
+    )
+    masks = torch.cat([m.reshape(n_shards, -1) for _, _, m in entries], dim=1)
+    return keys, vals, masks
+
+
+# ---------------------------------------------------------------------------
+# Shuffle plumbing: bucket pairs by destination shard, fixed capacity
+# ---------------------------------------------------------------------------
+
+
+def bucket_by_dest(keys, vals, valid, n_dest: int, cap: int, ident):
+    """Pack one shard's pairs into a ``[n_dest, cap]`` buffer keyed by hash
+    ownership; returns ``(bkeys, bvals, n_dropped)``.
+
+    A pair's position in its bucket is its rank among same-destination pairs
+    in emission order (a *stable* sort + first-occurrence index), so a full
+    bucket keeps the first-emitted pairs.  Vectorised, no host round-trip:
+    pairs that do not fit are written to one spare slot that is cut off.
+    """
+    n = keys.shape[0]
+    dev = keys.device
+    dest = torch.where(valid, C.shard_of_key(keys, n_dest), n_dest)
+    order = torch.argsort(dest, stable=True)
+    sdest, skeys, svals = dest[order], keys[order], vals[order]
+    first = torch.searchsorted(sdest, sdest, side="left")
+    rank = torch.arange(n, device=dev) - first
+    ok = (sdest < n_dest) & (rank < cap)
+    flat = torch.where(ok, sdest * cap + rank, n_dest * cap)
+    bkeys = torch.full((n_dest * cap + 1,), C.EMPTY_KEY, dtype=torch.int32,
+                       device=dev)
+    bkeys[flat] = torch.where(ok, skeys, C.EMPTY_KEY).to(torch.int32)
+    bvals = torch.full((n_dest * cap + 1,) + tuple(vals.shape[1:]),
+                       _scalar(ident), dtype=vals.dtype, device=dev)
+    bvals[flat] = svals
+    dropped = ((sdest < n_dest) & ~ok).sum().to(torch.int32)
+    return (
+        bkeys[:-1].reshape(n_dest, cap),
+        bvals[:-1].reshape((n_dest, cap) + tuple(vals.shape[1:])),
+        dropped,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+
+def source_kind(source) -> str:
+    if isinstance(source, C.DistRange):
+        return "range"
+    if isinstance(source, C.DistVector):
+        return "vector"
+    if isinstance(source, C.DistHashMap):
+        return "hashmap"
+    raise TypeError(f"unsupported source {type(source)}")
+
+
+def map_reduce(source, mapper: Callable, reducer, target, **kwargs):
+    """The paper's four-arg functional API, through the process-wide default
+    ``BlazeSession`` (see ``repro_torch.core.session``)."""
+    from repro_torch.core.session import get_default_session
+
+    return get_default_session().map_reduce(source, mapper, reducer, target,
+                                            **kwargs)
+
+
+def abstract_sig(tree) -> tuple:
+    """Hashable (structure, shapes/dtypes/devices) signature of a pytree."""
+    leaves, spec = pytree.tree_flatten(tree)
+    return str(spec), tuple(
+        (tuple(x.shape), str(x.dtype), str(x.device))
+        if isinstance(x, torch.Tensor) else type(x).__name__
+        for x in leaves
+    )
+
+
+def _source_operands(kind, source) -> tuple:
+    if kind == "range":
+        return ()
+    if kind == "vector":
+        return (source.data,)
+    return (source.table.keys, source.table.vals)
+
+
+def _source_extent(kind, source):
+    if kind == "vector":
+        return source.n
+    if kind == "range":
+        return (source.start, source.stop, source.step)
+    return None
+
+
+def _local_view(kind, source):
+    if kind == "range":
+        return None
+    if kind == "vector":
+        return (source.data, source.n)
+    return (source.table.keys, source.table.vals)
+
+
+def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
+                      with_stats: bool = True):
+    """The per-shard plan for a dense ``[K, ...]`` target, as a function:
+
+        ``stage(env, local, coll) -> (total, live, kernel_pairs)``
+
+    mapper → local combine (static-key fast path, segmented reduce or the
+    segment-reduce kernel) → the collective.  ``total`` is the merged result
+    excluding the target; ``live`` the live pairs per shard.  Returns
+    ``(stage, kernel_meta)``, ``kernel_meta`` filled when the kernel runs.
+    """
+    K = target.shape[0]
+    target_dtype = target.dtype
+    kernel_meta: dict = {}
+
+    def stage(env, local, coll):
+        n_shards, dev = coll.n_shards, coll.device
+        entries, static_keys = _run_mapper_structured(
+            kind, source, mapper, coll, local, env
+        )
+        live = (
+            sum(m.reshape(n_shards, -1).sum(1) for _, _, m in entries).to(torch.int32)
+            if with_stats or engine == "naive"
+            else torch.zeros(n_shards, dtype=torch.int32, device=dev)
+        )
+        kernel_pairs = torch.zeros((), dtype=torch.int32, device=dev)
+
+        if engine in ("eager", "pallas"):
+            # §2.3.3 static-key fast path: trace-time-constant keys get a
+            # fused whole-axis reduction, no id arrays (both engines: a
+            # kernel cannot beat a fused scalar reduction).
+            val_shape = tuple(entries[0][1].shape[3:])
+            ident = red.identity(target_dtype)
+            partial = torch.full((n_shards, K) + val_shape, _scalar(ident),
+                                 dtype=target_dtype, device=dev)
+            dynamic = []
+            for (keys, vals, mask), sk in zip(entries, static_keys):
+                vals = vals.to(target_dtype)
+                if sk is not None and 0 <= sk < K and red.axis_reduce is not None:
+                    mb = mask.reshape(mask.shape + (1,) * len(val_shape))
+                    contrib = red.axis_reduce(torch.where(mb, vals, ident), (1, 2))
+                    partial[:, sk] = red.combine(partial[:, sk], contrib)
+                else:
+                    dynamic.append((keys, vals, mask))
+            if dynamic:
+                dkeys, dvals, dmask = _flatten_entries(dynamic, n_shards)
+                in_range = dmask & (dkeys >= 0) & (dkeys < K)
+                if engine == "pallas" and red.pallas_segment is not None:
+                    # Invalid lanes get id -1, which the kernel drops without
+                    # reading their values.
+                    ids = torch.where(in_range, dkeys, -1)
+                    flat = dvals.reshape(n_shards, dvals.shape[1], -1)
+                    seg = torch.stack([
+                        red.pallas_segment(ids[s], flat[s].contiguous(), K)
+                        for s in range(n_shards)
+                    ]).reshape((n_shards, K) + tuple(dvals.shape[2:]))
+                    kernel_meta["block_n"] = THREADS
+                    kernel_meta["lanes"] = flat.shape[1] * n_shards
+                    kernel_pairs = in_range.sum().to(torch.int32)
+                else:
+                    ids = torch.where(in_range, dkeys, K)
+                    seg = torch.stack([
+                        red.segment(dvals[s], ids[s], K + 1)[:K]
+                        for s in range(n_shards)
+                    ])
+                partial = red.combine(partial, seg.to(target_dtype))
+            total = coll.reduce(partial, red)
+        else:
+            # Conventional plan: every raw pair goes to every shard, and the
+            # reduction happens only there.
+            keys, vals, valid = _flatten_entries(entries, n_shards)
+            gk = coll.all_gather_tiled(keys)
+            gv = coll.all_gather_tiled(vals.to(target_dtype))
+            gm = coll.all_gather_tiled(valid)
+            ids_g = torch.where(gm & (gk >= 0) & (gk < K), gk, K)
+            total = red.segment(gv, ids_g, K + 1)[:K]
+        return total, live, kernel_pairs
+
+    return stage, kernel_meta
+
+
+def _map_reduce_dense(kind, source, mapper, red: Reducer, target, n_shards: int,
+                      device, engine: str, env, with_stats: bool = True,
+                      cache: dict | None = None):
+    """Dense ``[K, ...]`` target — the paper's small fixed key range."""
+    K = target.shape[0]
+    cache = cache if cache is not None else {}
+    if engine not in ("eager", "pallas", "naive"):
+        raise ValueError(f"unknown engine {engine!r}")
+    cache_key = (
+        "dense", mapper, red.name, red, engine, n_shards, str(device), kind,
+        with_stats, abstract_sig(_source_operands(kind, source)),
+        _source_extent(kind, source), abstract_sig(target), abstract_sig(env),
+    )
+    compiled_now = cache_key not in cache
+    if compiled_now:
+        cache[cache_key] = dense_shard_stage(
+            kind, source, mapper, red, target, engine, with_stats=with_stats
+        )
+    stage, kernel_meta = cache[cache_key]
+    coll = LocalCollectives(n_shards, device)
+    total, live, kernel_pairs = stage(env, _local_view(kind, source), coll)
+    merged = red.combine(target, total.to(target.dtype))
+
+    val_bytes = target.element_size()
+    key_bytes = narrowest_int_dtype(K).itemsize
+    n_elems = target.numel()
+    if engine in ("eager", "pallas"):
+        payload = n_elems * val_bytes * n_shards
+        collective = f"psum[{K}x{val_bytes}B]"
+        shipped = n_elems * n_shards
+    else:
+        payload = live.sum() * (key_bytes + val_bytes) * n_shards
+        collective = f"all_gather[pairs x {key_bytes + val_bytes}B]"
+        shipped = live
+    stats = MapReduceStats(
+        engine=engine,
+        collective=collective,
+        pairs_emitted=live,
+        pairs_shipped=shipped,
+        shuffle_payload_bytes=payload,
+        compiles=int(compiled_now),
+        cache_hits=int(not compiled_now),
+        kernel_block_n=kernel_meta.get("block_n"),
+        kernel_lanes=kernel_meta.get("lanes"),
+        kernel_pairs=kernel_pairs if kernel_meta else None,
+    )
+    return merged, stats
+
+
+def _wire_key_dtype(key_range: int | None) -> torch.dtype:
+    """Key dtype the hash shuffle ships: narrowed when the range is known
+    (the §2.3.2 fast-serialization analogue for explicit keys)."""
+    if key_range is None:
+        return torch.int32
+    return narrowest_int_dtype(key_range)
+
+
+def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
+                     slack: float, key_range: int | None = None):
+    """The per-shard plan for a ``DistHashMap`` target, as a function:
+
+        ``stage(env, table, local, coll)
+            -> (table', live_emitted, live_shipped, kernel_pairs)``
+
+    * ``eager``: sort-based ``unique_combine`` before the shuffle; a second
+      ``unique_combine`` + ``hashmap_insert`` merges what arrives.
+    * ``pallas``: the hash-aggregation kernel for both combines — raw pairs
+      into a fresh table before the shuffle (duplicates fold in the kernel),
+      received pairs straight into the target shard's table (``init=``).
+    * ``naive``: every raw pair ships; the destination reduces.
+
+    ``key_range`` (keys known to lie in ``[0, key_range)``) narrows the
+    bucket keys on the wire and sizes the kernel's combine table by the
+    distinct-key bound.  Returns ``(stage, kernel_meta)``.
+    """
+    from repro_torch.kernels import hash_combine as HK
+
+    use_kernel = engine == "pallas" and red.pallas_hash is not None
+    kernel_meta: dict = {}
+
+    def per_shard(fn, *args):
+        """Run ``fn`` on each shard's slice of ``args`` and stack each output."""
+        outs = [fn(*(a[s] for a in args)) for s in range(args[0].shape[0])]
+        return tuple(torch.stack(col) for col in zip(*outs))
+
+    def stage(env, table, local, coll):
+        n_shards, dev = coll.n_shards, coll.device
+        entries, _ = _run_mapper_structured(kind, source, mapper, coll, local, env)
+        keys, vals, valid = _flatten_entries(entries, n_shards)
+        vals = vals.to(val_dtype)
+        n_emit = keys.shape[1]
+        val_shape = tuple(vals.shape[2:])
+        live_emitted = valid.sum(1).to(torch.int32)
+        kernel_pairs = torch.zeros(n_shards, dtype=torch.int32, device=dev)
+        pre_drop = torch.zeros(n_shards, dtype=torch.int32, device=dev)
+
+        if use_kernel:
+            # Kernel local combine: raw pairs → a fresh table whose live rows
+            # *are* the locally reduced pairs (at most one per key).
+            cap = cost.table_capacity(n_emit, key_range)
+            probes = cost.choose_probe_depth(n_emit, cap)
+            keys, tvals, pre_drop = per_shard(
+                lambda k, v: red.pallas_hash(k, v.contiguous(), cap,
+                                             max_probes=probes),
+                torch.where(valid, keys, HK.EMPTY_KEY),
+                vals.reshape(n_shards, n_emit, -1),
+            )
+            valid = keys != HK.EMPTY_KEY
+            vals = tvals.reshape((n_shards, cap) + val_shape).to(val_dtype)
+            kernel_pairs = live_emitted
+            kernel_meta.update(block_n=THREADS, lanes=n_emit * n_shards,
+                               table_cap=cap, probe_depth=probes)
+        elif engine == "eager":
+            keys, vals, valid = per_shard(
+                lambda k, v, m: C.unique_combine(k, v, m, red), keys, vals, valid
+            )
+        live_shipped = valid.sum(1).to(torch.int32)
+
+        n_stream = keys.shape[1]
+        bucket_cap = max(1, int(math.ceil(slack * n_emit / n_shards)))
+        bucket_cap = min(bucket_cap, n_stream)
+        ident = red.identity(vals.dtype)
+        bkeys, bvals, dropped = per_shard(
+            lambda k, v, m: bucket_by_dest(k, v, m, n_shards, bucket_cap, ident),
+            keys, vals, valid,
+        )
+        # Narrowed keys on the wire: the smallest int dtype covering
+        # [0, key_range); EMPTY_KEY maps to that dtype's min and back.
+        wire_dtype = _wire_key_dtype(key_range)
+        if wire_dtype.itemsize < 4:
+            sentinel = torch.iinfo(wire_dtype).min
+            nk = torch.where(bkeys == C.EMPTY_KEY, sentinel, bkeys).to(wire_dtype)
+            rkeys = coll.all_to_all_tiled(nk).to(torch.int32).reshape(n_shards, -1)
+            rkeys = torch.where(rkeys == sentinel, C.EMPTY_KEY, rkeys)
+        else:
+            rkeys = coll.all_to_all_tiled(bkeys).reshape(n_shards, -1)
+        rvals = coll.all_to_all_tiled(bvals)
+        rvals = rvals.reshape((n_shards, -1) + tuple(rvals.shape[3:]))
+        rvalid = rkeys != C.EMPTY_KEY
+        cap_t = table.capacity
+        overflow = table.overflow + dropped + pre_drop
+        merge_probes = max(16, cost.choose_probe_depth(rkeys.shape[1], cap_t))
+        if use_kernel:
+            # Kernel merge into the target shard's table: received pairs may
+            # repeat across source shards, and the kernel folds duplicates.
+            tkeys, tvals, overflow = per_shard(
+                lambda k, v, tk, tv, o: red.pallas_hash(
+                    k, v.contiguous(), cap_t, init=(tk, tv.reshape(cap_t, -1), o),
+                    max_probes=merge_probes,
+                ),
+                torch.where(rvalid, rkeys, HK.EMPTY_KEY),
+                rvals.to(val_dtype).reshape(n_shards, rkeys.shape[1], -1),
+                table.keys, table.vals, overflow,
+            )
+            table = C.HashTable(
+                tkeys, tvals.reshape(table.vals.shape).to(val_dtype), overflow
+            )
+        else:
+            def merge(k, v, m, tk, tv, o):
+                uk, uv, um = C.unique_combine(k, v, m, red)
+                t = C.hashmap_insert(C.HashTable(tk, tv, o), uk, uv, um, red,
+                                     max_probes=merge_probes)
+                return t.keys, t.vals, t.overflow
+
+            table = C.HashTable(*per_shard(
+                merge, rkeys, rvals, rvalid, table.keys, table.vals, overflow
+            ))
+        return table, live_emitted, live_shipped, kernel_pairs
+
+    return stage, kernel_meta
+
+
+def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
+                     device, engine: str, slack: float, env,
+                     key_range: int | None = None, cache: dict | None = None):
+    """DistHashMap target: local combine → hash-partition → all_to_all →
+    merge."""
+    if engine not in ("eager", "pallas", "naive"):
+        raise ValueError(f"unknown engine {engine!r}")
+    cache = cache if cache is not None else {}
+    cache_key = (
+        "hash", mapper, red.name, red, engine, slack, n_shards, str(device),
+        kind, key_range, abstract_sig(_source_operands(kind, source)),
+        _source_extent(kind, source),
+        abstract_sig((target.table.keys, target.table.vals)), abstract_sig(env),
+    )
+    compiled_now = cache_key not in cache
+    if compiled_now:
+        cache[cache_key] = hash_shard_stage(
+            kind, source, mapper, red, target.table.vals.dtype, engine, slack,
+            key_range=key_range,
+        )
+    stage, kernel_meta = cache[cache_key]
+    coll = LocalCollectives(n_shards, device)
+    table, emitted, shipped, kernel_pairs = stage(
+        env, target.table, _local_view(kind, source), coll
+    )
+    out = C.DistHashMap(table, reducer_name=red.name)
+    val_bytes = target.table.vals.element_size()
+    key_bytes = _wire_key_dtype(key_range).itemsize
+    stats = MapReduceStats(
+        engine=engine,
+        collective=f"all_to_all[pairs x {key_bytes + val_bytes}B]",
+        pairs_emitted=emitted,
+        pairs_shipped=shipped,
+        shuffle_payload_bytes=shipped.sum() * (key_bytes + val_bytes),
+        overflow=table.overflow,
+        compiles=int(compiled_now),
+        cache_hits=int(not compiled_now),
+        kernel_block_n=kernel_meta.get("block_n"),
+        kernel_lanes=kernel_meta.get("lanes"),
+        kernel_pairs=kernel_pairs if kernel_meta else None,
+        kernel_table_cap=kernel_meta.get("table_cap"),
+        kernel_probe_depth=kernel_meta.get("probe_depth"),
+    )
+    return out, stats

@@ -1,0 +1,129 @@
+"""Dense reduce-by-key: (id, value-row) pairs into a ``[K, V]`` accumulator.
+
+The combiner of ``engine="pallas"`` for dense targets, the counterpart of the
+TPU kernel ``repro/kernels/segment_reduce.py::segment_reduce``.  On a CUDA
+tensor :func:`segment_reduce` launches the hand-written kernel in
+``csrc/segment_reduce.cu`` (shared-memory accumulator per CTA for small
+``K*V``, global atomics otherwise; the source says why); on a CPU tensor it
+runs :func:`segment_reduce_plain`, the same function in plain PyTorch.
+
+Contract (as on the TPU): ids outside ``[0, K)`` are dropped and their values
+never read; sum/prod/min/max; the result is f32 for float inputs (bf16 is
+upcast) and i32 for int inputs; an empty stream gives the identity.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+REDUCERS = ("sum", "prod", "min", "max")
+THREADS = 256
+# Largest [K, V] accumulator a CTA keeps in shared memory: 48 KiB is what a
+# launch may take without opting in to more.
+SHARED_BYTES = 48 * 1024
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+_OP_CODE = {"sum": 0, "prod": 1, "min": 2, "max": 3}
+
+
+def identity(reducer: str, dtype: torch.dtype):
+    """The reducer's identity as a Python number of ``dtype``'s kind."""
+    if reducer == "sum":
+        return 0
+    if reducer == "prod":
+        return 1
+    if dtype.is_floating_point:
+        return float("inf") if reducer == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if reducer == "min" else info.min
+
+
+def fold_rows(acc: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+              reducer: str) -> torch.Tensor:
+    """Fold ``vals[i]`` into ``acc[rows[i]]`` in place with the reducer;
+    ``rows`` are int64 and in range, ``vals`` in ``acc``'s dtype."""
+    if reducer == "sum":
+        return acc.index_add_(0, rows, vals)
+    reduce = {"prod": "prod", "min": "amin", "max": "amax"}[reducer]
+    index = rows.view((-1,) + (1,) * (vals.dim() - 1)).expand_as(vals)
+    return acc.scatter_reduce_(0, index, vals, reduce=reduce, include_self=True)
+
+
+def segment_reduce_plain(ids: torch.Tensor, vals: torch.Tensor,
+                         num_segments: int, *, reducer: str = "sum"
+                         ) -> torch.Tensor:
+    """The plain PyTorch version: mask the dropped lanes, then one
+    ``index_add_``/``scatter_reduce`` into an identity-filled ``[K, V]``.
+
+    A float sum accumulates in float64 and rounds to f32 once: a running f32
+    sum stops growing once a cell passes 2^24 times its addends' size (adding
+    1.0 to 2^24 rounds back to 2^24), so at k-means' 10^8 pairs on 5 keys an
+    f32 scatter-add is no yardstick for the kernel.
+    """
+    from repro_torch.core.cost import acc_dtype, use_matmul  # core imports this module
+
+    acc = acc_dtype(vals.dtype)
+    work = torch.float64 if use_matmul(reducer, acc) else acc
+    out = torch.full((num_segments, vals.shape[1]), identity(reducer, acc),
+                     dtype=work, device=vals.device)
+    keep = (ids >= 0) & (ids < num_segments)
+    return fold_rows(out, ids[keep].long(), vals[keep].to(work), reducer).to(acc)
+
+
+def launch_shape(n: int, v: int, num_segments: int, device) -> tuple[bool, int]:
+    """``(use_shared, blocks)`` of the kernel's launch: the shared-memory form
+    when ``[K, V]`` fits :data:`SHARED_BYTES`, and a grid of ``blocks`` CTAs
+    of :data:`THREADS` that strides over the pairs (pair ``i`` goes to CTA
+    ``(i % (blocks * THREADS)) // THREADS``)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    use_shared = num_segments * v * 4 <= SHARED_BYTES
+    return use_shared, min(-(-n // THREADS), sms * (2 if use_shared else 8))
+
+
+def segment_reduce(ids: torch.Tensor, vals: torch.Tensor, num_segments: int,
+                   *, reducer: str = "sum") -> torch.Tensor:
+    """Dense ``[K, V]`` reduce-by-key of ``ids [N]`` int32 and ``vals
+    [N, V]`` (f32, bf16 or i32, contiguous); the kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if reducer not in REDUCERS:
+        raise ValueError(f"unknown reducer {reducer!r}; supported: {REDUCERS}")
+    if vals.dim() != 2 or ids.shape != vals.shape[:1]:
+        raise ValueError(f"need ids [N] and vals [N, V], got {tuple(ids.shape)} "
+                         f"and {tuple(vals.shape)}")
+    if ids.device.type == "cpu" and vals.device.type == "cpu":
+        return segment_reduce_plain(ids, vals, num_segments, reducer=reducer)
+    if ids.device != vals.device or vals.device.type != "cuda":
+        raise ValueError(f"ids on {ids.device}, vals on {vals.device}: need "
+                         "both on one CUDA device (or both on the CPU)")
+    if ids.dtype != torch.int32 or vals.dtype not in _DTYPE_CODE:
+        raise TypeError(f"need int32 ids and f32/bf16/i32 vals, got "
+                        f"{ids.dtype} and {vals.dtype}")
+    if not (ids.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("ids and vals must be contiguous")
+    from repro_torch.core.cost import acc_dtype
+
+    n, v = vals.shape
+    acc = acc_dtype(vals.dtype)
+    out = torch.full((num_segments, v), identity(reducer, acc), dtype=acc,
+                     device=vals.device)
+    if n == 0 or v == 0 or num_segments == 0:
+        return out  # a 0-block grid is a launch error
+    use_shared, blocks = launch_shape(n, v, num_segments, vals.device)
+    fn =_build.entry("segment_reduce", "blaze_segment_reduce", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ])
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ids.data_ptr(), vals.data_ptr(), out.data_ptr(), n, v,
+                 num_segments, _DTYPE_CODE[vals.dtype], _OP_CODE[reducer],
+                 int(use_shared), blocks, THREADS, stream)
+    _build.check(err, "segment_reduce")
+    segment_reduce.launches += 1
+    return out
+
+
+segment_reduce.launches = 0  # kernel launches since the caller last reset it
