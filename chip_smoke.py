@@ -13,11 +13,12 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    version on the same inputs, and times kernel, plain version and, where one
    exists, the single PyTorch call computing the same function (CUDA events,
    warmed up, median of 10);
-2. path phase — runs wordcount, PageRank, k-means and π through
-   ``BlazeSession(device="cuda")`` with ``engine="pallas"`` at the paper's
-   sizes (cut where one card or the time limit forces it), checks each
-   result against an independent reference, and counts the kernel launches
-   each algorithm made.
+2. path phase — runs wordcount, PageRank, k-means, π, GMM and kNN through
+   ``BlazeSession(device="cuda")`` with ``engine="pallas"``, and fig. 6's
+   hand-fused k-means through ``repro_torch.kernels.ops.kmeans_assign``, at
+   the paper's sizes (cut where one card or the time limit forces it),
+   checks each result against an independent reference, and counts the
+   kernel launches each job made.
 
 Tolerances: integer results, min/max and hash-table layouts are exact.  A
 float sum is accumulated in f32 by atomics, in an order the kernel does not
@@ -32,6 +33,15 @@ merge their partials.  At the main path's shapes the check also proves that
 it bites: a zero result and the kernel's result on a stream with every 50th
 pair dropped must both fail it.
 
+K3 (``kmeans_assign``) must give the plain version's assignment wherever
+the nearest centre is not a near tie (``kernels.kmeans_assign.near_ties``:
+best and second-best ``d²`` within ``8·2^-24`` of their scale); flips below
+that are counted and printed.  Its ``[Σx | count]`` is a float sum as above,
+held against float64 sums under the kernel's own assignment, with ``m_k``
+counted along its form's accumulation (``Smoke.kmeans_additions``: at the
+paper's shape, the most points one thread adds into the key in registers,
+plus the warp's shuffle tree, the warps of a CTA and the CTAs that merge).
+
 PageRank (5 iterations) and k-means (5 iterations) run with both engines
 against references written here that accumulate in float64.  Page ``p``'s
 score may differ from the reference by ``score_p (1e-4 + iters in_deg_p
@@ -40,7 +50,21 @@ the first covers what reaches the page through its in-links and the sink
 total.  The script prints the share of pages whose tolerance is below the
 contribution of their smallest in-link, so that losing any one in-link
 fails the check.  k-means centres are within ``1e-4`` and inertia within
-``1e-4`` relative of the reference.
+``1e-4`` relative of the reference.  Fig. 6's hand-fused step (K3) and one
+``map_reduce`` step (K1) on the same centres agree within the sum of the two
+kernels' tolerances plus, per key, the mass of the points whose nearest
+centre is a near tie between the two distance formulas; 5 Lloyd steps of K3
+meet the k-means reference within ``1e-4``.  GMM (5 rounds, 10^7 points) is
+held against a float64 EM on the card that follows ``gmm_em_reference``:
+log-likelihood within ``1e-5`` relative, α within ``1e-4`` and μ and Σ
+within ``1e-3`` absolute.  K1 folds ~4·10^4 pairs per key into each CTA's
+f32 partial, in an order the kernel does not fix: a random-walk
+error of ~√m·u ≈ 1e-5 of each sum (~6e-5 in μ, whose entries are O(1–5)),
+against a worst case of m·u ≈ 2e-3; 1e-3 sits well above the first and
+below the second.
+kNN's 100 distances are within ``1e-5`` relative of a float64 ``torch.topk``
+of all distances, and its neighbour set is the same except for rows whose
+distance ties the 100th.
 
 Output: one line per check, then a ``{"kernels": [...]}`` summary line, the
 card's name and power limit, and as the last line
@@ -83,6 +107,10 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.dev = torch.device("cuda")
+        # Full f32 in every product (PyTorch's default for matmul, not for
+        # cuDNN): TF32 keeps ~3 digits and would move near-tie margins.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         self.summary: dict[str, dict] = {}
 
     # -- measurement helpers -------------------------------------------------
@@ -167,20 +195,92 @@ class Smoke:
 
     # -- kernel phase -------------------------------------------------------
 
-    def segment_additions(self, ids, n, v, k):
-        """Per key ``[K, 1]``: the f32 additions that reach it in K1 (the
+    def fold_additions(self, ids, k, use_shared, blocks, threads):
+        """Per key ``[K, 1]``: the f32 additions that reach it in a kernel
+        that grid-strides ``blocks`` CTAs of ``threads`` over the pairs (the
         ``m_k`` of the tolerance above), from this run's ids."""
         torch = self.torch
-        from repro_torch.kernels.segment_reduce import THREADS, launch_shape
-
-        use_shared, blocks = launch_shape(n, v, k, self.dev)
+        n = ids.shape[0]
         live = (ids >= 0) & (ids < k)
         if not use_shared:
             return torch.bincount(ids[live].long(), minlength=k)[:, None]
-        cta = (torch.arange(n, device=self.dev) % (blocks * THREADS)) // THREADS
+        cta = (torch.arange(n, device=self.dev) % (blocks * threads)) // threads
         per_cta = torch.bincount((ids.long() * blocks + cta)[live],
                                  minlength=k * blocks).view(k, blocks)
         return (per_cta.amax(1) + blocks)[:, None]
+
+    def segment_additions(self, ids, n, v, k):
+        """``fold_additions`` for K1's launch at this shape."""
+        from repro_torch.kernels.segment_reduce import THREADS, launch_shape
+
+        use_shared, blocks = launch_shape(n, v, k, self.dev)
+        return self.fold_additions(ids, k, use_shared, blocks, THREADS)
+
+    def kmeans_additions(self, assign, n, d, k):
+        """Per key ``[K, 1]``: the f32 additions that reach it in K3.  The
+        register form: the most points one thread adds into the key, the
+        warp's 5-level shuffle tree, one fold per warp of the CTA and the
+        CTAs that merge.  The shared and global forms fold point by point,
+        as K1 does (``fold_additions``)."""
+        torch = self.torch
+        from repro_torch.kernels.kmeans_assign import THREADS, launch_shape
+
+        form, blocks = launch_shape(n, d, k, self.dev)
+        if form != "registers":
+            return self.fold_additions(assign, k, form == "shared", blocks, THREADS)
+        lanes = blocks * THREADS
+        thread = torch.arange(n, device=self.dev) % lanes
+        per_thread = torch.bincount(assign.long() * lanes + thread,
+                                    minlength=k * lanes).view(k, lanes)
+        return (per_thread.amax(1) + 5 + THREADS // 32 + blocks)[:, None]
+
+    def kernel_kmeans(self, key, x, c, x1):
+        """K3 against its plain version at fig. 6's shape; ``x1`` is
+        ``[x | 1]``."""
+        torch = self.torch
+        from repro_torch.kernels.kmeans_assign import (
+            kmeans_assign, kmeans_assign_plain, near_ties)
+        from repro_torch.kernels.segment_reduce import segment_reduce_plain
+
+        n, d = x.shape
+        k = c.shape[0]
+        got_a, got_s = kmeans_assign(x, c)
+        want_a, want_s = kmeans_assign_plain(x, c)
+        self.sync()
+        ties = near_ties(x, c)
+        differ = got_a != want_a
+        if bool((differ & ~ties).any()):
+            raise AssertionError(f"{key}: {int((differ & ~ties).sum())} decided "
+                                 "assignments differ from the plain version")
+        flips = int(differ.sum())
+        if flips:  # hold the sums against the kernel's own assignment
+            want_s = segment_reduce_plain(got_a, x1, k)
+        abs_sum = segment_reduce_plain(got_a, x1.abs(), k)
+        count = self.kmeans_additions(got_a, n, d, k)
+        err = self.compare(key, got_s, want_s, exact=False, abs_sum=abs_sum,
+                           count=count)
+        # The check must reject a zero result and one that lost every 50th
+        # point.
+        self.compare(key + " zeros", torch.zeros_like(got_s), want_s, exact=False,
+                     abs_sum=abs_sum, count=count, must_fail=True)
+        keep = torch.arange(n, device=self.dev) % 50 != 0
+        _, lost = kmeans_assign(x[keep].contiguous(), c)
+        self.sync()
+        self.compare(key + " 2% points lost", lost, want_s, exact=False,
+                     abs_sum=abs_sum, count=count, must_fail=True)
+        nbytes = n * d * 4 + n * 4 + k * (2 * d + 1) * 4
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = 2 * n * k * d / F32_OPS_PER_S * 1e3
+        self.record(
+            key, kernel="kmeans_assign", shape=[[n, d], [k, d]], max_abs_err=err,
+            near_ties=int(ties.sum()), flips=flips,
+            max_rel_tol=float(torch.clamp(count.double() * F32_U, min=1e-5).max()),
+            ms=self.time_ms(lambda: kmeans_assign(x, c)),
+            plain_ms=self.time_ms(lambda: kmeans_assign_plain(x, c)),
+            library_ms=None,
+            bound_ms=max(bound_bytes, bound_ops),
+            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+        )
 
     def kernel_segment(self, key, ids, vals, k, reducer, shape, main_path):
         torch = self.torch
@@ -313,6 +413,8 @@ class Smoke:
         vals = torch.cat([x, torch.ones((x.shape[0], 1), device=dev)], 1)
         self.kernel_segment("segment_reduce@kmeans", ids, vals, c.shape[0], "sum",
                             [list(vals.shape), [c.shape[0], 4]], True)
+        # K3 at fig. 6's shape: the same points against the same centres
+        self.kernel_kmeans("kmeans_assign@fig6", x, c, vals)
         # Other dtypes and reducers on the first 2^22 of those pairs, with
         # every 5th id out of range (dropped) and NaN on some dropped lanes
         n = 1 << 22
@@ -340,6 +442,20 @@ class Smoke:
         contrib = (1.0 / n_pages) / torch.clamp(deg[src], min=1).float()
         self.kernel_segment("segment_reduce@pagerank", dst, contrib[:, None].contiguous(),
                             n_pages, "sum", [[edges.shape[0], 1], [n_pages, 1]], True)
+        del src, dst, contrib
+        # K1 at GMM op 5's shape, on round 1's memberships (σ = I, α = 1/k):
+        # every point emits its k weighted outer products -> [k, d·d]
+        xg = data["gmm_points"]
+        k = data["gmm_k"]
+        diff = xg[:, None, :] - xg[:k][None]
+        w = torch.softmax(-0.5 * (diff ** 2).sum(-1), dim=1)
+        outer = w[:, :, None, None] * diff[:, :, :, None] * diff[:, :, None, :]
+        gv = outer.reshape(-1, xg.shape[1] ** 2).contiguous()
+        gid = torch.arange(k, dtype=torch.int32, device=dev).repeat(xg.shape[0])
+        del diff, w, outer
+        self.kernel_segment("segment_reduce@gmm", gid, gv, k, "sum",
+                            [list(gv.shape), [k, gv.shape[1]]], True)
+        del gid, gv
         torch.cuda.empty_cache()
 
         # K2 at wordcount's shapes: pre-shuffle combine, then the merge
@@ -382,17 +498,20 @@ class Smoke:
         """Run ``fn`` with the launch counts set to 0 just before; return its
         result, the wall time and the launches it made."""
         from repro_torch.kernels.hash_combine import hash_aggregate
+        from repro_torch.kernels.kmeans_assign import kmeans_assign
         from repro_torch.kernels.segment_reduce import segment_reduce
 
         self.sync()
         segment_reduce.launches = 0
         hash_aggregate.launches = 0
+        kmeans_assign.launches = 0
         t0 = time.perf_counter()
         out = fn()
         self.sync()
         wall = time.perf_counter() - t0
         launches = {"segment_reduce": segment_reduce.launches,
-                    "hash_aggregate": hash_aggregate.launches}
+                    "hash_aggregate": hash_aggregate.launches,
+                    "kmeans_assign": kmeans_assign.launches}
         print(json.dumps({"path": name, "wall_s": wall, "units": units,
                           "units_per_s": units / wall, "launches": launches}),
               flush=True)
@@ -405,7 +524,7 @@ class Smoke:
         from repro_torch.core.algorithms import estimate_pi, kmeans, pagerank, wordcount
         from repro_torch.core.algorithms.pi import handrolled_count
 
-        sess = BlazeSession(device="cuda")
+        sess = BlazeSession(device=self.dev)
         # wordcount: hash target, pre-shuffle combine + merge through K2
         lines = data["lines_np"]
         hm, _, wc_launch = self.drive(
@@ -471,7 +590,7 @@ class Smoke:
                                                         session=sess), n)
         if pi != 4.0 * handrolled_count(n, self.dev) / n:
             raise AssertionError("pi differs from the hand-rolled count")
-        print(json.dumps({"path_results": {
+        results = {
             "pagerank_max_rel_err": pr_rel,
             "pagerank_max_rel_tol": float((pr_tol / ref).max()),
             "pagerank_pages_covered": covered,
@@ -479,11 +598,171 @@ class Smoke:
             "kmeans_inertia": km.inertia, "pi": pi,
             "wordcount_distinct": int(len(keys)),
             "compiles": {"pagerank": pr.compiles, "kmeans": km.compiles},
-        }}), flush=True)
+        }
+        results.update(self.fig6_path(sess, data))
+        results.update(self.gmm_path(sess, data))
+        results.update(self.knn_path(sess, data))
+        print(json.dumps({"path_results": results}), flush=True)
+        kernels = {"wordcount": "hash_aggregate", "kmeans fig6": "kmeans_assign"}
         for name, launch in self.path_launches.items():
-            kernel = "hash_aggregate" if name == "wordcount" else "segment_reduce"
+            kernel = kernels.get(name, "segment_reduce")
             if launch[kernel] == 0:
                 raise AssertionError(f"{name} launched no {kernel}")
+
+    def fig6_path(self, sess, data):
+        """Fig. 6: the hand-fused assignment step (K3, through the kernel-ops
+        entry point) against one ``map_reduce`` step (K1) on the same
+        centres, then 5 Lloyd steps of each on the points already on the
+        card, timed alike."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import DistVector
+        from repro_torch.core.algorithms.kmeans import assign_mapper
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.kmeans_assign import near_ties
+        from repro_torch.kernels.segment_reduce import segment_reduce_plain
+
+        x, c0 = data["points"], data["init_centers"]
+        n, d = x.shape
+        k = c0.shape[0]
+        pts_v = DistVector(x, n)
+
+        def mr_step(c):
+            target = torch.zeros((k, d + 1), dtype=torch.float32, device=self.dev)
+            return sess.map_reduce(pts_v, assign_mapper, "sum", target,
+                                   engine="pallas", env=c)
+
+        a3, s3 = ops.kmeans_assign(x, c0, impl="auto")
+        s1 = mr_step(c0)
+        self.sync()
+        # Tolerance: both kernels' float-sum bounds, plus the mass of every
+        # point whose nearest centre the two distance formulas may decide
+        # differently (such a point moves [x | 1] between two keys).
+        x1 = torch.cat([x, torch.ones((n, 1), device=self.dev)], 1)
+        abs_sum = segment_reduce_plain(a3, x1.abs(), k).double()
+        m = self.kmeans_additions(a3, n, d, k) + self.segment_additions(a3, n, d + 1, k)
+        ties = near_ties(x, c0, with_norm_x=True)
+        tie_mass = x1[ties].abs().double().sum(0)
+        tol = 1e-5 * s1.double().abs() + m.double() * F32_U * abs_sum + tie_mass
+        err = (s3.double() - s1.double()).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"fig6: K3 and map_reduce statistics differ by "
+                                 f"{float(err.max())}")
+        del x1, abs_sum
+
+        def lloyd(step):
+            def run():
+                c = c0
+                for _ in range(5):
+                    s = step(c)
+                    c = s[:, :d] / torch.clamp(s[:, d:], min=1.0)
+                return c
+            return run
+
+        c3, _, launch = self.drive("kmeans fig6 hand-fused",
+                                   lloyd(lambda c: ops.kmeans_assign(x, c)[1]), 5 * n)
+        self.path_launches["kmeans fig6"] = launch
+        c1, _, _ = self.drive("kmeans fig6 map_reduce", lloyd(mr_step), 5 * n)
+        ref_c, _ = self.kmeans_reference(x, c0, 5)
+        errs = [float(np.abs(c.cpu().numpy() - ref_c).max()) for c in (c3, c1)]
+        if max(errs) > 1e-4:
+            raise AssertionError(f"fig6: centre errors {errs} over 1e-4")
+        return {"fig6_stats_err": float(err.max()), "fig6_near_ties": int(ties.sum()),
+                "fig6_centre_err": {"hand_fused": errs[0], "map_reduce": errs[1]}}
+
+    def gmm_path(self, sess, data):
+        """Fig. 7: 5 EM rounds of ``gmm_em`` (pallas: K1 on ops 3–5), held
+        against a float64 EM on the card; the eager engine for the record."""
+        import numpy as np
+        from repro_torch.core.algorithms import gmm_em
+
+        pts, k = data["gmm_points_np"], data["gmm_k"]
+        init = pts[:k].copy()
+        g, _, launch = self.drive(
+            "gmm", lambda: gmm_em(pts, k, init_mu=init, tol=0.0, max_iters=5,
+                                  engine="pallas", session=sess), 5 * len(pts))
+        self.path_launches["gmm"] = launch
+        if g.compiles != 4 or g.iterations != 5:
+            raise AssertionError(f"gmm: compiles {g.compiles}, rounds {g.iterations}")
+        if launch["segment_reduce"] != 3 * 5:
+            raise AssertionError(f"gmm: K1 launched {launch['segment_reduce']} "
+                                 "times, not 3 per round")
+        ge, _, _ = self.drive(
+            "gmm eager", lambda: gmm_em(pts, k, init_mu=init, tol=0.0, max_iters=5,
+                                        engine="eager", session=sess), 5 * len(pts))
+        ref = self.gmm_reference(data["gmm_points"], k, 5)
+
+        def errors(res):
+            got = {"alpha": res.alpha, "mu": res.mu, "sigma": res.sigma}
+            out = {name: float(np.abs(got[name] - ref[name]).max()) for name in got}
+            out["ll_rel"] = abs(res.log_likelihood - ref["ll"]) / abs(ref["ll"])
+            return out
+
+        err = errors(g)
+        if (err["ll_rel"] > 1e-5 or err["alpha"] > 1e-4
+                or max(err["mu"], err["sigma"]) > 1e-3):
+            raise AssertionError(f"gmm: errors {err} against the float64 EM")
+        return {"gmm_err": err, "gmm_eager_err": errors(ge),
+                "gmm_log_likelihood": g.log_likelihood}
+
+    def gmm_reference(self, x, k, iters):
+        """EM by ``gmm_em_reference``'s update rules, in float64 on the card,
+        from the first ``k`` points as means, unit covariances and equal
+        weights."""
+        torch = self.torch
+        import math
+
+        x = x.double()
+        n, d = x.shape
+        eye = torch.eye(d, dtype=torch.float64, device=self.dev)
+        alpha = torch.full((k,), 1.0 / k, dtype=torch.float64, device=self.dev)
+        mu = x[:k].clone()
+        sigma = eye.repeat(k, 1, 1)
+        for _ in range(iters):
+            prec = torch.linalg.inv(sigma)
+            logdet = torch.linalg.slogdet(sigma)[1]
+            diff = x[:, None, :] - mu[None]
+            maha = torch.einsum("nkd,kde,nke->nk", diff, prec, diff)
+            logw = (-0.5 * (d * math.log(2 * math.pi) + logdet)[None] - 0.5 * maha
+                    + torch.log(alpha)[None])
+            ll = torch.logsumexp(logw, 1).sum()
+            w = torch.softmax(logw, 1)
+            nk = torch.clamp(w.sum(0), min=1e-8)
+            mu = (w.T @ x) / nk[:, None]
+            diff = x[:, None, :] - mu[None]
+            sigma = (torch.einsum("nk,nkd,nke->kde", w, diff, diff) / nk[:, None, None]
+                     + 1e-4 * eye)
+            alpha = nk / n
+        return {"alpha": alpha.cpu().numpy(), "mu": mu.cpu().numpy(),
+                "sigma": sigma.cpu().numpy(), "ll": float(ll)}
+
+    def knn_path(self, sess, data):
+        """Fig. 8: 100 nearest neighbours of the origin by the ``topk``
+        container, against a float64 ``torch.topk`` of every distance."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core.algorithms import knn
+
+        pts, k = data["knn_points_np"], 100
+        q = np.zeros(pts.shape[1], np.float32)
+        res, _, _ = self.drive("knn", lambda: knn(pts, q, k, session=sess), len(pts))
+        x = data["knn_points"]
+        d2 = ((x.double() - torch.from_numpy(q).to(self.dev).double()) ** 2).sum(1)
+        best = torch.topk(d2, k, largest=False)
+        want = best.values.sqrt().cpu().numpy()
+        got = np.sort(res.distances.astype(np.float64))
+        rel = float((np.abs(got - want) / want).max())
+        if rel > 1e-5:
+            raise AssertionError(f"knn: distances off by {rel} relative")
+        # Same neighbour set, except rows whose distance ties the k-th.
+        want_rows = {tuple(r) for r in x[best.indices].cpu().numpy().tolist()}
+        got_rows = {tuple(r) for r in res.neighbors.tolist()}
+        kth = float(best.values[-1])
+        for row in got_rows ^ want_rows:
+            if float(((np.asarray(row, np.float64) - q) ** 2).sum()) != kth:
+                raise AssertionError("knn: a neighbour differs from the float64 top-k")
+        return {"knn_dist_rel_err": rel, "knn_kth_distance": float(want[-1]),
+                "knn_set_differences": len(got_rows ^ want_rows)}
 
     def pagerank_reference(self, data, iters, damping):
         """PageRank as the driver defines it, accumulated in float64; return
@@ -550,6 +829,13 @@ class Smoke:
         init = pts[np.random.RandomState(0).choice(4096, 5, replace=False)]
         data.update(points_np=pts, points=torch.from_numpy(pts).to(dev),
                     init_centers=torch.from_numpy(init).to(dev))
+        # GMM: 10^7 points, dim 3, 5 components (fig. 7's shape)
+        gpts, _ = cluster_points(10_000_000, 3, 5, seed=1)
+        data.update(gmm_points_np=gpts, gmm_points=torch.from_numpy(gpts).to(dev),
+                    gmm_k=5)
+        # kNN: 10^8 points, dim 4, 3 clusters, 100 neighbours of the origin
+        kpts, _ = cluster_points(100_000_000, 4, 3, seed=2)
+        data.update(knn_points_np=kpts, knn_points=torch.from_numpy(kpts).to(dev))
         data["pi_samples"] = 1 << 30
         self.sync()
         print(json.dumps({"data_s": time.perf_counter() - t0}), flush=True)
@@ -562,7 +848,7 @@ class Smoke:
         from repro_torch.kernels import _build
 
         t0 = time.perf_counter()
-        _build.build(["segment_reduce", "hash_combine"])
+        _build.build(["segment_reduce", "hash_combine", "kmeans_assign"])
         print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
         data = self.make_data()
         self.kernel_phase(data)
@@ -573,11 +859,15 @@ class Smoke:
                                "src/repro/kernels/segment_reduce.py:164"),
             "hash_aggregate": ("src/repro_torch/kernels/csrc/hash_combine.cu",
                                "src/repro/kernels/hash_combine.py:194"),
+            "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
+                              "src/repro/kernels/kmeans_assign.py:54"),
         }
         runs = {"segment_reduce@kmeans": "kmeans",
                 "segment_reduce@pagerank": "pagerank",
+                "segment_reduce@gmm": "gmm",
                 "hash_aggregate@wordcount-combine": "wordcount",
-                "hash_aggregate@wordcount-merge": "wordcount"}
+                "hash_aggregate@wordcount-merge": "wordcount",
+                "kmeans_assign@fig6": "kmeans fig6"}
         for key, path in runs.items():
             rec = self.summary[key]
             source, replaces = sources[rec["kernel"]]

@@ -6,7 +6,9 @@ from repro_torch.core.containers import (
     DistVector,
     collect,
     distribute,
+    foreach,
     make_dist_hashmap,
+    topk,
 )
 from repro_torch.core.mapreduce import MapReduceStats, map_reduce
 from repro_torch.core.reducers import Reducer, custom_reducer, get_reducer
@@ -33,6 +35,7 @@ __all__ = [
     "collect",
     "custom_reducer",
     "distribute",
+    "foreach",
     "get_default_session",
     "get_reducer",
     "make_dist_hashmap",
@@ -40,4 +43,5 @@ __all__ = [
     "reset_default_session",
     "resolve_engine",
     "set_default_session",
+    "topk",
 ]

@@ -19,9 +19,11 @@ Containers are never mutated: every operation returns a new one.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.core.reducers import Reducer, get_reducer, segmented_scan
 from repro_torch.kernels.hash_combine import EMPTY_KEY, hash32
@@ -34,12 +36,14 @@ __all__ = [
     "HashTable",
     "collect",
     "distribute",
+    "foreach",
     "hash32",
     "hashmap_insert",
     "make_dist_hashmap",
     "make_table",
     "resolve_device",
     "shard_of_key",
+    "topk",
     "unique_combine",
 ]
 
@@ -273,3 +277,45 @@ def distribute(x, n_shards: int = 1, device=None) -> DistVector:
 def collect(v: DistVector) -> np.ndarray:
     """Paper's ``collect``: DistVector → host array (drops padding)."""
     return v.data[: v.n].cpu().numpy()
+
+
+def foreach(v: DistVector, fn: Callable, env=None) -> DistVector:
+    """Apply ``fn`` to each element (``fn(x)``, or ``fn(x, env)`` when ``env``
+    is given) with ``torch.func.vmap``; returns a new ``DistVector`` with the
+    same ``n``.  Padding rows are mapped too, as in the JAX package."""
+    if env is None:
+        out = vmap(fn)(v.data)
+    else:
+        out = vmap(lambda x: fn(x, env))(v.data)
+    return DistVector(out, v.n)
+
+
+def topk(v: DistVector, k: int, score_fn: Callable | None = None, env=None, *,
+         n_shards: int = 1) -> np.ndarray:
+    """Paper's ``DistVector.topk``: the ``k`` rows of highest score, best
+    first, as a host array.
+
+    Each of the ``n_shards`` shards scores its rows (``score_fn(x)`` or
+    ``score_fn(x, env)`` under ``vmap``; the raw values without a
+    ``score_fn``), gives padding rows ``-inf`` and keeps its top
+    ``min(k, per)`` with ``torch.topk``; only those ``k·n_shards``
+    candidates move to the host, where a stable sort of ``-score`` picks the
+    final ``k``.
+    """
+    data = v.data
+    per = data.shape[0] // n_shards
+    kk = min(k, per)
+    if score_fn is None:
+        scores = data.float()
+    elif env is None:
+        scores = vmap(score_fn)(data)
+    else:
+        scores = vmap(lambda x: score_fn(x, env))(data)
+    valid = torch.arange(data.shape[0], device=data.device) < v.n
+    scores = torch.where(valid, scores, float("-inf")).view(n_shards, per)
+    s, idx = torch.topk(scores, kk, dim=1)
+    rows = data.view((n_shards, per) + tuple(data.shape[1:]))
+    cand = rows[torch.arange(n_shards, device=data.device)[:, None], idx]
+    s = s.cpu().numpy().reshape(-1)
+    cand = cand.cpu().numpy().reshape((-1,) + tuple(data.shape[1:]))
+    return cand[np.argsort(-s, kind="stable")[:k]]

@@ -136,6 +136,20 @@ class BlazeSession:
             return x.detach().cpu().numpy()
         return np.asarray(x)
 
+    def foreach(self, v: C.DistVector, fn: Callable, env: Any = None) -> C.DistVector:
+        """Session-scoped ``foreach``: an elementwise map, no stage and no
+        sync (``env`` carries iteration-varying state, as for
+        ``map_reduce``)."""
+        return C.foreach(v, fn, env=env)
+
+    def topk(self, v: C.DistVector, k: int, score_fn: Callable | None = None,
+             env: Any = None) -> np.ndarray:
+        """Session-scoped ``topk`` over this session's shards: selects on the
+        device, then materialises the ``k·n_shards`` candidates on the host,
+        a blocking sync counted in ``stats.host_syncs``."""
+        self.stats.host_syncs += 1
+        return C.topk(v, k, score_fn=score_fn, env=env, n_shards=self.n_shards)
+
     def distribute(self, x) -> C.DistVector:
         """``distribute`` onto this session's device and shards."""
         return C.distribute(x, self.n_shards, self.device)

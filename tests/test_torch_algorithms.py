@@ -28,7 +28,9 @@ from repro_torch.core.algorithms import (
     counts_dict,
     estimate_pi,
     estimate_pi_handrolled,
+    gmm_em,
     kmeans,
+    knn,
     pagerank,
     wordcount,
 )
@@ -118,13 +120,18 @@ def test_drivers_refuse_modes_of_later_slices():
         kmeans(np.zeros((8, 2), np.float32), 2, mode="program", session=_cpu())
     with pytest.raises(NotImplementedError, match="slice"):
         wordcount(np.zeros((2, 2), np.int32), mode="program", session=_cpu())
+    with pytest.raises(NotImplementedError, match="slice"):
+        gmm_em(np.zeros((8, 2), np.float32), 2, mode="program", session=_cpu())
+    with pytest.raises(NotImplementedError, match="slice"):
+        knn(np.zeros((8, 2), np.float32), np.zeros(2), 2, mode="program",
+            session=_cpu())
 
 
 _JAX_4DEV = """
 import json, numpy as np, jax
 from repro.core import BlazeSession
-from repro.core.algorithms import pagerank, wordcount
-from repro.data.synthetic import rmat_edges, zipf_corpus
+from repro.core.algorithms import gmm_em, knn, pagerank, wordcount
+from repro.data.synthetic import cluster_points, rmat_edges, zipf_corpus
 assert len(jax.devices()) == 4
 lines, _ = zipf_corpus(96, 16, 700, seed=2)
 out = {}
@@ -136,6 +143,16 @@ for engine in ("eager", "pallas"):
 pr = pagerank(rmat_edges(7, 8, seed=2), 128, tol=0.0, max_iters=10,
               session=BlazeSession())
 out["scores"] = pr.scores.tolist()
+pts, _ = cluster_points(803, 2, 3, seed=4)
+for engine in ("eager", "pallas"):
+    g = gmm_em(pts, 3, init_mu=pts[:3].copy(), tol=0.0, max_iters=5,
+               engine=engine, session=BlazeSession())
+    out["gmm_" + engine] = {"ll": g.log_likelihood, "alpha": g.alpha.tolist(),
+                            "mu": g.mu.tolist(), "sigma": g.sigma.tolist()}
+kp, _ = cluster_points(4001, 4, 3, seed=9)
+nn = knn(kp, np.zeros(4, np.float32), 64, session=BlazeSession())
+out["knn"] = {"neighbors": np.asarray(nn.neighbors).tolist(),
+              "wire": nn.wire_candidates}
 print(json.dumps(out))
 """
 
@@ -144,7 +161,9 @@ def test_four_shards_match_jax_on_four_devices():
     """The port's 4 stacked shards against JAX's 4-device mesh (a
     subprocess, so this process keeps its one device): wordcount tables per
     shard — eager and pallas slot for slot against JAX eager, pallas as a
-    dict against JAX pallas — and PageRank scores."""
+    dict against JAX pallas — PageRank scores, GMM with both engines (803
+    points: the last shard holds a padding row) within the GMM tolerances
+    of ``tests/test_torch_gmm_knn.py``, and kNN's rows exactly."""
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
@@ -167,3 +186,18 @@ def test_four_shards_match_jax_on_four_devices():
     pr = pagerank(rmat_edges(7, 8, seed=2), 128, tol=0.0, max_iters=10,
                   session=_cpu(4))
     assert float(np.abs(pr.scores - np.asarray(want["scores"])).max()) <= 1e-5
+    pts, _ = cluster_points(803, 2, 3, seed=4)
+    for engine in ("eager", "pallas"):
+        g = gmm_em(pts, 3, init_mu=pts[:3].copy(), tol=0.0, max_iters=5,
+                   engine=engine, session=_cpu(4))
+        jg = want["gmm_" + engine]
+        assert abs(g.log_likelihood - jg["ll"]) <= 1e-5 * abs(jg["ll"])
+        for name in ("alpha", "mu", "sigma"):
+            np.testing.assert_allclose(getattr(g, name), jg[name], atol=1e-4,
+                                       rtol=0, err_msg=name)
+        assert g.compiles == 4
+    kp, _ = cluster_points(4001, 4, 3, seed=9)
+    nn = knn(kp, np.zeros(4, np.float32), 64, session=_cpu(4))
+    np.testing.assert_array_equal(nn.neighbors, np.asarray(want["knn"]["neighbors"],
+                                                           np.float32))
+    assert nn.wire_candidates == want["knn"]["wire"] == 256

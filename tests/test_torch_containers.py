@@ -235,3 +235,59 @@ def test_entry_points_need_cuda_unless_cpu_is_named():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TC.make_dist_hashmap(16)
     assert BlazeSession(device="cpu").device.type == "cpu"
+
+
+def _row_map(row, env):
+    return torch.cat([row * env, row.sum()[None]])
+
+
+def _jrow_map(row, env):
+    return jnp.concatenate([row * env, row.sum()[None]])
+
+
+@pytest.mark.parametrize("n_shards", (1, 4))
+def test_foreach_matches_jax(n_shards):
+    """An elementwise map with and without ``env``, same ``n``; padding rows
+    (4 shards over 10 rows) are mapped too and cut by ``collect``."""
+    x = np.random.RandomState(6).randn(10, 3).astype(np.float32)
+    env = np.array([2.0, -1.0, 0.5], np.float32)
+    v = TC.distribute(x, n_shards=n_shards, device="cpu")
+    jv = jdistribute(x)
+    got = TC.foreach(v, _row_map, env=torch.from_numpy(env))
+    want = JC.foreach(jv, _jrow_map, env=jnp.asarray(env))
+    assert got.n == want.n == 10
+    assert got.data.shape == (12 if n_shards == 4 else 10, 4)
+    np.testing.assert_allclose(TC.collect(got), JC.collect(want), rtol=1e-6)
+    sq = BlazeSession(device="cpu", n_shards=n_shards).foreach(v, lambda r: r * r)
+    np.testing.assert_array_equal(TC.collect(sq), x * x)
+
+
+def _neg_dist(x, q):
+    return -torch.sum((x - q) ** 2)
+
+
+def _jneg_dist(x, q):
+    return -jnp.sum((x - q) ** 2)
+
+
+@pytest.mark.parametrize("n_shards", (1, 4))
+def test_topk_matches_jax(n_shards):
+    """Distinct scores: the same rows in the same order, by raw values and
+    by a score with ``env``; padding rows never enter."""
+    rng = np.random.RandomState(8)
+    vals = rng.permutation(203).astype(np.float32) - 300.0  # all below the pad 0
+    rows = rng.randn(203, 2).astype(np.float32)
+    q = np.array([0.3, -0.2], np.float32)
+    jmesh = JaxSession().mesh
+    got = TC.topk(TC.distribute(vals, n_shards, "cpu"), 7, n_shards=n_shards)
+    want = JC.topk(jdistribute(vals), 7, mesh=jmesh)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, np.sort(vals)[::-1][:7])
+    got = TC.topk(TC.distribute(rows, n_shards, "cpu"), 9, _neg_dist,
+                  env=torch.from_numpy(q), n_shards=n_shards)
+    want = JC.topk(jdistribute(rows), 9, _jneg_dist, mesh=jmesh, env=jnp.asarray(q))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    sess = BlazeSession(device="cpu", n_shards=n_shards)
+    got = sess.topk(sess.distribute(rows), 9, _neg_dist, env=torch.from_numpy(q))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert sess.stats.host_syncs == 1
