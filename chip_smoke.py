@@ -13,12 +13,34 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    version on the same inputs, and times kernel, plain version and, where one
    exists, the single PyTorch call computing the same function (CUDA events,
    warmed up, median of 10);
-2. path phase — runs wordcount, PageRank, k-means, π, GMM and kNN through
-   ``BlazeSession(device="cuda")`` with ``engine="pallas"``, and fig. 6's
-   hand-fused k-means through ``repro_torch.kernels.ops.kmeans_assign``, at
-   the paper's sizes (cut where one card or the time limit forces it),
-   checks each result against an independent reference, and counts the
-   kernel launches each job made.
+2. path phase — runs the LM serving path (``repro_torch.launch.serve_lm.
+   generate`` on qwen3-0.6b at full width: batch 8, a 512-token prompt, 32
+   greedy steps, K4 on every attention call), then wordcount, PageRank,
+   k-means, π, GMM and kNN through ``BlazeSession(device="cuda")`` with
+   ``engine="pallas"``, and fig. 6's hand-fused k-means through
+   ``repro_torch.kernels.ops.kmeans_assign``, at the paper's sizes (cut
+   where one card or the time limit forces it), checks each result against
+   an independent reference, and counts the kernel launches each job made.
+
+K4 (``flash_attention``) is held against ``attention_ref``, which
+materialises the f32 logits.  Both compute each logit as an f32 dot product
+of length D, within ``γ = (D + 2)·u·scale·‖q_i‖·max_j ‖k_j‖`` of the exact
+one (Cauchy–Schwarz on ``Σ|q_d k_d|``), plus ``4u·softcap`` for the
+``tanh``; shifting every logit of a row by at most ``ε = 2γ + 8u·softcap``
+moves each softmax weight by a factor within ``e^{±2ε}``, and each version
+sums the row's ``n`` live terms in f32 (``n·u`` of the sum each).  So an
+output may differ by ``max|v| · (2ε + 2(n + 4)u)``, with ``max|v|`` over
+the head's values; a bf16 output adds one bf16 step, ``2^-7·|out|``, where
+the two f32 results round to neighbours.  At every shape the check must
+reject a zero output and the kernel's own output with the first 64 keys
+dropped.  The LM path's f32 logits must agree within ``LM_LOGIT_TOL`` with
+the plain path (``attn_impl="ref"``, teacher-forced along the same tokens)
+and with a teacher-forced ``forward``; greedy tokens must be the plain
+path's argmax wherever its top-2 logits lie more than twice that apart.
+``LM_LOGIT_TOL`` is the bf16 model's own rounding noise with a margin: its
+decode steps and the teacher-forced forward, the same sums in other orders
+with the same kernel, differ by 0.054 at this configuration on an H100
+(logits' standard deviation 0.64), and 0.15 is ~2.6 times that.
 
 Tolerances: integer results, min/max and hash-table layouts are exact.  A
 float sum is accumulated in f32 by atomics, in an order the kernel does not
@@ -84,6 +106,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
+LM_LOGIT_TOL = 0.15  # LM path logits: kernel path vs plain path and forward (docstring)
 REPS = 10
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
@@ -112,6 +136,7 @@ class Smoke:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.summary: dict[str, dict] = {}
+        self.path_launches: dict[str, dict] = {}
 
     # -- measurement helpers -------------------------------------------------
 
@@ -136,11 +161,13 @@ class Smoke:
         self.sync()
         return statistics.median(times)
 
-    def device_busy_ms(self, fn) -> dict | None:
-        """Mean device time of one call, per kernel (``torch.profiler``, kernel
-        and copy intervals on the card, over REPS calls after one warm-up);
-        the event time less their total is time the card waits on the host.
-        None where the profiler records no device activity."""
+    def device_busy_ms(self, fn, names=("hash_claim", "hash_commit", "hash_deposit")
+                       ) -> dict | None:
+        """Mean device time of one call, for each kernel named in ``names``
+        and all others together (``torch.profiler``, kernel and copy
+        intervals on the card, over REPS calls after one warm-up); the event
+        time less their total is time the card waits on the host.  None
+        where the profiler records no device activity."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -155,8 +182,7 @@ class Smoke:
         for evt in prof.events():
             if evt.device_type != DeviceType.CUDA:
                 continue
-            name = next((k for k in ("hash_claim", "hash_commit", "hash_deposit")
-                         if k in evt.name), "other")
+            name = next((k for k in names if k in evt.name), "other")
             busy[name] = busy.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / REPS
         if not busy:
             return None
@@ -492,11 +518,130 @@ class Smoke:
                          expect_overflow=True)
         torch.cuda.empty_cache()
 
+    # -- K4: flash attention -------------------------------------------------
+
+    def attention_tolerance(self, q, k, v, want, softcap, n_keys):
+        """Per output element, what K4 and ``attention_ref`` may differ by
+        (module docstring): ``max|v| · (2ε + 2(n + 4)u)`` per row, ``ε =
+        2(D + 2)·u·scale·‖q_i‖·max_j‖k_j‖ + 8u·softcap``, plus one bf16
+        step ``2^-7·|want|`` for bf16 outputs."""
+        torch = self.torch
+        b, hq, sq, d = q.shape
+        rep = hq // k.shape[1]
+        qn = q.float().norm(dim=-1, keepdim=True)                      # [B, Hq, Sq, 1]
+        kmax = k.float().norm(dim=-1).amax(-1).repeat_interleave(rep, 1)  # [B, Hq]
+        vmax = v.float().abs().amax((-1, -2)).repeat_interleave(rep, 1)   # [B, Hq]
+        eps = (2 * (d + 2) * F32_U / d ** 0.5 * qn * kmax[:, :, None, None]
+               + 8 * F32_U * softcap)
+        tol = vmax[:, :, None, None] * (2 * eps + 2 * (n_keys + 4) * F32_U)
+        if q.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * want.float().abs()
+        return tol
+
+    def kernel_attention(self, key, q, k, v, *, q_offset, window=None, softcap=0.0):
+        """K4 against ``attention_ref`` at one shape of the LM path: the
+        check, the proof that it bites (a zero output, and the kernel's own
+        output with the first 64-key block dropped, must both fail), and
+        kernel, plain and library times."""
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.ref import attention_ref
+
+        kw = dict(causal=True, window=window, softcap=softcap)
+        got = flash_attention(q, k, v, q_offset=q_offset, **kw)
+        want = attention_ref(q, k, v, q_offset=q_offset, **kw)
+        self.sync()
+        b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        qpos = torch.arange(sq, device=self.dev)[:, None] + q_offset
+        kpos = torch.arange(skv, device=self.dev)[None, :]
+        live = kpos <= qpos
+        if window is not None:
+            live &= kpos > qpos - window
+        n_keys = live.sum(1)                                            # [Sq]
+        tol = self.attention_tolerance(q, k, v, want, softcap,
+                                       n_keys[None, None, :, None].double())
+
+        def check(what, out, must_fail=False):
+            err = (out.float() - want.float()).abs()
+            ok = bool((err <= tol).all()) and not bool(out.isnan().any())
+            if must_fail and ok:
+                raise AssertionError(f"{what}: a wrong result passed the check")
+            if not must_fail and not ok:
+                raise AssertionError(f"{what}: max abs error {float(err.max())} over "
+                                     f"tolerance (max {float(tol.max())})")
+            return float(err.max())
+
+        err = check(key, got)
+        check(key + " zeros", torch.zeros_like(got), must_fail=True)
+        dropped = flash_attention(q, k[:, :, 64:], v[:, :, 64:], q_offset=q_offset - 64,
+                                  **kw)
+        self.sync()
+        check(key + " first key block dropped", dropped, must_fail=True)
+
+        library_ms = None
+        if softcap == 0.0:  # SDPA has no softcap
+            import torch.nn.functional as F
+            mask = None if q_offset == 0 and window is None else live
+            library_ms = self.time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True))
+        # Bound: q, the keys and values some row sees, and the output, each
+        # moved once; 4·D flops per live (query, key) pair.
+        seen = int(live.any(0).sum())
+        nbytes = (2 * q.numel() + 2 * b * hkv * seen * d) * q.element_size()
+        flops = 4 * b * hq * int(n_keys.sum()) * d
+        peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / peak * 1e3
+        self.record(
+            key, kernel="flash_attention",
+            shape=[list(q.shape), list(k.shape), str(q.dtype).split(".")[-1]],
+            q_offset=q_offset, window=window, softcap=softcap, max_abs_err=err,
+            max_tol=float(tol.max()),
+            ms=self.time_ms(lambda: flash_attention(q, k, v, q_offset=q_offset, **kw)),
+            plain_ms=self.time_ms(lambda: attention_ref(q, k, v, q_offset=q_offset, **kw)),
+            library_ms=library_ms,
+            bound_ms=max(bound_bytes, bound_ops),
+            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+            peak_ops_per_s=peak,
+        )
+
+    def attention_phase(self):
+        """K4 at the LM path's shapes: qwen3-0.6b's prefill (q ``[8, 16, 512,
+        128]`` bf16 against the ``[8, 545, 8, 128]`` KV cache, offset 0) and
+        decode (one query at offset 543), both reading the cache in place;
+        and gemma2-9b's local layer (``[1, 16, 2048, 256]``, Hkv 8, window
+        1024, softcap 50) in f32 and bf16."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(0)
+
+        def randn(*shape, dtype):
+            return torch.randn(shape, generator=g, device=self.dev).to(dtype)
+
+        bf16 = torch.bfloat16
+        ck = randn(8, 545, 8, 128, dtype=bf16)  # [B, S_max, Hkv, D], as cached
+        cv = randn(8, 545, 8, 128, dtype=bf16)
+        q = randn(8, 512, 16, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@qwen3-prefill", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=0)
+        q = randn(8, 1, 16, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@qwen3-decode", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=543)
+        for dtype in (torch.float32, bf16):
+            q = randn(1, 16, 2048, 256, dtype=dtype)
+            k = randn(1, 8, 2048, 256, dtype=dtype)
+            v = randn(1, 8, 2048, 256, dtype=dtype)
+            name = "f32" if dtype == torch.float32 else "bf16"
+            self.kernel_attention(f"flash_attention@gemma2-local {name}", q, k, v,
+                                  q_offset=0, window=1024, softcap=50.0)
+        torch.cuda.empty_cache()
+
     # -- path phase ---------------------------------------------------------
 
     def drive(self, name, fn, units):
         """Run ``fn`` with the launch counts set to 0 just before; return its
         result, the wall time and the launches it made."""
+        from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.hash_combine import hash_aggregate
         from repro_torch.kernels.kmeans_assign import kmeans_assign
         from repro_torch.kernels.segment_reduce import segment_reduce
@@ -505,13 +650,15 @@ class Smoke:
         segment_reduce.launches = 0
         hash_aggregate.launches = 0
         kmeans_assign.launches = 0
+        flash_attention.launches = 0
         t0 = time.perf_counter()
         out = fn()
         self.sync()
         wall = time.perf_counter() - t0
         launches = {"segment_reduce": segment_reduce.launches,
                     "hash_aggregate": hash_aggregate.launches,
-                    "kmeans_assign": kmeans_assign.launches}
+                    "kmeans_assign": kmeans_assign.launches,
+                    "flash_attention": flash_attention.launches}
         print(json.dumps({"path": name, "wall_s": wall, "units": units,
                           "units_per_s": units / wall, "launches": launches}),
               flush=True)
@@ -538,7 +685,7 @@ class Smoke:
         want = torch.bincount(tokens[tokens >= 0].long(), minlength=data["vocab"])
         if hm.total_overflow() or not np.array_equal(got, want.cpu().numpy()):
             raise AssertionError("wordcount differs from torch.bincount")
-        self.path_launches = {"wordcount": wc_launch}
+        self.path_launches["wordcount"] = wc_launch
 
         # PageRank: 5 iterations, both engines against a float64 reference
         edges_np, n_pages = data["edges_np"], data["n_pages"]
@@ -603,7 +750,8 @@ class Smoke:
         results.update(self.gmm_path(sess, data))
         results.update(self.knn_path(sess, data))
         print(json.dumps({"path_results": results}), flush=True)
-        kernels = {"wordcount": "hash_aggregate", "kmeans fig6": "kmeans_assign"}
+        kernels = {"wordcount": "hash_aggregate", "kmeans fig6": "kmeans_assign",
+                   "lm": "flash_attention"}
         for name, launch in self.path_launches.items():
             kernel = kernels.get(name, "segment_reduce")
             if launch[kernel] == 0:
@@ -764,6 +912,94 @@ class Smoke:
         return {"knn_dist_rel_err": rel, "knn_kth_distance": float(want[-1]),
                 "knn_set_differences": len(got_rows ^ want_rows)}
 
+    def lm_path(self):
+        """The LM serving path: ``repro_torch.launch.serve_lm.generate`` on
+        qwen3-0.6b at full width and depth in bf16 (random weights from seed
+        0): batch 8, a 512-token prompt, 32 greedy decode steps, K4 on every
+        attention call.  Held against the same model and weights with
+        ``attn_impl="ref"`` teacher-forced along the same tokens, and
+        against the teacher-forced ``forward`` (module docstring)."""
+        torch = self.torch
+        from repro_torch.configs.base import get_arch
+        from repro_torch.launch.serve_lm import generate
+        from repro_torch.models import model as M
+
+        cfg = get_arch("qwen3-0.6b")
+        b, plen, steps = 8, 512, 32
+        max_len = plen + steps + 1
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        params = M.init(g, cfg)
+        prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
+        (toks, decode_s, logits), _, launch = self.drive(
+            "lm qwen3-0.6b", lambda: generate(cfg, params, prompts, max_len, steps,
+                                              return_logits=True), b * steps)
+        self.path_launches["lm"] = launch
+        layers = len(M.layer_kinds(cfg))
+        if launch["flash_attention"] != layers * (1 + steps):
+            raise AssertionError(f"lm: K4 launched {launch['flash_attention']} times, "
+                                 f"not {layers} x {1 + steps}")
+        if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
+            raise AssertionError("lm: non-finite logits or a wrong token shape")
+
+        # The plain path, teacher-forced along the kernel path's tokens.
+        caches = M.make_caches(cfg, b, max_len, self.dev)
+        ref = [M.prefill(params, cfg, prompts, caches, attn_impl="ref")[0]]
+        for i in range(steps):
+            ref.append(M.decode_step(params, cfg, toks[:, i:i + 1], caches, plen + i,
+                                     attn_impl="ref")[0])
+        ref = torch.stack(ref, 1)
+        ref_err = float((logits - ref).abs().max())
+        # Greedy tokens: the plain path's argmax must be the kernel path's
+        # token wherever its top-2 logits are more than 2·tol apart.
+        top2 = torch.topk(ref[:, :steps], 2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= 2 * LM_LOGIT_TOL
+        differ = ref[:, :steps].argmax(-1) != toks
+        if bool((differ & ~near).any()):
+            raise AssertionError("lm: a decided greedy token differs from the plain path")
+        # Teacher-forced forward over prompt + generated tokens, with K4.
+        seq = torch.cat([prompts, toks], 1)
+        hidden, _, _ = M.forward(params, cfg, seq)
+        fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:plen + steps])
+        fwd_err = float((logits - fwd).abs().max())
+        if max(ref_err, fwd_err) > LM_LOGIT_TOL:
+            raise AssertionError(f"lm: logits off by {ref_err} (plain path) and "
+                                 f"{fwd_err} (forward), tolerance {LM_LOGIT_TOL}")
+
+        prefill_ms = self.time_ms(lambda: M.prefill(params, cfg, prompts, caches))
+        # One decode step: event time against the card's busy time (the
+        # rest is the card waiting on the host's eager dispatch).
+        tok = toks[:, -1:]
+        step_ms = self.time_ms(lambda: M.decode_step(params, cfg, tok, caches, max_len - 1))
+        step_busy = self.device_busy_ms(
+            lambda: M.decode_step(params, cfg, tok, caches, max_len - 1),
+            names=("flash_kernel",))
+        # The vocab head: bf16 operands, f32 result (logits_fn) against the
+        # naive f32 upcast of both operands.
+        last = hidden[:, -1]
+        head_ms = self.time_ms(lambda: M.logits_fn(params, cfg, last))
+        upcast_ms = self.time_ms(lambda: last.float() @ params["embed"].float().T)
+        kv_bytes = sum(c.k.numel() * c.k.element_size() * 2 for c in caches)
+        weight_bytes = M.param_count(params) * params["embed"].element_size()
+        # A decode step reads every weight once and the cached rows so far.
+        row_bytes = kv_bytes // max_len
+        kv_read = sum((plen + i + 1) * row_bytes for i in range(steps)) / steps
+        return {
+            "lm_arch": cfg.name, "lm_params": M.param_count(params),
+            "lm_batch": b, "lm_prompt": plen, "lm_steps": steps,
+            "lm_prefill_ms": prefill_ms,
+            "lm_decode_ms_per_step": decode_s / steps * 1e3,
+            "lm_decode_step_event_ms": step_ms, "lm_decode_step_device_ms": step_busy,
+            "lm_head_ms": head_ms, "lm_head_f32_upcast_ms": upcast_ms,
+            "lm_tok_per_s": b * steps / decode_s,
+            "lm_kv_cache_bytes": kv_bytes,
+            "lm_decode_bound_ms": (weight_bytes + kv_read) / HBM_BYTES_PER_S * 1e3,
+            "lm_logit_err_vs_plain": ref_err, "lm_logit_err_vs_forward": fwd_err,
+            "lm_logit_tol": LM_LOGIT_TOL, "lm_logit_std": float(logits.std()),
+            "lm_near_tie_rows": int(near.any(1).sum()),
+            "lm_token_differences": int(differ.sum()),
+            "lm_launches": launch["flash_attention"],
+        }
+
     def pagerank_reference(self, data, iters, damping):
         """PageRank as the driver defines it, accumulated in float64; return
         the scores, each page's tolerance (see the module docstring) and the
@@ -848,8 +1084,11 @@ class Smoke:
         from repro_torch.kernels import _build
 
         t0 = time.perf_counter()
-        _build.build(["segment_reduce", "hash_combine", "kmeans_assign"])
+        _build.build(["segment_reduce", "hash_combine", "kmeans_assign",
+                      "flash_attention"])
         print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+        self.attention_phase()
+        print(json.dumps({"lm_results": self.lm_path()}), flush=True)
         data = self.make_data()
         self.kernel_phase(data)
         self.path_phase(data)
@@ -861,13 +1100,19 @@ class Smoke:
                                "src/repro/kernels/hash_combine.py:194"),
             "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
                               "src/repro/kernels/kmeans_assign.py:54"),
+            "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:100"),
         }
         runs = {"segment_reduce@kmeans": "kmeans",
                 "segment_reduce@pagerank": "pagerank",
                 "segment_reduce@gmm": "gmm",
                 "hash_aggregate@wordcount-combine": "wordcount",
                 "hash_aggregate@wordcount-merge": "wordcount",
-                "kmeans_assign@fig6": "kmeans fig6"}
+                "kmeans_assign@fig6": "kmeans fig6",
+                "flash_attention@qwen3-prefill": "lm",
+                "flash_attention@qwen3-decode": "lm",
+                "flash_attention@gemma2-local f32": "lm",
+                "flash_attention@gemma2-local bf16": "lm"}
         for key, path in runs.items():
             rec = self.summary[key]
             source, replaces = sources[rec["kernel"]]

@@ -1,10 +1,12 @@
-"""Carry containers between the JAX package and the port as numpy arrays.
+"""Carry containers and LM parameters between the JAX package and the port
+as numpy arrays.
 
 The JAX package's containers hand over their arrays with ``np.asarray``
 (``DistVector.data``/``.n``; ``DistHashMap.table.keys/vals/overflow`` and
 ``.reducer_name``); these functions build the port's containers from them
 and turn the port's back into numpy, so a table built by one package can be
-merged into by the other.  bf16 arrays travel as float32 (exact both ways).
+merged into by the other.  :func:`lm_params_from_jax` does the same for an
+LM's parameters.  bf16 arrays travel as float32 (exact both ways).
 """
 from __future__ import annotations
 
@@ -60,3 +62,33 @@ def to_numpy(container):
         t = container.table
         return _numpy(t.keys), _numpy(t.vals), _numpy(t.overflow), container.reducer_name
     raise TypeError(f"cannot convert {type(container).__name__}")
+
+
+def lm_params_from_jax(params_np, cfg, device=None) -> dict:
+    """The port's LM parameters from ``repro.models.model.init``'s pytree,
+    its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``).
+
+    The JAX pytree stacks each stage slot's parameters on a leading
+    ``[n_stages]`` axis; the port keeps one dict per layer, in the same order
+    (stage by stage, slot by slot, then the tail).  Weights keep JAX's
+    ``[d_in, d_out]`` layout: the port computes ``x @ W`` as JAX does.
+    """
+    from repro_torch.models.model import layer_kinds
+
+    layer_kinds(cfg)  # raises for a block kind the port has not got yet
+    dev = resolve_device(device)
+
+    def tree(x, stage=None):
+        if isinstance(x, dict):
+            return {k: tree(v, stage) for k, v in x.items()}
+        x = np.asarray(x)
+        return _tensor(x if stage is None else x[stage], dev)
+
+    layers = [tree(params_np["stages"][f"slot{j}"], i)
+              for i in range(cfg.n_stages) for j in range(len(cfg.stage_pattern))]
+    layers += [tree(p) for p in params_np["tail"]]
+    out = {"layers": layers, "embed": tree(params_np["embed"]),
+           "final_norm": tree(params_np["final_norm"])}
+    if "lm_head" in params_np:
+        out["lm_head"] = tree(params_np["lm_head"])
+    return out

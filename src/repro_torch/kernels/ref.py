@@ -1,13 +1,51 @@
-"""Plain PyTorch oracles for the data-mining kernels.
+"""Plain PyTorch oracles for the kernels.
 
-The counterpart of the data-mining half of ``repro/kernels/ref.py``: each
-function is the semantic ground truth, small and obviously right, written
-without regard to speed.  Tests hold the kernels' wrappers against these;
-``kernels.ops`` reaches them with ``impl="ref"``.
+The counterpart of ``repro/kernels/ref.py`` for the kernels ported so far:
+each function is the semantic ground truth, small and obviously right,
+written without regard to speed.  Tests hold the kernels' wrappers against
+these; ``kernels.ops`` reaches them with ``impl="ref"``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  softcap: float = 0.0, q_offset: int | None = None,
+                  scale: float | None = None) -> torch.Tensor:
+    """Attention of ``q [B, Hq, Sq, D]`` over ``k, v [B, Hkv, Skv, D]``
+    (GQA: query head ``h`` reads kv head ``h // (Hq / Hkv)``), with the whole
+    ``[Sq, Skv]`` logits materialised in f32.
+
+    Query row ``i`` sits at absolute position ``q_offset + i`` (default
+    ``Skv - Sq``); key ``j`` at ``j``.  Causal keeps ``j <= pos``, a window
+    ``j > pos - window``, a softcap maps logits through ``c·tanh(s/c)``.
+    Masked logits are ``-inf``; a row with every key masked gives zeros.
+    The output is in ``q``'s dtype.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    kk = k.repeat_interleave(rep, dim=1).float()
+    vv = v.repeat_interleave(rep, dim=1).float()
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    off = skv - sq if q_offset is None else q_offset
+    qpos = torch.arange(sq, device=q.device)[:, None] + off
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1).nan_to_num(nan=0.0)  # fully-masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
 
 
 def segment_reduce_ref(ids: torch.Tensor, vals: torch.Tensor,

@@ -9,7 +9,10 @@ The kernels are held against their plain PyTorch versions on the same device
 tensors; integer results and min/max are exact.  K3's assignments are exact
 except at near ties (``near_ties``), and its sums within ``1e-5`` relative
 plus ``1e-5`` of the sum of the addends' magnitudes (f32 atomics in an order
-the kernel does not fix, against float64).
+the kernel does not fix, against float64).  K4 (flash attention) within
+``3e-5`` of ``attention_ref`` in f32, and in bf16 within one bf16 step of the
+output (``2^-7·|out|``) plus that; a full-width qwen3-0.6b decode step's
+logits within ``chip_smoke.LM_LOGIT_TOL`` of the plain path's.
 """
 import numpy as np
 import pytest
@@ -18,15 +21,19 @@ import torch
 from repro_torch.core import BlazeSession
 from repro_torch.core.algorithms import gmm_em, pagerank
 from repro_torch.data.synthetic import cluster_points, rmat_edges
+from repro_torch.configs.base import get_arch
 from repro_torch.kernels import hash_combine as HK
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.kmeans_assign import (
     kmeans_assign,
     kmeans_assign_plain,
     launch_shape,
     near_ties,
 )
+from repro_torch.kernels.ref import attention_ref
 from repro_torch.kernels.segment_reduce import segment_reduce, segment_reduce_plain
+from repro_torch.models import model as M
 
 
 @pytest.fixture
@@ -158,3 +165,86 @@ def test_gmm_on_the_card_launches_three_segment_reduces_per_round(dev):
                   engine="eager", session=BlazeSession(device="cpu"))
     assert abs(got.log_likelihood - want.log_likelihood) <= 1e-5 * abs(want.log_likelihood)
     np.testing.assert_allclose(got.mu, want.mu, atol=1e-4, rtol=0)
+
+
+# B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, q_offset: the JAX kernel
+# tests' cases (q_offset None = Skv - Sq), then offsets, the configs' head
+# dims (80, 112, 256) and ragged edges.
+ATTN_CASES = [
+    (2, 4, 2, 64, 64, 32, True, None, 0.0, None),
+    (1, 8, 8, 128, 128, 64, True, None, 0.0, None),
+    (2, 4, 4, 96, 96, 32, True, 32, 0.0, None),
+    (1, 4, 2, 64, 64, 32, False, None, 0.0, None),
+    (1, 4, 2, 64, 64, 32, True, None, 20.0, None),
+    (2, 8, 2, 1, 256, 64, True, None, 0.0, None),
+    (1, 4, 4, 7, 133, 32, True, None, 0.0, None),
+    (1, 2, 1, 33, 65, 16, True, 16, 5.0, None),
+    (2, 4, 2, 40, 100, 128, True, None, 0.0, 0),
+    (2, 4, 2, 1, 100, 128, True, None, 0.0, 77),
+    (1, 4, 2, 3, 300, 80, True, 64, 0.0, 250),
+    (1, 2, 1, 70, 70, 112, True, None, 0.0, None),
+    (1, 4, 2, 130, 200, 256, True, 100, 50.0, 60),
+    (1, 2, 2, 5, 16, 8, True, None, 0.0, -2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_matches_plain_version(dev, case, dtype):
+    b, hq, hkv, sq, skv, d, causal, window, cap, off = case
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g).mul(0.5).to(dev, dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    before = flash_attention.launches
+    got = ops.attention(q, k, v, impl="auto", **kw)
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-5, rtol=rtol)
+
+
+def test_flash_attention_reads_a_cache_view_in_place(dev):
+    g = torch.Generator().manual_seed(1)
+    ck, cv = (torch.randn((2, 50, 2, 64), generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((2, 1, 4, 64), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    k, v = ck[:, 8:40].transpose(1, 2), cv[:, 8:40].transpose(1, 2)
+    got = flash_attention(q, k, v, window=16, q_offset=30)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=16,
+                           q_offset=30)
+    assert torch.equal(got, want)
+    assert got.transpose(1, 2).is_contiguous()  # the output keeps q's layout
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.zeros((1, 2, 4, 16), device=dev)
+    with pytest.raises(TypeError, match="f32 or all bf16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(q[..., :12], q[..., :12], q[..., :12])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, torch.zeros((1, 2, 16, 4), device=dev).transpose(2, 3), q)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention(q, q.cpu(), q)
+
+
+def test_qwen3_full_width_decode_step_matches_the_plain_path(dev):
+    import chip_smoke
+
+    cfg = get_arch("qwen3-0.6b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = M.init(g, cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 64), generator=g, device=dev)
+    out = {}
+    for impl in ("auto", "ref"):
+        caches = M.make_caches(cfg, 2, 80, dev)
+        _, caches = M.prefill(params, cfg, prompts, caches, attn_impl=impl)
+        flash_attention.launches = 0
+        out[impl], _ = M.decode_step(params, cfg, prompts[:, -1:], caches, 64,
+                                     attn_impl=impl)
+        assert flash_attention.launches == (cfg.n_layers if impl == "auto" else 0)
+    assert out["auto"].dtype == torch.float32 and out["auto"].shape == (2, cfg.vocab)
+    err = float((out["auto"] - out["ref"]).abs().max())
+    assert err <= chip_smoke.LM_LOGIT_TOL, err

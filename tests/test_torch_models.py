@@ -1,0 +1,205 @@
+"""The port's LM stack (``repro_torch.models``, ``launch.serve_lm``) against
+the JAX package's, on the four dense attention architectures at
+``reduced()`` size (f32), with the same weights: JAX's ``M.init`` pytree,
+carried across by ``convert.lm_params_from_jax`` (norm scales perturbed off
+their zero init, so a misplaced ``1 + scale`` shows).
+
+Tolerances: everything is f32 on both sides; the two packages sum the same
+products in other orders (XLA's and PyTorch's CPU matmuls, the chunked
+against the materialised attention), ~1e-6 relative per op over 2–4 layers
+of O(1) activations, so hidden states and logits must agree within
+``atol = rtol = 1e-4``.  Inside the port, decode against teacher-forced
+forward is held to the same bound.  Greedy tokens must be equal until a
+step whose top-2 logits lie within ``2·1e-4`` of each other, where either
+package may take either token.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_arch as jget_arch
+from repro.launch import serve_lm as jserve
+from repro.models import attention as JA
+from repro.models import layers as JL
+from repro.models import model as JM
+from repro_torch.configs.base import (
+    ATTN,
+    ATTN_MOE,
+    MAMBA2,
+    RWKV6,
+    SHARED_ATTN,
+    get_arch,
+    list_archs,
+)
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.launch import serve_lm
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
+
+ARCHS = ["gemma2-9b", "qwen3-0.6b", "stablelm-3b", "starcoder2-15b"]
+TOL = dict(atol=1e-4, rtol=1e-4)
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def lm(request):
+    """``(jax cfg, jax params, port cfg, port params)`` of one reduced arch."""
+    cfg_j = jget_arch(request.param).reduced()
+    params_np = jax.tree.map(np.asarray, JM.init(jax.random.PRNGKey(0), cfg_j))
+    rng = np.random.RandomState(1)
+
+    def perturb(path, x):
+        if getattr(path[-1], "key", None) == "scale":
+            return (x + 0.1 * rng.randn(*x.shape)).astype(x.dtype)
+        return x
+
+    params_np = jax.tree_util.tree_map_with_path(perturb, params_np)
+    params_j = jax.tree.map(jnp.asarray, params_np)
+    cfg_t = get_arch(request.param).reduced()
+    return cfg_j, params_j, cfg_t, lm_params_from_jax(params_np, cfg_t, CPU)
+
+
+def _tokens(cfg, b, s, seed=0):
+    return np.random.RandomState(seed).randint(0, cfg.vocab, (b, s)).astype(np.int32)
+
+
+def _np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def test_configs_copied_field_for_field():
+    assert list_archs() == ARCHS
+    for name in ARCHS:
+        j, t = jget_arch(name), get_arch(name)
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert dataclasses.asdict(j.reduced()) == dataclasses.asdict(t.reduced())
+        assert t.pdtype == torch.bfloat16 and t.reduced().cdtype == torch.float32
+    with pytest.raises(KeyError):
+        get_arch("zamba2-7b")
+
+
+def test_rmsnorm_and_rope_match_jax():
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 5, 3, 16).astype(np.float32)
+    scale = (0.1 * rng.randn(16)).astype(np.float32)
+    pos = np.tile(np.arange(7, 12, dtype=np.int32), (2, 1))
+    want = JL.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x))
+    got = L.rmsnorm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-6, rtol=1e-6)
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)
+    got = L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _attention_block_case(lm, local):
+    cfg_j, params_j, cfg_t, params_t = lm
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 6, cfg_t.d_model).astype(np.float32)
+    pos = np.tile(np.arange(6, dtype=np.int32), (2, 1))
+    pj = jax.tree.map(lambda a: a[0], params_j["stages"]["slot0"]["attn"])
+    pt = params_t["layers"][0]["attn"]
+    want, _ = JA.attn_apply(pj, cfg_j, jnp.asarray(x), jnp.asarray(pos), local=local)
+    got, _ = A.attn_apply(pt, cfg_t, torch.from_numpy(x), torch.from_numpy(pos),
+                          local=local)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    # The same tokens written into a cache, then one more at position 6
+    # (a 40-row cache, so gemma2's local layers take the window slice).
+    cj, ct = JA.make_cache(cfg_j, 2, 40), A.make_cache(cfg_t, 2, 40, CPU)
+    _, cj = JA.attn_apply(pj, cfg_j, jnp.asarray(x), jnp.asarray(pos), local=local,
+                          cache=cj, cache_len=0)
+    A.attn_apply(pt, cfg_t, torch.from_numpy(x), torch.from_numpy(pos), local=local,
+                 cache=ct, cache_len=0)
+    x1 = rng.randn(2, 1, cfg_t.d_model).astype(np.float32)
+    p1 = np.full((2, 1), 6, np.int32)
+    want, cj = JA.attn_apply(pj, cfg_j, jnp.asarray(x1), jnp.asarray(p1), local=local,
+                             cache=cj, cache_len=6)
+    got, ct = A.attn_apply(pt, cfg_t, torch.from_numpy(x1), torch.from_numpy(p1),
+                           local=local, cache=ct, cache_len=6)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    np.testing.assert_allclose(_np(ct.k), np.asarray(cj.k), **TOL)
+
+
+def test_attention_block_matches_jax(lm):
+    """One attention block, without and with a cache; gemma2 also as a
+    sliding-window layer."""
+    for local in ([False, True] if lm[2].window else [False]):
+        _attention_block_case(lm, local)
+
+
+def test_forward_matches_jax(lm):
+    cfg_j, params_j, cfg_t, params_t = lm
+    x = _tokens(cfg_t, 2, 24)
+    want, _, _ = JM.forward(params_j, cfg_j, jnp.asarray(x))
+    got, caches, _ = M.forward(params_t, cfg_t, torch.from_numpy(x))
+    assert caches is None and got.shape == (2, 24, cfg_t.d_model)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    np.testing.assert_allclose(_np(M.logits_fn(params_t, cfg_t, got)),
+                               np.asarray(JM.logits_fn(params_j, cfg_j, want)), **TOL)
+    assert M.param_count(params_t) == JM.param_count(params_j)
+
+
+def test_prefill_and_decode_chain_match_jax(lm):
+    """Prefill 36 tokens into a 48-row cache, then 4 teacher-forced decode
+    steps; every step's logits against JAX's."""
+    cfg_j, params_j, cfg_t, params_t = lm
+    x = _tokens(cfg_t, 2, 40, seed=1)
+    cj, ct = JM.make_caches(cfg_j, 2, 48), M.make_caches(cfg_t, 2, 48, CPU)
+    want, cj = JM.prefill(params_j, cfg_j, jnp.asarray(x[:, :36]), cj)
+    got, ct = M.prefill(params_t, cfg_t, torch.from_numpy(x[:, :36]), ct)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    for i in range(36, 40):
+        want, cj = JM.decode_step(params_j, cfg_j, jnp.asarray(x[:, i:i + 1]), cj, i)
+        got, ct = M.decode_step(params_t, cfg_t, torch.from_numpy(x[:, i:i + 1]), ct, i)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_decode_matches_forward(lm):
+    """Inside the port: 4 decode steps after an 8-token prefill equal the
+    teacher-forced forward's logits (``tests/test_models.py``'s check)."""
+    _, _, cfg, params = lm
+    x = torch.from_numpy(_tokens(cfg, 2, 12, seed=2))
+    hid, _, _ = M.forward(params, cfg, x)
+    full = M.logits_fn(params, cfg, hid)
+    caches = M.make_caches(cfg, 2, 16, CPU)
+    step, caches = M.prefill(params, cfg, x[:, :8], caches)
+    np.testing.assert_allclose(_np(step), _np(full[:, 7]), **TOL)
+    for i in range(8, 12):
+        step, caches = M.decode_step(params, cfg, x[:, i:i + 1], caches, i)
+        np.testing.assert_allclose(_np(step), _np(full[:, i]), **TOL)
+
+
+def test_generate_matches_jax(lm):
+    cfg_j, params_j, cfg_t, params_t = lm
+    prompts = _tokens(cfg_t, 3, 10, seed=3)
+    want, _ = jserve.generate(cfg_j, params_j, jnp.asarray(prompts), 19, 8)
+    got, dt, logits = serve_lm.generate(cfg_t, params_t, torch.from_numpy(prompts),
+                                        19, 8, return_logits=True)
+    assert got.shape == (3, 8) and logits.shape == (3, 9, cfg_t.vocab) and dt > 0
+    assert torch.equal(got, logits[:, :8].argmax(-1))
+    want = np.asarray(want)
+    for row in range(3):
+        differ = np.nonzero(_np(got[row]) != want[row])[0]
+        if len(differ):  # only where the port's own top-2 were within tolerance
+            top2 = torch.topk(logits[row, differ[0]], 2).values
+            assert float(top2[0] - top2[1]) <= 2 * TOL["atol"], (row, differ)
+
+
+def test_serve_lm_main_runs_on_the_cpu(capsys):
+    serve_lm.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "5", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert '"arch": "qwen3-0.6b-reduced"' in out and '"decode_steps": 3' in out
+
+
+@pytest.mark.parametrize("kind", [ATTN_MOE, MAMBA2, RWKV6, SHARED_ATTN])
+def test_unported_block_kinds_raise(kind):
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").reduced(), stage_pattern=(ATTN, kind))
+    with pytest.raises(NotImplementedError, match="slice"):
+        M.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match="slice"):
+        M.make_caches(cfg, 1, 8, CPU)
