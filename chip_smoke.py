@@ -12,10 +12,14 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    main path gives it, holds the result against the kernel's plain PyTorch
    version on the same inputs, and times kernel, plain version and, where one
    exists, the single PyTorch call computing the same function (CUDA events,
-   warmed up, median of 10);
+   warmed up, median of 10; for K4, K5 and K6 also the kernel's own
+   device time from ``torch.profiler``, which leaves out the host's launch
+   overhead that the event time of a decode-sized call includes);
 2. path phase — runs the LM serving path (``repro_torch.launch.serve_lm.
-   generate`` on qwen3-0.6b at full width: batch 8, a 512-token prompt, 32
-   greedy steps, K4 on every attention call), then wordcount, PageRank,
+   generate`` at full width and depth on qwen3-0.6b, zamba2-7b and
+   rwkv6-1.6b: batch 8, a 512-token prompt, 32 greedy steps, K4 on every
+   attention call, K5 on every Mamba-2 layer, K6 on every RWKV-6 layer),
+   each model freed before the next, then wordcount, PageRank,
    k-means, π, GMM and kNN through ``BlazeSession(device="cuda")`` with
    ``engine="pallas"``, and fig. 6's hand-fused k-means through
    ``repro_torch.kernels.ops.kmeans_assign``, at the paper's sizes (cut
@@ -33,14 +37,72 @@ output may differ by ``max|v| · (2ε + 2(n + 4)u)``, with ``max|v|`` over
 the head's values; a bf16 output adds one bf16 step, ``2^-7·|out|``, where
 the two f32 results round to neighbours.  At every shape the check must
 reject a zero output and the kernel's own output with the first 64 keys
-dropped.  The LM path's f32 logits must agree within ``LM_LOGIT_TOL`` with
-the plain path (``attn_impl="ref"``, teacher-forced along the same tokens)
-and with a teacher-forced ``forward``; greedy tokens must be the plain
-path's argmax wherever its top-2 logits lie more than twice that apart.
-``LM_LOGIT_TOL`` is the bf16 model's own rounding noise with a margin: its
-decode steps and the teacher-forced forward, the same sums in other orders
-with the same kernel, differ by 0.054 at this configuration on an H100
-(logits' standard deviation 0.64), and 0.15 is ~2.6 times that.
+dropped.
+
+K5 (``ssd_scan``) and K6 (``rwkv6_scan``) are held against their plain
+chunked versions and against the float64 step-by-step oracles (``ssd_ref``;
+``rwkv6_ref`` on the decay floored as the chunked forms floor it, the
+floorless distance printed beside it), every output element within
+``2^-7·|ref| + c·bound``.  ``A``, the oracle run on absolute values (``|x|,
+|B|, |C|, |h0|``; ``|r|, |k|, |v|, |u|, |S0|``), bounds the sum of the
+magnitudes of the terms that make up each element.  Both f32 forms sum those
+terms in other orders, which costs at most ``u·A`` per addition on the
+longest chain: ``2d`` for the two dot products over the state width ``d``,
+``2L`` for the sums over a chunk of ``L`` steps, ``16`` for the products,
+exponentials and the final adds, and per chunk carried ``L + 8``: ``τ₀ =
+u·(2d + 2L + 16 + nch·(L + 8))``, ``nch`` the kernel's 64-step chunks and
+``L`` the longer of the two forms' chunks.  Each decay factor is the
+exponential of a difference of running sums of ``a·dt`` (K5) or ``log w``
+(K6) inside a chunk, and an error in that exponent is a relative error of
+the term it scales.  K5's forms both take the running sum in order (the
+kernel in one thread, the plain version with ``torch.cumsum`` along a
+non-innermost dimension), so the rounding shared by ``Δ_l`` and ``Δ_s``
+cancels in ``Δ_l − Δ_s``: a term carried from step ``s`` to step ``t``
+(across chunk boundaries too) has its exponent off by at most ``u·Σ_{s<j≤t}
+w_j``, ``w_j = |Δ_j| + 2|a·dt_j|`` (the running sum's rounding at ``j``, the
+product's and the subtraction's), with ``Δ_j`` the running sum from the
+start of ``j``'s chunk of ``L`` steps (it contains the kernel's shorter
+chunk).  A term that decays fast is small wherever that weight is large,
+so K5's bound is per term: ``bound = τ₀·A + u·E``, where ``E`` is the
+recurrence run on absolute values that also carries every term's magnitude
+times its accumulated weight (``Smoke.ssd_bound``).  K6's kernel factors
+its decay as ``exp(λ_l)·exp(−λ_s)``, so its exponents carry the running sum's
+whole error: ``bound = τ·A`` per ``(b, h)``, ``τ = τ₀ + u·nch·3·L·D``, with
+``D`` the largest magnitude a running sum of ``log w`` reaches in a chunk of
+this run's data (its decay is slow, so ``τ`` stays below 1e-4).  The kernel
+and the plain version may each be ``bound`` off, and each rounds its bf16
+output once (half a bf16 step, ``2^-8·|y|``), hence ``c = 2.1`` against the
+plain version and ``c = 1.1`` against the oracle (the margin also covers
+``e^δ − 1 <= δ·e^δ`` for an exponent off by ``δ``), and ``2^-7·|ref|`` for
+a bf16 output.  At every shape the check must reject a zero output and the
+kernel's output with the carried state dropped: at the middle chunk
+boundary for a prefill (the second half from a zero state), from a zero
+state for a decode step; K5's must also reject the kernel's output with the
+heads of fast decay (``|a| >= 8``, about half of them) scaled by 1.05.
+
+The LM path's f32 logits must agree with the plain path (``attn_impl=
+"ref"``, ``scan_impl="chunked"``, teacher-forced along the same tokens) and
+with a teacher-forced ``forward`` within ``LM_LOGIT_TOL[arch]`` (max) and
+``LM_LOGIT_RMS_TOL[arch]`` (root mean square); greedy tokens must be the
+plain path's argmax wherever its top-2 logits lie more than twice the max
+tolerance apart.  Each tolerance is the bf16 model's own rounding noise with
+a margin: its decode steps and the teacher-forced forward, the same sums in
+other orders with the same kernels, differ at these configurations on an
+H100 (logits' standard deviation 0.64, 1.0, 1.0) by 0.054 (qwen3-0.6b),
+0.986 (zamba2-7b; RMS 0.150) and 0.173 (rwkv6-1.6b; RMS 0.030), against
+the plain path by 0.058, 0.963 (RMS 0.141) and 0.192 (RMS 0.035); the
+tolerances 0.15, 2.5 (RMS 0.4) and 0.5 (RMS 0.1) are 2.5–3 times the
+larger.  81 random bf16 layers amplify rounding that far, so for zamba2-7b
+and rwkv6-1.6b the check that tells a faulty kernel from the plain path is
+made in f32: the same models built in f32 (batch 2, 512-token prompt, 8
+steps) took decode within 5.6e-4 (zamba2-7b) and 5.8e-5 (rwkv6-1.6b) of the
+forward on an H100, their f32 rounding noise; ``LM_F32_TOL`` (2e-3 and
+2e-4, 3.5 times those) holds the kernel path there against both the
+forward and the plain path teacher-forced along its tokens, and greedy
+tokens must be the plain path's argmax wherever its top-2 logits lie more
+than twice that apart.  A fault of a kernel or of the decode path (a state
+carried wrong, a conv tail or a shift row off by a step) moves the logits
+by far more.
 
 Tolerances: integer results, min/max and hash-table layouts are exact.  A
 float sum is accumulated in f32 by atomics, in an order the kernel does not
@@ -107,7 +169,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
-LM_LOGIT_TOL = 0.15  # LM path logits: kernel path vs plain path and forward (docstring)
+# LM path logits, per model: kernel path vs plain path and forward (docstring)
+LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5}
+LM_LOGIT_RMS_TOL = {"zamba2-7b": 0.4, "rwkv6-1.6b": 0.1}  # RMS of the same differences
+LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4}  # f32: vs plain path and forward
+LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b")
 REPS = 10
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
@@ -599,6 +665,9 @@ class Smoke:
             q_offset=q_offset, window=window, softcap=softcap, max_abs_err=err,
             max_tol=float(tol.max()),
             ms=self.time_ms(lambda: flash_attention(q, k, v, q_offset=q_offset, **kw)),
+            device_ms=(busy := self.device_busy_ms(
+                lambda: flash_attention(q, k, v, q_offset=q_offset, **kw),
+                names=("flash_kernel",))) and busy["total"],
             plain_ms=self.time_ms(lambda: attention_ref(q, k, v, q_offset=q_offset, **kw)),
             library_ms=library_ms,
             bound_ms=max(bound_bytes, bound_ops),
@@ -610,7 +679,8 @@ class Smoke:
         """K4 at the LM path's shapes: qwen3-0.6b's prefill (q ``[8, 16, 512,
         128]`` bf16 against the ``[8, 545, 8, 128]`` KV cache, offset 0) and
         decode (one query at offset 543), both reading the cache in place;
-        and gemma2-9b's local layer (``[1, 16, 2048, 256]``, Hkv 8, window
+        zamba2-7b's (q ``[8, 32, 512, 112]`` over ``[8, 545, 32, 112]``, then
+        one query at offset 543); and gemma2-9b's local layer (``[1, 16, 2048, 256]``, Hkv 8, window
         1024, softcap 50) in f32 and bf16."""
         torch = self.torch
         g = torch.Generator(device=self.dev).manual_seed(0)
@@ -627,6 +697,16 @@ class Smoke:
         q = randn(8, 1, 16, 128, dtype=bf16).transpose(1, 2)
         self.kernel_attention("flash_attention@qwen3-decode", q, ck.transpose(1, 2),
                               cv.transpose(1, 2), q_offset=543)
+        # zamba2-7b's shared attention: 32 heads of 112 (MHA) over its cache
+        ck = randn(8, 545, 32, 112, dtype=bf16)
+        cv = randn(8, 545, 32, 112, dtype=bf16)
+        q = randn(8, 512, 32, 112, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@zamba2-prefill", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=0)
+        q = randn(8, 1, 32, 112, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@zamba2-decode", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=543)
+        del ck, cv, q
         for dtype in (torch.float32, bf16):
             q = randn(1, 16, 2048, 256, dtype=dtype)
             k = randn(1, 8, 2048, 256, dtype=dtype)
@@ -634,6 +714,249 @@ class Smoke:
             name = "f32" if dtype == torch.float32 else "bf16"
             self.kernel_attention(f"flash_attention@gemma2-local {name}", q, k, v,
                                   q_offset=0, window=1024, softcap=50.0)
+        torch.cuda.empty_cache()
+
+    # -- K5 and K6: the recurrent scans --------------------------------------
+
+    def window_decay(self, logw, L):
+        """K6's ``D`` per ``(b, h)``: the largest magnitude that a running
+        sum of the log-decay ``logw [B, S, H, K]`` (every entry <= 0)
+        reaches inside a chunk of ``L`` steps, over the chunks and channels
+        of this run's data (all entries share one sign, so a whole chunk's
+        sum bounds every partial sum in it, and the chunks of ``L`` contain
+        those of the kernel's shorter ones)."""
+        torch = self.torch
+        s = logw.shape[1]
+        nw = -(-s // L)
+        sums = torch.nn.functional.pad(logw.abs().double(), [0, 0, 0, 0, 0, nw * L - s])
+        return sums.unflatten(1, (nw, L)).sum(2).amax(3).amax(1)  # [B, H]
+
+    def scan_tau(self, s, d, L, decay):
+        """K6's ``τ = u·(2d + 2L + 16 + nch·(L + 8 + 3·L·D))`` per ``(b, h)``
+        (module docstring), ``nch`` the kernel's 64-step chunks."""
+        nch = -(-s // 64)
+        return F32_U * (2 * d + 2 * L + 16 + nch * (L + 8 + 3 * L * decay))
+
+    def scan_check(self, key, got, plain, oracle, bound, bf16, wrong):
+        """Hold ``got = (y, state)`` against the plain version's and the
+        float64 oracle's within ``2^-7·|ref| + c·bound`` (``bound`` per
+        element of each output, module docstring; c = 2.1 against the plain
+        version, 1.1 against the oracle; the ``2^-7`` term for bf16 outputs
+        only), and show that each check rejects every ``(y, state)`` in
+        ``wrong``.  Returns the max abs errors and the largest
+        error/tolerance ratios, of ``y`` and of the state."""
+        def within(out, want, c):
+            errs, ratios, fine = [], [], True
+            for i, (o, w, bd) in enumerate(zip(out, want, bound)):
+                tol = c * bd
+                if i == 0 and bf16:
+                    tol = tol + 2.0 ** -7 * w.double().abs()
+                err = (o.double() - w.double()).abs()
+                fine = fine and bool((err <= tol).all()) and not bool(o.isnan().any())
+                errs.append(float(err.max()))
+                ratios.append(float((err / tol.clamp(min=1e-300)).max()))
+            return fine, errs, ratios
+
+        res = {}
+        for name, want, c in (("plain", plain, 2.1), ("oracle", oracle, 1.1)):
+            fine, errs, ratios = within(got, want, c)
+            if not fine:
+                raise AssertionError(f"{key}: y and state off the {name} version by "
+                                     f"{errs} (error/tolerance up to {ratios})")
+            res[name] = {"y": errs[0], "state": errs[1], "err_over_tol": ratios}
+            for what, out in wrong.items():
+                if within(out, want, c)[0]:
+                    raise AssertionError(f"{key}: {what} passed the check against the "
+                                         f"{name} version")
+        errs = within(plain, oracle, 1.1)[1]
+        res["plain_vs_oracle"] = {"y": errs[0], "state": errs[1]}
+        return res
+
+    def record_scan(self, key, kernel, shape, errs, nbytes, flops, bf16, time_kernel,
+                    time_plain, **extra):
+        """Record a K5/K6 check with its times and its bound: ``nbytes`` and
+        ``flops`` (the recurrence's 4 flops per state element a step) over
+        the card's rates for the input type."""
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / (BF16_OPS_PER_S if bf16 else F32_OPS_PER_S) * 1e3
+        device_name = {"ssd_scan": "ssd_kernel", "rwkv6_scan": "rwkv6_kernel"}[kernel]
+        busy = self.device_busy_ms(time_kernel, names=(device_name,))
+        self.record(
+            key, kernel=kernel, shape=shape, max_abs_err=errs["plain"]["y"], errors=errs,
+            ms=self.time_ms(time_kernel), device_ms=busy and busy["total"],
+            plain_ms=self.time_ms(time_plain),
+            library_ms=None, bound_ms=max(bound_bytes, bound_ops),
+            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+            bytes=nbytes, flops=flops, **extra)
+
+    def ssd_bound(self, x, dt, a, bm, cm, h0, L):
+        """Per element of ``(y, h_T)``, K5's rounding bound ``τ₀·A + u·E``
+        (module docstring), from one float64 pass of the recurrence over
+        absolute values: ``A`` carries every term's magnitude, ``E`` every
+        term's magnitude times the weights ``w_j = |Δ_j| + 2|a·dt_j|`` of the
+        steps it has been decayed across (``Δ_j`` the running sum of ``a·dt``
+        from the start of ``j``'s chunk of ``L`` steps).  Returns the bound
+        and ``τ₀``."""
+        torch = self.torch
+        f = torch.float64
+        b, s, h, p = x.shape
+        grp, n = bm.shape[2], bm.shape[3]
+        rep = h // grp
+        ad = a.to(f) * dt.to(f)  # [B, S, H], every entry <= 0
+        nw = -(-s // L)
+        run = torch.nn.functional.pad(ad.abs(), [0, 0, 0, nw * L - s]).unflatten(
+            1, (nw, L)).cumsum(2).flatten(1, 2)[:, :s]
+        weight = run + 2 * ad.abs()
+        decay = torch.exp(ad)
+        dx = (dt.to(f)[..., None] * x.to(f)).abs()
+        ba = bm.to(f).abs().repeat_interleave(rep, dim=2)
+        ca = cm.to(f).abs().repeat_interleave(rep, dim=2)
+        amag = h0.to(f).abs()
+        emag = torch.zeros_like(amag)
+        ya, ye = [], []
+        for t in range(s):
+            d = decay[:, t, :, None, None]
+            emag = d * (emag + weight[:, t, :, None, None] * amag)
+            amag = d * amag + dx[:, t, :, :, None] * ba[:, t, :, None, :]
+            ya.append(torch.einsum("bhpn,bhn->bhp", amag, ca[:, t]))
+            ye.append(torch.einsum("bhpn,bhn->bhp", emag, ca[:, t]))
+        nch = -(-s // 64)
+        tau0 = F32_U * (2 * n + 2 * L + 16 + nch * (L + 8))
+        bound = (tau0 * torch.stack(ya, 1) + F32_U * torch.stack(ye, 1),
+                 tau0 * amag + F32_U * emag)
+        return bound, tau0
+
+    def kernel_ssd(self, key, x, dt, a, bm, cm, h0):
+        """K5 against ``ssd_scan_plain`` and the float64 ``ssd_ref`` at one
+        shape of the zamba2 path; the checks must reject a zero output, the
+        kernel's output with the state dropped at the middle chunk boundary
+        (decode: from a zero state), and the kernel's output with the heads
+        of fast decay (``|a| >= 8``) scaled by 1.05.  Returns the final
+        state."""
+        torch = self.torch
+        from repro_torch.kernels.ref import ssd_ref
+        from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+        b, s, h, p = x.shape
+        n = bm.shape[3]
+        got = ssd_scan(x, dt, a, bm, cm, init_state=h0)
+        plain = ssd_scan_plain(x, dt, a, bm, cm, init_state=h0)
+        f64 = [t.double() for t in (x, dt, a, bm, cm, h0)]
+        oracle = ssd_ref(*f64[:5], init_state=f64[5])
+        if s > 1:
+            m = s // 2
+            y1, _ = ssd_scan(x[:, :m], dt[:, :m], a, bm[:, :m], cm[:, :m], init_state=h0)
+            y2, h2 = ssd_scan(x[:, m:], dt[:, m:], a, bm[:, m:], cm[:, m:])
+            dropped = (torch.cat([y1, y2], 1), h2)
+        else:
+            dropped = ssd_scan(x, dt, a, bm, cm)
+        fast = 1.0 + 0.05 * (a.abs() >= 8).float()
+        scaled = ((got[0].float() * fast[:, None]).to(got[0].dtype),
+                  got[1] * fast[:, None, None])
+        self.sync()
+        bound, tau0 = self.ssd_bound(x, dt, a, bm, cm, h0, min(128, s))
+        bf16 = x.dtype == torch.bfloat16
+        errs = self.scan_check(key, got, plain, oracle, bound, bf16, {
+            "a zero output": tuple(torch.zeros_like(t) for t in got),
+            "the state dropped": dropped,
+            "the fast-decay heads scaled by 1.05": scaled})
+        del oracle, bound, dropped, scaled, f64
+        nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4 + a.numel() * 4
+                  + 2 * bm.numel() * bm.element_size() + 2 * h0.numel() * 4)
+        self.record_scan(
+            key, "ssd_scan", [list(x.shape), list(bm.shape), str(x.dtype).split(".")[-1]],
+            errs, nbytes, 4 * b * s * h * p * n, bf16,
+            lambda: ssd_scan(x, dt, a, bm, cm, init_state=h0),
+            lambda: ssd_scan_plain(x, dt, a, bm, cm, init_state=h0),
+            tau0=tau0)
+        return got[1]
+
+    def kernel_rwkv6(self, key, r, k, v, w, u, s0):
+        """K6 against ``rwkv6_scan_plain`` and the float64 ``rwkv6_ref`` on
+        the floored decay at one shape of the rwkv6 path (and, for the
+        record, both against the floorless ``rwkv6_ref``); the checks must
+        reject a zero output and the state dropped as for K5.  Returns the
+        final state."""
+        torch = self.torch
+        from repro_torch.kernels.ref import rwkv6_ref
+        from repro_torch.kernels.rwkv6_scan import decay_floor, rwkv6_scan, rwkv6_scan_plain
+
+        b, s, h, kd = r.shape
+        vd = v.shape[-1]
+        got = rwkv6_scan(r, k, v, w, u, init_state=s0)
+        plain = rwkv6_scan_plain(r, k, v, w, u, init_state=s0)
+        floor = decay_floor(64, s)
+        logw = torch.log(torch.clamp_min(w.double(), 1e-30))
+        clamped = int((logw < floor).sum())
+        logw = torch.clamp_min(logw, floor)
+        f64 = [t.double() for t in (r, k, v, w, u, s0)]
+        oracle = rwkv6_ref(*f64[:3], torch.exp(logw), f64[4], init_state=f64[5])
+        absolute = rwkv6_ref(f64[0].abs(), f64[1].abs(), f64[2].abs(), torch.exp(logw),
+                             f64[4].abs(), init_state=f64[5].abs())
+        floorless = rwkv6_ref(*f64[:5], init_state=f64[5])
+        if s > 1:
+            m = s // 2
+            y1, _ = rwkv6_scan(r[:, :m], k[:, :m], v[:, :m], w[:, :m], u, init_state=s0)
+            y2, s2 = rwkv6_scan(r[:, m:], k[:, m:], v[:, m:], w[:, m:], u)
+            dropped = (torch.cat([y1, y2], 1), s2)
+        else:
+            dropped = rwkv6_scan(r, k, v, w, u)
+        self.sync()
+        L = min(64, s)
+        tau = self.scan_tau(s, kd, L, self.window_decay(logw, L))
+        bound = (tau[:, None, :, None] * absolute[0], tau[:, :, None, None] * absolute[1])
+        bf16 = r.dtype == torch.bfloat16
+        errs = self.scan_check(key, got, plain, oracle, bound, bf16, {
+            "a zero output": tuple(torch.zeros_like(t) for t in got),
+            "the state dropped": dropped})
+        errs["floorless_oracle"] = {
+            name: float((out[0].double() - floorless[0]).abs().max())
+            for name, out in (("kernel", got), ("plain", plain))}
+        del oracle, absolute, bound, floorless, dropped, f64, logw
+        nbytes = ((r.numel() + k.numel() + 2 * v.numel()) * r.element_size()
+                  + w.numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4)
+        self.record_scan(
+            key, "rwkv6_scan", [list(r.shape), list(v.shape), str(r.dtype).split(".")[-1]],
+            errs, nbytes, 4 * b * s * h * kd * vd, bf16,
+            lambda: rwkv6_scan(r, k, v, w, u, init_state=s0),
+            lambda: rwkv6_scan_plain(r, k, v, w, u, init_state=s0),
+            max_tau=float(tau.max()), floor=floor, floor_clamped=clamped)
+        return got[1]
+
+    def scan_phase(self):
+        """K5 at zamba2-7b's shapes: x ``[8, 512, 112, 64]``, B and C ``[8,
+        512, 2, 64]`` bf16 as strided views of one ``[8, 512, 7424]`` conv
+        output, ``dt = softplus(N(0, 1))`` f32 and ``a = −[1 … 16]`` as
+        ``mamba_init`` sets it, from the zero state of a fresh cache (the
+        prefill), then one step from the state it left (decode).  K6 at
+        rwkv6-1.6b's: r, k, v ``[8, 512, 32, 64]`` bf16 ``N(0, 1)``, ``w =
+        exp(−exp(−6 + 0.6·N(0, 1)))`` f32 (``w0 = −6`` plus the adapter's
+        spread), ``u = 0.1·N(0, 1)``, likewise prefill then one step."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(1)
+        bf16 = torch.bfloat16
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=self.dev)
+
+        b, h, p, grp, n = 8, 112, 64, 2, 64
+        a = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=self.dev)))
+        state = torch.zeros((b, h, p, n), device=self.dev)
+        for key, s in (("ssd_scan@zamba2-prefill", 512), ("ssd_scan@zamba2-decode", 1)):
+            conv = randn(b, s, h * p + 2 * grp * n).to(bf16)
+            x = conv[..., :h * p].unflatten(-1, (h, p))
+            bm = conv[..., h * p:h * p + grp * n].unflatten(-1, (grp, n))
+            cm = conv[..., h * p + grp * n:].unflatten(-1, (grp, n))
+            dt = torch.nn.functional.softplus(randn(b, s, h))
+            state = self.kernel_ssd(key, x, dt, a, bm, cm, state)
+        b, h, kd = 8, 32, 64
+        u = 0.1 * randn(h, kd)
+        state = torch.zeros((b, h, kd, kd), device=self.dev)
+        for key, s in (("rwkv6_scan@rwkv6-prefill", 512), ("rwkv6_scan@rwkv6-decode", 1)):
+            r, k, v = (randn(b, s, h, kd).to(bf16) for _ in range(3))
+            w = torch.exp(-torch.exp(-6.0 + 0.6 * randn(b, s, h, kd)))
+            state = self.kernel_rwkv6(key, r, k, v, w, u, state)
+        del state
         torch.cuda.empty_cache()
 
     # -- path phase ---------------------------------------------------------
@@ -644,21 +967,21 @@ class Smoke:
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.hash_combine import hash_aggregate
         from repro_torch.kernels.kmeans_assign import kmeans_assign
+        from repro_torch.kernels.rwkv6_scan import rwkv6_scan
         from repro_torch.kernels.segment_reduce import segment_reduce
+        from repro_torch.kernels.ssd_scan import ssd_scan
 
+        wrappers = {"segment_reduce": segment_reduce, "hash_aggregate": hash_aggregate,
+                    "kmeans_assign": kmeans_assign, "flash_attention": flash_attention,
+                    "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
         self.sync()
-        segment_reduce.launches = 0
-        hash_aggregate.launches = 0
-        kmeans_assign.launches = 0
-        flash_attention.launches = 0
+        for fn_ in wrappers.values():
+            fn_.launches = 0
         t0 = time.perf_counter()
         out = fn()
         self.sync()
         wall = time.perf_counter() - t0
-        launches = {"segment_reduce": segment_reduce.launches,
-                    "hash_aggregate": hash_aggregate.launches,
-                    "kmeans_assign": kmeans_assign.launches,
-                    "flash_attention": flash_attention.launches}
+        launches = {name: fn_.launches for name, fn_ in wrappers.items()}
         print(json.dumps({"path": name, "wall_s": wall, "units": units,
                           "units_per_s": units / wall, "launches": launches}),
               flush=True)
@@ -751,7 +1074,8 @@ class Smoke:
         results.update(self.knn_path(sess, data))
         print(json.dumps({"path_results": results}), flush=True)
         kernels = {"wordcount": "hash_aggregate", "kmeans fig6": "kmeans_assign",
-                   "lm": "flash_attention"}
+                   "lm qwen3-0.6b": "flash_attention", "lm zamba2-7b": "ssd_scan",
+                   "lm rwkv6-1.6b": "rwkv6_scan"}
         for name, launch in self.path_launches.items():
             kernel = kernels.get(name, "segment_reduce")
             if launch[kernel] == 0:
@@ -912,58 +1236,89 @@ class Smoke:
         return {"knn_dist_rel_err": rel, "knn_kth_distance": float(want[-1]),
                 "knn_set_differences": len(got_rows ^ want_rows)}
 
-    def lm_path(self):
+    def lm_path(self, arch):
         """The LM serving path: ``repro_torch.launch.serve_lm.generate`` on
-        qwen3-0.6b at full width and depth in bf16 (random weights from seed
+        ``arch`` at full width and depth in bf16 (random weights from seed
         0): batch 8, a 512-token prompt, 32 greedy decode steps, K4 on every
-        attention call.  Held against the same model and weights with
-        ``attn_impl="ref"`` teacher-forced along the same tokens, and
+        attention call, K5 on every Mamba-2 layer and K6 on every RWKV-6
+        layer, in the prefill and in every step.  Held against the same
+        model and weights on the plain path (``attn_impl="ref"``,
+        ``scan_impl="chunked"``) teacher-forced along the same tokens, and
         against the teacher-forced ``forward`` (module docstring)."""
         torch = self.torch
-        from repro_torch.configs.base import get_arch
+        from repro_torch.configs.base import MAMBA2, RWKV6, get_arch
         from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
+        from repro_torch.models.attention import KVCache
 
-        cfg = get_arch("qwen3-0.6b")
+        cfg = get_arch(arch)
+        tol = LM_LOGIT_TOL[arch]
         b, plen, steps = 8, 512, 32
         max_len = plen + steps + 1
         g = torch.Generator(device=self.dev).manual_seed(0)
         params = M.init(g, cfg)
         prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
         (toks, decode_s, logits), _, launch = self.drive(
-            "lm qwen3-0.6b", lambda: generate(cfg, params, prompts, max_len, steps,
-                                              return_logits=True), b * steps)
-        self.path_launches["lm"] = launch
-        layers = len(M.layer_kinds(cfg))
-        if launch["flash_attention"] != layers * (1 + steps):
-            raise AssertionError(f"lm: K4 launched {launch['flash_attention']} times, "
-                                 f"not {layers} x {1 + steps}")
+            f"lm {arch}", lambda: generate(cfg, params, prompts, max_len, steps,
+                                           return_logits=True), b * steps)
+        self.path_launches[f"lm {arch}"] = launch
+        kinds = M.layer_kinds(cfg)
+        n_ssm, n_rwkv = kinds.count(MAMBA2), kinds.count(RWKV6)
+        expect = {"flash_attention": (len(kinds) - n_ssm - n_rwkv) * (1 + steps),
+                  "ssd_scan": n_ssm * (1 + steps), "rwkv6_scan": n_rwkv * (1 + steps)}
+        for kernel, count in expect.items():
+            if launch[kernel] != count:
+                raise AssertionError(f"lm {arch}: {kernel} launched {launch[kernel]} "
+                                     f"times, not {count}")
         if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
-            raise AssertionError("lm: non-finite logits or a wrong token shape")
+            raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
 
         # The plain path, teacher-forced along the kernel path's tokens.
+        plain = dict(attn_impl="ref", scan_impl="chunked")
         caches = M.make_caches(cfg, b, max_len, self.dev)
-        ref = [M.prefill(params, cfg, prompts, caches, attn_impl="ref")[0]]
+        ref = [M.prefill(params, cfg, prompts, caches, **plain)[0]]
         for i in range(steps):
             ref.append(M.decode_step(params, cfg, toks[:, i:i + 1], caches, plen + i,
-                                     attn_impl="ref")[0])
+                                     **plain)[0])
         ref = torch.stack(ref, 1)
         ref_err = float((logits - ref).abs().max())
         # Greedy tokens: the plain path's argmax must be the kernel path's
         # token wherever its top-2 logits are more than 2·tol apart.
         top2 = torch.topk(ref[:, :steps], 2, dim=-1).values
-        near = (top2[..., 0] - top2[..., 1]) <= 2 * LM_LOGIT_TOL
+        near = (top2[..., 0] - top2[..., 1]) <= 2 * tol
         differ = ref[:, :steps].argmax(-1) != toks
-        if bool((differ & ~near).any()):
-            raise AssertionError("lm: a decided greedy token differs from the plain path")
-        # Teacher-forced forward over prompt + generated tokens, with K4.
+        del top2
+        # Teacher-forced forward over prompt + generated tokens, with the
+        # kernels: decode against it is the bf16 model's own noise.
         seq = torch.cat([prompts, toks], 1)
         hidden, _, _ = M.forward(params, cfg, seq)
         fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:plen + steps])
         fwd_err = float((logits - fwd).abs().max())
-        if max(ref_err, fwd_err) > LM_LOGIT_TOL:
-            raise AssertionError(f"lm: logits off by {ref_err} (plain path) and "
-                                 f"{fwd_err} (forward), tolerance {LM_LOGIT_TOL}")
+        rms = [float((logits - x).pow(2).mean().sqrt()) for x in (ref, fwd)]
+        f32 = self.lm_f32_check(arch) if arch in LM_F32_TOL else {}
+        print(json.dumps({"lm_check": arch, "logit_err_vs_plain": ref_err,
+                          "logit_err_vs_forward": fwd_err, "tol": tol,
+                          "logit_rms_vs_plain": rms[0], "logit_rms_vs_forward": rms[1],
+                          "rms_tol": LM_LOGIT_RMS_TOL.get(arch), **f32,
+                          "f32_tol": LM_F32_TOL.get(arch),
+                          "logit_std": float(logits.std()),
+                          "decided_token_differences": int((differ & ~near).sum())}),
+              flush=True)
+        if bool((differ & ~near).any()):
+            raise AssertionError(f"lm {arch}: a decided greedy token differs from the "
+                                 "plain path")
+        if max(ref_err, fwd_err) > tol or max(rms) > LM_LOGIT_RMS_TOL.get(arch, tol):
+            raise AssertionError(f"lm {arch}: logits off by {ref_err} (plain path) and "
+                                 f"{fwd_err} (forward), tolerance {tol}; RMS {rms}")
+        if f32 and max(f32["f32_vs_plain"], f32["f32_decode_vs_forward"]) > LM_F32_TOL[arch]:
+            raise AssertionError(f"lm {arch}: in f32, logits off the plain path by "
+                                 f"{f32['f32_vs_plain']} and off the forward by "
+                                 f"{f32['f32_decode_vs_forward']}, tolerance "
+                                 f"{LM_F32_TOL[arch]}")
+        if f32 and f32["f32_decided_token_differences"]:
+            raise AssertionError(f"lm {arch}: in f32, a decided greedy token differs "
+                                 "from the plain path")
+        del ref, fwd, seq
 
         prefill_ms = self.time_ms(lambda: M.prefill(params, cfg, prompts, caches))
         # One decode step: event time against the card's busy time (the
@@ -972,33 +1327,93 @@ class Smoke:
         step_ms = self.time_ms(lambda: M.decode_step(params, cfg, tok, caches, max_len - 1))
         step_busy = self.device_busy_ms(
             lambda: M.decode_step(params, cfg, tok, caches, max_len - 1),
-            names=("flash_kernel",))
+            names=("flash_kernel", "ssd_kernel", "rwkv6_kernel"))
         # The vocab head: bf16 operands, f32 result (logits_fn) against the
         # naive f32 upcast of both operands.
         last = hidden[:, -1]
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         head_ms = self.time_ms(lambda: M.logits_fn(params, cfg, last))
-        upcast_ms = self.time_ms(lambda: last.float() @ params["embed"].float().T)
-        kv_bytes = sum(c.k.numel() * c.k.element_size() * 2 for c in caches)
-        weight_bytes = M.param_count(params) * params["embed"].element_size()
-        # A decode step reads every weight once and the cached rows so far.
+        upcast_ms = self.time_ms(lambda: last.float() @ head.float())
+        # A decode step reads every weight once (zamba2's shared block once
+        # per application), the cached K/V rows so far, and reads and writes
+        # every recurrent state (Mamba's conv tail and SSD state, RWKV's
+        # shift rows and wkv state).
+        nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+        weight_bytes = sum(nbytes(t) for t in M._leaves(params))
+        if "shared_attn" in params:
+            per_use = sum(nbytes(t) for t in M._leaves(params["shared_attn"]))
+            weight_bytes = (weight_bytes - per_use
+                            + per_use * sum(p is params["shared_attn"]
+                                            for p in params["layers"]))
+        kv = [c for c in caches if isinstance(c, KVCache)]
+        kv_bytes = sum(nbytes(c.k) + nbytes(c.v) for c in kv)
         row_bytes = kv_bytes // max_len
         kv_read = sum((plen + i + 1) * row_bytes for i in range(steps)) / steps
+        state_bytes = sum(nbytes(t) for c in caches if not isinstance(c, KVCache)
+                          for t in c)
         return {
-            "lm_arch": cfg.name, "lm_params": M.param_count(params),
-            "lm_batch": b, "lm_prompt": plen, "lm_steps": steps,
-            "lm_prefill_ms": prefill_ms,
-            "lm_decode_ms_per_step": decode_s / steps * 1e3,
-            "lm_decode_step_event_ms": step_ms, "lm_decode_step_device_ms": step_busy,
-            "lm_head_ms": head_ms, "lm_head_f32_upcast_ms": upcast_ms,
-            "lm_tok_per_s": b * steps / decode_s,
-            "lm_kv_cache_bytes": kv_bytes,
-            "lm_decode_bound_ms": (weight_bytes + kv_read) / HBM_BYTES_PER_S * 1e3,
-            "lm_logit_err_vs_plain": ref_err, "lm_logit_err_vs_forward": fwd_err,
-            "lm_logit_tol": LM_LOGIT_TOL, "lm_logit_std": float(logits.std()),
-            "lm_near_tie_rows": int(near.any(1).sum()),
-            "lm_token_differences": int(differ.sum()),
-            "lm_launches": launch["flash_attention"],
+            "arch": cfg.name, "params": M.param_count(params),
+            "batch": b, "prompt": plen, "steps": steps,
+            "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_s / steps * 1e3,
+            "decode_step_event_ms": step_ms, "decode_step_device_ms": step_busy,
+            "head_ms": head_ms, "head_f32_upcast_ms": upcast_ms,
+            "tok_per_s": b * steps / decode_s,
+            "kv_cache_bytes": kv_bytes, "state_cache_bytes": state_bytes,
+            "decode_bound_ms": (weight_bytes + kv_read + 2 * state_bytes)
+            / HBM_BYTES_PER_S * 1e3,
+            "logit_err_vs_plain": ref_err, "logit_err_vs_forward": fwd_err,
+            "logit_tol": tol, "logit_rms": rms, **f32,
+            "logit_std": float(logits.std()),
+            "near_tie_rows": int(near.any(1).sum()),
+            "token_differences": int(differ.sum()),
+            "launches": {k: launch[k] for k in expect},
         }
+
+    def lm_f32_check(self, arch):
+        """``arch`` built in f32 (random weights from seed 0; batch 2, a
+        512-token prompt, 8 greedy steps through ``generate``, the same
+        kernels): max |kernel path − plain path| of the logits, the plain
+        path (``attn_impl="ref"``, ``scan_impl="chunked"``) teacher-forced
+        along the same tokens, and max |decode − teacher-forced forward|.
+        With f32 rounding in place of bf16's, a fault of a kernel or of the
+        decode path (a state carried wrong, a conv tail or shift row off by
+        one) shows here far above rounding, and greedy tokens must be the
+        plain path's argmax wherever its top-2 logits lie more than
+        ``2·LM_F32_TOL`` apart."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs.base import get_arch
+        from repro_torch.launch.serve_lm import generate
+        from repro_torch.models import model as M
+
+        cfg = dataclasses.replace(get_arch(arch), param_dtype="float32",
+                                  compute_dtype="float32")
+        b, plen, steps = 2, 512, 8
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        params = M.init(g, cfg)
+        prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
+        toks, _, logits = generate(cfg, params, prompts, plen + steps + 1, steps,
+                                   return_logits=True)
+        plain = dict(attn_impl="ref", scan_impl="chunked")
+        caches = M.make_caches(cfg, b, plen + steps + 1, self.dev)
+        ref = [M.prefill(params, cfg, prompts, caches, **plain)[0]]
+        for i in range(steps):
+            ref.append(M.decode_step(params, cfg, toks[:, i:i + 1], caches, plen + i,
+                                     **plain)[0])
+        ref = torch.stack(ref, 1)
+        hidden, _, _ = M.forward(params, cfg, torch.cat([prompts, toks], 1))
+        fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:plen + steps])
+        top2 = torch.topk(ref[:, :steps], 2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > 2 * LM_F32_TOL[arch]
+        res = {"f32_vs_plain": float((logits - ref).abs().max()),
+               "f32_decode_vs_forward": float((logits - fwd).abs().max()),
+               "f32_decided_tokens": int(decided.sum()),
+               "f32_decided_token_differences": int(
+                   ((ref[:, :steps].argmax(-1) != toks) & decided).sum())}
+        del params, caches, hidden, ref, fwd
+        torch.cuda.empty_cache()
+        return res
 
     def pagerank_reference(self, data, iters, damping):
         """PageRank as the driver defines it, accumulated in float64; return
@@ -1085,10 +1500,13 @@ class Smoke:
 
         t0 = time.perf_counter()
         _build.build(["segment_reduce", "hash_combine", "kmeans_assign",
-                      "flash_attention"])
+                      "flash_attention", "ssd_scan", "rwkv6_scan"])
         print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
         self.attention_phase()
-        print(json.dumps({"lm_results": self.lm_path()}), flush=True)
+        self.scan_phase()
+        for arch in LM_ARCHS:  # each model is freed before the next phase
+            print(json.dumps({"lm_results": self.lm_path(arch)}), flush=True)
+            torch.cuda.empty_cache()
         data = self.make_data()
         self.kernel_phase(data)
         self.path_phase(data)
@@ -1102,6 +1520,10 @@ class Smoke:
                               "src/repro/kernels/kmeans_assign.py:54"),
             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:100"),
+            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                         "src/repro/kernels/ssd_scan.py:74"),
+            "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                           "src/repro/kernels/rwkv6_scan.py:73"),
         }
         runs = {"segment_reduce@kmeans": "kmeans",
                 "segment_reduce@pagerank": "pagerank",
@@ -1109,13 +1531,20 @@ class Smoke:
                 "hash_aggregate@wordcount-combine": "wordcount",
                 "hash_aggregate@wordcount-merge": "wordcount",
                 "kmeans_assign@fig6": "kmeans fig6",
-                "flash_attention@qwen3-prefill": "lm",
-                "flash_attention@qwen3-decode": "lm",
-                "flash_attention@gemma2-local f32": "lm",
-                "flash_attention@gemma2-local bf16": "lm"}
+                "flash_attention@qwen3-prefill": "lm qwen3-0.6b",
+                "flash_attention@qwen3-decode": "lm qwen3-0.6b",
+                "flash_attention@gemma2-local f32": "lm qwen3-0.6b",
+                "flash_attention@gemma2-local bf16": "lm qwen3-0.6b",
+                "flash_attention@zamba2-prefill": "lm zamba2-7b",
+                "flash_attention@zamba2-decode": "lm zamba2-7b",
+                "ssd_scan@zamba2-prefill": "lm zamba2-7b",
+                "ssd_scan@zamba2-decode": "lm zamba2-7b",
+                "rwkv6_scan@rwkv6-prefill": "lm rwkv6-1.6b",
+                "rwkv6_scan@rwkv6-decode": "lm rwkv6-1.6b"}
         for key, path in runs.items():
             rec = self.summary[key]
             source, replaces = sources[rec["kernel"]]
+            busy = rec.get("device_ms")  # K2 records it per kernel
             kernels.append({
                 "name": key, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -1123,6 +1552,7 @@ class Smoke:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "device_ms": busy["total"] if isinstance(busy, dict) else busy,
                 "shape": rec["shape"],
             })
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -162,6 +162,8 @@ def _load_all():
     from repro_torch.configs import (  # noqa: F401
         gemma2_9b,
         qwen3_0_6b,
+        rwkv6_1_6b,
         stablelm_3b,
         starcoder2_15b,
+        zamba2_7b,
     )

@@ -70,9 +70,13 @@ def lm_params_from_jax(params_np, cfg, device=None) -> dict:
 
     The JAX pytree stacks each stage slot's parameters on a leading
     ``[n_stages]`` axis; the port keeps one dict per layer, in the same order
-    (stage by stage, slot by slot, then the tail).  Weights keep JAX's
-    ``[d_in, d_out]`` layout: the port computes ``x @ W`` as JAX does.
+    (stage by stage, slot by slot, then the tail).  A ``SHARED_ATTN`` slot
+    has no stacked entry in JAX (its block is ``params["shared_attn"]``):
+    every such layer of the port refers to the one converted dict.  Weights
+    keep JAX's ``[d_in, d_out]`` layout: the port computes ``x @ W`` as JAX
+    does.
     """
+    from repro_torch.configs.base import SHARED_ATTN
     from repro_torch.models.model import layer_kinds
 
     layer_kinds(cfg)  # raises for a block kind the port has not got yet
@@ -84,11 +88,15 @@ def lm_params_from_jax(params_np, cfg, device=None) -> dict:
         x = np.asarray(x)
         return _tensor(x if stage is None else x[stage], dev)
 
-    layers = [tree(params_np["stages"][f"slot{j}"], i)
-              for i in range(cfg.n_stages) for j in range(len(cfg.stage_pattern))]
+    out = {}
+    if "shared_attn" in params_np:
+        out["shared_attn"] = tree(params_np["shared_attn"])
+    layers = [out["shared_attn"] if kind == SHARED_ATTN
+              else tree(params_np["stages"][f"slot{j}"], i)
+              for i in range(cfg.n_stages) for j, kind in enumerate(cfg.stage_pattern)]
     layers += [tree(p) for p in params_np["tail"]]
-    out = {"layers": layers, "embed": tree(params_np["embed"]),
-           "final_norm": tree(params_np["final_norm"])}
+    out.update(layers=layers, embed=tree(params_np["embed"]),
+               final_norm=tree(params_np["final_norm"]))
     if "lm_head" in params_np:
         out["lm_head"] = tree(params_np["lm_head"])
     return out

@@ -1,11 +1,15 @@
 """Public kernel entry points with backend dispatch (the port of
-``repro/kernels/ops.py`` for the kernels ported so far).
+``repro/kernels/ops.py``).
 
-* ``impl="pallas"`` — the hand-written CUDA kernel (the JAX package's name
+* ``impl="pallas"``  — the hand-written CUDA kernel (the JAX package's name
   for its kernel tier, kept so callers port one-to-one); on a CPU tensor the
   kernel's wrapper runs its plain PyTorch version;
-* ``impl="ref"``    — the oracles in ``kernels/ref.py``;
-* ``impl="auto"``   — the kernel on a CUDA tensor, ``ref`` on a CPU tensor.
+* ``impl="chunked"`` — ``ssd`` and ``rwkv6`` only: the plain chunked version
+  beside the kernel (the reference's ``ops.ssd_chunked`` and
+  ``ops.rwkv6_chunked``), on any device;
+* ``impl="ref"``     — the oracles in ``kernels/ref.py``;
+* ``impl="auto"``    — the kernel on a CUDA tensor; on a CPU tensor ``ref``,
+  or for ``ssd`` and ``rwkv6`` ``chunked``, as the reference resolves it.
 
 There is no fallback: if the kernel fails, the call fails.  ``block_n``,
 ``block_q``, ``block_k`` and ``shard_hint`` keep the JAX signature and are
@@ -19,17 +23,30 @@ import torch
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _kmeans_kernel
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_kernel
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
 from repro_torch.kernels.segment_reduce import segment_reduce as _segment_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
-IMPLS = ("auto", "pallas", "ref")
+IMPLS = ("auto", "pallas", "chunked", "ref")
 
 
-def _resolve(impl: str, x: torch.Tensor) -> str:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+def _resolve(impl: str, x: torch.Tensor, *, cpu: str = "ref",
+             impls: tuple[str, ...] = ("auto", "pallas", "ref")) -> str:
+    """The impl to run on ``x``'s device: ``auto`` is the kernel on a CUDA
+    tensor and ``cpu`` on a CPU tensor; ``impls`` are those the op has."""
+    if impl not in impls:
+        raise ValueError(f"unknown impl {impl!r}; choose from {impls}")
     if impl == "auto":
-        return "pallas" if x.device.type == "cuda" else "ref"
+        return "pallas" if x.device.type == "cuda" else cpu
     return impl
+
+
+def _into(out_state: torch.Tensor | None, y: torch.Tensor, state: torch.Tensor):
+    if out_state is not None:
+        state = out_state.copy_(state)
+    return y, state
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -65,3 +82,41 @@ def kmeans_assign(points: torch.Tensor, centers: torch.Tensor, *,
     if _resolve(impl, points) == "pallas":
         return _kmeans_kernel(points, centers, block_n=block_n)
     return R.kmeans_assign_ref(points, centers)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, *, init_state: torch.Tensor | None = None,
+        out_state: torch.Tensor | None = None, chunk: int = 128,
+        impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD: ``(y [B, S, H, P], h_T [B, H, P, N] f32)`` of ``x [B, S,
+    H, P]``, ``dt [B, S, H]``, ``a [H]``, ``b, c [B, S, G, N]`` from
+    ``init_state`` (see ``kernels.ssd_scan.ssd_scan``).  With ``out_state``
+    the final state is written there (it may be ``init_state``: a cache
+    updated in place)."""
+    impl = _resolve(impl, x, cpu="chunked", impls=IMPLS)
+    if impl == "pallas":
+        return _ssd_kernel(x, dt, a, b, c, init_state=init_state, out_state=out_state,
+                           chunk=chunk)
+    if impl == "ref":
+        return _into(out_state, *R.ssd_ref(x, dt, a, b, c, init_state=init_state))
+    return ssd_scan_plain(x, dt, a, b, c, init_state=init_state, out_state=out_state,
+                          chunk=chunk)
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+          u: torch.Tensor, *, init_state: torch.Tensor | None = None,
+          out_state: torch.Tensor | None = None, chunk: int = 64,
+          impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 wkv: ``(out [B, S, H, V], S_T [B, H, K, V] f32)`` of ``r, k, w
+    [B, S, H, K]``, ``v [B, S, H, V]``, ``u [H, K]`` from ``init_state``
+    (see ``kernels.rwkv6_scan.rwkv6_scan``; ``ref`` has no decay floor).
+    With ``out_state`` the final state is written there (it may be
+    ``init_state``: a cache updated in place)."""
+    impl = _resolve(impl, r, cpu="chunked", impls=IMPLS)
+    if impl == "pallas":
+        return _rwkv6_kernel(r, k, v, w, u, init_state=init_state, out_state=out_state,
+                             chunk=chunk)
+    if impl == "ref":
+        return _into(out_state, *R.rwkv6_ref(r, k, v, w, u, init_state=init_state))
+    return rwkv6_scan_plain(r, k, v, w, u, init_state=init_state, out_state=out_state,
+                            chunk=chunk)

@@ -1,8 +1,7 @@
 """Plain PyTorch oracles for the kernels.
 
-The counterpart of ``repro/kernels/ref.py`` for the kernels ported so far:
-each function is the semantic ground truth, small and obviously right,
-written without regard to speed.  Tests hold the kernels' wrappers against
+The counterpart of ``repro/kernels/ref.py``: each function is the semantic
+ground truth, small and obviously right, written without regard to speed.  Tests hold the kernels' wrappers against
 these; ``kernels.ops`` reaches them with ``impl="ref"``.
 """
 from __future__ import annotations
@@ -70,3 +69,61 @@ def kmeans_assign_ref(points: torch.Tensor, centers: torch.Tensor
     sums = onehot.T @ points
     counts = onehot.sum(0)[:, None]
     return assign.to(torch.int32), torch.cat([sums, counts], dim=1)
+
+
+def _state_dtype(*xs: torch.Tensor) -> torch.dtype:
+    """f32, or f64 where an input is f64 (the float64 oracle of the smoke)."""
+    return torch.float64 if any(x.dtype == torch.float64 for x in xs) else torch.float32
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, *, init_state: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD, one step at a time: ``h_t = exp(a·dt_t)·h_{t-1} + dt_t·
+    x_t ⊗ B_t``, ``y_t = C_t · h_t``.
+
+    ``x [B, S, H, P]``, ``dt [B, S, H]``, ``a [H]`` (negative), ``b, c [B, S,
+    G, N]`` (group ``g`` serves heads ``g·H/G …``), ``init_state [B, H, P,
+    N]``.  The state is f32 (f64 where an input is f64); returns ``(y`` in
+    ``x``'s dtype``, h_T)``.
+    """
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    f = _state_dtype(x, dt, a, b, c, *(() if init_state is None else (init_state,)))
+    bb = b.repeat_interleave(h // g, dim=2).to(f)  # [B, S, H, N]
+    cc = c.repeat_interleave(h // g, dim=2).to(f)
+    dtf = dt.to(f)
+    decay = torch.exp(a.to(f)[None, None, :] * dtf)  # [B, S, H]
+    state = (torch.zeros((bsz, h, p, n), dtype=f, device=x.device)
+             if init_state is None else init_state.to(f))
+    ys = []
+    for t in range(s):
+        dx = dtf[:, t, :, None] * x[:, t].to(f)  # [B, H, P]
+        state = state * decay[:, t, :, None, None] + dx[..., :, None] * bb[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cc[:, t]))
+    return torch.stack(ys, 1).to(x.dtype), state
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor, *, init_state: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 wkv, one step at a time: ``out_t = r_t · (S_{t-1} + u ∘ k_t
+    v_tᵀ)``, ``S_t = diag(w_t)·S_{t-1} + k_t v_tᵀ``.
+
+    ``r, k, w [B, S, H, K]`` (``w`` the decay in (0, 1)), ``v [B, S, H, V]``,
+    ``u [H, K]``, ``init_state [B, H, K, V]``.  No floor on the decay (the
+    chunked forms floor ``log w``).  The state is f32 (f64 where an input is
+    f64); returns ``(out`` in ``v``'s dtype``, S_T)``.
+    """
+    bsz, s, h, kd = r.shape
+    vd = v.shape[-1]
+    f = _state_dtype(r, k, v, w, u, *(() if init_state is None else (init_state,)))
+    state = (torch.zeros((bsz, h, kd, vd), dtype=f, device=r.device)
+             if init_state is None else init_state.to(f))
+    uf = u.to(f)[None, :, :, None]
+    outs = []
+    for t in range(s):
+        kv = k[:, t].to(f)[..., :, None] * v[:, t].to(f)[..., None, :]  # [B, H, K, V]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t].to(f), state + uf * kv))
+        state = state * w[:, t].to(f)[..., :, None] + kv
+    return torch.stack(outs, 1).to(v.dtype), state

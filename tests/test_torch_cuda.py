@@ -12,7 +12,12 @@ plus ``1e-5`` of the sum of the addends' magnitudes (f32 atomics in an order
 the kernel does not fix, against float64).  K4 (flash attention) within
 ``3e-5`` of ``attention_ref`` in f32, and in bf16 within one bf16 step of the
 output (``2^-7·|out|``) plus that; a full-width qwen3-0.6b decode step's
-logits within ``chip_smoke.LM_LOGIT_TOL`` of the plain path's.
+logits within ``chip_smoke.LM_LOGIT_TOL`` of the plain path's.  K5 and K6
+(the SSD and wkv scans) against their plain chunked versions: both compute
+in f32 over chunks of other lengths, so states and f32 outputs of O(1)
+inputs agree within ``atol = rtol = 1e-4``, bf16 outputs within one bf16
+step more (``2^-7``); the in-place and strided-view calls equal the plain
+calls of the same kernel exactly.
 """
 import numpy as np
 import pytest
@@ -32,7 +37,9 @@ from repro_torch.kernels.kmeans_assign import (
     near_ties,
 )
 from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.segment_reduce import segment_reduce, segment_reduce_plain
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import model as M
 
 
@@ -247,4 +254,136 @@ def test_qwen3_full_width_decode_step_matches_the_plain_path(dev):
         assert flash_attention.launches == (cfg.n_layers if impl == "auto" else 0)
     assert out["auto"].dtype == torch.float32 and out["auto"].shape == (2, cfg.vocab)
     err = float((out["auto"] - out["ref"]).abs().max())
-    assert err <= chip_smoke.LM_LOGIT_TOL, err
+    assert err <= chip_smoke.LM_LOGIT_TOL["qwen3-0.6b"], err
+
+
+def _scan_close(got, want, dtype):
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 + 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=rtol)
+
+
+def _ssd_inputs(dev, b, s, h, p, g, n, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn((b, s, h, p), generator=gen) * 0.5).to(dev, dtype)
+    dt = (torch.randn((b, s, h), generator=gen) * 0.3).abs().add(0.01).to(dev)
+    a = -(torch.randn((h,), generator=gen) * 2.0).abs().add(0.1).to(dev)
+    bm, cm = ((torch.randn((b, s, g, n), generator=gen) * 0.5).to(dev, dtype)
+              for _ in range(2))
+    h0 = (torch.randn((b, h, p, n), generator=gen) * 0.5).to(dev)
+    return x, dt, a, bm, cm, h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 100, 4, 64, 2, 64),  # two chunks, the second ragged, P = N = 64
+    (1, 1, 6, 64, 3, 64),  # a decode step
+    (2, 130, 6, 8, 3, 16),  # narrow heads, three chunks
+    (1, 64, 2, 40, 1, 24),  # P, N off the tile
+])
+def test_ssd_kernel_matches_plain_version(dev, case, dtype):
+    x, dt, a, bm, cm, h0 = _ssd_inputs(dev, *case, dtype)
+    before = ssd_scan.launches
+    for init in (None, h0):
+        y, h = ops.ssd(x, dt, a, bm, cm, init_state=init, impl="auto")
+        want_y, want_h = ssd_scan_plain(x, dt, a, bm, cm, init_state=init)
+        assert y.dtype == dtype and h.dtype == torch.float32
+        _scan_close(y, want_y, dtype)
+        _scan_close(h, want_h, torch.float32)
+    assert ssd_scan.launches == before + 2
+
+
+def test_ssd_kernel_writes_the_state_in_place_and_reads_views(dev):
+    b, s, h, p, g, n = 2, 70, 4, 64, 2, 64
+    gen = torch.Generator().manual_seed(1)
+    conv = torch.randn((b, s, h * p + 2 * g * n), generator=gen).to(dev, torch.bfloat16)
+    x = conv[..., :h * p].unflatten(-1, (h, p))  # strided views, as mamba_apply has
+    bm = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = conv[..., h * p + g * n:].unflatten(-1, (g, n))
+    _, dt, a, _, _, h0 = _ssd_inputs(dev, b, s, h, p, g, n, torch.bfloat16)
+    want_y, want_h = ssd_scan(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(),
+                              init_state=h0)
+    state = h0.clone()
+    y, got_h = ssd_scan(x, dt, a, bm, cm, init_state=state, out_state=state)
+    assert got_h is state and torch.equal(y, want_y) and torch.equal(state, want_h)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(dev):
+    x, dt, a, bm, cm, h0 = _ssd_inputs(dev, 1, 8, 2, 16, 1, 16, torch.float32)
+    with pytest.raises(TypeError, match="all f32 or all bf16"):
+        ssd_scan(x.half(), dt, a, bm.half(), cm.half())
+    with pytest.raises(TypeError, match="dt and a in f32"):
+        ssd_scan(x, dt.double(), a, bm, cm)
+    with pytest.raises(ValueError, match="1 to 64"):
+        wide = x.repeat(1, 1, 1, 5)
+        ssd_scan(wide, dt, a, bm, cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_scan(x, dt.cpu(), a, bm, cm)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        ssd_scan(x, dt, a, bm, cm, init_state=h0.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+def _rwkv_inputs(dev, b, s, h, kd, vd, dtype, seed=0, w_lo=0.15):
+    gen = torch.Generator().manual_seed(seed)
+    r, k = ((torch.randn((b, s, h, kd), generator=gen) * 0.5).to(dev, dtype)
+            for _ in range(2))
+    v = (torch.randn((b, s, h, vd), generator=gen) * 0.5).to(dev, dtype)
+    w = (torch.sigmoid(torch.randn((b, s, h, kd), generator=gen)) * 0.8 + w_lo).to(dev)
+    u = (torch.randn((h, kd), generator=gen) * 0.5).to(dev)
+    s0 = (torch.randn((b, h, kd, vd), generator=gen) * 0.5).to(dev)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 100, 4, 64, 64, 64),  # two chunks, the second ragged
+    (1, 1, 4, 64, 64, 64),  # a decode step: floor −88
+    (2, 130, 3, 8, 16, 32),  # chunk 32: the kernel's tile follows it
+    (1, 80, 2, 24, 40, 64),  # K, V off the tile
+])
+def test_rwkv6_kernel_matches_plain_version(dev, case, dtype):
+    *shape, chunk = case
+    r, k, v, w, u, s0 = _rwkv_inputs(dev, *shape, dtype)
+    before = rwkv6_scan.launches
+    for init in (None, s0):
+        y, st = ops.rwkv6(r, k, v, w, u, init_state=init, chunk=chunk, impl="auto")
+        want_y, want_s = rwkv6_scan_plain(r, k, v, w, u, init_state=init, chunk=chunk)
+        assert y.dtype == dtype and st.dtype == torch.float32
+        _scan_close(y, want_y, dtype)
+        _scan_close(st, want_s, torch.float32)
+    assert rwkv6_scan.launches == before + 2
+
+
+def test_rwkv6_kernel_floors_the_decay_as_the_plain_version(dev):
+    """Decays down to e^-5, below the e^(−88/64) floor of a 64-step chunk."""
+    r, k, v, _, u, s0 = _rwkv_inputs(dev, 2, 100, 4, 64, 64, torch.float32)
+    w = torch.exp(-5.0 * torch.rand(r.shape, generator=torch.Generator().manual_seed(3))
+                  ).to(dev)
+    y, st = rwkv6_scan(r, k, v, w, u, init_state=s0)
+    want_y, want_s = rwkv6_scan_plain(r, k, v, w, u, init_state=s0)
+    assert bool(torch.isfinite(y).all())
+    _scan_close(y, want_y, torch.float32)
+    _scan_close(st, want_s, torch.float32)
+
+
+def test_rwkv6_kernel_writes_the_state_in_place(dev):
+    r, k, v, w, u, s0 = _rwkv_inputs(dev, 2, 70, 4, 64, 64, torch.bfloat16)
+    want_y, want_s = rwkv6_scan(r, k, v, w, u, init_state=s0)
+    state = s0.clone()
+    y, st = rwkv6_scan(r, k, v, w, u, init_state=state, out_state=state)
+    assert st is state and torch.equal(y, want_y) and torch.equal(state, want_s)
+
+
+def test_rwkv6_kernel_refuses_what_it_does_not_take(dev):
+    r, k, v, w, u, s0 = _rwkv_inputs(dev, 1, 8, 2, 16, 16, torch.float32)
+    with pytest.raises(TypeError, match="all f32 or all bf16"):
+        rwkv6_scan(r.half(), k.half(), v.half(), w, u)
+    with pytest.raises(TypeError, match="w and u in f32"):
+        rwkv6_scan(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError, match="1 to 64"):
+        rwkv6_scan(r, k, v.repeat(1, 1, 1, 5), w, u)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rwkv6_scan(r, k, v, w, u.cpu())
+    with pytest.raises(ValueError, match="contiguous f32"):
+        rwkv6_scan(r, k, v, w, u, out_state=s0.double())

@@ -1,8 +1,9 @@
 """The port's LM stack (``repro_torch.models``, ``launch.serve_lm``) against
-the JAX package's, on the four dense attention architectures at
-``reduced()`` size (f32), with the same weights: JAX's ``M.init`` pytree,
-carried across by ``convert.lm_params_from_jax`` (norm scales perturbed off
-their zero init, so a misplaced ``1 + scale`` shows).
+the JAX package's, on the four dense attention architectures, zamba2-7b
+(Mamba-2 and shared attention) and rwkv6-1.6b at ``reduced()`` size (f32),
+with the same weights: JAX's ``M.init`` pytree, carried across by
+``convert.lm_params_from_jax`` (norm scales perturbed off their zero init,
+so a misplaced ``1 + scale`` shows).
 
 Tolerances: everything is f32 on both sides; the two packages sum the same
 products in other orders (XLA's and PyTorch's CPU matmuls, the chunked
@@ -30,7 +31,6 @@ from repro_torch.configs.base import (
     ATTN,
     ATTN_MOE,
     MAMBA2,
-    RWKV6,
     SHARED_ATTN,
     get_arch,
     list_archs,
@@ -41,7 +41,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 
-ARCHS = ["gemma2-9b", "qwen3-0.6b", "stablelm-3b", "starcoder2-15b"]
+ARCHS = ["gemma2-9b", "qwen3-0.6b", "rwkv6-1.6b", "stablelm-3b", "starcoder2-15b",
+         "zamba2-7b"]
+ATTN_ARCHS = [a for a in ARCHS if a != "rwkv6-1.6b"]  # those with an attention block
 TOL = dict(atol=1e-4, rtol=1e-4)
 CPU = torch.device("cpu")
 
@@ -80,7 +82,7 @@ def test_configs_copied_field_for_field():
         assert dataclasses.asdict(j.reduced()) == dataclasses.asdict(t.reduced())
         assert t.pdtype == torch.bfloat16 and t.reduced().cdtype == torch.float32
     with pytest.raises(KeyError):
-        get_arch("zamba2-7b")
+        get_arch("mixtral-8x22b")
 
 
 def test_rmsnorm_and_rope_match_jax():
@@ -101,8 +103,11 @@ def _attention_block_case(lm, local):
     rng = np.random.RandomState(2)
     x = rng.randn(2, 6, cfg_t.d_model).astype(np.float32)
     pos = np.tile(np.arange(6, dtype=np.int32), (2, 1))
-    pj = jax.tree.map(lambda a: a[0], params_j["stages"]["slot0"]["attn"])
-    pt = params_t["layers"][0]["attn"]
+    if "shared_attn" in params_j:  # zamba2: the one shared block
+        pj, pt = params_j["shared_attn"]["attn"], params_t["shared_attn"]["attn"]
+    else:
+        pj = jax.tree.map(lambda a: a[0], params_j["stages"]["slot0"]["attn"])
+        pt = params_t["layers"][0]["attn"]
     want, _ = JA.attn_apply(pj, cfg_j, jnp.asarray(x), jnp.asarray(pos), local=local)
     got, _ = A.attn_apply(pt, cfg_t, torch.from_numpy(x), torch.from_numpy(pos),
                           local=local)
@@ -124,6 +129,7 @@ def _attention_block_case(lm, local):
     np.testing.assert_allclose(_np(ct.k), np.asarray(cj.k), **TOL)
 
 
+@pytest.mark.parametrize("lm", ATTN_ARCHS, indirect=True)
 def test_attention_block_matches_jax(lm):
     """One attention block, without and with a cache; gemma2 also as a
     sliding-window layer."""
@@ -196,7 +202,37 @@ def test_serve_lm_main_runs_on_the_cpu(capsys):
     assert '"arch": "qwen3-0.6b-reduced"' in out and '"decode_steps": 3' in out
 
 
-@pytest.mark.parametrize("kind", [ATTN_MOE, MAMBA2, RWKV6, SHARED_ATTN])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_serve_lm_main_serves_the_recurrent_archs(arch, capsys):
+    serve_lm.main(["--arch", arch, "--reduced", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "70", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert f'"arch": "{arch}-reduced"' in out and '"generated_shape": [\n  2,\n  3\n ]' in out
+
+
+def test_zamba2_shared_attention_is_shared():
+    """Every ``SHARED_ATTN`` layer is the one ``params["shared_attn"]`` dict
+    (``tests/test_models.py::test_zamba2_shared_attention_is_shared``), in
+    ``M.init`` and after ``convert``; ``param_count`` counts it once, as
+    JAX's ``param_count`` does, and each application has its own KV cache."""
+    full = M.layer_kinds(get_arch("zamba2-7b"))
+    assert full.count(SHARED_ATTN) == 11 and full.count(MAMBA2) == 70
+    cfg = get_arch("zamba2-7b").reduced()
+    kinds = M.layer_kinds(cfg)
+    assert kinds.count(SHARED_ATTN) == 2 and kinds.count(MAMBA2) == 16
+    cfg_j = jget_arch("zamba2-7b").reduced()
+    params_j = JM.init(jax.random.PRNGKey(0), cfg_j)
+    converted = lm_params_from_jax(jax.tree.map(np.asarray, params_j), cfg, CPU)
+    for params in (M.init(torch.Generator().manual_seed(0), cfg), converted):
+        shared = [p for p, k in zip(params["layers"], kinds) if k == SHARED_ATTN]
+        assert all(p is params["shared_attn"] for p in shared)
+        assert M.param_count(params) == JM.param_count(params_j)
+    caches = M.make_caches(cfg, 2, 8, CPU)
+    kv = [c for c, k in zip(caches, kinds) if k == SHARED_ATTN]
+    assert len({id(c.k) for c in kv}) == len(kv) == cfg.n_stages
+
+
+@pytest.mark.parametrize("kind", [ATTN_MOE])
 def test_unported_block_kinds_raise(kind):
     cfg = dataclasses.replace(get_arch("qwen3-0.6b").reduced(), stage_pattern=(ATTN, kind))
     with pytest.raises(NotImplementedError, match="slice"):
