@@ -14,7 +14,8 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    exists, the single PyTorch call computing the same function (CUDA events,
    warmed up, median of 10; for K4, K5 and K6 also the kernel's own
    device time from ``torch.profiler``, which leaves out the host's launch
-   overhead that the event time of a decode-sized call includes);
+   overhead that the event time of a decode-sized call includes, and for
+   K4 SDPA's device time beside its event time);
 2. path phase — runs the LM serving path (``repro_torch.launch.serve_lm.
    generate`` at full width and depth on qwen3-0.6b, zamba2-7b and
    rwkv6-1.6b: batch 8, a 512-token prompt, 32 greedy steps, K4 on every
@@ -32,12 +33,19 @@ of length D, within ``γ = (D + 2)·u·scale·‖q_i‖·max_j ‖k_j‖`` of th
 one (Cauchy–Schwarz on ``Σ|q_d k_d|``), plus ``4u·softcap`` for the
 ``tanh``; shifting every logit of a row by at most ``ε = 2γ + 8u·softcap``
 moves each softmax weight by a factor within ``e^{±2ε}``, and each version
-sums the row's ``n`` live terms in f32 (``n·u`` of the sum each).  So an
-output may differ by ``max|v| · (2ε + 2(n + 4)u)``, with ``max|v|`` over
+sums the row's ``n`` live terms in f32 (``n·u`` of the sum each; the decode
+form's merge of its partials adds a few roundings, inside the ``+4``).  So
+an output may differ by ``max|v| · (2ε + 2(n + 4)u)``, with ``max|v|`` over
 the head's values; a bf16 output adds one bf16 step, ``2^-7·|out|``, where
-the two f32 results round to neighbours.  At every shape the check must
-reject a zero output and the kernel's own output with the first 64 keys
-dropped.
+the two f32 results round to neighbours.  The bf16 forms also round each
+``p`` to bf16 (relative ``2^-9``) for the ``p·v`` product while ``l`` sums
+the f32 ``p``: that moves the output by at most ``2^-9·Σ_j p_j|v_j| / l``,
+and ``2^-8·attention_ref(q, k, |v|)`` bounds it with a factor 2 to spare.
+At every shape the check must reject a zero output, the kernel's own output
+with the first live 64-key block dropped, and with the last live 64-key
+block dropped (a lost decode split).  The decode form is also held, within
+the same tolerance, against ``flash_decode_plain``, its arithmetic in plain
+PyTorch with the kernel's own splits.
 
 K5 (``ssd_scan``) and K6 (``rwkv6_scan``) are held against their plain
 chunked versions and against the float64 step-by-step oracles (``ssd_ref``;
@@ -150,7 +158,10 @@ kNN's 100 distances are within ``1e-5`` relative of a float64 ``torch.topk``
 of all distances, and its neighbour set is the same except for rows whose
 distance ties the 100th.
 
-Output: one line per check, then a ``{"kernels": [...]}`` summary line, the
+Output: after the build, the count of tensor-core instructions (``HGMMA``,
+``HMMA``) in K4's library (``cuobjdump -sass``; none fails the run); one
+line per check (K4's with the form each call took), then a ``{"kernels":
+[...]}`` summary line, the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Without CUDA, or without the rest of the repository beside it, it exits 2 and
@@ -159,6 +170,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -169,6 +181,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
+# K4's kernels, for the profiler: the f32 form, the bf16 prefill form, and
+# the bf16 decode form's split and combine kernels.
+K4_KERNELS = ("flash_kernel", "flash_prefill_kernel", "flash_decode_kernel",
+              "flash_combine_kernel")
 # LM path logits, per model: kernel path vs plain path and forward (docstring)
 LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5}
 LM_LOGIT_RMS_TOL = {"zamba2-7b": 0.4, "rwkv6-1.6b": 0.1}  # RMS of the same differences
@@ -176,6 +192,30 @@ LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4}  # f32: vs plain path and f
 LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b")
 REPS = 10
 F32_U = 2.0 ** -24  # unit roundoff of float32
+
+
+def attention_tolerance(q, k, v, want, n_keys, **kw):
+    """Per output element, what K4 and ``attention_ref`` may differ by
+    (module docstring): ``max|v| · (2ε + 2(n + 4)u)`` per row, ``ε =
+    2(D + 2)·u·scale·‖q_i‖·max_j‖k_j‖ + 8u·softcap``; for bf16 outputs
+    plus one bf16 step ``2^-7·|want|`` and the probabilities' bf16 rounding
+    ``2^-8·attention_ref(q, k, |v|)``.  ``kw`` are the call's masking
+    arguments (``causal``, ``window``, ``softcap``, ``q_offset``)."""
+    import torch
+    from repro_torch.kernels.ref import attention_ref
+
+    b, hq, sq, d = q.shape
+    rep = hq // k.shape[1]
+    qn = q.float().norm(dim=-1, keepdim=True)                      # [B, Hq, Sq, 1]
+    kmax = k.float().norm(dim=-1).amax(-1).repeat_interleave(rep, 1)  # [B, Hq]
+    vmax = v.float().abs().amax((-1, -2)).repeat_interleave(rep, 1)   # [B, Hq]
+    eps = (2 * (d + 2) * F32_U / d ** 0.5 * qn * kmax[:, :, None, None]
+           + 8 * F32_U * kw.get("softcap", 0.0))
+    tol = vmax[:, :, None, None] * (2 * eps + 2 * (n_keys + 4) * F32_U)
+    if q.dtype == torch.bfloat16:
+        tol = (tol + 2.0 ** -7 * want.float().abs()
+               + 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(), **kw))
+    return tol
 
 
 def main() -> int:
@@ -586,35 +626,21 @@ class Smoke:
 
     # -- K4: flash attention -------------------------------------------------
 
-    def attention_tolerance(self, q, k, v, want, softcap, n_keys):
-        """Per output element, what K4 and ``attention_ref`` may differ by
-        (module docstring): ``max|v| · (2ε + 2(n + 4)u)`` per row, ``ε =
-        2(D + 2)·u·scale·‖q_i‖·max_j‖k_j‖ + 8u·softcap``, plus one bf16
-        step ``2^-7·|want|`` for bf16 outputs."""
-        torch = self.torch
-        b, hq, sq, d = q.shape
-        rep = hq // k.shape[1]
-        qn = q.float().norm(dim=-1, keepdim=True)                      # [B, Hq, Sq, 1]
-        kmax = k.float().norm(dim=-1).amax(-1).repeat_interleave(rep, 1)  # [B, Hq]
-        vmax = v.float().abs().amax((-1, -2)).repeat_interleave(rep, 1)   # [B, Hq]
-        eps = (2 * (d + 2) * F32_U / d ** 0.5 * qn * kmax[:, :, None, None]
-               + 8 * F32_U * softcap)
-        tol = vmax[:, :, None, None] * (2 * eps + 2 * (n_keys + 4) * F32_U)
-        if q.dtype == torch.bfloat16:
-            tol = tol + 2.0 ** -7 * want.float().abs()
-        return tol
-
     def kernel_attention(self, key, q, k, v, *, q_offset, window=None, softcap=0.0):
-        """K4 against ``attention_ref`` at one shape of the LM path: the
-        check, the proof that it bites (a zero output, and the kernel's own
-        output with the first 64-key block dropped, must both fail), and
-        kernel, plain and library times."""
+        """K4 against ``attention_ref`` (and the decode form against
+        ``flash_decode_plain`` too) at one shape of the LM path: the check,
+        the proof that it bites (a zero output, and the kernel's own output
+        with the first or the last live 64-key block dropped, must all
+        fail), the form the call took, and kernel, plain and library times."""
         torch = self.torch
-        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels.ref import attention_ref
 
+        flash_attention = FA.flash_attention
         kw = dict(causal=True, window=window, softcap=softcap)
+        before = dict(flash_attention.forms)
         got = flash_attention(q, k, v, q_offset=q_offset, **kw)
+        form = next(f for f, n in flash_attention.forms.items() if n != before[f])
         want = attention_ref(q, k, v, q_offset=q_offset, **kw)
         self.sync()
         b, hq, sq, d = q.shape
@@ -625,8 +651,8 @@ class Smoke:
         if window is not None:
             live &= kpos > qpos - window
         n_keys = live.sum(1)                                            # [Sq]
-        tol = self.attention_tolerance(q, k, v, want, softcap,
-                                       n_keys[None, None, :, None].double())
+        tol = attention_tolerance(q, k, v, want, n_keys[None, None, :, None].double(),
+                                  q_offset=q_offset, **kw)
 
         def check(what, out, must_fail=False):
             err = (out.float() - want.float()).abs()
@@ -639,37 +665,53 @@ class Smoke:
             return float(err.max())
 
         err = check(key, got)
+        splits = None
+        if form == "bf16-decode":
+            t_lo, t_hi = FA.key_tiles(sq, skv, q_offset, True, window)
+            splits, _ = FA.decode_splits(b, hkv, t_hi - t_lo, FA._sm_count(q.device.index))
+            check(key + " vs flash_decode_plain", FA.flash_decode_plain(
+                q, k, v, splits=splits, q_offset=q_offset, **kw))
         check(key + " zeros", torch.zeros_like(got), must_fail=True)
-        dropped = flash_attention(q, k[:, :, 64:], v[:, :, 64:], q_offset=q_offset - 64,
+        seen = live.any(0).nonzero()[:, 0]
+        lo = int(seen[0]) // 64 * 64 + 64  # past the first live 64-key block
+        dropped = flash_attention(q, k[:, :, lo:], v[:, :, lo:], q_offset=q_offset - lo,
                                   **kw)
         self.sync()
         check(key + " first key block dropped", dropped, must_fail=True)
+        hi = int(seen[-1]) // 64 * 64  # the last live 64-key block starts here
+        dropped = flash_attention(q, k[:, :, :hi], v[:, :, :hi], q_offset=q_offset, **kw)
+        self.sync()
+        check(key + " last key block dropped", dropped, must_fail=True)
 
-        library_ms = None
+        library_ms = library_device_ms = None
         if softcap == 0.0:  # SDPA has no softcap
             import torch.nn.functional as F
             mask = None if q_offset == 0 and window is None else live
-            library_ms = self.time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+            library_ms = self.time_ms(sdpa)
+            library_device_ms = (busy := self.device_busy_ms(sdpa, names=())) and busy["total"]
         # Bound: q, the keys and values some row sees, and the output, each
         # moved once; 4·D flops per live (query, key) pair.
-        seen = int(live.any(0).sum())
-        nbytes = (2 * q.numel() + 2 * b * hkv * seen * d) * q.element_size()
+        nbytes = (2 * q.numel() + 2 * b * hkv * len(seen) * d) * q.element_size()
         flops = 4 * b * hq * int(n_keys.sum()) * d
         peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = flops / peak * 1e3
         self.record(
-            key, kernel="flash_attention",
+            key, kernel="flash_attention", form=form, splits=splits,
             shape=[list(q.shape), list(k.shape), str(q.dtype).split(".")[-1]],
             q_offset=q_offset, window=window, softcap=softcap, max_abs_err=err,
             max_tol=float(tol.max()),
             ms=self.time_ms(lambda: flash_attention(q, k, v, q_offset=q_offset, **kw)),
             device_ms=(busy := self.device_busy_ms(
                 lambda: flash_attention(q, k, v, q_offset=q_offset, **kw),
-                names=("flash_kernel",))) and busy["total"],
+                names=K4_KERNELS)) and busy["total"],
             plain_ms=self.time_ms(lambda: attention_ref(q, k, v, q_offset=q_offset, **kw)),
-            library_ms=library_ms,
+            library_ms=library_ms, library_device_ms=library_device_ms,
             bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
             peak_ops_per_s=peak,
@@ -680,8 +722,9 @@ class Smoke:
         128]`` bf16 against the ``[8, 545, 8, 128]`` KV cache, offset 0) and
         decode (one query at offset 543), both reading the cache in place;
         zamba2-7b's (q ``[8, 32, 512, 112]`` over ``[8, 545, 32, 112]``, then
-        one query at offset 543); and gemma2-9b's local layer (``[1, 16, 2048, 256]``, Hkv 8, window
-        1024, softcap 50) in f32 and bf16."""
+        one query at offset 543); and gemma2-9b's local layer (``[1, 16, 2048,
+        256]``, Hkv 8, window 1024, softcap 50) in f32 and bf16, and its bf16
+        decode (one query at offset 2047 over the same keys)."""
         torch = self.torch
         g = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -714,6 +757,8 @@ class Smoke:
             name = "f32" if dtype == torch.float32 else "bf16"
             self.kernel_attention(f"flash_attention@gemma2-local {name}", q, k, v,
                                   q_offset=0, window=1024, softcap=50.0)
+        self.kernel_attention("flash_attention@gemma2-local-decode bf16", q[:, :, -1:],
+                              k, v, q_offset=2047, window=1024, softcap=50.0)
         torch.cuda.empty_cache()
 
     # -- K5 and K6: the recurrent scans --------------------------------------
@@ -977,11 +1022,13 @@ class Smoke:
         self.sync()
         for fn_ in wrappers.values():
             fn_.launches = 0
+        flash_attention.forms = dict.fromkeys(flash_attention.forms, 0)
         t0 = time.perf_counter()
         out = fn()
         self.sync()
         wall = time.perf_counter() - t0
         launches = {name: fn_.launches for name, fn_ in wrappers.items()}
+        launches["flash_attention forms"] = dict(flash_attention.forms)
         print(json.dumps({"path": name, "wall_s": wall, "units": units,
                           "units_per_s": units / wall, "launches": launches}),
               flush=True)
@@ -1270,6 +1317,13 @@ class Smoke:
             if launch[kernel] != count:
                 raise AssertionError(f"lm {arch}: {kernel} launched {launch[kernel]} "
                                      f"times, not {count}")
+        # Every bf16 K4 call: the prefill form in the prefill, the decode
+        # form in every step.
+        n_attn = expect["flash_attention"] // (1 + steps)
+        forms = {"f32": 0, "bf16-prefill": n_attn, "bf16-decode": n_attn * steps}
+        if launch["flash_attention forms"] != forms:
+            raise AssertionError(f"lm {arch}: K4 forms {launch['flash_attention forms']}, "
+                                 f"not {forms}")
         if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
             raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
 
@@ -1327,7 +1381,7 @@ class Smoke:
         step_ms = self.time_ms(lambda: M.decode_step(params, cfg, tok, caches, max_len - 1))
         step_busy = self.device_busy_ms(
             lambda: M.decode_step(params, cfg, tok, caches, max_len - 1),
-            names=("flash_kernel", "ssd_kernel", "rwkv6_kernel"))
+            names=(*K4_KERNELS, "ssd_kernel", "rwkv6_kernel"))
         # The vocab head: bf16 operands, f32 result (logits_fn) against the
         # naive f32 upcast of both operands.
         last = hidden[:, -1]
@@ -1368,6 +1422,7 @@ class Smoke:
             "near_tie_rows": int(near.any(1).sum()),
             "token_differences": int(differ.sum()),
             "launches": {k: launch[k] for k in expect},
+            "k4_forms": launch["flash_attention forms"],
         }
 
     def lm_f32_check(self, arch):
@@ -1494,6 +1549,22 @@ class Smoke:
 
     # -- the run ------------------------------------------------------------
 
+    def tensor_core_sass(self):
+        """Count the tensor-core instructions (``HGMMA`` for ``wgmma``,
+        ``HMMA`` for ``mma.sync``) in the built K4 library's machine code
+        (``cuobjdump -sass``); fail if there are none."""
+        from repro_torch.kernels import _build
+
+        cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.library_path("flash_attention"))],
+                              capture_output=True, text=True, check=True).stdout
+        ops = re.findall(r"\b(HGMMA|HMMA)\.", sass)
+        counts = {op: ops.count(op) for op in ("HGMMA", "HMMA")}
+        print(json.dumps({"k4_tensor_core_sass": counts}), flush=True)
+        if not sum(counts.values()):
+            raise AssertionError("K4's library holds no tensor-core instruction")
+
     def run(self):
         torch = self.torch
         from repro_torch.kernels import _build
@@ -1502,6 +1573,7 @@ class Smoke:
         _build.build(["segment_reduce", "hash_combine", "kmeans_assign",
                       "flash_attention", "ssd_scan", "rwkv6_scan"])
         print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+        self.tensor_core_sass()
         self.attention_phase()
         self.scan_phase()
         for arch in LM_ARCHS:  # each model is freed before the next phase
@@ -1535,6 +1607,7 @@ class Smoke:
                 "flash_attention@qwen3-decode": "lm qwen3-0.6b",
                 "flash_attention@gemma2-local f32": "lm qwen3-0.6b",
                 "flash_attention@gemma2-local bf16": "lm qwen3-0.6b",
+                "flash_attention@gemma2-local-decode bf16": "lm qwen3-0.6b",
                 "flash_attention@zamba2-prefill": "lm zamba2-7b",
                 "flash_attention@zamba2-decode": "lm zamba2-7b",
                 "ssd_scan@zamba2-prefill": "lm zamba2-7b",
@@ -1553,7 +1626,7 @@ class Smoke:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "device_ms": busy["total"] if isinstance(busy, dict) else busy,
-                "shape": rec["shape"],
+                "shape": rec["shape"], **({"form": rec["form"]} if "form" in rec else {}),
             })
         print(json.dumps({"kernels": kernels}), flush=True)
         smi = subprocess.run(

@@ -11,7 +11,8 @@ except at near ties (``near_ties``), and its sums within ``1e-5`` relative
 plus ``1e-5`` of the sum of the addends' magnitudes (f32 atomics in an order
 the kernel does not fix, against float64).  K4 (flash attention) within
 ``3e-5`` of ``attention_ref`` in f32, and in bf16 within one bf16 step of the
-output (``2^-7·|out|``) plus that; a full-width qwen3-0.6b decode step's
+output (``2^-7·|out|``) plus that, plus ``2^-8·attention_ref(q, k, |v|)`` for
+the probabilities the tensor-core forms round to bf16; a full-width qwen3-0.6b decode step's
 logits within ``chip_smoke.LM_LOGIT_TOL`` of the plain path's.  K5 and K6
 (the SSD and wkv scans) against their plain chunked versions: both compute
 in f32 over chunks of other lengths, so states and f32 outputs of O(1)
@@ -29,7 +30,7 @@ from repro_torch.data.synthetic import cluster_points, rmat_edges
 from repro_torch.configs.base import get_arch
 from repro_torch.kernels import hash_combine as HK
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, form
 from repro_torch.kernels.kmeans_assign import (
     kmeans_assign,
     kmeans_assign_plain,
@@ -192,6 +193,13 @@ ATTN_CASES = [
     (1, 2, 1, 70, 70, 112, True, None, 0.0, None),
     (1, 4, 2, 130, 200, 256, True, 100, 50.0, 60),
     (1, 2, 2, 5, 16, 8, True, None, 0.0, -2),
+    # bf16 decode form: many splits at rep 8, rep 8 with D = 112 and two
+    # positions (16 rows), D = 256 with a window and softcap, and a window
+    # that leaves the later rows nothing in the first split.
+    (2, 16, 2, 1, 2000, 128, True, None, 0.0, 1999),
+    (2, 8, 1, 2, 700, 112, True, None, 0.0, 690),
+    (1, 4, 2, 1, 1500, 256, True, 300, 50.0, 1400),
+    (1, 2, 2, 16, 700, 64, True, 40, 0.0, 600),
 ]
 
 
@@ -203,13 +211,22 @@ def test_flash_attention_matches_plain_version(dev, case, dtype):
     q, k, v = (torch.randn(shape, generator=g).mul(0.5).to(dev, dtype)
                for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
-    before = flash_attention.launches
+    before, forms = flash_attention.launches, dict(flash_attention.forms)
     got = ops.attention(q, k, v, impl="auto", **kw)
     assert flash_attention.launches == before + 1
+    forms[form(q, k)] += 1
+    assert flash_attention.forms == forms  # one call, counted under its form
     want = attention_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == want.shape
-    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
-    torch.testing.assert_close(got.float(), want.float(), atol=3e-5, rtol=rtol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=0.0)
+        return
+    # bf16: one bf16 step of the output, and the probabilities' rounding to
+    # bf16 for p·v, 2^-8·Σ p|v| / l.
+    tol = (3e-5 + 2.0 ** -7 * want.float().abs()
+           + 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(), **kw))
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
 
 
 def test_flash_attention_reads_a_cache_view_in_place(dev):
