@@ -59,7 +59,13 @@ longest chain: ``2d`` for the two dot products over the state width ``d``,
 ``2L`` for the sums over a chunk of ``L`` steps, ``16`` for the products,
 exponentials and the final adds, and per chunk carried ``L + 8``: ``τ₀ =
 u·(2d + 2L + 16 + nch·(L + 8))``, ``nch`` the kernel's 64-step chunks and
-``L`` the longer of the two forms' chunks.  Each decay factor is the
+``L`` the longer of the two forms' chunks.  K5's prefill form runs its
+products on the tensor cores with f32 operands split into bf16 parts,
+which adds ``ssd_tc_tau(d) = 2·2^-18 + u·(d + 64 + 3)`` to ``τ₀`` (the
+split residues of the two products a term crosses, and the tensor cores'
+sums rounding toward zero; derived in ``csrc/ssd_scan.cu``); its decode
+form is f32 FMAs.  Both forms take their exponentials with ``expf``, as
+before (no ``ex2.approx``), so they add no term beyond ``τ₀``'s.  Each decay factor is the
 exponential of a difference of running sums of ``a·dt`` (K5) or ``log w``
 (K6) inside a chunk, and an error in that exponent is a relative error of
 the term it scales.  K5's forms both take the running sum in order (the
@@ -71,9 +77,10 @@ w_j``, ``w_j = |Δ_j| + 2|a·dt_j|`` (the running sum's rounding at ``j``, the
 product's and the subtraction's), with ``Δ_j`` the running sum from the
 start of ``j``'s chunk of ``L`` steps (it contains the kernel's shorter
 chunk).  A term that decays fast is small wherever that weight is large,
-so K5's bound is per term: ``bound = τ₀·A + u·E``, where ``E`` is the
-recurrence run on absolute values that also carries every term's magnitude
-times its accumulated weight (``Smoke.ssd_bound``).  K6's kernel factors
+so K5's bound is per term: ``bound = τ·A + u·E`` (``τ = τ₀``, plus the
+tensor-core term for the prefill form), where ``E`` is the recurrence run
+on absolute values that also carries every term's magnitude times its
+accumulated weight (``ssd_bound``).  K6's kernel factors
 its decay as ``exp(λ_l)·exp(−λ_s)``, so its exponents carry the running sum's
 whole error: ``bound = τ·A`` per ``(b, h)``, ``τ = τ₀ + u·nch·3·L·D``, with
 ``D`` the largest magnitude a running sum of ``log w`` reaches in a chunk of
@@ -119,11 +126,23 @@ fix, while the plain version accumulates in float64.  Key ``k`` may differ by
 ``m_k`` counts the f32 additions that reach the key along the kernel's own
 accumulation, so ``m_k u sum_k |v|`` is the worst-case error of f32
 summation in any order: ``m_k`` is the key's pair count where every pair
-adds straight into the output (K1's global form, K2's deposit), and in K1's
-shared form the most pairs any one CTA adds into the key plus the CTAs that
-merge their partials.  At the main path's shapes the check also proves that
-it bites: a zero result and the kernel's result on a stream with every 50th
-pair dropped must both fail it.
+adds straight into the output (K2's deposit; K1's global form adds the CTAs
+that flush their tables of hot keys), in K1's shared form the most pairs
+any one CTA adds into the key plus the CTAs that merge their partials, and
+in K1's register form the most elements one thread's slot folds into the
+key in registers, plus the folds into the CTA's shared copy (a warp's
+shuffle tree and one fold per warp and slot, or one per slot of the CTA on
+that column) and the CTAs that merge (``Smoke.fold_additions``).  At the
+main path's shapes, and for K1's sums at a 64-key shape that takes its
+shared form, the check also proves that it bites: a zero result and the
+kernel's result on a stream with every 50th pair dropped must both fail it.
+K1's other dtypes and reducers (i32 sum, min and max exactly; bf16 sum;
+f32 prod; f32 max with NaN on live and dropped lanes) run on 5 keys (the
+register form) and on 64 (the shared form); the run fails unless every
+form of K1 was held against the plain version, and the ``kernels`` line
+lists the forms each kernel was checked in (``checked_forms``).  A device
+time whose profile recorded fewer of the kernel's launches than were made
+is printed as null.
 
 K3 (``kmeans_assign``) must give the plain version's assignment wherever
 the nearest centre is not a near tie (``kernels.kmeans_assign.near_ties``:
@@ -149,20 +168,26 @@ centre is a near tie between the two distance formulas; 5 Lloyd steps of K3
 meet the k-means reference within ``1e-4``.  GMM (5 rounds, 10^7 points) is
 held against a float64 EM on the card that follows ``gmm_em_reference``:
 log-likelihood within ``1e-5`` relative, α within ``1e-4`` and μ and Σ
-within ``1e-3`` absolute.  K1 folds ~4·10^4 pairs per key into each CTA's
-f32 partial, in an order the kernel does not fix: a random-walk
-error of ~√m·u ≈ 1e-5 of each sum (~6e-5 in μ, whose entries are O(1–5)),
-against a worst case of m·u ≈ 2e-3; 1e-3 sits well above the first and
-below the second.
+within ``1e-3`` absolute.  K1's register form folds ~1,600 values a slot
+(~330 a key) into its partials in registers, then ~114 slots of a CTA per
+cell into its shared copy and 270 CTAs into the output (op 5's 9-wide
+rows): at most m ≈ 710 additions a sum, a worst case of m·u ≈ 4e-5 of each
+sum (~4e-4 in μ, whose entries are O(1–5)) and a random walk of ~√m·u ≈
+2e-6; 1e-3 sits above both.
 kNN's 100 distances are within ``1e-5`` relative of a float64 ``torch.topk``
 of all distances, and its neighbour set is the same except for rows whose
 distance ties the 100th.
 
+K1's global form (PageRank) is also timed in turns with ``index_add_``,
+``ROUNDS`` rounds of the median of ``REPS`` each, the median and spread of
+both printed, and once on as many ids drawn uniformly over the keys.
+
 Output: after the build, the count of tensor-core instructions (``HGMMA``,
-``HMMA``) in K4's library (``cuobjdump -sass``; none fails the run); one
-line per check (K4's with the form each call took), then a ``{"kernels":
-[...]}`` summary line, the
-card's name and power limit, and as the last line
+``HMMA``) in K4's and K5's libraries (``cuobjdump -sass``; none in K4's
+fails the run, K5's is printed only); one line per check (K1's, K4's and
+K5's with the form each call took), then a ``{"kernels": [...]}`` summary
+line (with each K1, K4 and K5 call's form and the forms its path's calls
+took), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Without CUDA, or without the rest of the repository beside it, it exits 2 and
 prints no result.
@@ -186,11 +211,13 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 K4_KERNELS = ("flash_kernel", "flash_prefill_kernel", "flash_decode_kernel",
               "flash_combine_kernel")
 # LM path logits, per model: kernel path vs plain path and forward (docstring)
+K5_KERNELS = ("ssd_step_kernel", "ssd_chunk_kernel")  # K5's decode and prefill forms
 LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5}
 LM_LOGIT_RMS_TOL = {"zamba2-7b": 0.4, "rwkv6-1.6b": 0.1}  # RMS of the same differences
 LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4}  # f32: vs plain path and forward
 LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b")
 REPS = 10
+ROUNDS = 5  # K1 global form against index_add_, in turns
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
 
@@ -216,6 +243,60 @@ def attention_tolerance(q, k, v, want, n_keys, **kw):
         tol = (tol + 2.0 ** -7 * want.float().abs()
                + 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(), **kw))
     return tol
+
+
+def ssd_tc_tau(n):
+    """K5's prefill form on the tensor cores (``csrc/ssd_scan.cu``): every
+    term of ``y`` or ``h_T`` crosses at most two products with an f32 operand
+    split into bf16 parts, each off by at most ``2^-18`` of the term (two
+    parts in the bf16 model; three in the f32 model, far less), and at most
+    two tensor-core sums (``n`` over the state, 64 over a chunk) that round
+    toward zero, one more ``u`` per addition than ``τ₀`` counts, plus ``3u``
+    for the products of the smaller parts, summed first: ``2·2^-18 + u·(n +
+    64 + 3)``."""
+    return 2 * 2.0 ** -18 + F32_U * (n + 64 + 3)
+
+
+def ssd_bound(x, dt, a, bm, cm, h0, L):
+    """Per element of ``(y, h_T)``, K5's rounding bound ``τ·A + u·E`` (module
+    docstring), from one float64 pass of the recurrence over absolute values:
+    ``A`` carries every term's magnitude, ``E`` every term's magnitude times
+    the weights ``w_j = |Δ_j| + 2|a·dt_j|`` of the steps it has been decayed
+    across (``Δ_j`` the running sum of ``a·dt`` from the start of ``j``'s
+    chunk of ``L`` steps); ``τ = τ₀`` for the decode form and ``τ₀ +
+    ssd_tc_tau(N)`` for the prefill form.  Returns the bound and ``τ``."""
+    import torch
+
+    f = torch.float64
+    b, s, h, p = x.shape
+    grp, n = bm.shape[2], bm.shape[3]
+    rep = h // grp
+    ad = a.to(f) * dt.to(f)  # [B, S, H], every entry <= 0
+    nw = -(-s // L)
+    run = torch.nn.functional.pad(ad.abs(), [0, 0, 0, nw * L - s]).unflatten(
+        1, (nw, L)).cumsum(2).flatten(1, 2)[:, :s]
+    weight = run + 2 * ad.abs()
+    decay = torch.exp(ad)
+    dx = (dt.to(f)[..., None] * x.to(f)).abs()
+    ba = bm.to(f).abs().repeat_interleave(rep, dim=2)
+    ca = cm.to(f).abs().repeat_interleave(rep, dim=2)
+    amag = (h0.to(f).abs() if h0 is not None
+            else torch.zeros((b, h, p, n), dtype=f, device=x.device))
+    emag = torch.zeros_like(amag)
+    ya, ye = [], []
+    for t in range(s):
+        d = decay[:, t, :, None, None]
+        emag = d * (emag + weight[:, t, :, None, None] * amag)
+        amag = d * amag + dx[:, t, :, :, None] * ba[:, t, :, None, :]
+        ya.append(torch.einsum("bhpn,bhn->bhp", amag, ca[:, t]))
+        ye.append(torch.einsum("bhpn,bhn->bhp", emag, ca[:, t]))
+    nch = -(-s // 64)
+    tau = F32_U * (2 * n + 2 * L + 16 + nch * (L + 8))
+    if s > 1:
+        tau += ssd_tc_tau(n)
+    bound = (tau * torch.stack(ya, 1) + F32_U * torch.stack(ye, 1),
+             tau * amag + F32_U * emag)
+    return bound, tau
 
 
 def main() -> int:
@@ -267,13 +348,18 @@ class Smoke:
         self.sync()
         return statistics.median(times)
 
-    def device_busy_ms(self, fn, names=("hash_claim", "hash_commit", "hash_deposit")
-                       ) -> dict | None:
+    def device_busy_ms(self, fn, names=("hash_claim", "hash_commit", "hash_deposit"),
+                       expect=None) -> dict | None:
         """Mean device time of one call, for each kernel named in ``names``
         and all others together (``torch.profiler``, kernel and copy
         intervals on the card, over REPS calls after one warm-up); the event
-        time less their total is time the card waits on the host.  None
-        where the profiler records no device activity."""
+        time less their total is time the card waits on the host; ``events``
+        counts the named kernels' launches the profiler recorded.  With
+        ``expect`` (the named launches one call makes), a profile that did
+        not record REPS times that many is partial: it keeps only its
+        ``events`` and ``expected`` counts and a ``total`` of None, so no
+        undercounted time is reported.  None where the profiler records no
+        device activity."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -285,14 +371,21 @@ class Smoke:
                 fn()
             self.sync()
         busy: dict[str, float] = {}
+        events = 0
         for evt in prof.events():
             if evt.device_type != DeviceType.CUDA:
                 continue
             name = next((k for k in names if k in evt.name), "other")
+            events += name != "other"
             busy[name] = busy.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / REPS
         if not busy:
             return None
+        if expect is not None and events != expect * REPS:
+            print(json.dumps({"partial_profile": list(names), "events": events,
+                              "expected": expect * REPS}), flush=True)
+            return {"total": None, "events": events, "expected": expect * REPS}
         busy["total"] = sum(busy.values())
+        busy["events"] = events
         return busy
 
     def compare(self, what, got, want, *, exact, abs_sum=None, count=None,
@@ -327,26 +420,52 @@ class Smoke:
 
     # -- kernel phase -------------------------------------------------------
 
-    def fold_additions(self, ids, k, use_shared, blocks, threads):
+    def fold_additions(self, ids, k, form, blocks, threads, v=1, tables=False):
         """Per key ``[K, 1]``: the f32 additions that reach it in a kernel
-        that grid-strides ``blocks`` CTAs of ``threads`` over the pairs (the
-        ``m_k`` of the tolerance above), from this run's ids."""
+        that strides ``blocks`` CTAs of ``threads`` over the pairs (the
+        ``m_k`` of the tolerance above), from this run's ids.  ``"global"``:
+        every pair of the key adds into the output (with ``tables``, K1's,
+        into the output or a CTA's table of hot keys, plus the CTAs that
+        flush their tables).  ``"shared"``: the most pairs one
+        CTA adds into the key, plus the CTAs that merge.  ``"registers"``
+        (K1, ``v`` values a pair): the most elements one slot folds into the
+        key, plus the folds into the CTA's shared copy (a warp's 5-level
+        shuffle tree and one fold per warp and slot when ``v`` divides 4,
+        else one per slot of the CTA on that column) and the CTAs that
+        merge."""
         torch = self.torch
         n = ids.shape[0]
         live = (ids >= 0) & (ids < k)
-        if not use_shared:
-            return torch.bincount(ids[live].long(), minlength=k)[:, None]
-        cta = (torch.arange(n, device=self.dev) % (blocks * threads)) // threads
-        per_cta = torch.bincount((ids.long() * blocks + cta)[live],
-                                 minlength=k * blocks).view(k, blocks)
-        return (per_cta.amax(1) + blocks)[:, None]
+        if form == "global":
+            flushes = blocks if tables else 0
+            return (torch.bincount(ids[live].long(), minlength=k) + flushes)[:, None]
+        if form == "shared":
+            cta = (torch.arange(n, device=self.dev) % (blocks * threads)) // threads
+            per_cta = torch.bincount((ids.long() * blocks + cta)[live],
+                                     minlength=k * blocks).view(k, blocks)
+            return (per_cta.amax(1) + blocks)[:, None]
+        from repro_torch.kernels.segment_reduce import SLOTS
+
+        slots = SLOTS * blocks * threads
+        per_slot = torch.zeros(k, dtype=torch.long, device=self.dev)
+        rows = torch.arange(n, device=self.dev)[live]
+        key = ids[live].long() * slots
+        for c in range(v):  # element e = i·v + c sits in slot (e // 4) % T · 4 + e % 4
+            e = rows * v + c
+            slot = (e // SLOTS) % (blocks * threads) * SLOTS + e % SLOTS
+            per_slot = torch.maximum(per_slot, torch.bincount(
+                key + slot, minlength=k * slots).view(k, slots).amax(1))
+        merge = (5 + threads // 32 * (SLOTS // v) if SLOTS % v == 0
+                 else -(-SLOTS * threads // v))
+        return (per_slot + merge + blocks)[:, None]
 
     def segment_additions(self, ids, n, v, k):
         """``fold_additions`` for K1's launch at this shape."""
+        from repro_torch.kernels._build import sm_count
         from repro_torch.kernels.segment_reduce import THREADS, launch_shape
 
-        use_shared, blocks = launch_shape(n, v, k, self.dev)
-        return self.fold_additions(ids, k, use_shared, blocks, THREADS)
+        form, blocks = launch_shape(n, v, k, sm_count(self.dev.index or 0))
+        return self.fold_additions(ids, k, form, blocks, THREADS, v, tables=True)
 
     def kmeans_additions(self, assign, n, d, k):
         """Per key ``[K, 1]``: the f32 additions that reach it in K3.  The
@@ -359,7 +478,7 @@ class Smoke:
 
         form, blocks = launch_shape(n, d, k, self.dev)
         if form != "registers":
-            return self.fold_additions(assign, k, form == "shared", blocks, THREADS)
+            return self.fold_additions(assign, k, form, blocks, THREADS)
         lanes = blocks * THREADS
         thread = torch.arange(n, device=self.dev) % lanes
         per_thread = torch.bincount(assign.long() * lanes + thread,
@@ -414,15 +533,25 @@ class Smoke:
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
         )
 
-    def kernel_segment(self, key, ids, vals, k, reducer, shape, main_path):
+    def kernel_segment(self, key, ids, vals, k, reducer, shape, main_path,
+                       must_fail=None):
+        """K1 against its plain version; with ``must_fail`` (by default at the
+        main path's shapes) also the proof that the check bites; at the main
+        path's shapes the device time, and ``index_add_`` (for
+        a global-form shape timed in turns with the kernel, ``ROUNDS`` rounds
+        of the median of ``REPS``, and the kernel again on as many ids drawn
+        uniformly over the keys)."""
         torch = self.torch
         from repro_torch.core.cost import acc_dtype, use_matmul
-        from repro_torch.kernels.segment_reduce import segment_reduce, segment_reduce_plain
+        from repro_torch.kernels._build import sm_count
+        from repro_torch.kernels.segment_reduce import (
+            launch_shape, segment_reduce, segment_reduce_plain)
 
         got = segment_reduce(ids, vals, k, reducer=reducer)
         want = segment_reduce_plain(ids, vals, k, reducer=reducer)
         float_sum = use_matmul(reducer, acc_dtype(vals.dtype))
         n, v = vals.shape
+        form, _ = launch_shape(n, v, k, sm_count(self.dev.index or 0))
         abs_sum = count = None
         if float_sum:
             abs_sum = segment_reduce_plain(ids, vals.abs(), k, reducer="sum")
@@ -431,13 +560,14 @@ class Smoke:
         err = self.compare(key, got, want, exact=not float_sum, abs_sum=abs_sum,
                            count=count)
         extra = {}
-        if main_path:
+        if main_path if must_fail is None else must_fail:
             # The check must reject a zero result and a result that lost
-            # every 50th pair.
+            # every 50th live pair.
             self.compare(key + " zeros", torch.zeros_like(got), want,
                          exact=not float_sum, abs_sum=abs_sum, count=count,
                          must_fail=True)
-            lossy = torch.where(torch.arange(n, device=self.dev) % 50 == 0, -1, ids)
+            live = (ids >= 0) & (ids < k)
+            lossy = torch.where(live & ((live.cumsum(0) - 1) % 50 == 0), -1, ids)
             lost = segment_reduce(lossy.to(torch.int32), vals, k, reducer=reducer)
             self.sync()
             self.compare(key + " 2% pairs lost", lost, want, exact=not float_sum,
@@ -447,14 +577,45 @@ class Smoke:
                     count.double() * F32_U, min=1e-5).max())
         nbytes = n * 4 + n * v * vals.element_size() + k * v * 4
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+
+        def kernel():
+            return segment_reduce(ids, vals, k, reducer=reducer)
+
         bound_ops = n * v / F32_OPS_PER_S * 1e3
         library_ms = None
+        ms = None
         if main_path:
             out = torch.zeros((k, v), dtype=vals.dtype, device=self.dev)
-            library_ms = self.time_ms(lambda: out.index_add_(0, ids, vals))
+
+            def library():
+                return out.index_add_(0, ids, vals)
+
+            extra["device_ms"] = self.device_busy_ms(kernel, names=("segment_reduce",),
+                                                     expect=1)
+            if form == "global":
+                # Kernel and index_add_ in turns (kernel first in even rounds).
+                rounds = {"kernel": [], "library": []}
+                for r in range(ROUNDS):
+                    order = ("kernel", "library") if r % 2 == 0 else ("library", "kernel")
+                    for name in order:
+                        rounds[name].append(self.time_ms(kernel if name == "kernel"
+                                                         else library))
+                ms = statistics.median(rounds["kernel"])
+                library_ms = statistics.median(rounds["library"])
+                extra["rounds_ms"] = rounds
+                extra["spread_ms"] = {name: max(t) - min(t) for name, t in rounds.items()}
+                uniform = torch.randint(0, k, (n,), generator=torch.Generator(
+                    device=self.dev).manual_seed(3), device=self.dev, dtype=torch.int32)
+                extra["uniform_ids_ms"] = self.time_ms(
+                    lambda: segment_reduce(uniform, vals, k, reducer=reducer))
+                extra["uniform_ids_library_ms"] = self.time_ms(
+                    lambda: out.index_add_(0, uniform, vals))
+                del uniform
+            else:
+                library_ms = self.time_ms(library)
         self.record(
-            key, kernel="segment_reduce", shape=shape, max_abs_err=err,
-            ms=self.time_ms(lambda: segment_reduce(ids, vals, k, reducer=reducer)),
+            key, kernel="segment_reduce", form=form, shape=shape, max_abs_err=err,
+            ms=ms if ms is not None else self.time_ms(kernel),
             plain_ms=self.time_ms(
                 lambda: segment_reduce_plain(ids, vals, k, reducer=reducer)),
             library_ms=library_ms,
@@ -517,7 +678,7 @@ class Smoke:
 
         extra = {}
         if profile:
-            extra["device_ms"] = self.device_busy_ms(call)
+            extra["device_ms"] = self.device_busy_ms(call, expect=3 * rounds)
         self.record(
             key, kernel="hash_aggregate", shape=shape, max_abs_err=err,
             overflow=int(go), rounds=rounds, ms=self.time_ms(call),
@@ -548,26 +709,37 @@ class Smoke:
         # K3 at fig. 6's shape: the same points against the same centres
         self.kernel_kmeans("kmeans_assign@fig6", x, c, vals)
         # Other dtypes and reducers on the first 2^22 of those pairs, with
-        # every 5th id out of range (dropped) and NaN on some dropped lanes
+        # every 5th id out of range (dropped) and NaN on some dropped lanes:
+        # on k-means' 5 keys (the register form), then spread over 64 keys
+        # (the shared form; keys 60-63 get no pair, and half the dropped
+        # lanes carry an id past the range), where the sums must also reject
+        # a zero result and lost pairs.
         n = 1 << 22
-        sid = torch.where(torch.arange(n, device=dev) % 5 == 0, -1, ids[:n])
-        sid = sid.to(torch.int32).contiguous()
-        sv = vals[:n].clone()
-        sv[::10, 0] = float("nan")  # rows 0, 10, ... are dropped lanes
-        shape = [[n, 4], [5, 4]]
+        row = torch.arange(n, device=dev)
+        dropped = row % 5 == 0
         vi = vals[:n].round().to(torch.int32)
-        for reducer in ("sum", "min", "max"):
-            self.kernel_segment(f"segment_reduce i32 {reducer}", sid, vi,
-                                c.shape[0], reducer, shape, False)
-        self.kernel_segment("segment_reduce bf16 sum", sid, sv.bfloat16(),
-                            c.shape[0], "sum", shape, False)
         sign = torch.where(vals[:n, :1] > 0, 1.0, -1.0).expand(-1, 4).contiguous()
-        self.kernel_segment("segment_reduce f32 prod", sid, sign, c.shape[0],
-                            "prod", shape, False)
-        sv[1::10, 1] = float("nan")  # a live lane's NaN must reach its key
-        self.kernel_segment("segment_reduce f32 max nan", sid, sv,
-                            c.shape[0], "max", shape, False)
-        del vals, vi, sign, sv, sid, ids
+        spread = torch.where(row % 10 == 0, -1, 67)
+        for kr, sid, tag in ((c.shape[0], torch.where(dropped, -1, ids[:n]), ""),
+                             (64, torch.where(dropped, spread, ids[:n] * 12 + row % 12),
+                              " k64")):
+            sid = sid.to(torch.int32).contiguous()
+            sv = vals[:n].clone()
+            sv[::10, 0] = float("nan")  # rows 0, 10, ... are dropped lanes
+            sv[5::10, 2] = float("nan")  # and rows 5, 15, ...
+            shape = [[n, 4], [kr, 4]]
+            sums = tag != ""
+            for reducer in ("sum", "min", "max"):
+                self.kernel_segment(f"segment_reduce i32 {reducer}{tag}", sid, vi, kr,
+                                    reducer, shape, False, sums and reducer == "sum")
+            self.kernel_segment(f"segment_reduce bf16 sum{tag}", sid, sv.bfloat16(), kr,
+                                "sum", shape, False, sums)
+            self.kernel_segment(f"segment_reduce f32 prod{tag}", sid, sign, kr, "prod",
+                                shape, False)
+            sv[1::10, 1] = float("nan")  # a live lane's NaN must reach its key
+            self.kernel_segment(f"segment_reduce f32 max nan{tag}", sid, sv, kr, "max",
+                                shape, False)
+        del vals, vi, sign, sv, sid, ids, row, dropped, spread
         # K1 at PageRank MR2's shape: every edge -> [2^20, 1]
         edges, deg, n_pages = data["edges"], data["deg"], data["n_pages"]
         src, dst = edges[:, 0].long(), edges[:, 1].contiguous()
@@ -589,6 +761,12 @@ class Smoke:
                             [list(gv.shape), [k, gv.shape[1]]], True)
         del gid, gv
         torch.cuda.empty_cache()
+        from repro_torch.kernels.segment_reduce import FORMS as K1_FORMS
+
+        checked = {rec["form"] for rec in self.summary.values()
+                   if rec.get("kernel") == "segment_reduce"}
+        if checked != set(K1_FORMS):
+            raise AssertionError(f"K1 forms checked: {sorted(checked)}, want {K1_FORMS}")
 
         # K2 at wordcount's shapes: pre-shuffle combine, then the merge
         tokens = data["tokens"]
@@ -633,6 +811,7 @@ class Smoke:
         with the first or the last live 64-key block dropped, must all
         fail), the form the call took, and kernel, plain and library times."""
         torch = self.torch
+        from repro_torch.kernels import _build
         from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels.ref import attention_ref
 
@@ -668,7 +847,7 @@ class Smoke:
         splits = None
         if form == "bf16-decode":
             t_lo, t_hi = FA.key_tiles(sq, skv, q_offset, True, window)
-            splits, _ = FA.decode_splits(b, hkv, t_hi - t_lo, FA._sm_count(q.device.index))
+            splits, _ = FA.decode_splits(b, hkv, t_hi - t_lo, _build.sm_count(q.device.index))
             check(key + " vs flash_decode_plain", FA.flash_decode_plain(
                 q, k, v, splits=splits, q_offset=q_offset, **kw))
         check(key + " zeros", torch.zeros_like(got), must_fail=True)
@@ -709,7 +888,7 @@ class Smoke:
             ms=self.time_ms(lambda: flash_attention(q, k, v, q_offset=q_offset, **kw)),
             device_ms=(busy := self.device_busy_ms(
                 lambda: flash_attention(q, k, v, q_offset=q_offset, **kw),
-                names=K4_KERNELS)) and busy["total"],
+                names=K4_KERNELS, expect=2 if form == "bf16-decode" else 1)) and busy["total"],
             plain_ms=self.time_ms(lambda: attention_ref(q, k, v, q_offset=q_offset, **kw)),
             library_ms=library_ms, library_device_ms=library_device_ms,
             bound_ms=max(bound_bytes, bound_ops),
@@ -824,8 +1003,8 @@ class Smoke:
         the card's rates for the input type."""
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = flops / (BF16_OPS_PER_S if bf16 else F32_OPS_PER_S) * 1e3
-        device_name = {"ssd_scan": "ssd_kernel", "rwkv6_scan": "rwkv6_kernel"}[kernel]
-        busy = self.device_busy_ms(time_kernel, names=(device_name,))
+        names = {"ssd_scan": K5_KERNELS, "rwkv6_scan": ("rwkv6_kernel",)}[kernel]
+        busy = self.device_busy_ms(time_kernel, names=names, expect=1)
         self.record(
             key, kernel=kernel, shape=shape, max_abs_err=errs["plain"]["y"], errors=errs,
             ms=self.time_ms(time_kernel), device_ms=busy and busy["total"],
@@ -833,43 +1012,6 @@ class Smoke:
             library_ms=None, bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
             bytes=nbytes, flops=flops, **extra)
-
-    def ssd_bound(self, x, dt, a, bm, cm, h0, L):
-        """Per element of ``(y, h_T)``, K5's rounding bound ``τ₀·A + u·E``
-        (module docstring), from one float64 pass of the recurrence over
-        absolute values: ``A`` carries every term's magnitude, ``E`` every
-        term's magnitude times the weights ``w_j = |Δ_j| + 2|a·dt_j|`` of the
-        steps it has been decayed across (``Δ_j`` the running sum of ``a·dt``
-        from the start of ``j``'s chunk of ``L`` steps).  Returns the bound
-        and ``τ₀``."""
-        torch = self.torch
-        f = torch.float64
-        b, s, h, p = x.shape
-        grp, n = bm.shape[2], bm.shape[3]
-        rep = h // grp
-        ad = a.to(f) * dt.to(f)  # [B, S, H], every entry <= 0
-        nw = -(-s // L)
-        run = torch.nn.functional.pad(ad.abs(), [0, 0, 0, nw * L - s]).unflatten(
-            1, (nw, L)).cumsum(2).flatten(1, 2)[:, :s]
-        weight = run + 2 * ad.abs()
-        decay = torch.exp(ad)
-        dx = (dt.to(f)[..., None] * x.to(f)).abs()
-        ba = bm.to(f).abs().repeat_interleave(rep, dim=2)
-        ca = cm.to(f).abs().repeat_interleave(rep, dim=2)
-        amag = h0.to(f).abs()
-        emag = torch.zeros_like(amag)
-        ya, ye = [], []
-        for t in range(s):
-            d = decay[:, t, :, None, None]
-            emag = d * (emag + weight[:, t, :, None, None] * amag)
-            amag = d * amag + dx[:, t, :, :, None] * ba[:, t, :, None, :]
-            ya.append(torch.einsum("bhpn,bhn->bhp", amag, ca[:, t]))
-            ye.append(torch.einsum("bhpn,bhn->bhp", emag, ca[:, t]))
-        nch = -(-s // 64)
-        tau0 = F32_U * (2 * n + 2 * L + 16 + nch * (L + 8))
-        bound = (tau0 * torch.stack(ya, 1) + F32_U * torch.stack(ye, 1),
-                 tau0 * amag + F32_U * emag)
-        return bound, tau0
 
     def kernel_ssd(self, key, x, dt, a, bm, cm, h0):
         """K5 against ``ssd_scan_plain`` and the float64 ``ssd_ref`` at one
@@ -880,7 +1022,7 @@ class Smoke:
         state."""
         torch = self.torch
         from repro_torch.kernels.ref import ssd_ref
-        from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+        from repro_torch.kernels.ssd_scan import form, ssd_scan, ssd_scan_plain
 
         b, s, h, p = x.shape
         n = bm.shape[3]
@@ -899,7 +1041,7 @@ class Smoke:
         scaled = ((got[0].float() * fast[:, None]).to(got[0].dtype),
                   got[1] * fast[:, None, None])
         self.sync()
-        bound, tau0 = self.ssd_bound(x, dt, a, bm, cm, h0, min(128, s))
+        bound, tau = ssd_bound(x, dt, a, bm, cm, h0, min(128, s))
         bf16 = x.dtype == torch.bfloat16
         errs = self.scan_check(key, got, plain, oracle, bound, bf16, {
             "a zero output": tuple(torch.zeros_like(t) for t in got),
@@ -913,7 +1055,7 @@ class Smoke:
             errs, nbytes, 4 * b * s * h * p * n, bf16,
             lambda: ssd_scan(x, dt, a, bm, cm, init_state=h0),
             lambda: ssd_scan_plain(x, dt, a, bm, cm, init_state=h0),
-            tau0=tau0)
+            tau=tau, form=form(s))
         return got[1]
 
     def kernel_rwkv6(self, key, r, k, v, w, u, s0):
@@ -1020,15 +1162,19 @@ class Smoke:
                     "kmeans_assign": kmeans_assign, "flash_attention": flash_attention,
                     "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
         self.sync()
+        formed = {"flash_attention": flash_attention, "segment_reduce": segment_reduce,
+                  "ssd_scan": ssd_scan}
         for fn_ in wrappers.values():
             fn_.launches = 0
-        flash_attention.forms = dict.fromkeys(flash_attention.forms, 0)
+        for fn_ in formed.values():
+            fn_.forms = dict.fromkeys(fn_.forms, 0)
         t0 = time.perf_counter()
         out = fn()
         self.sync()
         wall = time.perf_counter() - t0
         launches = {name: fn_.launches for name, fn_ in wrappers.items()}
-        launches["flash_attention forms"] = dict(flash_attention.forms)
+        for name_, fn_ in formed.items():
+            launches[f"{name_} forms"] = dict(fn_.forms)
         print(json.dumps({"path": name, "wall_s": wall, "units": units,
                           "units_per_s": units / wall, "launches": launches}),
               flush=True)
@@ -1324,6 +1470,13 @@ class Smoke:
         if launch["flash_attention forms"] != forms:
             raise AssertionError(f"lm {arch}: K4 forms {launch['flash_attention forms']}, "
                                  f"not {forms}")
+        # Every K5 call: the prefill form in the prefill, the decode form in
+        # every step.
+        n_ssd = expect["ssd_scan"] // (1 + steps)
+        ssd_forms = {"decode": n_ssd * steps, "prefill": n_ssd}
+        if launch["ssd_scan forms"] != ssd_forms:
+            raise AssertionError(f"lm {arch}: K5 forms {launch['ssd_scan forms']}, "
+                                 f"not {ssd_forms}")
         if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
             raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
 
@@ -1381,7 +1534,7 @@ class Smoke:
         step_ms = self.time_ms(lambda: M.decode_step(params, cfg, tok, caches, max_len - 1))
         step_busy = self.device_busy_ms(
             lambda: M.decode_step(params, cfg, tok, caches, max_len - 1),
-            names=(*K4_KERNELS, "ssd_kernel", "rwkv6_kernel"))
+            names=(*K4_KERNELS, *K5_KERNELS, "rwkv6_kernel"))
         # The vocab head: bf16 operands, f32 result (logits_fn) against the
         # naive f32 upcast of both operands.
         last = hidden[:, -1]
@@ -1423,6 +1576,7 @@ class Smoke:
             "token_differences": int(differ.sum()),
             "launches": {k: launch[k] for k in expect},
             "k4_forms": launch["flash_attention forms"],
+            "k5_forms": launch["ssd_scan forms"],
         }
 
     def lm_f32_check(self, arch):
@@ -1551,18 +1705,20 @@ class Smoke:
 
     def tensor_core_sass(self):
         """Count the tensor-core instructions (``HGMMA`` for ``wgmma``,
-        ``HMMA`` for ``mma.sync``) in the built K4 library's machine code
-        (``cuobjdump -sass``); fail if there are none."""
+        ``HMMA`` for ``mma.sync``) in the machine code (``cuobjdump -sass``)
+        of the built K4 and K5 libraries; fail if K4's has none (K5's count
+        is printed only)."""
         from repro_torch.kernels import _build
 
         cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-        sass = subprocess.run([str(cuobjdump), "-sass",
-                               str(_build.library_path("flash_attention"))],
-                              capture_output=True, text=True, check=True).stdout
-        ops = re.findall(r"\b(HGMMA|HMMA)\.", sass)
-        counts = {op: ops.count(op) for op in ("HGMMA", "HMMA")}
-        print(json.dumps({"k4_tensor_core_sass": counts}), flush=True)
-        if not sum(counts.values()):
+        counts = {}
+        for name in ("flash_attention", "ssd_scan"):
+            sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
+                                  capture_output=True, text=True, check=True).stdout
+            ops = re.findall(r"\b(HGMMA|HMMA)\.", sass)
+            counts[name] = {op: ops.count(op) for op in ("HGMMA", "HMMA")}
+        print(json.dumps({"tensor_core_sass": counts}), flush=True)
+        if not sum(counts["flash_attention"].values()):
             raise AssertionError("K4's library holds no tensor-core instruction")
 
     def run(self):
@@ -1627,6 +1783,11 @@ class Smoke:
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "device_ms": busy["total"] if isinstance(busy, dict) else busy,
                 "shape": rec["shape"], **({"form": rec["form"]} if "form" in rec else {}),
+                **({"checked_forms": checked} if (checked := sorted({
+                    r["form"] for r in self.summary.values()
+                    if r.get("kernel") == rec["kernel"] and "form" in r})) else {}),
+                **({"path_forms": forms} if (forms := self.path_launches[path].get(
+                    f"{rec['kernel']} forms")) else {}),
             })
         print(json.dumps({"kernels": kernels}), flush=True)
         smi = subprocess.run(

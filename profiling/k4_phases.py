@@ -98,7 +98,8 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "flash_attention_phases.cu").write_text(instrumented_source())
     lib_path = out_dir / "flash_attention_phases.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-o", str(lib_path),
                     str(out_dir / "flash_attention_phases.cu")], check=True,
                    capture_output=True)
     fn = ctypes.CDLL(str(lib_path)).blaze_flash_attention

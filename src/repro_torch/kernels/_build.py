@@ -14,6 +14,7 @@ and :func:`build` starts several ``nvcc`` processes at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -92,6 +93,23 @@ def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def raw_stream(index: int) -> int:
+    """PyTorch's current stream on device ``index`` as a ``cudaStream_t``
+    (``torch.cuda.current_stream()`` builds a Python ``Stream`` object
+    first)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

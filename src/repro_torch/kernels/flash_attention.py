@@ -149,18 +149,6 @@ def _kernel() -> ctypes._CFuncPtr:
     ])
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _raw_stream(index: int) -> int:
-    """PyTorch's current stream on device ``index`` as a ``cudaStream_t``
-    (the call TorchInductor's generated code makes; ``torch.cuda.
-    current_stream()`` builds a Python ``Stream`` object first)."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float = 0.0, scale: float | None = None,
@@ -209,7 +197,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ws = None
     if kind == "bf16-decode":
         t_lo, t_hi = key_tiles(sq, skv, off, causal, window)
-        splits, per = decode_splits(b, hkv, t_hi - t_lo, _sm_count(q.device.index))
+        splits, per = decode_splits(b, hkv, t_hi - t_lo, _build.sm_count(q.device.index))
         ws = torch.empty(b * hkv * SPLIT_PARTS * splits * (hq // hkv) * sq * (d + 2),
                          dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
@@ -218,10 +206,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             ws.data_ptr() if ws is not None else None)
     dev = q.device.index
     if dev == torch.cuda.current_device():  # the launch goes to the current device
-        err = _kernel()(*args, _raw_stream(dev))
+        err = _kernel()(*args, _build.raw_stream(dev))
     else:
         with torch.cuda.device(dev):
-            err = _kernel()(*args, _raw_stream(dev))
+            err = _kernel()(*args, _build.raw_stream(dev))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.forms[kind] += 1

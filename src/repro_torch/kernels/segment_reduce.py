@@ -3,9 +3,11 @@
 The combiner of ``engine="pallas"`` for dense targets, the counterpart of the
 TPU kernel ``repro/kernels/segment_reduce.py::segment_reduce``.  On a CUDA
 tensor :func:`segment_reduce` launches the hand-written kernel in
-``csrc/segment_reduce.cu`` (shared-memory accumulator per CTA for small
-``K*V``, global atomics otherwise; the source says why); on a CPU tensor it
-runs :func:`segment_reduce_plain`, the same function in plain PyTorch.
+``csrc/segment_reduce.cu`` in the form :func:`launch_shape` picks (per-thread
+partials in registers for few keys, a shared-memory accumulator per CTA for
+``K*V`` that fits it, global atomics otherwise; the source says why); on a
+CPU tensor it runs :func:`segment_reduce_plain`, the same function in plain
+PyTorch.
 
 Contract (as on the TPU): ids outside ``[0, K)`` are dropped and their values
 never read; sum/prod/min/max; the result is f32 for float inputs (bf16 is
@@ -14,6 +16,8 @@ upcast) and i32 for int inputs; an empty stream gives the identity.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -24,6 +28,10 @@ THREADS = 256
 # Largest [K, V] accumulator a CTA keeps in shared memory: 48 KiB is what a
 # launch may take without opting in to more.
 SHARED_BYTES = 48 * 1024
+REG_K = 8  # most keys the register form keeps per slot (csrc kRegK)
+SLOTS = 4  # consecutive elements a register-form thread takes a step (csrc kSlots)
+FORMS = ("registers", "shared", "global")  # the C entry's numbering
+CTAS_PER_SM = {"registers": 2, "shared": 2, "global": 8}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _OP_CODE = {"sum": 0, "prod": 1, "min": 2, "max": 3}
 
@@ -72,14 +80,34 @@ def segment_reduce_plain(ids: torch.Tensor, vals: torch.Tensor,
     return fold_rows(out, ids[keep].long(), vals[keep].to(work), reducer).to(acc)
 
 
-def launch_shape(n: int, v: int, num_segments: int, device) -> tuple[bool, int]:
-    """``(use_shared, blocks)`` of the kernel's launch: the shared-memory form
-    when ``[K, V]`` fits :data:`SHARED_BYTES`, and a grid of ``blocks`` CTAs
-    of :data:`THREADS` that strides over the pairs (pair ``i`` goes to CTA
-    ``(i % (blocks * THREADS)) // THREADS``)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    use_shared = num_segments * v * 4 <= SHARED_BYTES
-    return use_shared, min(-(-n // THREADS), sms * (2 if use_shared else 8))
+def launch_shape(n: int, v: int, num_segments: int, sms: int) -> tuple[str, int]:
+    """``(form, blocks)`` of the kernel's launch for ``n`` pairs of width
+    ``v`` into ``num_segments`` keys on a card of ``sms`` SMs: the
+    ``"registers"`` form for at most :data:`REG_K` keys, else ``"shared"``
+    while the f32 ``[K, V]`` copy fits :data:`SHARED_BYTES` (the register form
+    merges through one too), else ``"global"``; a grid of ``blocks`` CTAs of
+    :data:`THREADS`.  The shared and global forms stride over the pairs (pair
+    ``i`` goes to CTA ``(i % (blocks * THREADS)) // THREADS``); the register
+    form over the flat values, :data:`SLOTS` a thread a step (element ``e``
+    goes to thread ``(e // SLOTS) % (blocks * THREADS)``), with ``SLOTS *
+    THREADS * blocks`` a multiple of ``v`` so that a thread's slots keep
+    their columns."""
+    fits = num_segments * v * 4 <= SHARED_BYTES
+    form = "registers" if fits and num_segments <= REG_K else "shared" if fits else "global"
+    if form != "registers":
+        return form, max(1, min(-(-n // THREADS), sms * CTAS_PER_SM[form]))
+    step = v // math.gcd(v, SLOTS * THREADS)  # blocks must be a multiple of this
+    blocks = min(-(-n * v // (SLOTS * THREADS)), sms * CTAS_PER_SM[form])
+    return form, max(step, -(-blocks // step) * step)
+
+
+@functools.cache
+def _kernel() -> ctypes._CFuncPtr:
+    """The C entry point, built, loaded and typed once per process."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.entry("segment_reduce", "blaze_segment_reduce", [
+        vp, vp, vp, ctypes.c_longlong, *[i32] * 8, vp,
+    ])
 
 
 def segment_reduce(ids: torch.Tensor, vals: torch.Tensor, num_segments: int,
@@ -110,20 +138,21 @@ def segment_reduce(ids: torch.Tensor, vals: torch.Tensor, num_segments: int,
                      device=vals.device)
     if n == 0 or v == 0 or num_segments == 0:
         return out  # a 0-block grid is a launch error
-    use_shared, blocks = launch_shape(n, v, num_segments, vals.device)
-    fn =_build.entry("segment_reduce", "blaze_segment_reduce", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ])
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ids.data_ptr(), vals.data_ptr(), out.data_ptr(), n, v,
-                 num_segments, _DTYPE_CODE[vals.dtype], _OP_CODE[reducer],
-                 int(use_shared), blocks, THREADS, stream)
+    dev = vals.device.index
+    form, blocks = launch_shape(n, v, num_segments, _build.sm_count(dev))
+    args = (ids.data_ptr(), vals.data_ptr(), out.data_ptr(), n, v, num_segments,
+            _DTYPE_CODE[vals.dtype], _OP_CODE[reducer], FORMS.index(form),
+            int(vals.data_ptr() % 16 == 0), blocks, THREADS)
+    if dev == torch.cuda.current_device():  # the launch goes to the current device
+        err = _kernel()(*args, _build.raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = _kernel()(*args, _build.raw_stream(dev))
     _build.check(err, "segment_reduce")
     segment_reduce.launches += 1
+    segment_reduce.forms[form] += 1
     return out
 
 
 segment_reduce.launches = 0  # kernel launches since the caller last reset it
+segment_reduce.forms = dict.fromkeys(FORMS, 0)  # the same, by form

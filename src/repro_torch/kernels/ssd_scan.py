@@ -12,10 +12,17 @@ path goes through ``ops.ssd_chunked`` instead), this one reads an optional
 ``out_state``, which may be the same tensor: a serving cache is updated in
 place.  ``x``, ``b`` and ``c`` are read through their ``[batch, seq, head]``
 strides, so the model's slices of its conv output go in with no copy.
+
+On the card the kernel has two forms, chosen by :func:`form` from ``S``:
+``"decode"`` (one step: the state read and written once, in place) and
+``"prefill"`` (64-step chunks on the tensor cores, each f32 operand split
+into bf16 parts; ``tests/test_torch_ssd.py`` emulates that arithmetic in
+plain PyTorch).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,6 +30,12 @@ from repro_torch.kernels import _build
 
 MAX_DIM = 64  # the kernel's largest head dim P and state size N
 DTYPES = (torch.float32, torch.bfloat16)
+FORMS = ("decode", "prefill")  # the kernel's forms, in the C entry's numbering
+
+
+def form(s: int) -> str:
+    """The kernel form a call of ``S = s`` steps takes."""
+    return "decode" if s == 1 else "prefill"
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -136,21 +149,40 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     if s == 0:  # no step: the state is the initial one
         return y, state.copy_(init_state) if init_state is not None else state.zero_()
     a = a.contiguous()
-    ll, i32, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-    fn = _build.entry("ssd_scan", "blaze_ssd_scan", [
-        vp, vp, vp, vp, vp, vp, vp, vp, *[ll] * 15, *[i32] * 7, vp,
-    ])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                 init_state.data_ptr() if init_state is not None else None,
-                 y.data_ptr(), state.data_ptr(),
-                 *x.stride()[:3], *dt.stride()[:3], *b.stride()[:3], *c.stride()[:3],
-                 *y.stride()[:3], bsz, s, h, g, p, n,
-                 int(x.dtype == torch.bfloat16), stream)
+    kind = form(s)
+    if kind == "decode":  # 16-byte loads and stores of the state
+        vec = n % 4 == 0 and all(st.data_ptr() % 16 == 0 for st in (init_state, state)
+                                 if st is not None)
+    else:  # 16-byte loads of x, B and C rows
+        vec = all(t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0
+                                                 for st in t.stride()[:3])
+                  for t in (x, b, c))
+    args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            init_state.data_ptr() if init_state is not None else None,
+            y.data_ptr(), state.data_ptr(),
+            *x.stride()[:3], *dt.stride()[:3], *b.stride()[:3], *c.stride()[:3],
+            *y.stride()[:3], bsz, s, h, g, p, n, int(x.dtype == torch.bfloat16),
+            FORMS.index(kind), int(vec))
+    dev = x.device.index
+    if dev == torch.cuda.current_device():  # the launch goes to the current device
+        err = _kernel()(*args, _build.raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = _kernel()(*args, _build.raw_stream(dev))
     _build.check(err, "ssd_scan")
     ssd_scan.launches += 1
+    ssd_scan.forms[kind] += 1
     return y, state
 
 
+@functools.cache
+def _kernel() -> ctypes._CFuncPtr:
+    """The C entry point, built, loaded and typed once per process."""
+    ll, i32, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    return _build.entry("ssd_scan", "blaze_ssd_scan", [
+        vp, vp, vp, vp, vp, vp, vp, vp, *[ll] * 15, *[i32] * 9, vp,
+    ])
+
+
 ssd_scan.launches = 0  # kernel launches since the caller last reset it
+ssd_scan.forms = dict.fromkeys(FORMS, 0)  # the same, by form

@@ -40,8 +40,13 @@ def generate(cfg, params, prompts: torch.Tensor, max_len: int, gen: int, *,
     each token (the prefill's first, then each step's; the last step's
     logits choose no token).  Greedy picks the argmax; otherwise tokens are
     sampled from the softmax with a ``torch.Generator`` seeded by ``seed``.
-    The decode time starts after the prefill has finished on the device."""
+    The decode time starts after the prefill has finished on the device.
+    ``max_len`` must hold the prompt and every step's token (``P + gen``):
+    a smaller cache raises ``ValueError`` before anything is allocated."""
     b, plen = prompts.shape
+    if max_len < plen + gen:
+        raise ValueError(f"max_len {max_len} < prompt {plen} + gen {gen}: the caches "
+                         "cannot hold every step")
     dev = prompts.device
     caches = M.make_caches(cfg, b, max_len, dev)
     logits, caches = M.prefill(params, cfg, prompts, caches)

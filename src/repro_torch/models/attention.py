@@ -46,6 +46,9 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
     With a cache, the new K/V are written at rows ``[cache_len, cache_len +
     S)`` and the queries attend over the cache, at ``q_offset = cache_len``.
+    A write past the cache's ``S_max`` rows raises ``ValueError`` (the
+    reference's ``dynamic_update_slice`` clamps the start instead, and so
+    overwrites the last rows).
     """
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE (qwen2-vl) comes with the qwen2-vl slice")
@@ -62,6 +65,9 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
     if cache is not None:
         idx = int(cache_len)
+        if idx + s > cache.k.shape[1]:
+            raise ValueError(f"KV cache of {cache.k.shape[1]} rows: cannot write {s} "
+                             f"rows at cache_len {idx}")
         cache.k[:, idx:idx + s] = k.to(cache.k.dtype)
         cache.v[:, idx:idx + s] = v.to(cache.v.dtype)
         k_all, v_all, q_offset = cache.k, cache.v, idx

@@ -39,6 +39,9 @@ from repro_torch.kernels.kmeans_assign import (
 )
 from repro_torch.kernels.ref import attention_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
+from repro_torch.kernels import segment_reduce as SR
+from repro_torch.kernels import ssd_scan as SS
+from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.segment_reduce import segment_reduce, segment_reduce_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import model as M
@@ -86,6 +89,51 @@ def test_empty_stream_launches_nothing(dev):
                          torch.zeros((0, 2), device=dev), 3, reducer="min")
     assert segment_reduce.launches == before
     assert torch.equal(out, torch.full((3, 2), float("inf"), device=dev))
+
+
+# n, v, k: the register form at its key limit (REG_K = 8) and one past it
+# (shared), V that divides 4 and V that does not (GMM's 9), N off every grid,
+# a key range too wide for shared memory (global), rows wide enough that the
+# global form's table of hot keys shrinks (V = 1000: 4 slots) or is left out
+# (V = 5000; V = 12,289, one row past 48 KiB).
+SEGMENT_CASES = [
+    (5003, 4, 8, "registers"), (5003, 4, 9, "shared"), (4097, 9, 5, "registers"),
+    (777, 1, 3, "registers"), (70_001, 2, 8, "registers"), (3001, 3, 64, "shared"),
+    (3001, 2, 20_000, "global"), (401, 1000, 20, "global"), (203, 5000, 3, "global"),
+    (301, 12_289, 1, "global"),
+]
+
+
+@pytest.mark.parametrize("n,v,k,want_form", SEGMENT_CASES)
+def test_segment_reduce_forms_match_plain_version(dev, n, v, k, want_form):
+    """Every reducer on i32 exactly; f32 min/max exactly with NaN on live and
+    dropped lanes; f32 sums within 1e-5 of the float64 sum's magnitude; ids
+    out of range dropped."""
+    form, _ = SR.launch_shape(n, v, k, sm_count(dev.index or 0))
+    assert form == want_form
+    g = torch.Generator().manual_seed(n + k)
+    ids = torch.randint(-3, k + 3, (n,), generator=g, dtype=torch.int32).to(dev)
+    ints = torch.randint(-50, 51, (n, v), generator=g, dtype=torch.int32).to(dev)
+    before = dict(SR.segment_reduce.forms)
+    for reducer in ("sum", "prod", "min", "max"):
+        got = segment_reduce(ids, ints, k, reducer=reducer)
+        want = segment_reduce_plain(ids, ints, k, reducer=reducer)
+        assert torch.equal(got, want), reducer
+    assert SR.segment_reduce.forms[form] == before[form] + 4
+    x = torch.randn((n, v), generator=g).to(dev)
+    x[::7, 0] = float("nan")
+    for reducer in ("min", "max"):
+        got = segment_reduce(ids, x, k, reducer=reducer)
+        want = segment_reduce_plain(ids, x, k, reducer=reducer)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    x = x.nan_to_num(0.0)
+    got = segment_reduce(ids, x, k)
+    want = segment_reduce_plain(ids, x, k)
+    mag = segment_reduce_plain(ids, x.abs(), k)
+    assert bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all())
+    bf = segment_reduce(ids, x.bfloat16(), k)
+    torch.testing.assert_close(bf, segment_reduce_plain(ids, x.bfloat16(), k),
+                               rtol=0, atol=1e-5 * float(mag.max()) + 1e-6)
 
 
 def test_session_defaults_to_the_card_and_launches_the_kernel(dev):
@@ -309,19 +357,43 @@ def test_ssd_kernel_matches_plain_version(dev, case, dtype):
     assert ssd_scan.launches == before + 2
 
 
-def test_ssd_kernel_writes_the_state_in_place_and_reads_views(dev):
-    b, s, h, p, g, n = 2, 70, 4, 64, 2, 64
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [70, 100, 130, 1])
+def test_ssd_kernel_writes_the_state_in_place_and_reads_views(dev, s, dtype):
+    """Both forms (decode at S = 1, prefill at ragged S) through strided
+    views of one conv output, the state updated in place, equal the calls on
+    contiguous copies; each call counted under its form."""
+    b, h, p, g, n = 2, 4, 64, 2, 64
     gen = torch.Generator().manual_seed(1)
-    conv = torch.randn((b, s, h * p + 2 * g * n), generator=gen).to(dev, torch.bfloat16)
+    conv = torch.randn((b, s, h * p + 2 * g * n), generator=gen).to(dev, dtype)
     x = conv[..., :h * p].unflatten(-1, (h, p))  # strided views, as mamba_apply has
     bm = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
     cm = conv[..., h * p + g * n:].unflatten(-1, (g, n))
-    _, dt, a, _, _, h0 = _ssd_inputs(dev, b, s, h, p, g, n, torch.bfloat16)
+    _, dt, a, _, _, h0 = _ssd_inputs(dev, b, s, h, p, g, n, dtype)
     want_y, want_h = ssd_scan(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(),
                               init_state=h0)
     state = h0.clone()
+    before = dict(ssd_scan.forms)
     y, got_h = ssd_scan(x, dt, a, bm, cm, init_state=state, out_state=state)
     assert got_h is state and torch.equal(y, want_y) and torch.equal(state, want_h)
+    kind = SS.form(s)
+    assert ssd_scan.forms[kind] == before[kind] + 1
+    _scan_close(y, ssd_scan_plain(x, dt, a, bm, cm, init_state=h0)[0], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (8, 1, 112, 64, 2, 64),  # zamba2's decode shape, P = N = 64
+    (3, 1, 6, 40, 3, 24),  # P, N off the tile
+    (2, 1, 5, 17, 1, 30),  # N not a multiple of 4: no vector loads
+])
+def test_ssd_decode_form_matches_plain_version(dev, case, dtype):
+    x, dt, a, bm, cm, h0 = _ssd_inputs(dev, *case, dtype)
+    for init in (None, h0):
+        y, h = ssd_scan(x, dt, a, bm, cm, init_state=init)
+        want_y, want_h = ssd_scan_plain(x, dt, a, bm, cm, init_state=init)
+        _scan_close(y, want_y, dtype)
+        _scan_close(h, want_h, torch.float32)
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(dev):

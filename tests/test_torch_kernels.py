@@ -207,3 +207,25 @@ def test_hash32_kernel_copy_is_the_containers_hash():
     assert THK.hash32 is TC.hash32
     assert identity("min", torch.int32) == np.iinfo(np.int32).max
 
+
+@pytest.mark.parametrize("n,v,k,sms,form,blocks", [
+    (100_000_000, 4, 5, 132, "registers", 264),  # k-means' [x | 1] -> [5, 4]
+    (50_000_000, 9, 5, 132, "registers", 270),  # GMM op 5 -> [5, 9]
+    (16_777_216, 1, 1 << 20, 132, "global", 1056),  # PageRank -> [2^20, 1]
+    (5000, 3, 8, 132, "registers", 15),  # the register form's key limit
+    (5000, 3, 9, 132, "shared", 20),  # one key past it
+    (5000, 3, 4096, 132, "shared", 20),  # [4096, 3] f32 fits 48 KiB
+    (5000, 3, 4097, 132, "global", 20),
+    (10, 9, 2, 132, "registers", 9),  # a grid of whole columns, however small
+    (100_000_000, 9, 5, 100, "registers", 207),
+    (301, 12_289, 1, 132, "global", 2),  # one row past 48 KiB: global, with no table
+])
+def test_segment_reduce_launch_shape_is_a_pure_function(n, v, k, sms, form, blocks):
+    """The form and grid follow from (N, V, K, SM count) alone; the register
+    form's grid keeps each thread's 4 slots on fixed columns (4·256·blocks a
+    multiple of V)."""
+    from repro_torch.kernels.segment_reduce import SLOTS, THREADS, launch_shape
+
+    assert launch_shape(n, v, k, sms) == (form, blocks)
+    if form == "registers":
+        assert SLOTS * THREADS * blocks % v == 0

@@ -164,6 +164,26 @@ def test_prefill_and_decode_chain_match_jax(lm):
         np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("lm", ["qwen3-0.6b"], indirect=True)
+def test_cache_write_past_its_end_raises(lm):
+    """A 4-token prompt in a 5-row cache: the step that fills the last row
+    matches JAX, the next one raises (JAX clamps its write to the last row
+    instead), and ``generate`` refuses a cache shorter than ``P + gen``."""
+    cfg_j, params_j, cfg_t, params_t = lm
+    x = _tokens(cfg_t, 2, 6, seed=4)
+    cj, ct = JM.make_caches(cfg_j, 2, 5), M.make_caches(cfg_t, 2, 5, CPU)
+    _, cj = JM.prefill(params_j, cfg_j, jnp.asarray(x[:, :4]), cj)
+    M.prefill(params_t, cfg_t, torch.from_numpy(x[:, :4]), ct)
+    want, _ = JM.decode_step(params_j, cfg_j, jnp.asarray(x[:, 4:5]), cj, 4)
+    got, ct = M.decode_step(params_t, cfg_t, torch.from_numpy(x[:, 4:5]), ct, 4)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="cannot write 1 rows at cache_len 5"):
+        M.decode_step(params_t, cfg_t, torch.from_numpy(x[:, 5:6]), ct, 5)
+    with pytest.raises(ValueError, match="max_len 12 < prompt 10 \\+ gen 3"):
+        serve_lm.generate(cfg_t, params_t, torch.from_numpy(x[:, :4]).repeat(1, 3)[:, :10],
+                          12, 3)
+
+
 def test_decode_matches_forward(lm):
     """Inside the port: 4 decode steps after an 8-token prefill equal the
     teacher-forced forward's logits (``tests/test_models.py``'s check)."""

@@ -182,3 +182,110 @@ def test_mamba_dims_at_full_width():
     cache = SSM.make_mamba_cache(cfg, 8, torch.device("meta"))
     assert cache.conv.shape == (8, 3, 7424) and cache.conv.dtype == torch.bfloat16
     assert cache.h.shape == (8, 112, 64, 64) and cache.h.dtype == torch.float32
+
+
+def test_ssd_kernel_form_follows_the_step_count():
+    from repro_torch.kernels.ssd_scan import form
+
+    assert [form(s) for s in (1, 2, 64, 512)] == ["decode", "prefill", "prefill", "prefill"]
+
+
+# The prefill form's arithmetic in plain PyTorch (csrc/ssd_scan.cu): the
+# card's kernel takes its products on the tensor cores with every f32 operand
+# split into bf16 parts.
+SPLIT_CHUNK = 64  # the prefill form's chunk length
+
+
+def split_bf16(v: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """``v`` f32 as ``parts`` bf16 values held in f32, each the bf16 of what
+    the earlier ones left: two parts leave at most ``2^-18·|v|``, three
+    ``2^-27·|v|``; an exactly bf16 ``v`` has every part after the first 0."""
+    out = []
+    for _ in range(parts):
+        out.append(v.to(torch.bfloat16).float())
+        v = v - out[-1]
+    return out
+
+
+def split_einsum(eq: str, u: torch.Tensor, v: torch.Tensor, parts: int) -> torch.Tensor:
+    """``einsum(eq, u, v)`` as the prefill form takes it on the tensor cores:
+    each operand in ``parts`` parts (``split_bf16``), the products of
+    part pairs ``(i, j)`` with ``i + j < parts``, the smaller terms first."""
+    us, vs = split_bf16(u.float(), parts), split_bf16(v.float(), parts)
+    out = None
+    for order in range(parts - 1, -1, -1):
+        for i in range(order + 1):
+            term = torch.einsum(eq, us[i], vs[order - i])
+            out = term if out is None else out + term
+    return out
+
+
+def ssd_scan_split(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, *, init_state: torch.Tensor | None = None,
+                   parts: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The prefill form's arithmetic in plain PyTorch: 64-step chunks, the
+    running sum of ``a·dt`` in order, and every product through
+    ``split_einsum``, in two parts for bf16 ``x`` (whose ``x``, ``B``,
+    ``C`` are exact) and three for f32 (``C·Bᵀ``; ``y = exp(Δ_l)·C·hᵀ + M'·x``
+    with ``M' = (C·Bᵀ)∘decay·dt``; ``h' = exp(T)·h + xᵀ·W`` with ``W =
+    exp(T − Δ_s)·dt_s·B_s``); ``parts`` overrides the count.  Returns
+    ``(y`` f32``, h_T)``."""
+    bsz, s, h, p = x.shape
+    rep = h // b.shape[2]
+    if parts is None:
+        parts = 2 if x.dtype == torch.bfloat16 else 3
+    f32 = torch.float32
+    bs = b.float().repeat_interleave(rep, dim=2)
+    cs = c.float().repeat_interleave(rep, dim=2)
+    state = (torch.zeros((bsz, h, p, b.shape[3]), dtype=f32, device=x.device)
+             if init_state is None else init_state.float().clone())
+    ys = []
+    for c0 in range(0, s, SPLIT_CHUNK):
+        sl = slice(c0, c0 + SPLIT_CHUNK)
+        xc, dtc, bc, cc = x[:, sl].float(), dt[:, sl].float(), bs[:, sl], cs[:, sl]
+        cum = torch.cumsum(a.float() * dtc, dim=1)  # Δ [B, L, H], in order
+        total = cum[:, -1]
+        cum_h = cum.transpose(1, 2)  # [B, H, L]
+        diff = torch.clamp_max(cum_h[..., :, None] - cum_h[..., None, :], 0.0)
+        live = torch.tril(torch.ones(diff.shape[-2:], dtype=torch.bool, device=x.device))
+        m = torch.where(live, split_einsum("blhn,bshn->bhls", cc, bc, parts)
+                        * torch.exp(diff) * dtc.transpose(1, 2)[:, :, None, :], 0.0)
+        y = split_einsum("blhn,bhpn->blhp", cc, state, parts) * torch.exp(cum)[..., None]
+        ys.append(y + split_einsum("bhls,bshp->blhp", m, xc, parts))
+        w = bc * (torch.exp(total[:, None] - cum) * dtc)[..., None]
+        state = state * torch.exp(total)[..., None, None] + split_einsum(
+            "bshp,bshn->bhpn", xc, w, parts)
+    return torch.cat(ys, 1), state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_split_products_match_jax_and_stay_in_the_bound(dtype):
+    """The prefill form's arithmetic (``ssd_scan_split``: 64-step chunks,
+    every f32 operand split into bf16 parts, two for the bf16 model whose x,
+    B, C are exact, three for the f32 model) against JAX's Pallas kernel in
+    interpret mode (``atol 3e-5``, as above) and against the float64 oracle
+    within ``chip_smoke.ssd_bound``'s ``1.1·bound``.  The same arithmetic
+    with one bf16 part per operand must leave the bound."""
+    import chip_smoke
+
+    x, dt, a, b, c, h0 = _inputs(7, S=128, H=4, P=16, G=2, N=32, init=True)
+    # The bf16 model's x, B, C are bf16 values; JAX gets the same values in f32.
+    x, b, c = (torch.from_numpy(t).to(dtype) for t in (x, b, c))
+    xf, bf, cf = (t.float().numpy() for t in (x, b, c))
+    yj, hj = jssd_scan(*_j(xf, dt, a, bf, cf), chunk=64)
+    dt_t, a_t = torch.from_numpy(dt), torch.from_numpy(a)
+    y, h = ssd_scan_split(x, dt_t, a_t, b, c)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), atol=3e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), atol=3e-5)
+    f64 = [torch.from_numpy(t).double() for t in (xf, dt, a, bf, cf, h0)]
+    y_ref, h_ref = R.ssd_ref(*f64[:5], init_state=f64[5])
+    bound, tau = chip_smoke.ssd_bound(*f64, 128)
+    assert tau > chip_smoke.ssd_tc_tau(32)
+
+    def within(got):
+        return all(bool(((g.double() - w).abs() <= 1.1 * bd).all())
+                   for g, w, bd in zip(got, (y_ref, h_ref), bound))
+
+    init = torch.from_numpy(h0)
+    assert within(ssd_scan_split(x, dt_t, a_t, b, c, init_state=init))
+    assert not within(ssd_scan_split(x, dt_t, a_t, b, c, init_state=init, parts=1))
