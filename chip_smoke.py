@@ -64,8 +64,11 @@ products on the tensor cores with f32 operands split into bf16 parts,
 which adds ``ssd_tc_tau(d) = 2·2^-18 + u·(d + 64 + 3)`` to ``τ₀`` (the
 split residues of the two products a term crosses, and the tensor cores'
 sums rounding toward zero; derived in ``csrc/ssd_scan.cu``); its decode
-form is f32 FMAs.  Both forms take their exponentials with ``expf``, as
-before (no ``ex2.approx``), so they add no term beyond ``τ₀``'s.  Each decay factor is the
+form is f32 FMAs.  K6's prefill form likewise adds ``rwkv6_tc_tau(d) =
+4·2^-18 + u·(d + 64 + 3)`` (one product with both operands split, one with
+one; derived in ``csrc/rwkv6_scan.cu``); its decode form is f32 FMAs.  Both
+kernels take their exponentials with ``expf`` (no ``ex2.approx``), so they
+add no term beyond ``τ₀``'s.  Each decay factor is the
 exponential of a difference of running sums of ``a·dt`` (K5) or ``log w``
 (K6) inside a chunk, and an error in that exponent is a relative error of
 the term it scales.  K5's forms both take the running sum in order (the
@@ -81,8 +84,10 @@ so K5's bound is per term: ``bound = τ·A + u·E`` (``τ = τ₀``, plus the
 tensor-core term for the prefill form), where ``E`` is the recurrence run
 on absolute values that also carries every term's magnitude times its
 accumulated weight (``ssd_bound``).  K6's kernel factors
-its decay as ``exp(λ_l)·exp(−λ_s)``, so its exponents carry the running sum's
-whole error: ``bound = τ·A`` per ``(b, h)``, ``τ = τ₀ + u·nch·3·L·D``, with
+its decay as ``exp(λ_l − c)·exp(c − λ_s)`` (``c = λ_T/2`` in the prefill
+form), so its exponents carry the running sum's whole error: ``bound = τ·A``
+per ``(b, h)`` (``rwkv6_bound``), ``τ = τ₀ + u·nch·3·L·D`` (plus the
+tensor-core term for the prefill form), with
 ``D`` the largest magnitude a running sum of ``log w`` reaches in a chunk of
 this run's data (its decay is slow, so ``τ`` stays below 1e-4).  The kernel
 and the plain version may each be ``bound`` off, and each rounds its bf16
@@ -125,8 +130,9 @@ fix, while the plain version accumulates in float64.  Key ``k`` may differ by
 ``1e-5 |sum_k| + max(1e-5, m_k u) sum_k |v|``, where ``u = 2^-24`` and
 ``m_k`` counts the f32 additions that reach the key along the kernel's own
 accumulation, so ``m_k u sum_k |v|`` is the worst-case error of f32
-summation in any order: ``m_k`` is the key's pair count where every pair
-adds straight into the output (K2's deposit; K1's global form adds the CTAs
+summation in any order: ``m_k`` is the key's pair count where pairs add
+into the output in any grouping (K2: a warp's fold, a CTA's table of hot
+keys, the deposit of each partial; K1's global form adds the CTAs
 that flush their tables of hot keys), in K1's shared form the most pairs
 any one CTA adds into the key plus the CTAs that merge their partials, and
 in K1's register form the most elements one thread's slot folds into the
@@ -178,6 +184,19 @@ kNN's 100 distances are within ``1e-5`` relative of a float64 ``torch.topk``
 of all distances, and its neighbour set is the same except for rows whose
 distance ties the 100th.
 
+K2 runs in one launch a call: the check fails on another count, and on any
+host sync inside the call (``torch.cuda.set_sync_debug_mode("error")``); it
+reads the rounds the kernel ran from ``hash_aggregate.rounds`` and the lanes
+left after the pre-combine and after each round from
+``hash_aggregate.lanes``, from which ``design_bytes_ms`` counts what this
+design moves.  Besides wordcount's combine and merge, an ``init=`` merge of
+f32 sums and unique keys past the table's room, K2 runs 64 keys × 5
+shuffled copies into 16 slots (overflow must be 240 raw lanes) and one key
+on a quarter of 2^22 lanes beside unique keys.  K6 runs its prefill and its
+decode form, each call's form recorded; the run fails unless both were
+checked, and the LM phase requires rwkv6's 792 K6 calls to be 24 prefill +
+768 decode.
+
 K1's global form (PageRank) is also timed in turns with ``index_add_``,
 ``ROUNDS`` rounds of the median of ``REPS`` each, the median and spread of
 both printed, and once on as many ids drawn uniformly over the keys.
@@ -186,8 +205,8 @@ Output: after the build, the count of tensor-core instructions (``HGMMA``,
 ``HMMA``) in K4's and K5's libraries (``cuobjdump -sass``; none in K4's
 fails the run, K5's is printed only); one line per check (K1's, K4's and
 K5's with the form each call took), then a ``{"kernels": [...]}`` summary
-line (with each K1, K4 and K5 call's form and the forms its path's calls
-took), the card's name and power limit, and as the last line
+line (with each K1, K4, K5 and K6 call's form and the forms its path's
+calls took), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Without CUDA, or without the rest of the repository beside it, it exits 2 and
 prints no result.
@@ -212,6 +231,7 @@ K4_KERNELS = ("flash_kernel", "flash_prefill_kernel", "flash_decode_kernel",
               "flash_combine_kernel")
 # LM path logits, per model: kernel path vs plain path and forward (docstring)
 K5_KERNELS = ("ssd_step_kernel", "ssd_chunk_kernel")  # K5's decode and prefill forms
+K6_KERNELS = ("rwkv6_step_kernel", "rwkv6_chunk_kernel")  # K6's decode and prefill forms
 LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5}
 LM_LOGIT_RMS_TOL = {"zamba2-7b": 0.4, "rwkv6-1.6b": 0.1}  # RMS of the same differences
 LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4}  # f32: vs plain path and forward
@@ -299,6 +319,64 @@ def ssd_bound(x, dt, a, bm, cm, h0, L):
     return bound, tau
 
 
+def rwkv6_tc_tau(d):
+    """K6's prefill form on the tensor cores (``csrc/rwkv6_scan.cu``): every
+    term of ``y`` or ``S_T`` crosses at most two products with f32 operands
+    split into bf16 parts, one with both operands split (off by at most
+    ``3·2^-18`` of the term: the dropped pair of small parts and the two
+    residues) and one with one (``2^-18``; three parts in the f32 model, far
+    less), and at most two tensor-core sums (``d`` over the channels, 64
+    over a chunk) that round toward zero, one more ``u`` per addition than
+    ``τ₀`` counts, plus ``3u`` for the products of the smaller parts, summed
+    first: ``4·2^-18 + u·(d + 64 + 3)``."""
+    return 4 * 2.0 ** -18 + F32_U * (d + 64 + 3)
+
+
+def window_decay(logw, L):
+    """K6's ``D`` per ``(b, h)``: the largest magnitude that a running sum of
+    the log-decay ``logw [B, S, H, K]`` (every entry <= 0) reaches inside a
+    chunk of ``L`` steps, over the chunks and channels of this run's data
+    (all entries share one sign, so a whole chunk's sum bounds every partial
+    sum in it, and the chunks of ``L`` contain those of the kernel's shorter
+    ones)."""
+    import torch
+
+    s = logw.shape[1]
+    nw = -(-s // L)
+    sums = torch.nn.functional.pad(logw.abs().double(), [0, 0, 0, 0, 0, nw * L - s])
+    return sums.unflatten(1, (nw, L)).sum(2).amax(3).amax(1)  # [B, H]
+
+
+def scan_tau(s, d, L, decay):
+    """K6's ``τ = u·(2d + 2L + 16 + nch·(L + 8 + 3·L·D))`` per ``(b, h)``
+    (module docstring), ``nch`` the kernel's 64-step chunks."""
+    nch = -(-s // 64)
+    return F32_U * (2 * d + 2 * L + 16 + nch * (L + 8 + 3 * L * decay))
+
+
+def rwkv6_bound(r, k, v, w, u, s0):
+    """Per element of ``(y, S_T)``, K6's rounding bound ``τ·A`` per ``(b,
+    h)`` (module docstring) for a call of the kernel's default chunk (64):
+    ``A`` the float64 oracle on absolute values and the floored decay, ``τ =
+    scan_tau`` plus, for the prefill form (``S > 1``), ``rwkv6_tc_tau(K)``.
+    Returns the bound, ``τ [B, H]`` and the floored ``log w`` in float64."""
+    import torch
+    from repro_torch.kernels.ref import rwkv6_ref
+    from repro_torch.kernels.rwkv6_scan import decay_floor
+
+    s, kd = r.shape[1], r.shape[3]
+    logw = torch.clamp_min(torch.log(torch.clamp_min(w.double(), 1e-30)),
+                           decay_floor(64, s))
+    L = min(64, s)
+    tau = scan_tau(s, kd, L, window_decay(logw, L))
+    if s > 1:
+        tau = tau + rwkv6_tc_tau(kd)
+    f64 = [t.double().abs() for t in (r, k, v, u, s0)]
+    absolute = rwkv6_ref(*f64[:3], torch.exp(logw), f64[3], init_state=f64[4])
+    bound = (tau[:, None, :, None] * absolute[0], tau[:, :, None, None] * absolute[1])
+    return bound, tau, logw
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -348,8 +426,7 @@ class Smoke:
         self.sync()
         return statistics.median(times)
 
-    def device_busy_ms(self, fn, names=("hash_claim", "hash_commit", "hash_deposit"),
-                       expect=None) -> dict | None:
+    def device_busy_ms(self, fn, names=(), expect=None) -> dict | None:
         """Mean device time of one call, for each kernel named in ``names``
         and all others together (``torch.profiler``, kernel and copy
         intervals on the card, over REPS calls after one warm-up); the event
@@ -627,15 +704,29 @@ class Smoke:
     def kernel_hash(self, key, keys, vals, cap, shape, *, reducer="sum",
                     init=None, max_probes=None, expect_overflow=False,
                     profile=False):
+        """K2 against its plain version: keys and overflow slot for slot,
+        values exactly or (f32 sums) within the count tolerance; one launch a
+        call and no host sync inside it (``torch.cuda.set_sync_debug_mode``
+        raises on any); the rounds it ran (``hash_aggregate.rounds``) and the
+        lanes it compacted (``hash_aggregate.lanes``)."""
         torch = self.torch
         from repro_torch.core.cost import acc_dtype, use_matmul
         from repro_torch.kernels.hash_combine import (
             EMPTY_KEY, hash_aggregate, hash_aggregate_plain)
 
-        launches0 = hash_aggregate.launches
-        gk, gv, go = hash_aggregate(keys, vals, cap, reducer=reducer, init=init,
-                                    max_probes=max_probes)
-        rounds = (hash_aggregate.launches - launches0) // 3
+        self.sync()
+        launches0, rounds0 = hash_aggregate.launches, int(hash_aggregate.rounds)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gk, gv, go = hash_aggregate(keys, vals, cap, reducer=reducer, init=init,
+                                        max_probes=max_probes)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if hash_aggregate.launches != launches0 + 1:
+            raise AssertionError(f"{key}: {hash_aggregate.launches - launches0} "
+                                 "launches, not 1")
+        lanes = hash_aggregate.lanes.tolist()
+        rounds = int(hash_aggregate.rounds) - rounds0
         wk, wv, wo = hash_aggregate_plain(keys, vals, cap, reducer=reducer,
                                           init=init, max_probes=max_probes)
         float_sum = use_matmul(reducer, acc_dtype(vals.dtype))
@@ -661,16 +752,22 @@ class Smoke:
             raise AssertionError(f"{key}: overflow {int(go)}")
         n, v = vals.shape
         live = int((keys != EMPTY_KEY).sum())
+        if lanes[rounds] != 0 and rounds != len(lanes) - 1:
+            raise AssertionError(f"{key}: {rounds} rounds left {lanes[rounds]} lanes")
         table_bytes = cap * (4 + v * 4)
         nbytes = n * 4 + live * v * vals.element_size() + table_bytes
         if init is not None:
             nbytes += table_bytes  # the table merged into is read once
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = live * v / F32_OPS_PER_S * 1e3
-        # What this design moves: the lanes' keys and flags every round it
-        # runs, each live value once, the table and its claims every round.
-        round_bytes = (rounds * (n * 5 + cap * 8) + live * v * vals.element_size()
-                       + table_bytes)
+        # What this design moves: the pairs once; the compacted lanes (key,
+        # count, row index, partial) written once and their partials read
+        # once; each round reads its lanes' keys twice and the rest once, and
+        # writes the survivors' key, count and index; claim[] is set once.
+        compacted = lanes[0]
+        design_bytes = (n * 4 + live * v * vals.element_size() + compacted * (12 + 8 * v)
+                        + sum(16 * lanes[r] + 12 * lanes[r + 1] for r in range(rounds))
+                        + cap * 4 + table_bytes)
 
         def call():
             return hash_aggregate(keys, vals, cap, reducer=reducer, init=init,
@@ -678,17 +775,19 @@ class Smoke:
 
         extra = {}
         if profile:
-            extra["device_ms"] = self.device_busy_ms(call, expect=3 * rounds)
+            busy = self.device_busy_ms(call, names=("hash_aggregate_kernel",), expect=1)
+            extra["device_ms"] = busy and busy["total"]
         self.record(
             key, kernel="hash_aggregate", shape=shape, max_abs_err=err,
-            overflow=int(go), rounds=rounds, ms=self.time_ms(call),
+            overflow=int(go), rounds=rounds, lanes_compacted=compacted,
+            lanes_after_round=lanes[1:rounds + 1], ms=self.time_ms(call),
             plain_ms=self.time_ms(lambda: hash_aggregate_plain(
                 keys, vals, cap, reducer=reducer, init=init,
                 max_probes=max_probes)),
             library_ms=None,
             bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            design_bytes_ms=round_bytes / HBM_BYTES_PER_S * 1e3,
+            design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
             **extra,
         )
 
@@ -800,6 +899,24 @@ class Smoke:
         self.kernel_hash("hash_aggregate overflow", k2, torch.ones((1 << 16, 1), device=dev),
                          1 << 12, [[1 << 16, 1], [1 << 12, 1]], max_probes=16,
                          expect_overflow=True)
+        # Overflow under duplicates counts raw lanes, not partials: 64 keys ×
+        # 5 shuffled copies into 16 slots, 16 probes, leave 48 keys, 240 lanes.
+        k3 = torch.arange(64, dtype=torch.int32).repeat(5)[torch.randperm(320, generator=g)]
+        self.kernel_hash("hash_aggregate overflow duplicates", k3.to(dev),
+                         torch.ones((320, 1), dtype=torch.int32, device=dev), 16,
+                         [[320, 1], [16, 1]], max_probes=16, expect_overflow=True)
+        if self.summary["hash_aggregate overflow duplicates"]["overflow"] != 240:
+            raise AssertionError("hash_aggregate: 240 raw lanes should overflow")
+        # One hot key on a quarter of 2^22 lanes (Zipf 1.3's top word) beside
+        # unique keys.
+        n4 = 1 << 22
+        hot = torch.rand(n4, generator=g) < 0.25
+        k4 = torch.where(hot, 7, torch.randperm(n4, generator=g).to(torch.int32) + 1000)
+        cap4 = 1 << 23  # load 0.38
+        self.kernel_hash("hash_aggregate hot key", k4.to(torch.int32).to(dev),
+                         torch.ones((n4, 1), dtype=torch.int32, device=dev), cap4,
+                         [[n4, 1], [cap4, 1]], max_probes=64)
+        del k3, k4, hot
         torch.cuda.empty_cache()
 
     # -- K4: flash attention -------------------------------------------------
@@ -942,25 +1059,6 @@ class Smoke:
 
     # -- K5 and K6: the recurrent scans --------------------------------------
 
-    def window_decay(self, logw, L):
-        """K6's ``D`` per ``(b, h)``: the largest magnitude that a running
-        sum of the log-decay ``logw [B, S, H, K]`` (every entry <= 0)
-        reaches inside a chunk of ``L`` steps, over the chunks and channels
-        of this run's data (all entries share one sign, so a whole chunk's
-        sum bounds every partial sum in it, and the chunks of ``L`` contain
-        those of the kernel's shorter ones)."""
-        torch = self.torch
-        s = logw.shape[1]
-        nw = -(-s // L)
-        sums = torch.nn.functional.pad(logw.abs().double(), [0, 0, 0, 0, 0, nw * L - s])
-        return sums.unflatten(1, (nw, L)).sum(2).amax(3).amax(1)  # [B, H]
-
-    def scan_tau(self, s, d, L, decay):
-        """K6's ``τ = u·(2d + 2L + 16 + nch·(L + 8 + 3·L·D))`` per ``(b, h)``
-        (module docstring), ``nch`` the kernel's 64-step chunks."""
-        nch = -(-s // 64)
-        return F32_U * (2 * d + 2 * L + 16 + nch * (L + 8 + 3 * L * decay))
-
     def scan_check(self, key, got, plain, oracle, bound, bf16, wrong):
         """Hold ``got = (y, state)`` against the plain version's and the
         float64 oracle's within ``2^-7·|ref| + c·bound`` (``bound`` per
@@ -1003,7 +1101,7 @@ class Smoke:
         the card's rates for the input type."""
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = flops / (BF16_OPS_PER_S if bf16 else F32_OPS_PER_S) * 1e3
-        names = {"ssd_scan": K5_KERNELS, "rwkv6_scan": ("rwkv6_kernel",)}[kernel]
+        names = {"ssd_scan": K5_KERNELS, "rwkv6_scan": K6_KERNELS}[kernel]
         busy = self.device_busy_ms(time_kernel, names=names, expect=1)
         self.record(
             key, kernel=kernel, shape=shape, max_abs_err=errs["plain"]["y"], errors=errs,
@@ -1066,20 +1164,22 @@ class Smoke:
         final state."""
         torch = self.torch
         from repro_torch.kernels.ref import rwkv6_ref
-        from repro_torch.kernels.rwkv6_scan import decay_floor, rwkv6_scan, rwkv6_scan_plain
+        from repro_torch.kernels.rwkv6_scan import (
+            decay_floor, form, rwkv6_scan, rwkv6_scan_plain)
 
         b, s, h, kd = r.shape
         vd = v.shape[-1]
+        before = dict(rwkv6_scan.forms)
         got = rwkv6_scan(r, k, v, w, u, init_state=s0)
+        kind = next(f for f, n in rwkv6_scan.forms.items() if n != before[f])
+        if kind != form(s):
+            raise AssertionError(f"{key}: the call took the {kind} form")
         plain = rwkv6_scan_plain(r, k, v, w, u, init_state=s0)
         floor = decay_floor(64, s)
-        logw = torch.log(torch.clamp_min(w.double(), 1e-30))
-        clamped = int((logw < floor).sum())
-        logw = torch.clamp_min(logw, floor)
+        clamped = int((torch.log(torch.clamp_min(w.double(), 1e-30)) < floor).sum())
+        bound, tau, logw = rwkv6_bound(r, k, v, w, u, s0)
         f64 = [t.double() for t in (r, k, v, w, u, s0)]
         oracle = rwkv6_ref(*f64[:3], torch.exp(logw), f64[4], init_state=f64[5])
-        absolute = rwkv6_ref(f64[0].abs(), f64[1].abs(), f64[2].abs(), torch.exp(logw),
-                             f64[4].abs(), init_state=f64[5].abs())
         floorless = rwkv6_ref(*f64[:5], init_state=f64[5])
         if s > 1:
             m = s // 2
@@ -1089,9 +1189,6 @@ class Smoke:
         else:
             dropped = rwkv6_scan(r, k, v, w, u)
         self.sync()
-        L = min(64, s)
-        tau = self.scan_tau(s, kd, L, self.window_decay(logw, L))
-        bound = (tau[:, None, :, None] * absolute[0], tau[:, :, None, None] * absolute[1])
         bf16 = r.dtype == torch.bfloat16
         errs = self.scan_check(key, got, plain, oracle, bound, bf16, {
             "a zero output": tuple(torch.zeros_like(t) for t in got),
@@ -1099,7 +1196,7 @@ class Smoke:
         errs["floorless_oracle"] = {
             name: float((out[0].double() - floorless[0]).abs().max())
             for name, out in (("kernel", got), ("plain", plain))}
-        del oracle, absolute, bound, floorless, dropped, f64, logw
+        del oracle, bound, floorless, dropped, f64, logw
         nbytes = ((r.numel() + k.numel() + 2 * v.numel()) * r.element_size()
                   + w.numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4)
         self.record_scan(
@@ -1107,7 +1204,7 @@ class Smoke:
             errs, nbytes, 4 * b * s * h * kd * vd, bf16,
             lambda: rwkv6_scan(r, k, v, w, u, init_state=s0),
             lambda: rwkv6_scan_plain(r, k, v, w, u, init_state=s0),
-            max_tau=float(tau.max()), floor=floor, floor_clamped=clamped)
+            max_tau=float(tau.max()), floor=floor, floor_clamped=clamped, form=kind)
         return got[1]
 
     def scan_phase(self):
@@ -1144,6 +1241,12 @@ class Smoke:
             w = torch.exp(-torch.exp(-6.0 + 0.6 * randn(b, s, h, kd)))
             state = self.kernel_rwkv6(key, r, k, v, w, u, state)
         del state
+        from repro_torch.kernels.rwkv6_scan import FORMS as K6_FORMS
+
+        checked = {rec["form"] for rec in self.summary.values()
+                   if rec.get("kernel") == "rwkv6_scan"}
+        if checked != set(K6_FORMS):
+            raise AssertionError(f"K6 forms checked: {sorted(checked)}, want {K6_FORMS}")
         torch.cuda.empty_cache()
 
     # -- path phase ---------------------------------------------------------
@@ -1163,9 +1266,10 @@ class Smoke:
                     "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
         self.sync()
         formed = {"flash_attention": flash_attention, "segment_reduce": segment_reduce,
-                  "ssd_scan": ssd_scan}
+                  "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
         for fn_ in wrappers.values():
             fn_.launches = 0
+        hash_aggregate.rounds.reset()
         for fn_ in formed.values():
             fn_.forms = dict.fromkeys(fn_.forms, 0)
         t0 = time.perf_counter()
@@ -1173,6 +1277,7 @@ class Smoke:
         self.sync()
         wall = time.perf_counter() - t0
         launches = {name: fn_.launches for name, fn_ in wrappers.items()}
+        launches["hash_aggregate rounds"] = int(hash_aggregate.rounds)
         for name_, fn_ in formed.items():
             launches[f"{name_} forms"] = dict(fn_.forms)
         print(json.dumps({"path": name, "wall_s": wall, "units": units,
@@ -1477,6 +1582,12 @@ class Smoke:
         if launch["ssd_scan forms"] != ssd_forms:
             raise AssertionError(f"lm {arch}: K5 forms {launch['ssd_scan forms']}, "
                                  f"not {ssd_forms}")
+        # Every K6 call likewise.
+        n_rwkv6 = expect["rwkv6_scan"] // (1 + steps)
+        rwkv6_forms = {"decode": n_rwkv6 * steps, "prefill": n_rwkv6}
+        if launch["rwkv6_scan forms"] != rwkv6_forms:
+            raise AssertionError(f"lm {arch}: K6 forms {launch['rwkv6_scan forms']}, "
+                                 f"not {rwkv6_forms}")
         if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
             raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
 
@@ -1534,7 +1645,7 @@ class Smoke:
         step_ms = self.time_ms(lambda: M.decode_step(params, cfg, tok, caches, max_len - 1))
         step_busy = self.device_busy_ms(
             lambda: M.decode_step(params, cfg, tok, caches, max_len - 1),
-            names=(*K4_KERNELS, *K5_KERNELS, "rwkv6_kernel"))
+            names=(*K4_KERNELS, *K5_KERNELS, *K6_KERNELS))
         # The vocab head: bf16 operands, f32 result (logits_fn) against the
         # naive f32 upcast of both operands.
         last = hidden[:, -1]
@@ -1577,6 +1688,7 @@ class Smoke:
             "launches": {k: launch[k] for k in expect},
             "k4_forms": launch["flash_attention forms"],
             "k5_forms": launch["ssd_scan forms"],
+            "k6_forms": launch["rwkv6_scan forms"],
         }
 
     def lm_f32_check(self, arch):

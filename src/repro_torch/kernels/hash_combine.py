@@ -5,9 +5,12 @@ The combiner of ``engine="pallas"`` for ``DistHashMap`` targets, both before
 the shuffle (raw pairs into a fresh table) and after it (received pairs
 merged into the target shard's table through ``init=``); the counterpart of
 the TPU kernel ``repro/kernels/hash_combine.py::hash_aggregate``.  On a CUDA
-tensor :func:`hash_aggregate` runs the rounds of ``csrc/hash_combine.cu``
-(claim, commit, deposit; the source says why); on a CPU tensor it runs
-:func:`hash_aggregate_plain`, the same rounds in plain PyTorch.
+tensor :func:`hash_aggregate` launches ``csrc/hash_combine.cu`` once: each
+CTA folds the duplicates of its lanes into a table of hot keys in shared
+memory, then the probe rounds (claim, commit, deposit) run over the
+compacted partials with no host sync (the source says why); on a CPU tensor
+it runs :func:`hash_aggregate_plain`, the rounds over every lane in plain
+PyTorch.
 
 Both process every lane in one round-synchronous batch, so the table equals
 ``containers.hashmap_insert`` of the unique keys slot for slot.  (The TPU
@@ -17,6 +20,7 @@ it agrees with this one as a dict.)
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,12 +29,15 @@ from repro_torch.kernels.segment_reduce import (
     _DTYPE_CODE,
     _OP_CODE,
     REDUCERS,
-    THREADS,
     fold_rows,
     identity,
 )
 
 EMPTY_KEY = -(2**31)  # "slot free" sentinel, int32 min
+TABLE_BYTES = 48 * 1024  # the kernel's per-CTA table of hot keys (csrc kMaxTableBytes)
+MAX_TABLE_BITS = 12  # at most 4,096 slots
+CTA_PROBES = 4  # linear probes a warp group tries in that table (csrc kCtaProbes)
+SOLO_LANES = 256  # lanes left at which one CTA runs the last rounds (csrc kSoloLanes)
 _U32 = 0xFFFFFFFF
 
 
@@ -74,6 +81,47 @@ def hash_aggregate_plain(keys, vals, table_cap, *, reducer="sum", init=None,
     return tkeys, tvals, ovf + lanes.numel()
 
 
+def table_bits(v: int) -> int:
+    """log2 of the slots of the kernel's per-CTA table of hot keys for rows
+    of ``v`` values: the most slots (at most ``2^MAX_TABLE_BITS``) whose tag,
+    multiplicity and ``[v]`` 4-byte partials fit :data:`TABLE_BYTES`; -1
+    when one slot does not (no table: every warp group passes through)."""
+    slot_bytes = 8 + 4 * v
+    bits = MAX_TABLE_BITS
+    while bits >= 0 and slot_bytes << bits > TABLE_BYTES:
+        bits -= 1
+    return bits
+
+
+class DeviceCount:
+    """A count that kernels add to in device memory, so that no launch waits
+    on the host: ``int()`` reads it (a sync), ``reset()`` sets it to 0."""
+
+    def __init__(self):
+        self._bufs: dict[int, torch.Tensor] = {}
+
+    def buffer(self, device: torch.device) -> torch.Tensor:
+        """The count's word on ``device`` (a CUDA device with its index)."""
+        if device.index not in self._bufs:
+            self._bufs[device.index] = torch.zeros((), dtype=torch.int64, device=device)
+        return self._bufs[device.index]
+
+    def reset(self) -> None:
+        for buf in self._bufs.values():
+            buf.zero_()
+
+    def __int__(self) -> int:
+        return sum(int(buf) for buf in self._bufs.values())
+
+
+@functools.cache
+def _kernel() -> ctypes._CFuncPtr:
+    """The C entry point, built, loaded and typed once per process."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.entry("hash_combine", "blaze_hash_aggregate",
+                        [*[vp] * 16, ctypes.c_longlong, *[i32] * 6, vp])
+
+
 def hash_aggregate(keys: torch.Tensor, vals: torch.Tensor, table_cap: int, *,
                    reducer: str = "sum", init=None, max_probes: int | None = None):
     """Reduce ``keys [N]`` int32 (``EMPTY_KEY`` = dead lane) and ``vals
@@ -82,7 +130,8 @@ def hash_aggregate(keys: torch.Tensor, vals: torch.Tensor, table_cap: int, *,
     Returns ``(tkeys [C] int32, tvals [C, V] acc-dtype, overflow [] int32)``;
     ``overflow`` counts lanes still unplaced after ``max_probes`` rounds,
     plus whatever ``init=(keys, vals, overflow)`` carried.  The kernel on
-    CUDA tensors, the plain version on CPU tensors.
+    CUDA tensors (one launch, no host sync), the plain version on CPU
+    tensors.
     """
     if reducer not in REDUCERS:
         raise ValueError(f"unknown reducer {reducer!r}; supported: {REDUCERS}")
@@ -103,55 +152,66 @@ def hash_aggregate(keys: torch.Tensor, vals: torch.Tensor, table_cap: int, *,
                         f"{keys.dtype} and {vals.dtype}")
     if not (keys.is_contiguous() and vals.is_contiguous()):
         raise ValueError("keys and vals must be contiguous")
-    tkeys, tvals, ovf = _initial_table(keys, vals, table_cap, reducer, init)
     n, v = vals.shape
+    if n >= 2**31 or table_cap >= 2**31:
+        raise ValueError(f"N = {n}, C = {table_cap}: the kernel takes fewer than 2^31")
     if n == 0:
-        return tkeys, tvals, ovf
-    tkeys, tvals = tkeys.contiguous(), tvals.contiguous()
+        return _initial_table(keys, vals, table_cap, reducer, init)
+    from repro_torch.core.cost import acc_dtype  # core imports this module
+
     dev = vals.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    lane_blocks = min(-(-n // THREADS), sms * 8)
-    slot_blocks = min(-(-table_cap // THREADS), sms * 8)
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    claim_fn = _build.entry("hash_combine", "blaze_hash_claim",
-                            [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp])
-    commit_fn = _build.entry("hash_combine", "blaze_hash_commit",
-                             [vp, vp, i32, i32, i32, vp])
-    deposit_fn = _build.entry("hash_combine", "blaze_hash_deposit",
-                              [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32,
-                               i32, i32, i32, i32, vp])
-    active = (keys != EMPTY_KEY).to(torch.uint8)
-    claim = torch.full_like(tkeys, EMPTY_KEY)
-    remaining = torch.zeros(1, dtype=torch.int32, device=dev)
-    left = 0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for r in range(_probes(max_probes, n, table_cap)):
-            remaining.zero_()
-            _build.check(claim_fn(
-                keys.data_ptr(), active.data_ptr(), tkeys.data_ptr(),
-                claim.data_ptr(), n, table_cap, r, lane_blocks, THREADS,
-                stream), "hash_aggregate claim")
-            hash_aggregate.launches += 1
-            _build.check(commit_fn(
-                tkeys.data_ptr(), claim.data_ptr(), table_cap, slot_blocks,
-                THREADS, stream), "hash_aggregate commit")
-            hash_aggregate.launches += 1
-            _build.check(deposit_fn(
-                keys.data_ptr(), vals.data_ptr(), active.data_ptr(),
-                tkeys.data_ptr(), tvals.data_ptr(), remaining.data_ptr(), n, v,
-                table_cap, r, _DTYPE_CODE[vals.dtype], _OP_CODE[reducer],
-                lane_blocks, THREADS, stream), "hash_aggregate deposit")
-            hash_aggregate.launches += 1
-            left = int(remaining.item())  # host sync: the early-exit test
-            if left == 0:
-                break
-    return tkeys, tvals, ovf + left
+    acc = acc_dtype(vals.dtype)
+    # The kernel writes the table: a copy of init's, or a fresh one.
+    tkeys = torch.empty((table_cap,), dtype=torch.int32, device=dev)
+    tvals = torch.empty((table_cap, v), dtype=acc, device=dev)
+    ovf = torch.empty((), dtype=torch.int32, device=dev)
+    ikeys = ivals = iovf = None
+    if init is not None:
+        ikeys = init[0].to(dev, torch.int32).contiguous()
+        ivals = init[1].to(dev, acc).contiguous()
+        iovf = torch.as_tensor(init[2], dtype=torch.int32, device=dev)
+        if ikeys.shape != (table_cap,) or ivals.shape != (table_cap, v) or iovf.dim():
+            raise ValueError(f"init: need keys [{table_cap}], vals [{table_cap}, {v}] and "
+                             f"a scalar overflow, got {tuple(ikeys.shape)}, "
+                             f"{tuple(ivals.shape)} and {tuple(iovf.shape)}")
+    probes = _probes(max_probes, n, table_cap)
+    # Scratch, every word written by the kernel before it is read: the
+    # compacted lanes' keys, multiplicities and partial rows (with room for
+    # the lanes gathered for the last rounds), the claims of even and odd
+    # rounds [2, C], and apart, so that hash_aggregate.lanes holds no more
+    # than itself, live[probes + 1] and the gathered count.
+    m = n + SOLO_LANES
+    ints = torch.empty(3 * m + 2 * table_cap, dtype=torch.int32, device=dev)
+    svals = torch.empty((n, v), dtype=tvals.dtype, device=dev)
+    counts = torch.empty(probes + 2, dtype=torch.int32, device=dev)
+    base, word = ints.data_ptr(), ints.element_size()
+    skey, smult, sidx, claim = (base + i * m * word for i in range(4))
+    live, gathered = counts.data_ptr(), counts[probes + 1:].data_ptr()
+    args = (keys.data_ptr(), vals.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (ikeys, ivals, iovf)),
+            tkeys.data_ptr(), tvals.data_ptr(),
+            ovf.data_ptr(), hash_aggregate.rounds.buffer(dev).data_ptr(), skey, smult,
+            sidx, svals.data_ptr(), claim, live, gathered, n, v, table_cap, probes,
+            table_bits(v), _DTYPE_CODE[vals.dtype], _OP_CODE[reducer])
+    index = dev.index
+    if index == torch.cuda.current_device():  # the launch goes to the current device
+        err = _kernel()(*args, _build.raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _kernel()(*args, _build.raw_stream(index))
+    _build.check(err, "hash_aggregate")
+    hash_aggregate.launches += 1
+    hash_aggregate.lanes = counts[: probes + 1]
+    return tkeys, tvals, ovf
 
 
-# Kernel launches since the caller last reset it: three per probe round
-# (claim, commit, deposit).
+# Kernel launches since the caller last reset it: one a call.
 hash_aggregate.launches = 0
+# Probe rounds the kernel ran, counted on the card (int() reads them).
+hash_aggregate.rounds = DeviceCount()
+# The last call's live[]: [0] the lanes left after the pre-combine, [r + 1]
+# those left after round r (0 once every lane is placed).
+hash_aggregate.lanes = None
 
 
 def _probes(max_probes: int | None, n: int, table_cap: int) -> int:

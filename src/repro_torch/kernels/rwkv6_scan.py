@@ -6,6 +6,12 @@ kernel in ``csrc/rwkv6_scan.cu`` (the source says how it is built and why);
 on CPU tensors it runs :func:`rwkv6_scan_plain`, the port of the reference's
 ``ops.rwkv6_chunked``: the same decomposition in plain PyTorch.
 
+On the card the kernel has two forms, chosen by :func:`form` from ``S``:
+``"decode"`` (one step: the state read and written once, in place, on the
+CUDA cores) and ``"prefill"`` (chunks on the tensor cores, each f32 operand
+split into bf16 parts; ``tests/test_torch_rwkv6.py`` emulates that
+arithmetic in plain PyTorch).
+
 The decay floor is part of the function: ``log w`` is clamped at ``−88 / L``
 with ``L = min(chunk, S)``, as the reference clamps it, so a prefill (L =
 64) and a decode step (L = 1) floor differently.  The wrapper computes the
@@ -16,6 +22,7 @@ may be the same tensor: a serving cache is updated in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,6 +30,12 @@ from repro_torch.kernels import _build
 
 MAX_DIM = 64  # the kernel's largest K and V
 DTYPES = (torch.float32, torch.bfloat16)
+FORMS = ("decode", "prefill")  # the kernel's forms, in the C entry's numbering
+
+
+def form(s: int) -> str:
+    """The kernel form a call of ``S = s`` steps takes."""
+    return "decode" if s == 1 else "prefill"
 
 
 def decay_floor(chunk: int, s: int) -> float:
@@ -141,22 +154,43 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     if s == 0:  # no step: the state is the initial one
         return out, state.copy_(init_state) if init_state is not None else state.zero_()
     u = u.contiguous()
-    ll, i32, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-    fn = _build.entry("rwkv6_scan", "blaze_rwkv6_scan", [
-        vp, vp, vp, vp, vp, vp, vp, vp, *[ll] * 15, *[i32] * 6, ctypes.c_float, i32, vp,
-    ])
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                 init_state.data_ptr() if init_state is not None else None,
-                 out.data_ptr(), state.data_ptr(),
-                 *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
-                 *out.stride()[:3], bsz, s, h, kd, vd, min(64, chunk, s),
-                 decay_floor(chunk, s),
-                 int(v.dtype == torch.bfloat16), stream)
+    kind = form(s)
+    if kind == "decode":  # 16-byte loads and stores of the state
+        vec = vd % 4 == 0 and all(st.data_ptr() % 16 == 0 for st in (init_state, state)
+                                  if st is not None)
+    else:  # 16-byte copies of r, k, v rows
+        elt = r.element_size()
+        vec = kd * elt % 16 == 0 and vd * elt % 16 == 0 and all(
+            t.data_ptr() % 16 == 0 and all(st * elt % 16 == 0 for st in t.stride()[:3])
+            for t in (r, k, v))
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            init_state.data_ptr() if init_state is not None else None,
+            out.data_ptr(), state.data_ptr(),
+            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
+            *out.stride()[:3], bsz, s, h, kd, vd, min(64, chunk, s),
+            decay_floor(chunk, s), int(v.dtype == torch.bfloat16), FORMS.index(kind),
+            int(vec))
+    dev = r.device.index
+    if dev == torch.cuda.current_device():  # the launch goes to the current device
+        err = _kernel()(*args, _build.raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = _kernel()(*args, _build.raw_stream(dev))
     _build.check(err, "rwkv6_scan")
     rwkv6_scan.launches += 1
+    rwkv6_scan.forms[kind] += 1
     return out, state
 
 
+@functools.cache
+def _kernel() -> ctypes._CFuncPtr:
+    """The C entry point, built, loaded and typed once per process."""
+    ll, i32, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    return _build.entry("rwkv6_scan", "blaze_rwkv6_scan", [
+        vp, vp, vp, vp, vp, vp, vp, vp, *[ll] * 15, *[i32] * 6, ctypes.c_float,
+        *[i32] * 3, vp,
+    ])
+
+
 rwkv6_scan.launches = 0  # kernel launches since the caller last reset it
+rwkv6_scan.forms = dict.fromkeys(FORMS, 0)  # the same, by form

@@ -430,6 +430,7 @@ def _rwkv_inputs(dev, b, s, h, kd, vd, dtype, seed=0, w_lo=0.15):
     (1, 1, 4, 64, 64, 64),  # a decode step: floor −88
     (2, 130, 3, 8, 16, 32),  # chunk 32: the kernel's tile follows it
     (1, 80, 2, 24, 40, 64),  # K, V off the tile
+    (1, 70, 2, 17, 30, 64),  # rows not whole 16-byte copies: element copies
 ])
 def test_rwkv6_kernel_matches_plain_version(dev, case, dtype):
     *shape, chunk = case
@@ -476,3 +477,166 @@ def test_rwkv6_kernel_refuses_what_it_does_not_take(dev):
         rwkv6_scan(r, k, v, w, u.cpu())
     with pytest.raises(ValueError, match="contiguous f32"):
         rwkv6_scan(r, k, v, w, u, out_state=s0.double())
+
+
+def test_hash_aggregate_overflow_counts_raw_lanes_under_duplicates(dev):
+    """64 keys × 5 shuffled copies into 16 slots, 16 probes: the 48 keys that
+    find no slot overflow as 240 raw lanes, not as their partials."""
+    g = torch.Generator().manual_seed(0)
+    keys = torch.arange(64, dtype=torch.int32).repeat(5)[torch.randperm(320, generator=g)]
+    vals = torch.ones((320, 1), dtype=torch.int32)
+    got = HK.hash_aggregate(keys.to(dev), vals.to(dev), 16, max_probes=16)
+    want = HK.hash_aggregate_plain(keys, vals, 16, max_probes=16)
+    assert int(got[2]) == int(want[2]) == 240
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("case", ["overflow", "short_tiles"])
+def test_hash_aggregate_repeated_calls_match_plain_version(dev, case):
+    """Every CTA counts its compacted lanes into a word that the kernel
+    zeroes; a count added before every CTA has passed the zeroing would
+    lose lanes at random.  The two cases where tiles are shortest (the
+    320-lane overflow case; 2^16 distinct keys with one copy in four
+    repeated, about 128 lanes a CTA, into 2^17 slots), each called 100
+    times, and every table equal to the plain version's."""
+    g = torch.Generator().manual_seed(2)
+    if case == "overflow":
+        keys = torch.arange(64, dtype=torch.int32).repeat(5)[torch.randperm(320, generator=g)]
+        cap, probes = 16, 16
+    else:
+        keys = torch.randperm(1 << 16, generator=g).to(torch.int32)
+        keys = torch.cat([keys, keys[: 1 << 14]])[torch.randperm(5 << 14, generator=g)]
+        cap, probes = 1 << 17, 16
+    vals = torch.ones((keys.shape[0], 1), dtype=torch.int32)
+    want = HK.hash_aggregate_plain(keys, vals, cap, max_probes=probes)
+    keys, vals = keys.to(dev), vals.to(dev)
+    for _ in range(100):
+        got = HK.hash_aggregate(keys, vals, cap, max_probes=probes)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_hash_aggregate_hot_key_in_one_launch_with_no_host_sync(dev):
+    """A quarter of 2^22 lanes on one key beside unique keys: slot for slot
+    the plain version's table, one launch, no host sync (the sync debug mode
+    raises on any), and the rounds counted on the card."""
+    n = 1 << 22
+    g = torch.Generator().manual_seed(1)
+    hot = torch.rand(n, generator=g) < 0.25
+    keys = torch.where(hot, 7, torch.randperm(n, generator=g).to(torch.int32) + 1000)
+    keys = keys.to(torch.int32).to(dev)
+    vals = torch.ones((n, 1), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    launches, rounds = HK.hash_aggregate.launches, int(HK.hash_aggregate.rounds)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = HK.hash_aggregate(keys, vals, 1 << 23, max_probes=64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert HK.hash_aggregate.launches == launches + 1
+    ran = int(HK.hash_aggregate.rounds) - rounds
+    lanes = HK.hash_aggregate.lanes.tolist()
+    assert 1 <= ran < 64 and lanes[ran] == 0 and lanes[0] < n
+    want = HK.hash_aggregate_plain(keys, vals, 1 << 23, max_probes=64)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[1][got[0] == 7].sum()) == int(hot.sum())
+
+
+@pytest.mark.parametrize("v", [1, 3, 13_000])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reducer", ["sum", "prod", "min", "max"])
+def test_hash_aggregate_hot_keys_match_plain_version(dev, reducer, dtype, v):
+    """Hot keys beside rare ones and dead lanes, merged into an init= table
+    that holds keys already; V = 13,000 leaves no room for the CTA table.
+    Integer results, min and max exact; float sums and products within
+    1e-5 of the magnitudes' sum."""
+    n = 6000 if v < 100 else 60
+    g = torch.Generator().manual_seed(v)
+    keys = torch.where(torch.rand(n, generator=g) < 0.4,
+                       torch.randint(0, 3, (n,), generator=g),
+                       torch.randint(-500, 500, (n,), generator=g)).to(torch.int32)
+    keys[torch.rand(n, generator=g) < 0.1] = HK.EMPTY_KEY
+    if reducer == "prod":
+        raw = torch.where(torch.rand((n, v), generator=g) < 0.5, 1.0, -1.0)
+    else:
+        raw = torch.randint(-8, 9, (n, v), generator=g).float()
+    vals = raw.to(dtype).to(dev)
+    keys = keys.to(dev)
+    init = HK.hash_aggregate_plain(keys[: n // 3], vals[: n // 3], 2048, reducer=reducer,
+                                   max_probes=16)
+    got = HK.hash_aggregate(keys, vals, 2048, reducer=reducer, init=init, max_probes=16)
+    want = HK.hash_aggregate_plain(keys, vals, 2048, reducer=reducer, init=init,
+                                   max_probes=16)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    if dtype == torch.int32 or reducer in ("min", "max"):
+        assert torch.equal(got[1], want[1])
+    else:
+        mag = HK.hash_aggregate_plain(keys, vals.abs(), 2048, max_probes=16)[1]
+        assert bool(((got[1] - want[1]).abs() <= 1e-5 * (mag + init[1].abs())).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (8, 32, 64, 64),  # rwkv6's decode shape
+    (3, 5, 24, 40),  # K, V off the tile
+    (2, 3, 17, 30),  # V not a multiple of 4: no vector loads
+])
+def test_rwkv6_decode_form_matches_plain_version(dev, shape, dtype):
+    """One step (floor −88), from a zero state and from one, the state
+    written in place; counted under the decode form."""
+    b, h, kd, vd = shape
+    r, k, v, w, u, s0 = _rwkv_inputs(dev, b, 1, h, kd, vd, dtype)
+    before = dict(rwkv6_scan.forms)
+    for init in (None, s0):
+        y, st = rwkv6_scan(r, k, v, w, u, init_state=init)
+        want_y, want_s = rwkv6_scan_plain(r, k, v, w, u, init_state=init)
+        _scan_close(y, want_y, dtype)
+        _scan_close(st, want_s, torch.float32)
+    state = s0.clone()
+    y, st = rwkv6_scan(r, k, v, w, u, init_state=state, out_state=state)
+    assert st is state and torch.equal(y, rwkv6_scan(r, k, v, w, u, init_state=s0)[0])
+    assert rwkv6_scan.forms["decode"] == before["decode"] + 4
+    assert rwkv6_scan.forms["prefill"] == before["prefill"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_decode_chained_equals_one_prefill(dev, dtype):
+    """16 decode steps, each from the last state in place, against one
+    prefill of the same 16 steps: within twice the prefill's derived bound
+    (``chip_smoke.rwkv6_bound``), plus a bf16 step of y for bf16."""
+    import chip_smoke
+
+    r, k, v, w, u, s0 = _rwkv_inputs(dev, 2, 16, 4, 64, 64, dtype)
+    before = dict(rwkv6_scan.forms)
+    y_pre, s_pre = rwkv6_scan(r, k, v, w, u, init_state=s0)
+    state = s0.clone()
+    ys = [rwkv6_scan(r[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1], w[:, i:i + 1], u,
+                     init_state=state, out_state=state)[0] for i in range(16)]
+    assert rwkv6_scan.forms["prefill"] == before["prefill"] + 1
+    assert rwkv6_scan.forms["decode"] == before["decode"] + 16
+    (by, bs), _, _ = chip_smoke.rwkv6_bound(r, k, v, w, u, s0)
+    y_dec = torch.cat(ys, 1)
+    tol_y = 2 * by + (2.0 ** -7 * y_pre.double().abs() if dtype == torch.bfloat16 else 0)
+    assert bool(((y_dec.double() - y_pre.double()).abs() <= tol_y).all())
+    assert bool(((state.double() - s_pre.double()).abs() <= 2 * bs).all())
+
+
+def test_rwkv6_prefill_form_at_the_floor_in_bf16(dev):
+    """Decays down to e^-5 in the bf16 model: λ reaches −88 within a chunk;
+    the prefill form stays finite and within its bound of the floored
+    float64 oracle (``chip_smoke.rwkv6_bound``, one bf16 step of y more)."""
+    import chip_smoke
+    from repro_torch.kernels.ref import rwkv6_ref
+
+    r, k, v, _, u, s0 = _rwkv_inputs(dev, 2, 128, 4, 64, 64, torch.bfloat16)
+    w = torch.exp(-5.0 * torch.rand(r.shape, generator=torch.Generator().manual_seed(3))
+                  ).to(dev)
+    y, st = rwkv6_scan(r, k, v, w, u, init_state=s0)
+    (by, bs), _, logw = chip_smoke.rwkv6_bound(r, k, v, w, u, s0)
+    f64 = [t.double() for t in (r, k, v, u, s0)]
+    want_y, want_s = rwkv6_ref(*f64[:3], torch.exp(logw), f64[3], init_state=f64[4])
+    assert bool(torch.isfinite(y).all())
+    assert bool(((y.double() - want_y).abs() <= 1.1 * by + 2.0 ** -7 * want_y.abs()).all())
+    assert bool(((st.double() - want_s).abs() <= 1.1 * bs).all())

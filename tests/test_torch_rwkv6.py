@@ -208,3 +208,101 @@ def test_rwkv_cache_at_full_width():
     assert cache.shift_tm.shape == cache.shift_cm.shape == (8, 2048)
     assert cache.shift_tm.dtype == torch.bfloat16
     assert cache.state.shape == (8, 32, 64, 64) and cache.state.dtype == torch.float32
+
+
+def test_rwkv6_kernel_form_follows_the_step_count():
+    from repro_torch.kernels.rwkv6_scan import FORMS, form
+
+    assert FORMS == ("decode", "prefill")
+    assert [form(s) for s in (1, 2, 64, 512)] == ["decode", "prefill", "prefill", "prefill"]
+
+
+def rwkv6_scan_split(r, k, v, w, u, *, init_state=None, chunk=64, parts=None):
+    """The prefill form's arithmetic in plain PyTorch (``csrc/rwkv6_scan.cu``):
+    chunks of ``min(64, chunk, S)`` steps, the floored ``log w`` summed into
+    ``λ``, the factors taken about ``λ_T/2`` (``A = r ∘ e^{λ_{l−1} − λ_T/2}``,
+    ``B = k ∘ e^{λ_T/2 − λ_s}``), and every product through
+    ``split_einsum`` (``tests/test_torch_ssd.py``), in two parts for bf16
+    ``r, k, v`` (``v`` exact) and three for f32; ``parts`` overrides the
+    count.  ``y = A·(e^{λ_T/2} ∘ S) + strict(A·Bᵀ)·v + diag ∘ v``, ``S' =
+    e^{λ_T} ∘ S + e^{λ_T/2} ∘ (Bᵀ·v)``.  Returns ``(y`` f32``, S_T)``."""
+    from test_torch_ssd import split_einsum
+
+    bsz, s, h, kd = r.shape
+    if parts is None:
+        parts = 2 if r.dtype == torch.bfloat16 else 3
+    L = min(64, chunk, s)
+    floor = decay_floor(chunk, s)
+    state = (torch.zeros((bsz, h, kd, v.shape[-1])) if init_state is None
+             else init_state.float().clone())
+    ys = []
+    for c0 in range(0, s, L):
+        sl = slice(c0, c0 + L)
+        rc, kc, vc = r[:, sl].float(), k[:, sl].float(), v[:, sl].float()
+        logw = torch.clamp_min(torch.log(torch.clamp_min(w[:, sl].float(), 1e-30)), floor)
+        lam = torch.cumsum(logw, dim=1)  # [B, l, H, K]
+        prev = torch.cat([torch.zeros_like(lam[:, :1]), lam[:, :-1]], 1)
+        half = 0.5 * lam[:, -1]  # [B, H, K]
+        a = rc * torch.exp(prev - half[:, None])
+        b = kc * torch.exp(half[:, None] - lam)
+        n = rc.shape[1]
+        strict = torch.tril(torch.ones((n, n)), diagonal=-1)
+        scores = split_einsum("blhk,bshk->bhls", a, b, parts) * strict
+        y = split_einsum("blhk,bhkv->blhv", a, state * torch.exp(half)[..., None], parts)
+        y = y + split_einsum("bhls,bshv->blhv", scores, vc, parts)
+        y = y + torch.einsum("blhk,blhk->blh", rc * u.float(), kc)[..., None] * vc
+        state = (state * torch.exp(lam[:, -1])[..., None]
+                 + torch.exp(half)[..., None] * split_einsum("bshk,bshv->bhkv", b, vc, parts))
+        ys.append(y)
+    return torch.cat(ys, 1), state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_split_products_match_jax_and_stay_in_the_bound(dtype):
+    """The prefill form's arithmetic (``rwkv6_scan_split``) against JAX's
+    Pallas kernel in interpret mode (``atol 5e-5``, as above) and against the
+    float64 oracle on the floored decay within ``chip_smoke.rwkv6_bound``'s
+    ``1.1·bound``, whose ``τ`` carries ``rwkv6_tc_tau``; with one bf16 part
+    per operand it must leave the bound."""
+    import chip_smoke
+
+    r, k, v, w, u, s0 = _inputs(9, S=128, H=2, K=16, V=16, init=True)
+    # The bf16 model's r, k, v are bf16 values; JAX gets the same values in f32.
+    r, k, v = (torch.from_numpy(t).to(dtype) for t in (r, k, v))
+    rf, kf, vf = (t.float().numpy() for t in (r, k, v))
+    yj, sj = jrwkv6_scan(*_j(rf, kf, vf, w, u), chunk=64)
+    w_t, u_t = torch.from_numpy(w), torch.from_numpy(u)
+    y, st = rwkv6_scan_split(r, k, v, w_t, u_t)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), atol=5e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=5e-5)
+    init = torch.from_numpy(s0)
+    f64 = [torch.from_numpy(t).double() for t in (rf, kf, vf, w, u, s0)]
+    bound, tau, logw = chip_smoke.rwkv6_bound(*f64)
+    assert bool((tau > chip_smoke.rwkv6_tc_tau(16)).all())
+    y_ref, s_ref = R.rwkv6_ref(*f64[:3], torch.exp(logw), f64[4], init_state=f64[5])
+
+    def within(got):
+        return all(bool(((g.double() - want).abs() <= 1.1 * bd).all())
+                   for g, want, bd in zip(got, (y_ref, s_ref), bound))
+
+    assert within(rwkv6_scan_split(r, k, v, w_t, u_t, init_state=init))
+    assert not within(rwkv6_scan_split(r, k, v, w_t, u_t, init_state=init, parts=1))
+
+
+def test_rwkv6_split_products_at_the_floor():
+    """Decays down to e^-5, below the floor of a 64-step chunk, so λ reaches
+    −88 within a chunk: the factors about λ_T/2 stay within e^{±44}, and the
+    split arithmetic stays within the bound of the floored oracle."""
+    import chip_smoke
+
+    r, k, v, w, u, s0 = _inputs(10, S=128, H=2, K=16, V=16, init=True)
+    w = np.exp(-5.0 * np.random.RandomState(11).rand(*w.shape)).astype(np.float32)
+    t = _t(r, k, v, w, u, s0)
+    bound, tau, logw = chip_smoke.rwkv6_bound(*(x.double() for x in t))
+    assert float(chip_smoke.window_decay(logw, 64).max()) > 80  # λ_T nears −88
+    f64 = [x.double() for x in t]
+    want = R.rwkv6_ref(*f64[:3], torch.exp(logw), f64[4], init_state=f64[5])
+    got = rwkv6_scan_split(*t[:5], init_state=t[5])
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for g, ref, bd in zip(got, want, bound):
+        assert bool(((g.double() - ref).abs() <= 1.1 * bd).all())
