@@ -12,10 +12,12 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    main path gives it, holds the result against the kernel's plain PyTorch
    version on the same inputs, and times kernel, plain version and, where one
    exists, the single PyTorch call computing the same function (CUDA events,
-   warmed up, median of 10; for K4, K5 and K6 also the kernel's own
-   device time from ``torch.profiler``, which leaves out the host's launch
-   overhead that the event time of a decode-sized call includes, and for
-   K4 SDPA's device time beside its event time);
+   warmed up, median of 10; for every kernel at its main path's shapes
+   also the kernel's own device time from ``torch.profiler``, which leaves
+   out the host's launch overhead that the event time of a decode-sized
+   call includes, for
+   K4 SDPA's device time beside its event time, and for K3 also a call's
+   time among 10 enqueued back to back, which needs no profiler);
 2. path phase — runs the LM serving path (``repro_torch.launch.serve_lm.
    generate`` at full width and depth on qwen3-0.6b, zamba2-7b and
    rwkv6-1.6b: batch 8, a 512-token prompt, 32 greedy steps, K4 on every
@@ -156,8 +158,14 @@ best and second-best ``d²`` within ``8·2^-24`` of their scale); flips below
 that are counted and printed.  Its ``[Σx | count]`` is a float sum as above,
 held against float64 sums under the kernel's own assignment, with ``m_k``
 counted along its form's accumulation (``Smoke.kmeans_additions``: at the
-paper's shape, the most points one thread adds into the key in registers,
-plus the warp's shuffle tree, the warps of a CTA and the CTAs that merge).
+paper's shape the stream form's longest chain, ``stream_additions``: the
+most points one consumer thread adds into the key's running sums, its
+tiles' and the head's or tail's, plus lane 0's 5-level shuffle tree, 7
+additions of the 8 warps in order and ``blocks − 1`` of the CTAs in order).
+The stream form adds in a fixed order, so a second call must give the same
+bits; views of the points that start 1, 2 and 3 points in (the kernel
+peels a head of 1 to 3 points off each) are held against the plain version
+alike.
 
 PageRank (5 iterations) and k-means (5 iterations) run with both engines
 against references written here that accumulate in float64.  Page ``p``'s
@@ -377,6 +385,27 @@ def rwkv6_bound(r, k, v, w, u, s0):
     return bound, tau, logw
 
 
+def stream_additions(assign, n, d, k, offset, blocks):
+    """Per key ``[K, 1]``: the f32 additions on the longest chain into the
+    key in K3's stream form (``csrc/kmeans_assign.cu``) for ``n`` points of
+    ``d`` floats starting ``offset`` floats past 16 bytes, over ``blocks``
+    CTAs: the most points one consumer thread adds into the key's running
+    sums (its tiles' points, then the head and tail it takes;
+    ``kernels.kmeans_assign.stream_threads``), plus lane 0's 5-level
+    shuffle tree, the ``STREAM_WARPS − 1`` additions of the warps in order
+    and the ``blocks − 1`` of the CTAs in order.  ``kmeans_assign_tiled``
+    in ``tests/test_torch_ops.py`` counts the same chain along its own
+    walk of the tiles."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import STREAM_WARPS, stream_threads
+
+    lanes = blocks * 32 * STREAM_WARPS
+    thread = stream_threads(n, d, offset, blocks, device=assign.device)
+    per_thread = torch.bincount(assign.long() * lanes + thread,
+                                minlength=k * lanes).view(k, lanes)
+    return (per_thread.amax(1) + 5 + (STREAM_WARPS - 1) + (blocks - 1))[:, None]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -425,6 +454,25 @@ class Smoke:
             times.append(start.elapsed_time(end))
         self.sync()
         return statistics.median(times)
+
+    def back_to_back_ms(self, fn) -> float:
+        """One call's time over REPS calls enqueued back to back between two
+        CUDA events, after two warm-up calls: the host enqueues a call while
+        the card runs the one before, so where a call's device time exceeds
+        the host's work for it, its launch overhead drops out.  Needs no
+        profiler (which records no launch at all in some windows of a long
+        run)."""
+        torch = self.torch
+        for _ in range(2):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / REPS
 
     def device_busy_ms(self, fn, names=(), expect=None) -> dict | None:
         """Mean device time of one call, for each kernel named in ``names``
@@ -544,38 +592,31 @@ class Smoke:
         form, blocks = launch_shape(n, v, k, sm_count(self.dev.index or 0))
         return self.fold_additions(ids, k, form, blocks, THREADS, v, tables=True)
 
-    def kmeans_additions(self, assign, n, d, k):
-        """Per key ``[K, 1]``: the f32 additions that reach it in K3.  The
-        register form: the most points one thread adds into the key, the
-        warp's 5-level shuffle tree, one fold per warp of the CTA and the
-        CTAs that merge.  The shared and global forms fold point by point,
-        as K1 does (``fold_additions``)."""
-        torch = self.torch
+    def kmeans_additions(self, assign, x, k):
+        """Per key ``[K, 1]``: the f32 additions that reach it in K3 on the
+        points ``x``.  The stream form: ``stream_additions``.  The shared and
+        global forms fold point by point, as K1 does (``fold_additions``)."""
         from repro_torch.kernels.kmeans_assign import THREADS, launch_shape
 
+        n, d = x.shape
         form, blocks = launch_shape(n, d, k, self.dev)
-        if form != "registers":
+        if form != "stream":
             return self.fold_additions(assign, k, form, blocks, THREADS)
-        lanes = blocks * THREADS
-        thread = torch.arange(n, device=self.dev) % lanes
-        per_thread = torch.bincount(assign.long() * lanes + thread,
-                                    minlength=k * lanes).view(k, lanes)
-        return (per_thread.amax(1) + 5 + THREADS // 32 + blocks)[:, None]
+        return stream_additions(assign, n, d, k, x.data_ptr() // 4, blocks)
 
-    def kernel_kmeans(self, key, x, c, x1):
-        """K3 against its plain version at fig. 6's shape; ``x1`` is
-        ``[x | 1]``."""
-        torch = self.torch
-        from repro_torch.kernels.kmeans_assign import (
-            kmeans_assign, kmeans_assign_plain, near_ties)
+    def check_kmeans(self, key, x, c, x1, ties, got):
+        """Hold K3's ``got = (assign, stats)`` on the points ``x`` against the
+        plain version: assignments equal away from ``ties``, the sums within
+        the float-sum tolerance (under the kernel's own assignment where a
+        near tie flipped one).  Returns ``(max_abs_err, flips, want_stats,
+        abs_sum, count)``."""
+        from repro_torch.kernels.kmeans_assign import kmeans_assign_plain
         from repro_torch.kernels.segment_reduce import segment_reduce_plain
 
-        n, d = x.shape
+        got_a, got_s = got
         k = c.shape[0]
-        got_a, got_s = kmeans_assign(x, c)
         want_a, want_s = kmeans_assign_plain(x, c)
         self.sync()
-        ties = near_ties(x, c)
         differ = got_a != want_a
         if bool((differ & ~ties).any()):
             raise AssertionError(f"{key}: {int((differ & ~ties).sum())} decided "
@@ -584,9 +625,33 @@ class Smoke:
         if flips:  # hold the sums against the kernel's own assignment
             want_s = segment_reduce_plain(got_a, x1, k)
         abs_sum = segment_reduce_plain(got_a, x1.abs(), k)
-        count = self.kmeans_additions(got_a, n, d, k)
+        count = self.kmeans_additions(got_a, x, k)
         err = self.compare(key, got_s, want_s, exact=False, abs_sum=abs_sum,
                            count=count)
+        return err, flips, want_s, abs_sum, count
+
+    def kernel_kmeans(self, key, x, c, x1):
+        """K3 against its plain version at fig. 6's shape; ``x1`` is
+        ``[x | 1]``.  Also: a second call equal bit for bit, views of the
+        points that start 1, 2 and 3 points in (12, 24 and 36 bytes past
+        the buffer's start, so the kernel peels a head), and the device
+        time."""
+        torch = self.torch
+        from repro_torch.kernels.kmeans_assign import (
+            kmeans_assign, kmeans_assign_plain, launch_shape, near_ties)
+
+        n, d = x.shape
+        k = c.shape[0]
+        form, _ = launch_shape(n, d, k, self.dev)
+        got_a, got_s = kmeans_assign(x, c)
+        ties = near_ties(x, c)
+        err, flips, want_s, abs_sum, count = self.check_kmeans(
+            key, x, c, x1, ties, (got_a, got_s))
+        again_a, again_s = kmeans_assign(x, c)
+        self.sync()
+        if not (torch.equal(again_a, got_a) and torch.equal(again_s, got_s)):
+            raise AssertionError(f"{key}: a second call differs from the first")
+        del again_a, again_s
         # The check must reject a zero result and one that lost every 50th
         # point.
         self.compare(key + " zeros", torch.zeros_like(got_s), want_s, exact=False,
@@ -596,14 +661,26 @@ class Smoke:
         self.sync()
         self.compare(key + " 2% points lost", lost, want_s, exact=False,
                      abs_sum=abs_sum, count=count, must_fail=True)
+        del keep, lost
+        views = {}
+        for start in (1, 2, 3):
+            xs = x[start:]
+            view_err, view_flips, *_ = self.check_kmeans(
+                f"{key} from point {start}", xs, c, x1[start:], ties[start:],
+                kmeans_assign(xs, c))
+            views[start] = {"max_abs_err": view_err, "flips": view_flips}
         nbytes = n * d * 4 + n * 4 + k * (2 * d + 1) * 4
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = 2 * n * k * d / F32_OPS_PER_S * 1e3
         self.record(
-            key, kernel="kmeans_assign", shape=[[n, d], [k, d]], max_abs_err=err,
-            near_ties=int(ties.sum()), flips=flips,
+            key, kernel="kmeans_assign", form=form, shape=[[n, d], [k, d]],
+            max_abs_err=err, near_ties=int(ties.sum()), flips=flips,
             max_rel_tol=float(torch.clamp(count.double() * F32_U, min=1e-5).max()),
+            repeat_bit_equal=True, views=views,
             ms=self.time_ms(lambda: kmeans_assign(x, c)),
+            device_ms=self.device_busy_ms(lambda: kmeans_assign(x, c),
+                                          names=("kmeans_assign",), expect=1),
+            back_to_back_ms=self.back_to_back_ms(lambda: kmeans_assign(x, c)),
             plain_ms=self.time_ms(lambda: kmeans_assign_plain(x, c)),
             library_ms=None,
             bound_ms=max(bound_bytes, bound_ops),
@@ -1410,7 +1487,7 @@ class Smoke:
         # differently (such a point moves [x | 1] between two keys).
         x1 = torch.cat([x, torch.ones((n, 1), device=self.dev)], 1)
         abs_sum = segment_reduce_plain(a3, x1.abs(), k).double()
-        m = self.kmeans_additions(a3, n, d, k) + self.segment_additions(a3, n, d + 1, k)
+        m = self.kmeans_additions(a3, x, k) + self.segment_additions(a3, n, d + 1, k)
         ties = near_ties(x, c0, with_norm_x=True)
         tie_mass = x1[ties].abs().double().sum(0)
         tol = 1e-5 * s1.double().abs() + m.double() * F32_U * abs_sum + tie_mass

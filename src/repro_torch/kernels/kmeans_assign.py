@@ -16,19 +16,26 @@ rounding may decide, where two correct versions may disagree.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
-THREADS = 256
-# The register form keeps a [K, D+1] accumulator per thread for K <= REG_K
-# and D <= REG_D (kRegK/kRegD in the source).
-REG_K, REG_D = 8, 4
+THREADS = 256  # a CTA of the shared and global forms
+# The stream form, for K <= STREAM_K and D <= STREAM_D (one compiled instance
+# each): STREAM_WARPS consumer warps a CTA take 4 points a thread, TILE
+# points a tile, and one producer warp streams the tiles in; a persistent
+# grid of STREAM_CTAS_PER_SM CTAs an SM.
+STREAM_K, STREAM_D = 8, 4
+STREAM_WARPS = 8
+TILE = 4 * 32 * STREAM_WARPS
+STREAM_CTAS_PER_SM = 1
 # Largest shared working set (centres, their norms and the [K, D+1]
-# accumulator) a CTA takes: what a launch may use without opting in.
+# accumulator) a CTA of the shared form takes: what a launch may use
+# without opting in.
 SHARED_BYTES = 48 * 1024
-FORMS = ("registers", "shared", "global")
+FORMS = ("stream", "shared", "global")
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
 
@@ -81,20 +88,62 @@ def near_ties(points: torch.Tensor, centers: torch.Tensor, *,
 
 
 def launch_shape(n: int, d: int, k: int, device) -> tuple[str, int]:
-    """``(form, blocks)`` of the kernel's launch: the ``"registers"`` form
-    for K <= :data:`REG_K` and D <= :data:`REG_D`, else ``"shared"`` when the
-    centres, their norms and the ``[K, D+1]`` accumulator fit
-    :data:`SHARED_BYTES`, else ``"global"``; and a grid of ``blocks`` CTAs of
-    :data:`THREADS` that strides over the points (point ``i`` goes to thread
-    ``i % (blocks * THREADS)``)."""
+    """``(form, blocks)`` of the kernel's launch: the ``"stream"`` form for
+    K <= :data:`STREAM_K` and D <= :data:`STREAM_D`, a persistent grid of
+    :data:`STREAM_CTAS_PER_SM` CTAs an SM (no more than there are whole
+    tiles, at least one); else ``"shared"`` when the centres, their norms and
+    the ``[K, D+1]`` accumulator fit :data:`SHARED_BYTES`, else ``"global"``,
+    each a grid of ``blocks`` CTAs of :data:`THREADS` that strides over the
+    points (point ``i`` goes to thread ``i % (blocks * THREADS)``)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if k <= REG_K and d <= REG_D:
-        form, per_sm = "registers", 3
-    elif k * (2 * d + 2) * 4 <= SHARED_BYTES:
+    if k <= STREAM_K and d <= STREAM_D:
+        return "stream", max(1, min(sms * STREAM_CTAS_PER_SM, n // TILE))
+    if k * (2 * d + 2) * 4 <= SHARED_BYTES:
         form, per_sm = "shared", 4
     else:
         form, per_sm = "global", 8
     return form, min(-(-n // THREADS), sms * per_sm)
+
+
+def stream_layout(n: int, d: int, offset: int) -> tuple[int, int, int]:
+    """``(head, shift, tiles)``: how the stream form cuts ``n`` points of
+    ``d`` floats that start ``offset`` floats past a 16-byte boundary.
+
+    A bulk copy needs a 16-byte-aligned source.  ``head`` (at most 3) is the
+    fewest points after which a point starts on 16 bytes, and ``shift`` is
+    0; where no point does (``d`` = 2 or 4 and an odd start), ``head`` is
+    the fewest points after which the 16 bytes below the next point lie in
+    the input, and ``shift`` is that point's offset in floats from them.
+    ``tiles`` is the count of whole :data:`TILE`-point tiles after the head
+    whose copy (``shift``: 16 bytes longer) stays inside the input.  The
+    points outside the tiles (``n − tiles·TILE``: the head, then the tail)
+    are read with plain loads; with no tile, ``head`` and ``shift`` are 0."""
+    o = offset % 4
+    head = next((h for h in range(4) if (o + h * d) % 4 == 0), None)
+    if head is None:
+        head = next(h for h in range(4) if (o + h * d) // 4 * 4 >= o)
+    shift = (o + head * d) % 4
+    tiles = max(n - head, 0) // TILE
+    if tiles and shift and (n - head - tiles * TILE) * d < 4 - shift:
+        tiles -= 1
+    return (head, shift, tiles) if tiles else (0, 0, 0)
+
+
+def stream_threads(n: int, d: int, offset: int, blocks: int, device=None) -> torch.Tensor:
+    """Per point ``[n]`` int64: the stream form's consumer thread that reads
+    it and adds it into its sums, ``cta · 32·STREAM_WARPS + t``.  Tile ``j``
+    goes to CTA ``j mod blocks``, its points ``4t..4t+3`` to thread ``t``;
+    the head and tail, in order, to the threads of CTA ``tiles mod blocks``
+    round robin."""
+    head, _, tiles = stream_layout(n, d, offset)
+    lanes = 32 * STREAM_WARPS
+    i = torch.arange(n, device=device)
+    local = i - head
+    in_tile = (local >= 0) & (local < tiles * TILE)
+    extra = torch.where(i < head, i, i - tiles * TILE)
+    cta = torch.where(in_tile, torch.div(local, TILE, rounding_mode="floor") % blocks,
+                      tiles % blocks)
+    return cta * lanes + torch.where(in_tile, local % TILE // 4, extra % lanes)
 
 
 def kmeans_assign(points: torch.Tensor, centers: torch.Tensor, *,
@@ -104,7 +153,7 @@ def kmeans_assign(points: torch.Tensor, centers: torch.Tensor, *,
     on a CUDA tensor, the plain version on a CPU tensor.
 
     ``block_n`` keeps the TPU kernel's signature; the CUDA kernel picks its
-    own tile, :data:`THREADS` points per CTA per step.
+    own tile (:data:`TILE` points in the stream form).
     """
     del block_n
     if points.dim() != 2 or centers.dim() != 2 or points.shape[1] != centers.shape[1]:
@@ -124,24 +173,35 @@ def kmeans_assign(points: torch.Tensor, centers: torch.Tensor, *,
     if not (points.is_contiguous() and centers.is_contiguous()):
         raise ValueError("points and centers must be contiguous")
     n = points.shape[0]
-    assign = torch.empty((n,), dtype=torch.int32, device=points.device)
-    stats = torch.zeros((k, d + 1), dtype=torch.float32, device=points.device)
-    if n == 0:
-        return assign, stats  # a 0-block grid is a launch error
-    form, blocks = launch_shape(n, d, k, points.device)
-    fn = _build.entry("kmeans_assign", "blaze_kmeans_assign", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ])
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(points.data_ptr(), centers.data_ptr(), assign.data_ptr(),
-                 stats.data_ptr(), n, d, k, FORMS.index(form), blocks, THREADS,
-                 stream)
+    dev = points.device
+    assign = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:  # a 0-block grid is a launch error
+        return assign, torch.zeros((k, d + 1), dtype=torch.float32, device=dev)
+    form, blocks = launch_shape(n, d, k, dev)
+    if form == "stream":  # the kernel writes every cell of stats
+        stats = torch.empty((k, d + 1), dtype=torch.float32, device=dev)
+        scratch = torch.empty((blocks, k * (d + 1)), dtype=torch.float32, device=dev)
+        head, shift, tiles = stream_layout(n, d, points.data_ptr() // 4)
+    else:
+        stats = torch.zeros((k, d + 1), dtype=torch.float32, device=dev)
+        scratch, (head, shift, tiles) = None, (0, 0, 0)
+    with torch.cuda.device(dev):
+        err = _kernel()(points.data_ptr(), centers.data_ptr(), assign.data_ptr(),
+                        stats.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                        n, d, k, FORMS.index(form), blocks, THREADS, head, shift, tiles,
+                        _build.raw_stream(dev.index))
     _build.check(err, "kmeans_assign")
     kmeans_assign.launches += 1
     return assign, stats
+
+
+@functools.cache
+def _kernel() -> ctypes._CFuncPtr:
+    """The C entry point, built, loaded and typed once per process."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.entry("kmeans_assign", "blaze_kmeans_assign", [
+        vp, vp, vp, vp, vp, ctypes.c_longlong, *[i32] * 7, ctypes.c_longlong, vp,
+    ])
 
 
 kmeans_assign.launches = 0  # kernel launches since the caller last reset it

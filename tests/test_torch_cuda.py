@@ -8,8 +8,11 @@ machine that has the card but not the JAX package:
 The kernels are held against their plain PyTorch versions on the same device
 tensors; integer results and min/max are exact.  K3's assignments are exact
 except at near ties (``near_ties``), and its sums within ``1e-5`` relative
-plus ``1e-5`` of the sum of the addends' magnitudes (f32 atomics in an order
-the kernel does not fix, against float64).  K4 (flash attention) within
+plus ``1e-5`` of the sum of the addends' magnitudes (f32 sums, in the stream
+form's fixed order or by atomics in an order the kernel does not fix,
+against float64); on a view that starts inside a buffer its assignments
+equal the same kernel's on a contiguous copy exactly, and the stream form's
+repeated calls equal the first bit for bit.  K4 (flash attention) within
 ``3e-5`` of ``attention_ref`` in f32, and in bf16 within one bf16 step of the
 output (``2^-7·|out|``) plus that, plus ``2^-8·attention_ref(q, k, |v|)`` for
 the probabilities the tensor-core forms round to bf16; a full-width qwen3-0.6b decode step's
@@ -165,13 +168,17 @@ def _check_kmeans(pts, ctr):
 
 
 @pytest.mark.parametrize("n,d,k,form", [
-    (1000, 3, 5, "registers"), (70_001, 3, 5, "registers"),
-    (3001, 4, 8, "registers"), (777, 8, 13, "shared"), (50_003, 5, 2, "shared"),
+    (1000, 3, 5, "stream"), (70_001, 3, 5, "stream"),
+    (3001, 4, 8, "stream"), (777, 8, 13, "shared"), (50_003, 5, 2, "shared"),
     (5000, 16, 600, "global"),
+    (5000, 1, 8, "stream"), (4100, 4, 1, "stream"), (2500, 1, 1, "stream"),
+    (100, 4, 8, "stream"), (3, 3, 5, "stream"), (5003, 3, 5, "stream"),
 ])
 def test_kmeans_kernel_matches_plain_version(dev, n, d, k, form):
     """N off the tile, every form: [600, 16] needs 600·34·4 B of shared
-    memory, over the 48 KiB budget, so it runs the global form."""
+    memory, over the 48 KiB budget, so it runs the global form.  The stream
+    form at D = 1 and 4, K = 1 and 8, under one tile (every point read with
+    plain loads) and N not a multiple of 4."""
     g = torch.Generator().manual_seed(n)
     pts = torch.randn((n, d), generator=g).to(dev)
     ctr = torch.randn((k, d), generator=g).to(dev)
@@ -179,6 +186,59 @@ def test_kmeans_kernel_matches_plain_version(dev, n, d, k, form):
     before = kmeans_assign.launches
     _check_kmeans(pts, ctr)
     assert kmeans_assign.launches == before + 1
+
+
+@pytest.mark.parametrize("d,unit,start", [
+    *[(d, "points", start) for d in (1, 2, 3, 4) for start in (1, 2, 3)],
+    *[(d, "floats", start) for d in (2, 4) for start in (1, 2, 3)],
+])
+def test_kmeans_kernel_reads_views_that_start_inside_a_buffer(dev, d, unit, start):
+    """A contiguous view 1–3 points into a buffer (the stream form peels a
+    head of up to 3 points), or 1–3 floats in (at D = 2 and 4 no point then
+    starts on 16 bytes, and each tile is copied from the 16 bytes below it):
+    one launch, sums as the plain version's, assignments those of the same
+    kernel on a contiguous copy."""
+    n, k = 70_001, 5
+    g = torch.Generator().manual_seed(d + 10 * start)
+    buf = torch.randn(((n + 3) * d,), generator=g).to(dev)
+    first = start * d if unit == "points" else start
+    pts = buf[first:first + n * d].view(n, d)
+    ctr = torch.randn((k, d), generator=g).to(dev)
+    assert buf.data_ptr() % 16 == 0 and pts.data_ptr() - buf.data_ptr() == 4 * first
+    before = kmeans_assign.launches
+    a, _ = _check_kmeans(pts, ctr)
+    assert kmeans_assign.launches == before + 1
+    assert torch.equal(a, kmeans_assign(pts.clone(), ctr)[0])
+
+
+@pytest.mark.parametrize("start", [0, 1])
+def test_kmeans_kernel_repeated_calls_are_bit_equal(dev, start):
+    """The stream form merges its sums in a fixed order and adds into no
+    memory it did not write in the same call: 100 calls give the first
+    call's bits."""
+    g = torch.Generator().manual_seed(start)
+    pts = torch.randn((1_000_003 + start, 3), generator=g).to(dev)[start:]
+    ctr = torch.randn((5, 3), generator=g).to(dev)
+    a0, s0 = _check_kmeans(pts, ctr)
+    for _ in range(100):
+        a, s = kmeans_assign(pts, ctr)
+        assert torch.equal(a, a0) and torch.equal(s, s0)
+
+
+def test_kmeans_stream_instance_for_fig6_does_not_spill(dev):
+    """The compiler's report (``-Xptxas -v``, beside the built library) for
+    the stream form's D = 3, K = 5 instance: no spill stores or loads."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    _build.load("kmeans_assign")
+    log = _build.library_path("kmeans_assign").with_suffix(".so.log").read_text()
+    entries = [e for e in log.split("Compiling entry function")
+               if "kmeans_assign_streamILi3ELi5E" in e]
+    assert len(entries) == 1, log
+    assert "0 bytes spill stores, 0 bytes spill loads" in entries[0], entries[0]
+    assert re.search(r"Used \d+ registers", entries[0]), entries[0]
 
 
 def test_kmeans_kernel_ties_pick_the_first_index(dev):

@@ -12,6 +12,14 @@ of either, where two orders of the products may disagree); the statistics
 within ``atol=1e-3``, as the JAX package's own kernel test, and on points
 whose assignment flipped they are held against float64 sums under the
 port's own assignment.
+
+``kmeans_assign_tiled`` is the CUDA kernel's stream form (K <= 8, D <= 4) in
+f32 torch: its head, tiles and tail, each thread's running sums in order,
+the warp tree and the warps' and CTAs' merges in order.  It is held against
+JAX's kernel in the same way, its sums against float64 sums within the
+smoke's tolerance ``1e-5·|sum| + max(1e-5, m·2^-24)·Σ|x|``, where ``m`` is
+the longest chain of f32 additions into the key, which must equal
+``chip_smoke.stream_additions``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +32,12 @@ from repro.kernels.kmeans_assign import kmeans_assign as jkmeans_assign
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.kmeans_assign import (
+    STREAM_WARPS,
+    TILE,
     kmeans_assign,
     kmeans_assign_plain,
     near_ties,
+    stream_layout,
 )
 
 CASES = [(1000, 3, 5, 256), (777, 8, 13, 128), (64, 2, 2, 64)]
@@ -144,3 +155,114 @@ def test_entry_points_refuse_unknown_impls():
         ops.kmeans_assign(x, x, impl="chunked")
     with pytest.raises(ValueError, match="unknown impl"):
         ops.segment_reduce(torch.zeros(4, dtype=torch.int32), x, 2, impl="triton")
+
+
+def kmeans_assign_tiled(points, centers, *, offset=0, blocks=3):
+    """The stream form's arithmetic in f32 torch, for points that start
+    ``offset`` floats past 16 bytes, over ``blocks`` CTAs of
+    ``32·STREAM_WARPS`` consumer threads: tile ``j`` (``TILE`` points after
+    the head of ``stream_layout``) goes to CTA ``j mod blocks``, its points
+    ``4t..4t+3`` in that order to thread ``t``; then the head and the tail,
+    in order and round robin, to the threads of CTA ``tiles mod blocks``.
+    Each thread adds ``[x | 1]`` into its own ``[K, D+1]`` running sums;
+    lane 0 of each warp sums its warp's lanes in a 5-level tree (``v[i] +=
+    v[i + 16]``, then 8, 4, 2, 1), the CTA adds its warps in order and the
+    output its CTAs in order.  Returns ``(assign [N] int32, stats [K, D+1]
+    f32, chain [K])``, ``chain`` the additions on each key's longest chain:
+    the most points one thread added into it, plus each merge's
+    additions."""
+    n, d = points.shape
+    k = centers.shape[0]
+    head, _, tiles = stream_layout(n, d, offset)
+    lanes = 32 * STREAM_WARPS
+    cn = (centers * centers).sum(1)
+    acc = torch.zeros((blocks * lanes, k, d + 1), dtype=torch.float32)
+    adds = torch.zeros((blocks * lanes, k), dtype=torch.int64)
+    assign = torch.empty(n, dtype=torch.int32)
+
+    def fold(threads, idx):  # one point for each of these distinct threads
+        x = points[idx]
+        a = torch.argmin(cn[None, :] - 2.0 * (x @ centers.T), dim=1)
+        assign[idx] = a.to(torch.int32)
+        acc[threads, a] += torch.cat([x, torch.ones_like(x[:, :1])], 1)
+        adds[threads, a] += 1
+
+    t = torch.arange(lanes)
+    for first in range(0, tiles, blocks):  # each CTA's next tile, all CTAs at once
+        js = torch.arange(first, min(first + blocks, tiles))
+        threads = ((js % blocks)[:, None] * lanes + t).reshape(-1)
+        for p in range(4):
+            fold(threads, (head + js[:, None] * TILE + 4 * t + p).reshape(-1))
+    extra = n - tiles * TILE
+    for q0 in range(0, extra, lanes):
+        q = torch.arange(q0, min(q0 + lanes, extra))
+        fold(tiles % blocks * lanes + q % lanes, torch.where(q < head, q, q + tiles * TILE))
+    v = acc.view(blocks, STREAM_WARPS, 32, k, d + 1)
+    for half in (16, 8, 4, 2, 1):
+        v = v[:, :, :half] + v[:, :, half:2 * half]
+    cta = v[:, 0, 0]
+    for w in range(1, STREAM_WARPS):
+        cta = cta + v[:, w, 0]
+    stats = cta[0]
+    for b in range(1, blocks):
+        stats = stats + cta[b]
+    chain = adds.amax(0) + 5 + (STREAM_WARPS - 1) + (blocks - 1)
+    return assign, stats, chain
+
+
+TILED_CASES = [  # (n, d, k, start in points, offset of the buffer in floats)
+    *[(n, d, k, 0, 0) for n, d, k, _ in CASES],
+    (5000, 1, 8, 0, 0), (4100, 4, 1, 0, 0), (3001, 4, 8, 0, 0), (2500, 1, 1, 0, 0),
+    (100, 4, 8, 0, 0),  # under one tile: every point read with plain loads
+    (5003, 3, 5, 1, 0), (5003, 3, 5, 2, 0), (5003, 3, 5, 3, 0),  # a head
+    (4099, 2, 3, 1, 1), (4099, 4, 8, 0, 1), (4099, 4, 8, 0, 2), (4099, 4, 8, 0, 3),  # shifted
+]
+
+
+@pytest.mark.parametrize("n,d,k,start,skew", TILED_CASES)
+def test_kmeans_assign_tiled_matches_jax_kernel(n, d, k, start, skew):
+    """The design's arithmetic against JAX's kernel (interpret mode) on a
+    view that starts ``start`` points into a buffer that starts ``skew``
+    floats past 16 bytes; its sums within the smoke's tolerance of float64
+    sums, a zero result outside it, and a second call equal bit for bit."""
+    import chip_smoke
+
+    buf, ctr = _data(n + start + 1, d, k, seed=7 * n + d + start + skew)
+    pts = buf[start:start + n]
+    offset = skew + start * d
+    ja, js = jkmeans_assign(jnp.asarray(pts), jnp.asarray(ctr), block_n=1024,
+                            interpret=True)
+    tp, tc = torch.from_numpy(pts), torch.from_numpy(ctr)
+    a, s, chain = kmeans_assign_tiled(tp, tc, offset=offset)
+    _assert_assign(a, ja, near_ties(tp, tc))
+    _assert_stats(s, a, js, ja, pts)
+    x1 = torch.cat([tp, torch.ones((n, 1))], 1).double()
+    want = torch.zeros((k, d + 1), dtype=torch.float64).index_add_(0, a.long(), x1)
+    mag = torch.zeros_like(want).index_add_(0, a.long(), x1.abs())
+    tol = 1e-5 * want.abs() + torch.clamp(chain[:, None] * 2.0 ** -24, min=1e-5) * mag
+    assert bool(((s.double() - want).abs() <= tol).all())
+    assert not bool((want.abs() <= tol).all())  # a zero result fails
+    assert torch.equal(chain[:, None], chip_smoke.stream_additions(a, n, d, k, offset, 3))
+    a2, s2, _ = kmeans_assign_tiled(tp, tc, offset=offset)
+    assert torch.equal(a, a2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_stream_layout_copies_aligned_tiles_inside_the_points(d):
+    """For every start, the tiles' copies begin on 16 bytes, stay inside the
+    points, and the head, tiles and tail cover every point once."""
+    lanes = 32 * STREAM_WARPS
+    for offset in range(4):
+        for n in (0, 3, TILE - 1, TILE, TILE + 1, TILE + 2, 3 * TILE + 5, 7 * TILE):
+            head, shift, tiles = stream_layout(n, d, offset)
+            assert 0 <= head <= 3 and 0 <= shift <= 3 and tiles * TILE <= n - head
+            if tiles:
+                first = offset + head * d - shift  # floats past 16 bytes
+                assert first % 4 == 0 and first >= offset
+                assert first + tiles * TILE * d + (4 if shift else 0) <= offset + n * d
+            assert n - tiles * TILE < TILE + (TILE if shift else 0) + 4
+        from repro_torch.kernels.kmeans_assign import stream_threads
+
+        thr = stream_threads(5 * TILE + 7, d, offset, 3)
+        assert int(thr.max()) < 3 * lanes
+        assert int(torch.bincount(thr).max()) <= 4 * 2 + 1  # 5 tiles over 3 CTAs
