@@ -27,7 +27,13 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    ``engine="pallas"``, and fig. 6's hand-fused k-means through
    ``repro_torch.kernels.ops.kmeans_assign``, at the paper's sizes (cut
    where one card or the time limit forces it), checks each result against
-   an independent reference, and counts the kernel launches each job made.
+   an independent reference, and counts the kernel launches each job made;
+3. program phase — the same six jobs and fig. 6's hand-fused loop as fused
+   programs (``session.program`` + ``run_loop``, ``engine="pallas"``,
+   ``unroll`` = the job's iterations) on the path phase's data, every
+   dispatch one replay of a captured CUDA graph;
+4. wire phase — PageRank and k-means at 4 shards stacked on the card with
+   ``wire="none" | "bf16" | "int8"``, per op and as programs.
 
 K4 (``flash_attention``) is held against ``attention_ref``, which
 materialises the f32 logits.  Both compute each logit as an f32 dot product
@@ -209,12 +215,54 @@ K1's global form (PageRank) is also timed in turns with ``index_add_``,
 ``ROUNDS`` rounds of the median of ``REPS`` each, the median and spread of
 both printed, and once on as many ids drawn uniformly over the keys.
 
+The program phase runs each program twice from the same initial state (the
+carry reset in place before each): the first ``run_loop`` discovers the
+plan, warms up and captures its graphs, the second only replays them, and
+must launch no kernel outside a graph; the run fails if a dispatch ran
+without a graph.  It prints per job both wall times, the loop's dispatches
+and host syncs, the captures and replays, the plan's collectives an
+iteration, each graph's kernel launches a replay (recorded at capture by
+the wrappers' counts, counted once a replay), the largest capture's peak
+device memory and the device memory the program's graphs reserved in their
+one shared pool.  Each result is held against the same reference, with the same
+tolerance, as its per-op run, and against the per-op result: wordcount's
+table as a dict exactly, π exactly, kNN's neighbour set exactly (ties of
+the 100th distance aside), fig. 6's centres bit for bit (K3's stream form
+adds in a fixed order); PageRank per page within the per-op tolerance,
+k-means' centres within 1e-4 and inertia 1e-4 relative, GMM within its
+per-op tolerances (the float sums of the two runs are the same sums, in
+the atomics' order).
+
+The wire phase holds each result within 2e-2 relative of its float64
+reference, the reference package's own wire tolerance
+(``tests/test_mapreduce.py``), except where one int8 scale spans values of
+very different sizes, by the reference's design.  Per op, int8 PageRank
+rounds most pages' sums to 0 and lands far from the float64 scores; it is
+held instead to ``pagerank_int8_emulation``, the same shared-scale wire
+computed in float64 apart from the engine: each page within one lattice
+step an iteration (``Σ_t step_t``) plus ``1e-5`` of its score, and at
+least 90% of the pages within ``1e-3`` relative (a page moves by a step
+only where an f32 partial lies within its rounding error of a lattice
+boundary, and the pages it feeds).  k-means' centres with int8, in both
+modes, are held per centre to ``kmeans_int8_reach`` (the counts, and in a
+program the inertia, share the scale of the coordinate sums).  It prints
+the shuffle payload of the three wires (PageRank's must be 4, 2 and 1
+bytes a page a shard) and shows the int8 residual carried: 5 iterations
+that accumulate PageRank's contribution sums at fixed scores land closer to
+5 times the float64 sums than the same program with its residual reset
+after every dispatch, and the sum plus the shards' residuals telescopes
+to them within ``5·exact·(1e-4 + 5·in_deg·u)`` a page.  5 PageRank
+iterations with and without the carry are printed, not checked: the
+carry re-injects last round's error, which a power iteration does not
+always cancel.
+
 Output: after the build, the count of tensor-core instructions (``HGMMA``,
 ``HMMA``) in K4's and K5's libraries (``cuobjdump -sass``; none in K4's
 fails the run, K5's is printed only); one line per check (K1's, K4's and
 K5's with the form each call took), then a ``{"kernels": [...]}`` summary
-line (with each K1, K4, K5 and K6 call's form and the forms its path's
-calls took), the card's name and power limit, and as the last line
+line (with each K1, K4, K5 and K6 call's form, the forms its path's calls
+took and the program phase's launches by kernel and form), the script's
+total seconds, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Without CUDA, or without the rest of the repository beside it, it exits 2 and
 prints no result.
@@ -229,6 +277,7 @@ import sys
 import time
 from pathlib import Path
 
+START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
@@ -406,6 +455,69 @@ def stream_additions(assign, n, d, k, offset, blocks):
     return (per_thread.amax(1) + 5 + (STREAM_WARPS - 1) + (blocks - 1))[:, None]
 
 
+def pagerank_int8_emulation(edges, deg, n, shards, iters, damping=0.85):
+    """PageRank's per-op ``wire="int8"`` iteration in float64, written
+    apart from the engine: ``edges`` split into ``shards`` contiguous blocks
+    as ``distribute`` splits them, each block's incoming sums ``p_s``, one
+    scale for every shard and page, ``step = max|p| / 127``, each partial
+    rounded to that lattice (half to even) and the lattice summed, then
+    Eq. 1 with the sink total.  Returns ``(scores [n] float64, [step_t])``
+    on ``edges``' device.
+
+    The port's f32 partials round to the same lattice points as these,
+    except where one lies within its sums' f32 error of a rounding
+    boundary: that page (and, through the links, a few it feeds) moves by
+    a lattice step.  Hence the bound the run holds each page to:
+    ``Σ_t step_t`` plus ``1e-5`` of the score for the f32 arithmetic."""
+    import torch
+
+    f = torch.float64
+    src, dst = edges[:, 0].long(), edges[:, 1].long()
+    inv = 1.0 / torch.clamp(deg.to(f), min=1.0)
+    sink = deg == 0
+    per = -(-edges.shape[0] // shards)
+    row = torch.arange(edges.shape[0], device=edges.device) // per * n + dst
+    s = torch.full((n,), 1.0 / n, dtype=f, device=edges.device)
+    steps = []
+    for _ in range(iters):
+        part = torch.zeros(shards * n, dtype=f, device=s.device).index_add_(
+            0, row, s[src] * inv[src])
+        step = max(float(part.abs().max()) / 127.0, 1e-30)
+        lattice = torch.clamp(torch.round(part / step), -127, 127).view(shards, n).sum(0)
+        s = (1 - damping) / n + damping * (lattice * step + s[sink].sum() / n)
+        steps.append(step)
+    return s, steps
+
+
+def kmeans_int8_reach(x, c, shards, iters, program):
+    """What the int8 wire may move each k-means centre by, ``[K, 1]``: each
+    shard's ``[K, W]`` partial (``[Σx | count]``, and the inertia column in
+    a program) crosses on one int8 lattice whose step is its largest entry
+    over 127, so each sum and count of the total may be off by ``S·step``
+    an iteration, and centre ``k``, ``Σx / N_k``, by ``S·step·(1 +
+    max|c_k|) / (N_k − S·step)``; a program's carried residual re-injects
+    the step before, twice that; summed over the iterations.  The partials
+    are taken at the float64 reference's final centres ``c``; ``x`` splits
+    into ``shards`` contiguous blocks."""
+    import torch
+
+    n, d = x.shape
+    c = torch.as_tensor(c, device=x.device)
+    d2, assign = ((c[None] - x[:, None, :]) ** 2).sum(-1).min(1)
+    vals = [x.double(), torch.ones((n, 1), dtype=torch.float64, device=x.device)]
+    if program:
+        vals.append(d2.double()[:, None])
+    vals = torch.cat(vals, 1)
+    shard = torch.arange(n, device=x.device) // -(-n // shards)
+    k = c.shape[0]
+    parts = torch.zeros((shards * k, vals.shape[1]), dtype=torch.float64,
+                        device=x.device).index_add_(0, shard * k + assign, vals)
+    step = shards * float(parts.abs().max()) / 127.0
+    counts = parts.view(shards, k, -1)[:, :, d].sum(0)
+    reach = (2 if program else 1) * step * (1 + c.double().abs().amax(1)) / (counts - step)
+    return iters * reach.cpu().numpy()[:, None]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -431,6 +543,10 @@ class Smoke:
         torch.backends.cudnn.allow_tf32 = False
         self.summary: dict[str, dict] = {}
         self.path_launches: dict[str, dict] = {}
+        # The per-op path's results and references, which the program and
+        # wire phases are held against.
+        self.per_op: dict[str, object] = {}
+        self.program_launches: dict[str, dict] = {}  # job -> replays' launches
 
     # -- measurement helpers -------------------------------------------------
 
@@ -1384,6 +1500,7 @@ class Smoke:
         if hm.total_overflow() or not np.array_equal(got, want.cpu().numpy()):
             raise AssertionError("wordcount differs from torch.bincount")
         self.path_launches["wordcount"] = wc_launch
+        self.per_op["wordcount"] = got
 
         # PageRank: 5 iterations, both engines against a float64 reference
         edges_np, n_pages = data["edges_np"], data["n_pages"]
@@ -1406,6 +1523,7 @@ class Smoke:
         if pr.compiles != 3:
             raise AssertionError(f"pagerank: compiles {pr.compiles}")
         self.path_launches["pagerank"] = pr_launch
+        self.per_op["pagerank"] = (pr.scores, ref, pr_tol)
 
         # k-means: 5 iterations, pallas against a float64-accumulated loop
         pts = data["points_np"]
@@ -1421,6 +1539,7 @@ class Smoke:
             raise AssertionError(f"kmeans: centre error {km_err}, inertia "
                                  f"{km.inertia} vs {ref_inertia}")
         self.path_launches["kmeans"] = km_launch
+        self.per_op["kmeans"] = (km, ref_c, ref_inertia)
         # The eager engine's f32 scatter-add, for the record (not checked).
         ke, _, _ = self.drive(
             "kmeans eager", lambda: kmeans(pts, 5, init_centers=init, tol=0.0,
@@ -1433,8 +1552,10 @@ class Smoke:
         n = data["pi_samples"]
         pi, _, _ = self.drive("pi", lambda: estimate_pi(n, engine="pallas",
                                                         session=sess), n)
-        if pi != 4.0 * handrolled_count(n, self.dev) / n:
+        hand = 4.0 * handrolled_count(n, self.dev) / n
+        if pi != hand:
             raise AssertionError("pi differs from the hand-rolled count")
+        self.per_op["pi"] = (pi, hand)
         results = {
             "pagerank_max_rel_err": pr_rel,
             "pagerank_max_rel_tol": float((pr_tol / ref).max()),
@@ -1509,6 +1630,7 @@ class Smoke:
         c3, _, launch = self.drive("kmeans fig6 hand-fused",
                                    lloyd(lambda c: ops.kmeans_assign(x, c)[1]), 5 * n)
         self.path_launches["kmeans fig6"] = launch
+        self.per_op["kmeans fig6"] = c3
         c1, _, _ = self.drive("kmeans fig6 map_reduce", lloyd(mr_step), 5 * n)
         ref_c, _ = self.kmeans_reference(x, c0, 5)
         errs = [float(np.abs(c.cpu().numpy() - ref_c).max()) for c in (c3, c1)]
@@ -1549,6 +1671,7 @@ class Smoke:
         if (err["ll_rel"] > 1e-5 or err["alpha"] > 1e-4
                 or max(err["mu"], err["sigma"]) > 1e-3):
             raise AssertionError(f"gmm: errors {err} against the float64 EM")
+        self.per_op["gmm"] = (g, ref, errors)
         return {"gmm_err": err, "gmm_eager_err": errors(ge),
                 "gmm_log_likelihood": g.log_likelihood}
 
@@ -1608,8 +1731,392 @@ class Smoke:
         for row in got_rows ^ want_rows:
             if float(((np.asarray(row, np.float64) - q) ** 2).sum()) != kth:
                 raise AssertionError("knn: a neighbour differs from the float64 top-k")
+        self.per_op["knn"] = (res, want, want_rows, kth)
         return {"knn_dist_rel_err": rel, "knn_kth_distance": float(want[-1]),
                 "knn_set_differences": len(got_rows ^ want_rows)}
+
+    # -- program phase ------------------------------------------------------
+
+    def program_job(self, name, prog, run, units):
+        """Run ``run`` (a ``run_loop`` over ``prog`` from the job's initial
+        state) twice through ``drive``, the carry reset before each: the
+        first captures the graphs, the second only replays them and must
+        launch no kernel outside them.  Prints both wall times, the second
+        loop's dispatches and host syncs, the captures and replays, the
+        plan's collectives an iteration, each graph's launches a replay, the
+        largest capture's peak bytes and what all the graphs' shared pool
+        reserved; returns the second run's result."""
+        walls = []
+        for i in range(2):
+            prog.reset_carry()
+            (out, info), wall, launch = self.drive(
+                f"{name} program" + (" replay" if i else ""), run, units)
+            walls.append(wall)
+        st = prog.stats
+        eager = {k: launch[k] for k in ("segment_reduce", "hash_aggregate", "kmeans_assign")}
+        if not (st.captures >= 1 and st.replays == st.dispatches >= 2) or any(eager.values()):
+            raise AssertionError(f"{name} program: {st.captures} captures, {st.replays} "
+                                 f"replays of {st.dispatches} dispatches, launches "
+                                 f"outside a graph on replay {eager}")
+        print(json.dumps({"program": name, "wall_s_first": walls[0],
+                          "wall_s_replay": walls[1], "dispatches": info.dispatches,
+                          "host_syncs": info.host_syncs, "captures": st.captures,
+                          "replays": st.replays,
+                          "collectives_per_iter": prog.plan.collectives_per_iter,
+                          "launches_per_replay": {str(u): la for u, la in
+                                                  st.captured_launches.items()},
+                          "pool_peak_bytes": st.pool_peak_bytes,
+                          "pool_reserved_bytes": st.pool_reserved_bytes}), flush=True)
+        self.program_launches[name] = dict(st.replay_launches)
+        return out
+
+    def program_phase(self, data):
+        """The six jobs and fig. 6's hand-fused k-means as programs
+        (``session.program`` + ``run_loop``, ``engine="pallas"``, ``unroll``
+        = the job's iterations) on the path phase's data, each dispatch a
+        CUDA graph replay; each result held against the same reference as
+        its per-op run and against the per-op result (module docstring)."""
+        torch = self.torch
+        import importlib
+        import types
+
+        import numpy as np
+        from repro_torch.core import BlazeSession, DistVector
+        from repro_torch.kernels import ops
+
+        alg = {m: importlib.import_module("repro_torch.core.algorithms." + m)
+               for m in ("gmm", "kmeans", "knn", "pagerank", "pi", "wordcount")}
+        dev = self.dev
+        results = {}
+
+        def job(name, build, run, units, check):
+            sess = BlazeSession(device=dev)
+            prog, state = build(sess)
+            out = self.program_job(name, prog, lambda: run(sess, prog, state), units)
+            results[name] = check(out)
+            del prog, state, out
+            torch.cuda.empty_cache()
+
+        # wordcount: the hash target's table threaded through the program
+        lines = data["lines_np"]
+        vocab = data["vocab"]
+
+        def wc_build(sess):
+            hm = sess.make_dist_hashmap(max(64, 4 * vocab), (), torch.int32, "sum")
+            step, state = alg["wordcount"]._program_step(
+                DistVector(data["tokens"], lines.shape[0]), hm, vocab, "pallas")
+            prog = sess.program(step)
+            prog.target = hm
+            return prog, state
+
+        def wc_run(sess, prog, state):
+            _, info = sess.run_loop(prog, state, max_iters=1)
+            return prog.hash_result(prog.target), info
+
+        def wc_check(hm):
+            keys, vals = hm.items()
+            got = np.zeros(vocab, np.int64)
+            got[keys] = vals
+            if hm.total_overflow() or not np.array_equal(got, self.per_op["wordcount"]):
+                raise AssertionError("wordcount program differs from per-op")
+            return {"distinct": int(len(keys))}
+
+        job("wordcount", wc_build, wc_run, int(lines.size), wc_check)
+
+        # PageRank: 5 iterations, one dispatch; sink and contribution batched
+        n_pages, edges = data["n_pages"], data["edges"]
+        scores0 = torch.full((n_pages,), 1.0 / n_pages, device=dev)
+
+        def pr_build(sess):
+            step, state0 = alg["pagerank"]._program_step(
+                DistVector(edges, edges.shape[0]), data["deg"], n_pages, 0.85, "pallas",
+                "none")
+            return sess.program(step), state0(scores0)
+
+        def pr_run(sess, prog, state):
+            return sess.run_loop(prog, state, cond=lambda s: float(s["delta"]) < 0.0,
+                                 max_iters=5, unroll=5)
+
+        def pr_check(out):
+            per_op, ref, tol = self.per_op["pagerank"]
+            got = out["scores"].double()
+            if not bool(((got - ref).abs() <= tol).all()):
+                raise AssertionError("pagerank program: a page is over its tolerance")
+            d = (got - torch.from_numpy(per_op).to(dev).double()).abs()
+            if not bool((d <= tol).all()):
+                raise AssertionError("pagerank program differs from per-op")
+            return {"max_rel_err": float(((got - ref).abs() / ref).max()),
+                    "max_diff_per_op": float(d.max())}
+
+        job("pagerank", pr_build, pr_run, 5 * edges.shape[0], pr_check)
+
+        # k-means: 5 iterations in one dispatch, then the inertia probe
+        pts, c0 = data["points"], data["init_centers"]
+
+        def km_build(sess):
+            step, state0 = alg["kmeans"]._program_step(
+                DistVector(pts, pts.shape[0]), c0.shape[0], pts.shape[1], "pallas", "none")
+            return sess.program(step), state0(c0)
+
+        def km_run(sess, prog, state):
+            out, info = sess.run_loop(prog, state, cond=lambda s: float(s["move"]) < 0.0,
+                                      max_iters=5, unroll=5)
+            return (out["centers"], float(prog(out, 1)["inertia"])), info
+
+        def km_check(out):
+            centers, inertia = out[0].cpu().numpy(), out[1]
+            km, ref_c, ref_inertia = self.per_op["kmeans"]
+            errs = (float(np.abs(centers - ref_c).max()),
+                    float(np.abs(centers - km.centers).max()))
+            if (max(errs) > 1e-4 or abs(inertia - ref_inertia) > 1e-4 * ref_inertia
+                    or abs(inertia - km.inertia) > 1e-4 * km.inertia):
+                raise AssertionError(f"kmeans program: centre errors {errs}, inertia "
+                                     f"{inertia} vs {ref_inertia} and {km.inertia}")
+            return {"centre_err": errs[0], "centre_diff_per_op": errs[1],
+                    "inertia": inertia}
+
+        job("kmeans", km_build, km_run, 5 * pts.shape[0], km_check)
+
+        # π: the static-key fast path, one dispatch
+        n_pi = data["pi_samples"]
+
+        def pi_build(sess):
+            step, state = alg["pi"]._program_step(n_pi, "pallas", dev)
+            return sess.program(step), state
+
+        def pi_run(sess, prog, state):
+            return sess.run_loop(prog, state, max_iters=1)
+
+        def pi_check(out):
+            pi = 4.0 * float(out["counts"][0]) / n_pi
+            if (pi, pi) != self.per_op["pi"]:
+                raise AssertionError("pi program differs from per-op and the "
+                                     "hand-rolled count")
+            return {"pi": pi}
+
+        job("pi", pi_build, pi_run, n_pi, pi_check)
+
+        # GMM: 5 EM rounds in one dispatch, two collectives a round
+        gpts, k = data["gmm_points"], data["gmm_k"]
+        n, d = gpts.shape
+
+        def gmm_build(sess):
+            rows = torch.cat([gpts, torch.zeros((n, k), device=dev)], 1)
+            step, state0 = alg["gmm"]._program_step(DistVector(rows, n), k, d, n, "pallas")
+            init = gpts[:k].cpu().numpy()
+            return sess.program(step), state0(np.full(k, 1.0 / k, np.float32), init,
+                                              np.tile(np.eye(d, dtype=np.float32), (k, 1, 1)))
+
+        def gmm_run(sess, prog, state):
+            return sess.run_loop(prog, state, max_iters=5, unroll=5,
+                                 cond=lambda s: abs(float(s["ll"]) - float(s["prev_ll"])) < 0.0)
+
+        def gmm_check(out):
+            g, _ref, errors = self.per_op["gmm"]
+            got = types.SimpleNamespace(
+                alpha=out["alpha"].cpu().numpy(), mu=out["mu"].cpu().numpy(),
+                sigma=out["sigma"].cpu().numpy(), log_likelihood=float(out["ll"]))
+            err = errors(got)
+            diff = {name: float(np.abs(getattr(got, name) - getattr(g, name)).max())
+                    for name in ("alpha", "mu", "sigma")}
+            diff["ll_rel"] = abs(got.log_likelihood - g.log_likelihood) / abs(g.log_likelihood)
+            for e in (err, diff):
+                if (e["ll_rel"] > 1e-5 or e["alpha"] > 1e-4
+                        or max(e["mu"], e["sigma"]) > 1e-3):
+                    raise AssertionError(f"gmm program: errors {err}, against per-op {diff}")
+            return {"err": err, "diff_per_op": diff}
+
+        job("gmm", gmm_build, gmm_run, 5 * n, gmm_check)
+
+        # kNN: the topk container's plan inside one dispatch
+        kx = data["knn_points"]
+
+        def knn_build(sess):
+            step = alg["knn"]._program_step(DistVector(kx, kx.shape[0]), 100, "auto")
+            state = {"q": torch.zeros(kx.shape[1], device=dev),
+                     "neighbors": torch.zeros((100, kx.shape[1]), device=dev),
+                     "scores": torch.full((100,), float("-inf"), device=dev)}
+            return sess.program(step), state
+
+        def knn_run(sess, prog, state):
+            return sess.run_loop(prog, state, max_iters=1)
+
+        def knn_check(out):
+            res, want, want_rows, kth = self.per_op["knn"]
+            dist = np.sort(np.sqrt(np.maximum(-out["scores"].cpu().numpy(), 0.0))
+                           .astype(np.float64))
+            rel = float((np.abs(dist - want) / want).max())
+            rows = {tuple(r) for r in out["neighbors"].cpu().numpy().tolist()}
+            per_op_rows = {tuple(r) for r in res.neighbors.tolist()}
+            for row in (rows ^ want_rows) | (rows ^ per_op_rows):
+                if float((np.asarray(row, np.float64) ** 2).sum()) != kth:
+                    raise AssertionError("knn program: a neighbour differs")
+            if rel > 1e-5:
+                raise AssertionError(f"knn program: distances off by {rel} relative")
+            return {"dist_rel_err": rel}
+
+        job("knn", knn_build, knn_run, kx.shape[0], knn_check)
+
+        # fig. 6's hand-fused k-means (K3) as a program: 5 Lloyd steps a replay
+        def fig6_build(sess):
+            def step(ctx, s):
+                st = ops.kmeans_assign(pts, s["c"])[1]
+                return {"c": st[:, :pts.shape[1]] / torch.clamp(st[:, pts.shape[1]:], min=1.0)}
+
+            return sess.program(step), {"c": c0}
+
+        def fig6_run(sess, prog, state):
+            return sess.run_loop(prog, state, max_iters=5, unroll=5)
+
+        def fig6_check(out):
+            if not torch.equal(out["c"], self.per_op["kmeans fig6"]):
+                raise AssertionError("fig6 program: centres differ from the eager "
+                                     "hand-fused loop's bits")
+            return {"bit_equal": True}
+
+        job("kmeans fig6", fig6_build, fig6_run, 5 * pts.shape[0], fig6_check)
+        print(json.dumps({"program_results": results}), flush=True)
+
+    # -- wire phase -----------------------------------------------------------
+
+    def wire_phase(self, data):
+        """PageRank and k-means at 4 shards stacked on the card with
+        ``wire="bf16"`` and ``"int8"``, per op and as programs, each within
+        2e-2 relative of its float64 reference; the shuffle payload of all
+        three wires; and the int8 residual carried in a program (module
+        docstring)."""
+        torch = self.torch
+        import importlib
+
+        import numpy as np
+        from repro_torch.core import BlazeSession, DistVector
+        from repro_torch.core.algorithms import kmeans, pagerank
+
+        pr_mod = importlib.import_module("repro_torch.core.algorithms.pagerank")
+        dev = self.dev
+        edges_np, n_pages = data["edges_np"], data["n_pages"]
+        pts_np = data["points_np"]
+        init = data["init_centers"].cpu().numpy()
+        _, pr_ref, pr_tol = self.per_op["pagerank"]
+        _, km_ref, _ = self.per_op["kmeans"]
+        out = {"payload_bytes": {}, "rel_err": {}}
+        for wire in ("none", "bf16", "int8"):
+            for mode in ("per_op",) if wire == "none" else ("per_op", "program"):
+                tag = f"wire={wire} {mode}"
+                sess = BlazeSession(device=dev, n_shards=4)
+                pr, _, pr_launch = self.drive(
+                    f"pagerank {tag}", lambda: pagerank(
+                        edges_np, n_pages, tol=0.0, max_iters=5, engine="pallas",
+                        wire=wire, mode=mode, unroll=5, session=sess),
+                    5 * len(edges_np))
+                km, _, km_launch = self.drive(
+                    f"kmeans {tag}", lambda: kmeans(
+                        pts_np, 5, init_centers=init, tol=0.0, max_iters=5,
+                        engine="pallas", wire=wire, mode=mode, unroll=5, session=sess),
+                    5 * len(pts_np))
+                if mode == "program":
+                    if not sess.stats.graph_replays == sess.stats.program_dispatches > 0:
+                        raise AssertionError(f"{tag}: a program dispatch ran without a graph")
+                    k1 = sess.stats.graph_launches.get("segment_reduce", 0)
+                else:
+                    k1 = min(pr_launch["segment_reduce"], km_launch["segment_reduce"])
+                if k1 == 0:
+                    raise AssertionError(f"{tag}: K1 did not run")
+                ref = pr_ref.cpu().numpy()
+                rel = (float(np.abs(pr.scores - ref).max() / ref.max()),
+                       float(np.abs(km.centers - km_ref).max() / np.abs(km_ref).max()))
+                out["rel_err"][tag] = {"pagerank": rel[0], "kmeans": rel[1]}
+                if wire == "int8" and mode == "per_op":  # against the wire's emulation
+                    emu, steps = pagerank_int8_emulation(data["edges"], data["deg"],
+                                                         n_pages, 4, 5)
+                    err = (torch.from_numpy(pr.scores).to(dev).double() - emu).abs()
+                    share = float((err / (sum(steps) + 1e-5 * emu)).max())
+                    agree = float((err <= 1e-3 * emu).double().mean())
+                    out["rel_err"][tag].update(
+                        pagerank_share_of_bound=share, pagerank_pages_agreeing=agree,
+                        pagerank_emulation_vs_float64=float(
+                            (emu - pr_ref).abs().max() / pr_ref.max()))
+                    if share > 1.0 or agree < 0.9:
+                        raise AssertionError(f"{tag}: PageRank off its int8 emulation "
+                                             f"({share} of the bound, {agree} of the "
+                                             f"pages within 1e-3)")
+                    rel = (0.0, rel[1])  # held to the emulation, not to 2e-2
+                if wire == "int8":  # per centre, within the lattice's reach
+                    reach = kmeans_int8_reach(data["points"], km_ref, 4, 5,
+                                              mode == "program")
+                    share = float((np.abs(km.centers - km_ref) / reach).max())
+                    out["rel_err"][tag]["kmeans_share_of_reach"] = share
+                    rel = (rel[0], share * 2e-2)
+                if max(rel) > 2e-2:
+                    raise AssertionError(f"{tag}: {out['rel_err'][tag]} over the tolerance")
+                if mode == "per_op":
+                    out["payload_bytes"][wire] = {"pagerank": pr.shuffle_bytes_per_iter,
+                                                  "kmeans": km.shuffle_bytes_per_iter}
+                del pr, km, sess
+                torch.cuda.empty_cache()
+        pb = out["payload_bytes"]
+        if not (pb["int8"]["pagerank"] * 4 == pb["bf16"]["pagerank"] * 2
+                == pb["none"]["pagerank"] == 4 * 4 * n_pages):
+            raise AssertionError(f"pagerank payload bytes {pb}")
+
+        # The int8 residual is carried: 5 iterations that accumulate
+        # PageRank's contribution sums at fixed scores land closer to 5x the
+        # float64 sums than the same program with its residual reset after
+        # every dispatch, and acc + the shards' residuals telescope to them.
+        sess = BlazeSession(device=dev, n_shards=4)
+        edges_v = sess.distribute(edges_np)
+        deg = data["deg"]
+        scores = torch.full((n_pages,), 1.0 / n_pages, device=dev)
+        src, dst = data["edges"][:, 0].long(), data["edges"][:, 1].long()
+        exact = torch.zeros(n_pages, dtype=torch.float64, device=dev).index_add_(
+            0, dst, scores.double()[src] / torch.clamp(deg[src], min=1).double())
+        in_deg = torch.bincount(dst, minlength=n_pages).double()
+
+        def step(ctx, s):
+            inc = ctx.map_reduce(edges_v, pr_mod.contrib_mapper, "sum",
+                                 torch.zeros(n_pages, device=dev), engine="pallas",
+                                 wire="int8", env=(scores, deg))
+            return {"acc": s["acc"] + inc}
+
+        errs = {}
+        for carried in (True, False):
+            prog = sess.program(step)
+            state = {"acc": torch.zeros(n_pages, device=dev)}
+            for _ in range(5):
+                state = prog(state, 1)
+                if not carried:
+                    prog.reset_carry()
+            acc = state["acc"].double()
+            errs[carried] = float((acc - 5 * exact).abs().max())
+            if carried:
+                (res,) = prog.export_carry(state)["residual"]
+                tele = (acc + res.double().sum(0) - 5 * exact).abs()
+                if not bool((tele <= 5 * exact * (1e-4 + 5 * in_deg * F32_U)).all()):
+                    raise AssertionError("int8 program: acc + residual does not "
+                                         "telescope to 5x the exact sums")
+        if not errs[True] < errs[False]:
+            raise AssertionError(f"int8 program: the carried residual is no closer "
+                                 f"({errs[True]} against {errs[False]})")
+        out["int8_accumulated_err"] = {"carried": errs[True], "reset": errs[False]}
+
+        # For the record: 5 PageRank iterations with and without the carry.
+        step, state0 = pr_mod._program_step(edges_v, deg, n_pages, 0.85, "pallas", "int8")
+        ref = pr_ref
+        pr_errs = {}
+        for carried in (True, False):
+            prog = sess.program(step)
+            state = state0(scores)
+            for _ in range(5):
+                state = prog(state, 1)
+                if not carried:
+                    prog.reset_carry()
+            e = (state["scores"].double() - ref).abs()
+            pr_errs["carried" if carried else "reset"] = {"max": float(e.max()),
+                                                          "sum": float(e.sum())}
+        out["int8_pagerank_err"] = pr_errs
+        del sess, prog, edges_v
+        torch.cuda.empty_cache()
+        print(json.dumps({"wire_results": out}), flush=True)
 
     def lm_path(self, arch):
         """The LM serving path: ``repro_torch.launch.serve_lm.generate`` on
@@ -1927,6 +2434,8 @@ class Smoke:
         data = self.make_data()
         self.kernel_phase(data)
         self.path_phase(data)
+        self.program_phase(data)
+        self.wire_phase(data)
         kernels = []
         sources = {
             "segment_reduce": ("src/repro_torch/kernels/csrc/segment_reduce.cu",
@@ -1942,6 +2451,11 @@ class Smoke:
             "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                            "src/repro/kernels/rwkv6_scan.py:73"),
         }
+        programs = {"segment_reduce@kmeans": "kmeans", "segment_reduce@pagerank": "pagerank",
+                    "segment_reduce@gmm": "gmm",
+                    "hash_aggregate@wordcount-combine": "wordcount",
+                    "hash_aggregate@wordcount-merge": "wordcount",
+                    "kmeans_assign@fig6": "kmeans fig6"}
         runs = {"segment_reduce@kmeans": "kmeans",
                 "segment_reduce@pagerank": "pagerank",
                 "segment_reduce@gmm": "gmm",
@@ -1977,8 +2491,13 @@ class Smoke:
                     if r.get("kernel") == rec["kernel"] and "form" in r})) else {}),
                 **({"path_forms": forms} if (forms := self.path_launches[path].get(
                     f"{rec['kernel']} forms")) else {}),
+                # the program phase's launches (graph replays), by form too
+                "program_launches": {k: n for k, n in self.program_launches.get(
+                    programs.get(key), {}).items()
+                    if k.split("/")[0] == rec["kernel"]} or None,
             })
         print(json.dumps({"kernels": kernels}), flush=True)
+        print(json.dumps({"total_s": time.perf_counter() - START}), flush=True)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"],

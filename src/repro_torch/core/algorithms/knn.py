@@ -1,15 +1,16 @@
 """Nearest-100-neighbours (paper §3.1.5, Fig. 8).
 
-The counterpart of ``repro/core/algorithms/knn.py``, per-op mode.  As in the
-paper, the distributed container's ``topk`` with a custom score (negative
-squared distance to the query) does the work: each shard selects its local
-top-k, and only k·n_shards candidates move to the host — O(n + k log k)
-work, O(k) space.  ``knn_full_sort`` is the naive baseline that sorts every
-distance.
+The counterpart of ``repro/core/algorithms/knn.py``.  As in the paper, the
+distributed container's ``topk`` with a custom score (negative squared
+distance to the query) does the work: each shard selects its local top-k,
+and only k·n_shards candidates move on — O(n + k log k) work, O(k) space.
+``knn_full_sort`` is the naive baseline that sorts every distance.
 
 kNN's plan is container-level: the ``topk`` container fixes it, so an
 ``engine=`` request changes nothing.  The request is validated and surfaced
-(``KNNResult.engine_requested``), never silently dropped.
+(``KNNResult.engine_requested``, and on the plan's ``topk`` node in
+``mode="program"``, where ``ctx.topk`` selects inside one program), never
+silently dropped.
 """
 from __future__ import annotations
 
@@ -37,6 +38,17 @@ class KNNResult:
     engine_requested: str = "auto"  # surfaced, never applied
 
 
+def _program_step(pts_v: DistVector, k: int, engine: str):
+    """step_fn for the planned spelling of kNN (one ``ctx.topk`` node)."""
+
+    def step(ctx, s):
+        nbrs, scores = ctx.topk(pts_v, k, score_fn=_neg_sq_dist, env=s["q"],
+                                engine=engine)
+        return {"q": s["q"], "neighbors": nbrs, "scores": scores}
+
+    return step
+
+
 def knn(
     points: np.ndarray | DistVector,
     query: np.ndarray,
@@ -48,17 +60,33 @@ def knn(
 ) -> KNNResult:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
-    if mode != "per_op":
-        raise NotImplementedError(
-            f"mode={mode!r} comes with the fused-program slice of the port; "
-            "use mode='per_op'"
-        )
+    if mode not in ("per_op", "program"):
+        raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
     sess = resolve(session)
     if isinstance(points, DistVector):
         pts_v = points
     else:
         pts_v = sess.distribute(points.astype(np.float32))
     q = torch.as_tensor(np.asarray(query, np.float32), device=sess.device)
+    if mode == "program":
+        per = pts_v.data.shape[0] // sess.n_shards
+        kk = min(k, per)
+        m = min(k, kk * sess.n_shards)
+        dim = pts_v.data.shape[1]
+        prog = sess.program(_program_step(pts_v, k, engine))
+        state = {
+            "q": q,
+            "neighbors": torch.zeros((m, dim), dtype=pts_v.data.dtype,
+                                     device=sess.device),
+            "scores": torch.full((m,), float("-inf"), device=sess.device),
+        }
+        state, _info = sess.run_loop(prog, state, max_iters=1)
+        nbrs, scores = sess.host_value((state["neighbors"], state["scores"]))
+        return KNNResult(
+            neighbors=nbrs, distances=np.sqrt(np.maximum(-scores, 0.0)),
+            wire_candidates=kk * sess.n_shards,
+            engine="container:topk", engine_requested=engine,
+        )
     # The query rides in env; session.topk counts the blocking candidate
     # materialisation in stats.host_syncs.
     nbrs = sess.topk(pts_v, k, score_fn=_neg_sq_dist, env=q)

@@ -1,6 +1,6 @@
 """PageRank (paper §3.1.2, Fig. 5) — three MapReduce ops per iteration.
 
-The counterpart of ``repro/core/algorithms/pagerank.py``, per-op mode:
+The counterpart of ``repro/core/algorithms/pagerank.py``:
 
   MR1  total score of all sinks               (dense [1] target, "sum")
   MR2  new scores from Eq. 1                  (dense [N] target, "sum")
@@ -10,7 +10,18 @@ Links are a DistVector of ``[E, 2]`` edges; scores ride in ``env`` so one
 cached stage serves every iteration (3 compiles in all).  MR2's contribution
 scatter is the dynamic-key combine the segment-reduce kernel runs under
 ``engine="pallas"``; MR1/MR3 emit static keys and keep the fused fast path.
-Each iteration ends in one host sync for the convergence test.
+
+* ``mode="per_op"`` (default): three dispatches and one host sync per
+  iteration for the convergence test, 3 compiles in all.
+* ``mode="program"``: the iteration (three ops and the score update) is one
+  planned program (``session.program``) driven by ``session.run_loop``,
+  ``unroll`` iterations a dispatch (one CUDA graph replay on the card): the
+  sink and contribution sums share one collective, 2 an iteration.  With
+  ``wire="int8"`` the program carries each shard's quantisation residual
+  across iterations, keeping the power iteration unbiased.
+
+``wire`` narrows MR2's collective payload (bf16, or int8 with a shared
+scale).  ``mode="stream"`` comes with the out-of-core slice.
 """
 from __future__ import annotations
 
@@ -47,8 +58,41 @@ class PageRankResult:
     shuffle_bytes_per_iter: int
     pairs_shipped_per_iter: int
     compiles: int = 0  # shard stages built across ALL iterations
-    dispatches: int = 0  # stage runs across the loop
+    program_compiles: int = 0  # program plans / graph captures (mode="program")
+    dispatches: int = 0  # stage runs (or program blocks) across the loop
     host_syncs: int = 0  # blocking host materialisations across the loop
+    collectives_per_iter: int = 0  # optimised plan's collectives (program mode)
+
+
+def _program_step(edges_v, deg, n_pages: int, damping: float, engine: str,
+                  wire: str):
+    """(step_fn, state builder) for the planned PageRank iteration: the
+    sink-sum and contribution-sum partials share one collective (both f32
+    sums, same wire, with ``wire="none"``), the delta max runs alone, so the
+    plan reports 2 collectives an iteration instead of 3."""
+    pages = DistRange(0, n_pages, 1)
+    d = damping
+    dev = edges_v.data.device
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    def step(ctx, s):
+        sc = s["scores"]
+        sink = ctx.map_reduce(pages, sink_mapper, "sum", zeros(1), engine=engine,
+                              env=(sc, deg))[0]
+        incoming = ctx.map_reduce(edges_v, contrib_mapper, "sum", zeros(n_pages),
+                                  engine=engine, wire=wire, env=(sc, deg))
+        new = (1.0 - d) / n_pages + d * (incoming + sink / n_pages)
+        delta = ctx.map_reduce(pages, delta_mapper, "max", zeros(1), engine=engine,
+                               env=(sc, new))[0]
+        return {"scores": new, "delta": delta}
+
+    def state0(scores):
+        return {"scores": scores,
+                "delta": torch.full((), float("inf"), device=dev)}
+
+    return step, state0
 
 
 def pagerank(
@@ -59,14 +103,18 @@ def pagerank(
     tol: float = 1e-5,
     max_iters: int = 100,
     engine: str = "eager",
+    wire: str = "none",
     mode: str = "per_op",
+    unroll: int = 1,
     session: BlazeSession | None = None,
 ) -> PageRankResult:
-    if mode != "per_op":
+    if mode == "stream":
         raise NotImplementedError(
-            f"mode={mode!r} comes with the fused-program and streaming slices "
-            "of the port; use mode='per_op'"
+            "mode='stream' comes with the out-of-core streaming slice of the "
+            "port; use mode='per_op' or 'program'"
         )
+    if mode not in ("per_op", "program"):
+        raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
     sess = resolve(session)
     dev = sess.device
     edges_v = sess.distribute(edges.astype(np.int32))
@@ -80,6 +128,27 @@ def pagerank(
     dispatches0 = sess.stats.dispatches
     syncs0 = sess.stats.host_syncs
 
+    if mode == "program":
+        step, state0 = _program_step(edges_v, deg, n_pages, d, engine, wire)
+        prog = sess.program(step)
+        state, info = sess.run_loop(
+            prog, state0(scores),
+            cond=lambda s: float(s["delta"]) < tol,  # counted by run_loop
+            max_iters=max_iters, unroll=unroll,
+        )
+        return PageRankResult(
+            scores=state["scores"].cpu().numpy(),
+            iterations=info.iterations,
+            converged=info.converged,
+            shuffle_bytes_per_iter=0,  # no per-op stats inside a program
+            pairs_shipped_per_iter=0,
+            compiles=sess.stats.compiles - compiles0,
+            program_compiles=info.compiles,
+            dispatches=sess.stats.dispatches - dispatches0,
+            host_syncs=sess.stats.host_syncs - syncs0,
+            collectives_per_iter=prog.plan.collectives_per_iter,
+        )
+
     def zeros(n):
         return torch.zeros((n,), dtype=torch.float32, device=dev)
 
@@ -91,7 +160,7 @@ def pagerank(
         )[0]
         incoming, stats2 = sess.map_reduce(
             edges_v, contrib_mapper, "sum", zeros(n_pages), engine=engine,
-            env=(scores, deg), return_stats=True,
+            wire=wire, env=(scores, deg), return_stats=True,
         )
         new_scores = (1.0 - d) / n_pages + d * (incoming + sink_total / n_pages)
         delta = sess.map_reduce(

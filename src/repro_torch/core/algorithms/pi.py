@@ -1,11 +1,16 @@
 """Monte-Carlo π estimation (paper §2.3.3, Table 1, Appendix A.2).
 
-The counterpart of ``repro/core/algorithms/pi.py``, per-op mode: a DistRange
-of sample indices, a mapper that emits ``(0, 1)`` for in-circle samples, a
-``"sum"`` reducer and a 1-element dense target.  The ``emit(0, …)`` key is a
-Python int, so every engine takes the static-key fast path (one fused
-reduction); no kernel runs.  Randomness is counter-based (splitmix32 of the
-sample index), the same bits as the JAX package.
+The counterpart of ``repro/core/algorithms/pi.py``: a DistRange of sample
+indices, a mapper that emits ``(0, 1)`` for in-circle samples, a ``"sum"``
+reducer and a 1-element dense target.  The ``emit(0, …)`` key is a Python
+int, so every engine takes the static-key fast path (one fused reduction);
+no kernel runs.  Randomness is counter-based (splitmix32 of the sample
+index), the same bits as the JAX package.
+
+``mode="program"`` routes the same op through the planner
+(``session.program``): a one-node plan whose node hash equals the per-op
+call's ``MapReduceStats.plan_hash``.  Either mode reads the count through
+``session.host_value``, so ``stats.host_syncs`` counts its one sync.
 """
 from __future__ import annotations
 
@@ -27,6 +32,19 @@ def pi_mapper(v, emit):
     emit(0, torch.where(x * x + y * y < 1.0, 1, 0))
 
 
+def _program_step(n_samples: int, engine: str, device):
+    """(step_fn, initial state) for the planned spelling of π."""
+
+    def step(ctx, s):
+        counts = ctx.map_reduce(
+            DistRange(0, n_samples, 1), pi_mapper, "sum",
+            torch.zeros((1,), dtype=torch.int32, device=device), engine=engine,
+        )
+        return {"counts": counts}
+
+    return step, {"counts": torch.zeros((1,), dtype=torch.int32, device=device)}
+
+
 def estimate_pi(
     n_samples: int,
     *,
@@ -35,12 +53,18 @@ def estimate_pi(
     return_stats: bool = False,
     session: BlazeSession | None = None,
 ):
-    if mode != "per_op":
-        raise NotImplementedError(
-            f"mode={mode!r} comes with the fused-program slice of the port; "
-            "use mode='per_op'"
-        )
+    if mode not in ("per_op", "program"):
+        raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
     sess = resolve(session)
+    if mode == "program":
+        if return_stats:
+            raise ValueError(
+                "return_stats is a per-op feature; inside a program the op "
+                "has no stats of its own: see session.explain instead"
+            )
+        step, state = _program_step(n_samples, engine, sess.device)
+        state, _info = sess.run_loop(sess.program(step), state, max_iters=1)
+        return 4.0 * float(sess.host_value(state["counts"])[0]) / n_samples
     out = sess.map_reduce(
         DistRange(0, n_samples, 1),
         pi_mapper,

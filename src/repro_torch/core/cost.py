@@ -14,6 +14,9 @@ import torch
 # Carried over from the TPU, where it was sized for VMEM; it awaits an H100
 # measurement of the eager/kernel crossover.
 PALLAS_AUTO_MAX_KEYS = 4096
+# The fallback cost model's fixed eager overhead, in accumulator rows: the
+# anchor that puts the modelled crossover at PALLAS_AUTO_MAX_KEYS.
+EAGER_FIXED_ROWS = PALLAS_AUTO_MAX_KEYS
 # Hash-table capacities are powers of two in [MIN_TABLE_CAP, MAX_TABLE_CAP].
 MIN_TABLE_CAP = 128
 MAX_TABLE_CAP = 1 << 20
@@ -58,7 +61,23 @@ def table_capacity(n: int, distinct_hint: int | None = None) -> int:
     return cap
 
 
+def node_cost(engine: str, k: int) -> float:
+    """Modelled cost of one shard-local combine over ``k`` accumulator rows,
+    in accumulator-row units (EXPLAIN's ``cost~``): the kernel touches each
+    row about twice (accumulate, write back), ``2k``; eager once plus a
+    fixed overhead, ``k + EAGER_FIXED_ROWS``; naive ships raw pairs and
+    reduces everywhere, ten times eager."""
+    if engine == "pallas":
+        return 2.0 * k
+    if engine == "naive":
+        return 10.0 * (k + EAGER_FIXED_ROWS)
+    return float(k) + EAGER_FIXED_ROWS
+
+
 def pick_engine(k: int) -> str:
-    """``engine="auto"`` over ``k`` accumulator rows: the kernel up to
-    ``PALLAS_AUTO_MAX_KEYS``, eager beyond it or when ``k`` is unknown."""
-    return "pallas" if 0 < k <= PALLAS_AUTO_MAX_KEYS else "eager"
+    """``engine="auto"`` over ``k`` accumulator rows: the modelled cheaper
+    engine, eager when ``k`` is unknown; the crossover is exactly
+    ``k == PALLAS_AUTO_MAX_KEYS``."""
+    if k <= 0:
+        return "eager"
+    return "pallas" if node_cost("pallas", k) <= node_cost("eager", k) else "eager"

@@ -27,6 +27,10 @@ for dense targets, ``Reducer.pallas_hash`` for hash targets, before and
 after the shuffle); ``"naive"`` ships every raw pair and reduces only at the
 destination; ``"auto"`` is resolved by ``plan.resolve_engine``.
 
+``wire`` ∈ {"none", "bf16", "int8"} narrows the collective payload of dense
+sums (``distributed.collectives``); the stats count the narrowed widths as
+JAX does.
+
 Shards are stacked on dim 0 of one device (see ``containers``), and a shard
 stage is written over all of them at once with ``LocalCollectives``.  A
 "compile" is the construction of a stage, cached by the session under the
@@ -41,11 +45,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 from torch.func import vmap
-from torch.utils import _pytree as pytree
 
 from repro_torch.core import containers as C
 from repro_torch.core import cost
 from repro_torch.core.collectives import LocalCollectives
+from repro_torch.core.plan import abstract_sig
 from repro_torch.core.reducers import Reducer
 from repro_torch.core.serialization import narrowest_int_dtype
 from repro_torch.kernels.segment_reduce import THREADS
@@ -66,6 +70,10 @@ class MapReduceStats:
     pairs_emitted: Any  # live emitted pairs
     pairs_shipped: Any  # pairs that went on the wire after the local combine
     shuffle_payload_bytes: Any  # bytes the shuffle moves (all shards, one call)
+    # The shuffle payload by link (combine-edge model): a reduce over P
+    # shards has P - 1 combine edges; on one node they are all intra-node.
+    intra_bytes: Any = 0
+    inter_bytes: Any = 0
     overflow: Any = None  # hash-table / bucket drops
     compiles: int = 0  # 1 iff this call built a new shard stage
     cache_hits: int = 0  # 1 iff this call reused a cached shard stage
@@ -76,6 +84,9 @@ class MapReduceStats:
     kernel_occupancy: float | None = None  # kernel_pairs / kernel_lanes
     kernel_table_cap: int | None = None
     kernel_probe_depth: int | None = None
+    # stable digest of this op's plan node (``core.plan``), the same for the
+    # per-op and program spellings of the op
+    plan_hash: str | None = None
 
     def finalize(self) -> "MapReduceStats":
         def _get(x):
@@ -94,6 +105,8 @@ class MapReduceStats:
             pairs_emitted=_get(self.pairs_emitted),
             pairs_shipped=_get(self.pairs_shipped),
             shuffle_payload_bytes=_get(self.shuffle_payload_bytes),
+            intra_bytes=_get(self.intra_bytes),
+            inter_bytes=_get(self.inter_bytes),
             overflow=_get(self.overflow),
             kernel_pairs=kernel_pairs,
             kernel_occupancy=occupancy,
@@ -123,7 +136,13 @@ class _Emitter:
         self.static_keys: list[int | None] = []
 
     def _tensor(self, x) -> torch.Tensor:
-        return x if isinstance(x, torch.Tensor) else torch.tensor(x, device=self.device)
+        # A Python scalar becomes a fill, not a copy from the host, so that a
+        # mapper also runs inside a captured CUDA graph.
+        if isinstance(x, torch.Tensor):
+            return x
+        if isinstance(x, (bool, int, float)):
+            return torch.full((), x, device=self.device)
+        return torch.as_tensor(x, device=self.device)
 
     def __call__(self, key, value, mask=True):
         static = int(key) if isinstance(key, (int, np.integer)) else None
@@ -265,16 +284,6 @@ def map_reduce(source, mapper: Callable, reducer, target, **kwargs):
                                             **kwargs)
 
 
-def abstract_sig(tree) -> tuple:
-    """Hashable (structure, shapes/dtypes/devices) signature of a pytree."""
-    leaves, spec = pytree.tree_flatten(tree)
-    return str(spec), tuple(
-        (tuple(x.shape), str(x.dtype), str(x.device))
-        if isinstance(x, torch.Tensor) else type(x).__name__
-        for x in leaves
-    )
-
-
 def _source_operands(kind, source) -> tuple:
     if kind == "range":
         return ()
@@ -300,21 +309,28 @@ def _local_view(kind, source):
 
 
 def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
-                      with_stats: bool = True):
+                      wire: str = "none", with_stats: bool = True,
+                      feedback: bool = False, collect: bool = True):
     """The per-shard plan for a dense ``[K, ...]`` target, as a function:
 
-        ``stage(env, local, coll) -> (total, live, kernel_pairs)``
+        ``stage(env, local, coll, residual=None)
+            -> (total, live, kernel_pairs, residual')``
 
     mapper → local combine (static-key fast path, segmented reduce or the
-    segment-reduce kernel) → the collective.  ``total`` is the merged result
-    excluding the target; ``live`` the live pairs per shard.  Returns
-    ``(stage, kernel_meta)``, ``kernel_meta`` filled when the kernel runs.
+    segment-reduce kernel) → the collective, its payload narrowed per
+    ``wire``.  ``total`` is the merged result excluding the target; ``live``
+    the live pairs per shard.  ``feedback=True`` (``wire="int8"`` sums in a
+    program) runs the collective with error feedback on the ``[S, ...]``
+    ``residual``; ``collect=False`` (eager/pallas) stops at the ``[S, K,
+    ...]`` partials and leaves the collective to the caller, the seam of
+    the batch-collectives pass.  Returns ``(stage, kernel_meta)``,
+    ``kernel_meta`` filled when the kernel runs.
     """
     K = target.shape[0]
     target_dtype = target.dtype
     kernel_meta: dict = {}
 
-    def stage(env, local, coll):
+    def stage(env, local, coll, residual=None):
         n_shards, dev = coll.n_shards, coll.device
         entries, static_keys = _run_mapper_structured(
             kind, source, mapper, coll, local, env
@@ -365,7 +381,12 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
                         for s in range(n_shards)
                     ])
                 partial = red.combine(partial, seg.to(target_dtype))
-            total = coll.reduce(partial, red)
+            if not collect:
+                total = partial  # the caller runs the (batched) collective
+            elif feedback:
+                total, residual = coll.reduce_feedback(partial, red, wire, residual)
+            else:
+                total = coll.reduce(partial, red, wire)
         else:
             # Conventional plan: every raw pair goes to every shard, and the
             # reduction happens only there.
@@ -375,56 +396,79 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
             gm = coll.all_gather_tiled(valid)
             ids_g = torch.where(gm & (gk >= 0) & (gk < K), gk, K)
             total = red.segment(gv, ids_g, K + 1)[:K]
-        return total, live, kernel_pairs
+        return total, live, kernel_pairs, residual
 
     return stage, kernel_meta
 
 
+def reduce_edge_bytes(n_elems: int, full_bytes: int, wire_val_bytes: int,
+                      n_shards: int, n_nodes: int = 1, hier: bool = False
+                      ) -> tuple[int, int]:
+    """``(intra_bytes, inter_bytes)`` of one dense reduction, combine-edge
+    model: a reduction over ``n_shards`` participants moves ``n_shards - 1``
+    combine edges of ``n_elems`` values at the wire's width, all intra-node
+    on the port's one node.  The multi-node split comes with the multi-host
+    slice."""
+    if n_nodes > 1 or hier:
+        raise NotImplementedError(
+            "multi-node reduce edges are not ported yet; they come with the "
+            "multi-host slice of the port (ROADMAP.md, Queue 1)"
+        )
+    del full_bytes  # the hierarchical split's intra-node width
+    return n_elems * wire_val_bytes * (n_shards - 1), 0
+
+
 def _map_reduce_dense(kind, source, mapper, red: Reducer, target, n_shards: int,
-                      device, engine: str, env, with_stats: bool = True,
-                      cache: dict | None = None):
+                      device, engine: str, wire: str, env, with_stats: bool = True,
+                      cache: dict | None = None, node=None):
     """Dense ``[K, ...]`` target — the paper's small fixed key range."""
     K = target.shape[0]
     cache = cache if cache is not None else {}
     if engine not in ("eager", "pallas", "naive"):
         raise ValueError(f"unknown engine {engine!r}")
     cache_key = (
-        "dense", mapper, red.name, red, engine, n_shards, str(device), kind,
-        with_stats, abstract_sig(_source_operands(kind, source)),
+        "dense", mapper, red.name, red, engine, wire, n_shards, str(device),
+        kind, with_stats, abstract_sig(_source_operands(kind, source)),
         _source_extent(kind, source), abstract_sig(target), abstract_sig(env),
     )
     compiled_now = cache_key not in cache
     if compiled_now:
         cache[cache_key] = dense_shard_stage(
-            kind, source, mapper, red, target, engine, with_stats=with_stats
+            kind, source, mapper, red, target, engine, wire, with_stats=with_stats
         )
     stage, kernel_meta = cache[cache_key]
     coll = LocalCollectives(n_shards, device)
-    total, live, kernel_pairs = stage(env, _local_view(kind, source), coll)
+    total, live, kernel_pairs, _ = stage(env, _local_view(kind, source), coll)
     merged = red.combine(target, total.to(target.dtype))
 
-    val_bytes = target.element_size()
+    full_bytes = target.element_size()
+    val_bytes = {"bf16": 2, "int8": 1}.get(wire, full_bytes)
     key_bytes = narrowest_int_dtype(K).itemsize
     n_elems = target.numel()
     if engine in ("eager", "pallas"):
         payload = n_elems * val_bytes * n_shards
         collective = f"psum[{K}x{val_bytes}B]"
         shipped = n_elems * n_shards
+        intra, inter = reduce_edge_bytes(n_elems, full_bytes, val_bytes, n_shards)
     else:
         payload = live.sum() * (key_bytes + val_bytes) * n_shards
         collective = f"all_gather[pairs x {key_bytes + val_bytes}B]"
         shipped = live
+        intra, inter = payload, 0  # every peer link is intra-node
     stats = MapReduceStats(
         engine=engine,
         collective=collective,
         pairs_emitted=live,
         pairs_shipped=shipped,
         shuffle_payload_bytes=payload,
+        intra_bytes=intra,
+        inter_bytes=inter,
         compiles=int(compiled_now),
         cache_hits=int(not compiled_now),
         kernel_block_n=kernel_meta.get("block_n"),
         kernel_lanes=kernel_meta.get("lanes"),
         kernel_pairs=kernel_pairs if kernel_meta else None,
+        plan_hash=node.hash if node is not None else None,
     )
     return merged, stats
 
@@ -554,7 +598,8 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
 
 def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
                      device, engine: str, slack: float, env,
-                     key_range: int | None = None, cache: dict | None = None):
+                     key_range: int | None = None, cache: dict | None = None,
+                     node=None):
     """DistHashMap target: local combine → hash-partition → all_to_all →
     merge."""
     if engine not in ("eager", "pallas", "naive"):
@@ -580,12 +625,15 @@ def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
     out = C.DistHashMap(table, reducer_name=red.name)
     val_bytes = target.table.vals.element_size()
     key_bytes = _wire_key_dtype(key_range).itemsize
+    payload = shipped.sum() * (key_bytes + val_bytes)
     stats = MapReduceStats(
         engine=engine,
         collective=f"all_to_all[pairs x {key_bytes + val_bytes}B]",
         pairs_emitted=emitted,
         pairs_shipped=shipped,
-        shuffle_payload_bytes=shipped.sum() * (key_bytes + val_bytes),
+        shuffle_payload_bytes=payload,
+        intra_bytes=payload,  # all_to_all on one node: every pair stays intra
+        inter_bytes=0,
         overflow=table.overflow,
         compiles=int(compiled_now),
         cache_hits=int(not compiled_now),
@@ -594,5 +642,6 @@ def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
         kernel_pairs=kernel_pairs if kernel_meta else None,
         kernel_table_cap=kernel_meta.get("table_cap"),
         kernel_probe_depth=kernel_meta.get("probe_depth"),
+        plan_hash=node.hash if node is not None else None,
     )
     return out, stats

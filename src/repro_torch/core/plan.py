@@ -1,14 +1,45 @@
-"""Engine resolution (the counterpart of ``repro/core/plan.py``'s
-resolve-engines pass; logical plans and EXPLAIN come with the plan slice)."""
+"""The Blaze logical-plan IR: explicit plans, the resolve-engines pass,
+EXPLAIN.
+
+The counterpart of ``repro/core/plan.py``.  A Blaze job written as
+``map_reduce`` calls is a call tree one can only run; a ``Plan`` makes it a
+DAG one can optimise and render:
+
+* ``Plan`` — :class:`MapReduceNode` / :class:`ForeachNode` /
+  :class:`ContainerOpNode` / :class:`GlueNode` nodes in call order, the
+  source table, batch groups and what the passes did.
+  ``repro_torch.core.program`` builds one while it discovers a step
+  function; standalone ``map_reduce`` builds a one-node plan through the same
+  :func:`build_mapreduce_node`, so an op has one hash in both spellings.
+* **Passes** — ``resolve-engines`` (:func:`resolve_engine`, per node, so one
+  program can mix engines), and three that ``program.ProgramContext`` runs
+  while it records: ``cse``, ``batch-collectives`` and
+  ``prune-dead-sources``.
+* ``Plan.render()`` — the Spark-``EXPLAIN`` analogue; the JAX package's
+  golden snapshots (``tests/goldens/``) hold it line for line, apart from the
+  hash and the cost figures.
+
+Tuning (``apply_tuned``), the hierarchical pass (``apply_hierarchical``) and
+fault degradation (``degrade_node``) come with later slices of the port.
+"""
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+from typing import Any, Callable
+
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import containers as C
 from repro_torch.core import cost
 from repro_torch.core.reducers import Reducer
 
 ENGINES = ("eager", "pallas", "naive", "auto")
+
+# The optional passes a Program runs by default, in order; resolve-engines
+# always runs (a node without a resolved engine cannot run).
+DEFAULT_PASSES = ("cse", "batch-collectives", "prune-dead-sources")
 
 
 def node_key_count(target) -> int:
@@ -21,10 +52,10 @@ def node_key_count(target) -> int:
 
 
 def resolve_engine(engine: str, target, reducer: Reducer) -> str:
-    """The engine that runs: ``"auto"`` asks ``cost.pick_engine``; a custom
-    reducer, which has no kernel, turns ``"pallas"`` (and ``"auto"``) into
-    ``"eager"``, so the engine reported in ``MapReduceStats`` is the plan
-    that ran."""
+    """The resolve-engines pass for one node: ``"auto"`` asks
+    ``cost.pick_engine``; a custom reducer, which has no kernel, turns
+    ``"pallas"`` (and ``"auto"``) into ``"eager"``, so the engine reported in
+    ``MapReduceStats`` and on the plan node is the plan that ran."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     hash_target = isinstance(target, C.DistHashMap)
@@ -36,3 +67,311 @@ def resolve_engine(engine: str, target, reducer: Reducer) -> str:
     if kernel is None:
         return "eager"
     return cost.pick_engine(node_key_count(target))
+
+
+def abstract_sig(tree) -> tuple:
+    """Hashable (structure, shapes/dtypes/devices) signature of a pytree."""
+    leaves, spec = pytree.tree_flatten(tree)
+    return str(spec), tuple(
+        (tuple(x.shape), dtype_name(x.dtype), str(x.device))
+        if isinstance(x, torch.Tensor) else type(x).__name__
+        for x in leaves
+    )
+
+
+def dtype_name(dt: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``float32``), as the JAX plans print."""
+    return str(dt).removeprefix("torch.")
+
+
+def _fn_name(fn: Callable) -> str:
+    mod = getattr(fn, "__module__", "?")
+    qual = getattr(fn, "__qualname__", getattr(fn, "__name__", repr(fn)))
+    return f"{mod}.{qual}"
+
+
+def _sig_desc(sig: tuple) -> str:
+    """Render an ``abstract_sig`` compactly and deterministically."""
+    _, leaves = sig
+    if not leaves:
+        return "-"
+    return ",".join(
+        f"{leaf[1]}[{'x'.join(map(str, leaf[0]))}]" if isinstance(leaf, tuple)
+        else leaf
+        for leaf in leaves
+    )
+
+
+def _shape(t) -> str:
+    return "x".join(map(str, t.shape))
+
+
+def source_desc(kind: str, source) -> str:
+    """Stable human-readable description of a plan source."""
+    if kind == "range":
+        return f"range[{source.start}:{source.stop}:{source.step}]"
+    if kind == "vector":
+        d = source.data
+        return f"vector {dtype_name(d.dtype)}[{_shape(d)}] n={source.n}"
+    t = source.table
+    return (f"hashmap cap={t.keys.shape[-1]} "
+            f"{dtype_name(t.vals.dtype)}[{'x'.join(map(str, t.vals.shape[2:]))}]")
+
+
+@dataclasses.dataclass
+class SourceInfo:
+    """One entry of the plan's source table."""
+
+    key: tuple  # identity key (program._source_key)
+    desc: str  # stable rendering for explain/hash
+    source: Any  # the container object
+    pruned: bool = False  # no live node reads it
+
+
+@dataclasses.dataclass
+class MapReduceNode:
+    """One MapReduce op: sources, reducer, target, wire, and what the passes
+    decided for it (engine, batch group, CSE, deadness)."""
+
+    idx: int  # call-order index within the plan
+    kind: str  # source kind: range | vector | hashmap (incl. program-locals)
+    src: str  # stable source description ("local[i]" for program locals)
+    source_key: tuple | None  # source-table key (None for program locals)
+    mapper: Callable
+    reducer: str
+    target_kind: str  # "dense" | "hash"
+    target_desc: str  # e.g. "dense float32[4x3]" / "hash cap=256 int32"
+    engine_requested: str
+    engine: str  # after the resolve-engines pass
+    wire: str
+    key_range: int | None = None
+    env_sig: tuple = ()
+    feedback: bool = False  # int8 error-feedback sum (never batched/CSE'd)
+    residual_spec: tuple | None = None  # (shape, dtype) when feedback
+    # -- pass annotations ----------------------------------------------------
+    group: int | None = None  # batched-collective group id (size > 1 only)
+    cse_of: int | None = None  # idx of the identical earlier node it reuses
+    dead: bool = False  # result provably unused -> op pruned
+    collective: str = ""  # what carries this op's shuffle
+    cost_estimate: float | None = None  # cost.node_cost of the resolved engine
+
+    def stable_desc(self) -> str:
+        return (
+            f"map_reduce {self.reducer} fn={_fn_name(self.mapper)} "
+            f"src={self.kind}:{self.src} "
+            f"-> {self.target_desc} engine={self.engine} wire={self.wire} "
+            f"key_range={self.key_range} env={_sig_desc(self.env_sig)}"
+        )
+
+    @property
+    def hash(self) -> str:
+        """Stable digest of everything that shapes this op's plan, equal for
+        the per-op and program spellings of the same op."""
+        return hashlib.sha1(self.stable_desc().encode()).hexdigest()[:12]
+
+
+@dataclasses.dataclass
+class ForeachNode:
+    """Elementwise map over a vector source; output stays shard-local."""
+
+    idx: int
+    src: str
+    source_key: tuple | None
+    fn: Callable
+
+    def stable_desc(self) -> str:
+        return f"foreach src={self.src} fn={_fn_name(self.fn)}"
+
+
+@dataclasses.dataclass
+class ContainerOpNode:
+    """A container-level plan node (``topk``): the container fixes its plan,
+    so an ``engine=`` request is recorded and shown as ignored."""
+
+    idx: int
+    op: str  # "topk"
+    src: str
+    source_key: tuple | None
+    params: str  # e.g. "k=100 score=_neg_sq_dist"
+    engine_requested: str | None = None  # surfaced, never applied
+
+    def stable_desc(self) -> str:
+        return f"{self.op} src={self.src} {self.params}"
+
+
+@dataclasses.dataclass
+class GlueNode:
+    """The user's elementwise glue between ops (opaque)."""
+
+    idx: int
+    desc: str
+
+    def stable_desc(self) -> str:
+        return f"glue {self.desc}"
+
+
+@dataclasses.dataclass
+class Plan:
+    """An optimised logical plan: what ``session.explain`` renders and what a
+    ``Program`` runs."""
+
+    nodes: list
+    sources: list[SourceInfo]
+    state_desc: str
+    n_shards: int
+    passes: tuple[str, ...]
+    groups: dict[int, list[int]] = dataclasses.field(default_factory=dict)
+    group_keys: dict[int, tuple] = dataclasses.field(default_factory=dict)
+    collectives_per_iter: int = 0  # after batching/CSE/pruning
+    collectives_unbatched: int = 0  # the same plan, one collective per op
+    cse_hits: int = 0
+    dead_ops: int = 0
+    pruned_sources: int = 0
+    residual_specs: list[tuple] = dataclasses.field(default_factory=list)
+    hash_targets: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def hash(self) -> str:
+        """Stable digest of the whole optimised plan (nodes, live sources,
+        state, groups)."""
+        parts = [self.state_desc, f"shards={self.n_shards}"]
+        parts += [n.stable_desc() for n in self.nodes]
+        parts += [s.desc for s in self.sources if not s.pruned]
+        parts += [f"group{g}={idxs}" for g, idxs in sorted(self.groups.items())]
+        return hashlib.sha1("\n".join(parts).encode()).hexdigest()[:12]
+
+    def live_sources(self) -> list[SourceInfo]:
+        return [s for s in self.sources if not s.pruned]
+
+    def mapreduce_nodes(self) -> list[MapReduceNode]:
+        return [n for n in self.nodes if isinstance(n, MapReduceNode)]
+
+    # -- EXPLAIN -------------------------------------------------------------
+
+    def render(self, title: str = "Blaze logical plan") -> str:
+        lines = [f"== {title} (hash {self.hash}) ==",
+                 f"mesh: data[{self.n_shards}]",
+                 f"state: {self.state_desc}",
+                 "passes: resolve-engines" + "".join(f", {p}" for p in self.passes),
+                 "nodes:"]
+        for n in self.nodes:
+            flags = []
+            if isinstance(n, MapReduceNode):
+                if n.dead:
+                    flags.append("DEAD (pruned)")
+                if n.cse_of is not None:
+                    flags.append(f"CSE -> node [{n.cse_of}]")
+                if n.group is not None:
+                    flags.append(f"group {chr(ord('A') + n.group)}")
+                if n.feedback:
+                    flags.append("int8 feedback")
+                if n.engine_requested != n.engine:
+                    flags.append(f"requested {n.engine_requested!r}")
+                mapper_name = _fn_name(n.mapper).rsplit(".", 1)[-1]
+                body = (
+                    f"map_reduce {n.reducer:<4} fn={mapper_name} "
+                    f"src={n.kind}:{n.src} -> "
+                    f"{n.target_desc}  engine={n.engine} wire={n.wire}"
+                )
+                if n.cost_estimate is not None:
+                    body += f" cost~{int(n.cost_estimate)}"
+                if n.key_range is not None:
+                    body += f" key_range={n.key_range}"
+                if n.collective and not n.dead and n.cse_of is None:
+                    body += f"  via {n.collective}"
+            elif isinstance(n, ForeachNode):
+                body = f"foreach    src={n.src}  fn={_fn_name(n.fn).rsplit('.', 1)[-1]}"
+            elif isinstance(n, ContainerOpNode):
+                body = f"{n.op:<10} src={n.src}  {n.params}"
+                if n.engine_requested and n.engine_requested != "auto":
+                    flags.append(f"engine={n.engine_requested!r} ignored "
+                                 "(container-level plan)")
+            else:
+                body = f"glue       {n.desc}"
+            suffix = f"   [{'; '.join(flags)}]" if flags else ""
+            lines.append(f"  [{n.idx}] {body}{suffix}")
+        if self.sources:
+            lines.append("sources:")
+            for s in self.sources:
+                mark = "  (pruned: no live consumer)" if s.pruned else ""
+                lines.append(f"  - {s.desc}{mark}")
+        if self.groups:
+            lines.append("batched collective groups:")
+            for g, idxs in sorted(self.groups.items()):
+                red, wire, dt = self.group_keys.get(g, ("?", "?", "?"))
+                lines.append(f"  {chr(ord('A') + g)}: {red}/{wire}/{dt} carries nodes "
+                             f"{idxs} ({len(idxs)} collectives -> 1)")
+        lines.append(
+            f"collectives/iter: {self.collectives_per_iter} "
+            f"(unbatched: {self.collectives_unbatched})"
+            + (f"; cse hits: {self.cse_hits}" if self.cse_hits else "")
+            + (f"; dead ops pruned: {self.dead_ops}" if self.dead_ops else "")
+            + (f"; sources pruned: {self.pruned_sources}" if self.pruned_sources else "")
+        )
+        return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Node builders (shared by the per-op and program paths)
+# ---------------------------------------------------------------------------
+
+
+def target_desc_of(target) -> tuple[str, str]:
+    """(target_kind, stable description) for a dense tensor or DistHashMap."""
+    if isinstance(target, C.DistHashMap):
+        t = target.table
+        return "hash", f"hash cap={t.keys.shape[-1]} {dtype_name(t.vals.dtype)}"
+    t = torch.as_tensor(target)
+    return "dense", f"dense {dtype_name(t.dtype)}[{_shape(t)}]"
+
+
+def hier_collective_desc(reducer_name: str, wire: str) -> str:
+    """EXPLAIN's rendering of a hierarchical collective, e.g.
+    ``psum[node×data, hier, wire=int8@inter]``.  The port has one node, so
+    no plan takes it yet; the multi-host slice will."""
+    op = "psum" if reducer_name == "sum" else f"{reducer_name}-reduce"
+    desc = f"{op}[node×data, hier"
+    if wire != "none" and reducer_name == "sum":
+        desc += f", wire={wire}@inter"
+    return desc + "]"
+
+
+def build_mapreduce_node(idx: int, kind: str, src: str, source_key: tuple | None,
+                         mapper: Callable, red: Reducer, target, engine: str,
+                         wire: str, key_range: int | None, env: Any) -> MapReduceNode:
+    """Build a MapReduce node and run the resolve-engines pass on it: the one
+    node constructor of ``BlazeSession.map_reduce`` and of every program
+    node, which is why both give one op the same hash."""
+    target_kind, tdesc = target_desc_of(target)
+    if target_kind == "hash":
+        wire = "none"  # wire narrowing is a dense-target concept
+    resolved = resolve_engine(engine, target, red)
+    if target_kind == "dense":
+        t = torch.as_tensor(target)
+        vb = {"bf16": 2, "int8": 1}.get(wire, t.element_size())
+        if resolved == "naive":
+            collective = "all_gather[raw pairs]"
+        elif red.name == "sum":
+            collective = f"psum[{t.numel()}x{vb}B]"
+        else:
+            collective = f"{red.name}-reduce[{t.numel()}]"
+    else:
+        from repro_torch.core.serialization import narrowest_int_dtype
+
+        kb = narrowest_int_dtype(key_range).itemsize if key_range is not None else 4
+        collective = f"all_to_all[pairs x {kb + target.table.vals.element_size()}B]"
+    node = MapReduceNode(
+        idx=idx, kind=kind, src=src, source_key=source_key, mapper=mapper,
+        reducer=red.name, target_kind=target_kind, target_desc=tdesc,
+        engine_requested=engine, engine=resolved, wire=wire,
+        key_range=key_range, env_sig=abstract_sig(env), collective=collective,
+    )
+    if resolved in ("eager", "pallas"):
+        node.cost_estimate = cost.node_cost(resolved, node_key_count(target))
+    return node
+
+
+def single_op_plan(node: MapReduceNode, n_shards: int) -> Plan:
+    """The standalone ``map_reduce`` path: one op is a one-node plan."""
+    return Plan(nodes=[node], sources=[], state_desc="-", n_shards=n_shards,
+                passes=(), collectives_per_iter=1, collectives_unbatched=1)

@@ -1,0 +1,109 @@
+"""Compressed collectives: the fast-serialization analogue on the wire.
+
+The counterpart of ``repro/distributed/collectives.py`` over the port's
+shard model: every function takes the shards' values stacked on dim 0 of
+one tensor ``[S, ...]`` (``core.collectives.LocalCollectives``) and returns
+the reduced ``[...]``, which JAX replicates on every shard.
+``compressed_psum`` narrows the payload (bf16, or int8 with one scale
+shared by all shards) before the sum; ``psum_with_feedback`` returns what
+the narrowing dropped as the next round's residual, so iterative jobs stay
+unbiased.
+
+As in the reference, the int8 sum runs in int32 over the int8 lattice
+(numerically an int8 wire), and a bf16 sum folds the shards in order,
+rounding to bf16 at every addition, as a bf16 ring would.  The
+hierarchical form (``intra_axis``) comes with the multi-host slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _flat_only(intra_axis) -> None:
+    if intra_axis is not None:
+        raise NotImplementedError(
+            "intra_axis (the hierarchical collective) is not ported yet; it "
+            "comes with the multi-host slice of the port (ROADMAP.md, Queue 1)"
+        )
+
+
+def _int8_scale(x: torch.Tensor) -> torch.Tensor:
+    """The scale every shard shares: the largest magnitude over all shards
+    (``pmax``) over 127, at least 1e-30."""
+    return torch.clamp(x.abs().amax() / 127.0, min=1e-30)
+
+
+def _int8_lattice(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x / scale), -127, 127)
+
+
+def compressed_psum(x: torch.Tensor, *, wire: str = "none",
+                    intra_axis=None) -> torch.Tensor:
+    """Sum ``x [S, ...]`` over its shard dimension with the payload narrowed
+    per ``wire``."""
+    _flat_only(intra_axis)
+    if wire == "none":
+        return x.sum(0, dtype=x.dtype)
+    if wire == "bf16":
+        xb = x.to(torch.bfloat16)
+        out = xb[0]
+        for s in range(1, xb.shape[0]):
+            out = out + xb[s]
+        return out.to(x.dtype)
+    if wire == "int8":
+        x32 = x.to(torch.float32)
+        scale = _int8_scale(x32)
+        s = _int8_lattice(x32, scale).to(torch.int32).sum(0, dtype=torch.int32)
+        return (s.to(torch.float32) * scale).to(x.dtype)
+    raise ValueError(f"unknown wire {wire!r}")
+
+
+def psum_with_feedback(x: torch.Tensor, residual: torch.Tensor, *, wire: str,
+                       intra_axis=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(reduced, new_residual)``: error feedback around the lossy sum.
+
+    ``residual`` is ``[S, ...]`` f32, one per shard.  With a shared scale
+    the quantisation is deterministic, so each shard's loss is recomputed
+    rather than echoed back, as in the reference.
+    """
+    _flat_only(intra_axis)
+    target = x.to(torch.float32) + residual
+    reduced = compressed_psum(target, wire=wire)
+    if wire == "int8":
+        scale = _int8_scale(target)
+        new_residual = target - _int8_lattice(target, scale) * scale
+    elif wire == "bf16":
+        new_residual = target - target.to(torch.bfloat16).to(torch.float32)
+    else:
+        new_residual = torch.zeros_like(target)
+    return reduced, new_residual
+
+
+#: Narrowed wire widths; every other mode derives from the tensor dtype.
+_WIRE_ITEMSIZE = {"bf16": 2, "int8": 1}
+
+#: One f32 scale accompanies each int8 frame.
+_INT8_SCALE_BYTES = 4
+
+
+def wire_bytes(x, wire: str, *, n_scales: int = 1) -> int:
+    """Payload bytes one ring pass moves for this tensor (or shape-bearing
+    array): ``wire="none"`` takes the element width from the dtype;
+    ``"int8"`` counts the lattice plus ``n_scales`` f32 scales (1 for the
+    shared-scale collective; ``ceil(n / block)`` for the per-block
+    serialization format)."""
+    if wire != "none" and wire not in _WIRE_ITEMSIZE:
+        raise ValueError(f"unknown wire {wire!r}")
+    shape = tuple(getattr(x, "shape", np.shape(x)))
+    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    if wire == "none":
+        if isinstance(x, torch.Tensor):
+            return n * x.element_size()
+        return n * np.dtype(getattr(x, "dtype", np.asarray(x).dtype)).itemsize
+    payload = n * _WIRE_ITEMSIZE[wire]
+    if wire == "int8":
+        if n_scales < 1:
+            raise ValueError(f"n_scales must be >= 1, got {n_scales}")
+        payload += n_scales * _INT8_SCALE_BYTES
+    return payload

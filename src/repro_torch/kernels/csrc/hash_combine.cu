@@ -62,6 +62,7 @@
 #include <cooperative_groups.h>
 
 #include "blaze_fold.cuh"
+#include "coop_launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -447,8 +448,8 @@ int launch(Args& a, size_t smem, cudaStream_t stream) {
   long long blocks = (a.n + kThreads - 1) / kThreads;
   blocks = min(blocks, (long long)resident);
   void* args[] = {&a};
-  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)max(1LL, blocks)),
-                                          dim3(kThreads), args, smem, stream);
+  return (int)launch_cooperative((const void*)kernel, dim3((unsigned)max(1LL, blocks)),
+                                 dim3(kThreads), args, smem, stream);
 }
 
 }  // namespace

@@ -57,6 +57,7 @@
 #include <cooperative_groups.h>
 
 #include "blaze_fold.cuh"
+#include "coop_launch.cuh"
 #include "tma_bulk.cuh"
 
 namespace cg = cooperative_groups;
@@ -343,8 +344,8 @@ int launch_stream(StreamArgs& a, int d, int k, int blocks, cudaStream_t stream) 
     opted[dev][d - 1][k - 1] = true;
   }
   void* args[] = {&a};
-  return (int)cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks), dim3(kStreamThreads),
-                                          args, (size_t)smem, stream);
+  return (int)launch_cooperative(kernel, dim3((unsigned)blocks), dim3(kStreamThreads),
+                                 args, (size_t)smem, stream);
 }
 
 template <bool SHARED>

@@ -113,18 +113,9 @@ def test_kmeans_matches_jax(engine):
 
 def test_drivers_refuse_modes_of_later_slices():
     with pytest.raises(NotImplementedError, match="slice"):
-        estimate_pi(100, mode="program", session=_cpu())
-    with pytest.raises(NotImplementedError, match="slice"):
         pagerank(rmat_edges(4, 2), 16, mode="stream", session=_cpu())
     with pytest.raises(NotImplementedError, match="slice"):
-        kmeans(np.zeros((8, 2), np.float32), 2, mode="program", session=_cpu())
-    with pytest.raises(NotImplementedError, match="slice"):
-        wordcount(np.zeros((2, 2), np.int32), mode="program", session=_cpu())
-    with pytest.raises(NotImplementedError, match="slice"):
-        gmm_em(np.zeros((8, 2), np.float32), 2, mode="program", session=_cpu())
-    with pytest.raises(NotImplementedError, match="slice"):
-        knn(np.zeros((8, 2), np.float32), np.zeros(2), 2, mode="program",
-            session=_cpu())
+        kmeans(np.zeros((8, 2), np.float32), 2, mode="stream", session=_cpu())
 
 
 _JAX_4DEV = """

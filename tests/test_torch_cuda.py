@@ -700,3 +700,177 @@ def test_rwkv6_prefill_form_at_the_floor_in_bf16(dev):
     assert bool(torch.isfinite(y).all())
     assert bool(((y.double() - want_y).abs() <= 1.1 * by + 2.0 ** -7 * want_y.abs()).all())
     assert bool(((st.double() - want_s).abs() <= 1.1 * bs).all())
+
+
+# -- programs as CUDA graph replays ---------------------------------------------
+
+
+def _program_jobs(sess, mode, engine="pallas"):
+    """The six jobs at small sizes, through ``sess`` in ``mode``."""
+    from repro_torch.core.algorithms import (
+        counts_dict, estimate_pi, kmeans, knn, wordcount)
+    from repro_torch.data.synthetic import zipf_corpus
+
+    lines, _ = zipf_corpus(256, 16, 700, seed=2)
+    pts, _ = cluster_points(20_000, 3, 5, seed=1)
+    gpts, _ = cluster_points(5_000, 3, 4, seed=2)
+    kw = dict(mode=mode, session=sess)
+    wc = wordcount(lines, engine=engine, iters=2, unroll=2, **kw)
+    return {
+        "pi": estimate_pi(1 << 20, engine=engine, **kw),
+        "wordcount": counts_dict(wc.counts),
+        "pagerank": pagerank(rmat_edges(10, 8, seed=3), 1024, tol=0.0, max_iters=5,
+                             engine=engine, unroll=5, **kw),
+        "kmeans": kmeans(pts, 5, init_centers=pts[:5].copy(), tol=0.0, max_iters=5,
+                         engine=engine, unroll=5, **kw),
+        "gmm": gmm_em(gpts, 4, init_mu=gpts[:4].copy(), tol=0.0, max_iters=5,
+                      engine=engine, unroll=5, **kw),
+        "knn": knn(pts, np.zeros(3, np.float32), 32, **kw),
+    }
+
+
+def test_program_jobs_run_as_captured_graph_replays(dev):
+    """The six jobs in ``mode="program"`` on the card: every dispatch a
+    replay of a captured graph, the kernels recorded in the graphs
+    (K1 for PageRank, k-means and GMM, K2 for wordcount), the results those
+    of ``per_op`` on the card (π and counts exactly, the float jobs within
+    the per-op parity tolerances)."""
+    sess = BlazeSession(device=dev)
+    got = _program_jobs(sess, "program")
+    want = _program_jobs(BlazeSession(device=dev), "per_op")
+    st = sess.stats
+    assert st.graph_captures >= 6 and st.graph_replays == st.program_dispatches
+    assert st.graph_launches.get("segment_reduce", 0) > 0
+    assert st.graph_launches.get("hash_aggregate", 0) > 0
+    assert got["pi"] == want["pi"] and got["wordcount"] == want["wordcount"]
+    assert np.abs(got["pagerank"].scores - want["pagerank"].scores).max() <= 1e-5
+    assert np.abs(got["kmeans"].centers - want["kmeans"].centers).max() <= 1e-4
+    assert abs(got["kmeans"].inertia - want["kmeans"].inertia) <= 1e-4 * want["kmeans"].inertia
+    g, w = got["gmm"], want["gmm"]
+    assert abs(g.log_likelihood - w.log_likelihood) <= 1e-5 * abs(w.log_likelihood)
+    for name in ("alpha", "mu", "sigma"):
+        np.testing.assert_allclose(getattr(g, name), getattr(w, name), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(np.sort(got["knn"].distances),
+                               np.sort(want["knn"].distances), rtol=1e-6)
+    assert got["pagerank"].collectives_per_iter == 2 and got["gmm"].collectives_per_iter == 2
+
+
+def test_program_runs_k3_inside_a_captured_graph(dev):
+    """Fig. 6's hand-fused step (K3's stream form, a cooperative launch) as a
+    program: 5 Lloyd steps in one replay equal 5 eager steps bit for bit
+    (the stream form adds in a fixed order)."""
+    pts, _ = cluster_points(200_000, 3, 5, seed=0)
+    x = torch.from_numpy(pts).to(dev)
+    c0 = x[:5].clone()
+
+    def lloyd(c):
+        s = ops.kmeans_assign(x, c)[1]
+        return s[:, :3] / torch.clamp(s[:, 3:], min=1.0)
+
+    sess = BlazeSession(device=dev)
+    prog = sess.program(lambda ctx, s: {"c": lloyd(s["c"])})
+    before = kmeans_assign.launches
+    out = prog({"c": c0}, 5)
+    c = c0
+    for _ in range(5):
+        c = lloyd(c)
+    assert torch.equal(out["c"], c)
+    assert prog.stats.captures == 1 and prog.stats.replays == 1
+    assert prog.stats.replay_launches["kmeans_assign"] == 5
+    assert kmeans_assign.launches - before == 1 + 1 + 5 + 5  # discovery, warm-up, capture, eager
+
+
+def test_program_state_is_copied_out_of_the_graph(dev):
+    """run_loop hands back copies: a later replay leaves an earlier result
+    as it was, and a second run from the same state replays without a new
+    capture."""
+    sess = BlazeSession(device=dev)
+    src = sess.distribute(np.arange(64, dtype=np.float32))
+
+    def step(ctx, s):
+        t = ctx.map_reduce(src, lambda i, x, emit: emit(i % 4, x), "sum",
+                           torch.zeros(4, device=dev), engine="pallas")
+        return {"acc": s["acc"] + t}
+
+    prog = sess.program(step)
+    s0 = {"acc": torch.zeros(4, device=dev)}
+    a, info = sess.run_loop(prog, s0, max_iters=3, unroll=3)
+    a_copy = a["acc"].clone()
+    b, _ = sess.run_loop(prog, a, max_iters=3, unroll=3)
+    assert torch.equal(a["acc"], a_copy) and torch.equal(b["acc"], 2 * a_copy)
+    assert prog.stats.captures == 1 and prog.stats.replays == 2
+    assert info.compiles == 1
+
+
+def test_program_graphs_share_one_pool(dev):
+    """A program's graphs (here ``u`` = 3 and 1) allocate from one pool,
+    the reservation of all of them is counted, and replaying them in any
+    order gives each its own exact result (integer-valued f32 sums)."""
+    sess = BlazeSession(device=dev)
+    src = sess.distribute(np.arange(1 << 16, dtype=np.float32) % 7)
+
+    def step(ctx, s):
+        t = ctx.map_reduce(src, lambda i, x, emit: emit(i % 4, x), "sum",
+                           torch.zeros(4, device=dev), engine="pallas")
+        return {"acc": s["acc"] + t}
+
+    prog = sess.program(step)
+    per_iter = np.zeros(4)
+    np.add.at(per_iter, np.arange(1 << 16) % 4, np.arange(1 << 16) % 7)
+    s0 = {"acc": torch.zeros(4, device=dev)}
+    for u in (3, 1, 3, 1, 1, 3):
+        out = prog(s0, u)
+        np.testing.assert_array_equal(out["acc"].cpu().numpy(), u * per_iter)
+    pools = {g.graph.pool() for g in prog._graphs.values()}
+    assert prog.stats.captures == 2 and len(pools) == 1
+    assert prog.stats.pool_reserved_bytes > 0
+    assert sess.stats.graph_pool_reserved_bytes == prog.stats.pool_reserved_bytes
+
+
+def test_program_int8_residual_and_hash_tables_carry_across_replays(dev):
+    sess = BlazeSession(device=dev, n_shards=4)
+    rows = np.random.RandomState(2).randn(256, 2).astype(np.float32)
+    pts = sess.distribute(rows)
+    hm = sess.make_dist_hashmap(64, (), torch.float32, "sum")
+
+    def step(ctx, s):
+        inc = ctx.map_reduce(pts, lambda i, x, emit: emit(i % 8, x[1]), "sum",
+                             torch.zeros(8, device=dev), wire="int8", engine="pallas")
+        ctx.map_reduce(pts, lambda i, x, emit: emit(i % 5, x[0]), "sum", hm,
+                       engine="pallas")
+        return {"acc": s["acc"] + inc}
+
+    prog = sess.program(step)
+    state = {"acc": torch.zeros(8, device=dev)}
+    for u in (1, 1, 3):
+        state = prog(state, u)
+    exact = np.zeros(8)
+    np.add.at(exact, np.arange(256) % 8, rows[:, 1].astype(np.float64))
+    (res,) = prog.export_carry(state)["residual"]
+    np.testing.assert_allclose(state["acc"].cpu().numpy() + res.sum(0).cpu().numpy(),
+                               5 * exact, rtol=1e-4, atol=1e-3)
+    want = np.zeros(5)
+    np.add.at(want, np.arange(256) % 5, rows[:, 0].astype(np.float64))
+    got = prog.hash_result(hm).to_dict()
+    np.testing.assert_allclose([float(got[k]) for k in range(5)], 5 * want,
+                               rtol=1e-5, atol=1e-4)
+    assert prog.stats.captures == 2 and hm.size() == 0
+
+
+def test_program_capture_that_syncs_raises_naming_the_op(dev):
+    """Glue that reads a value on the host cannot be captured: the capture
+    raises and names the last op; the program never runs without a graph."""
+    sess = BlazeSession(device=dev)
+    src = sess.distribute(np.arange(64, dtype=np.float32))
+
+    def step(ctx, s):
+        t = ctx.map_reduce(src, lambda i, x, emit: emit(i % 4, x), "sum",
+                           torch.zeros(4, device=dev))
+        if float(t.sum()) > 0:  # a host sync
+            return {"acc": s["acc"] + t}
+        return s
+
+    prog = sess.program(step)
+    with pytest.raises(RuntimeError, match=r"capture.*map_reduce sum"):
+        prog({"acc": torch.zeros(4, device=dev)}, 1)
+    assert prog.stats.replays == 0
