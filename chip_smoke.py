@@ -32,7 +32,13 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    programs (``session.program`` + ``run_loop``, ``engine="pallas"``,
    ``unroll`` = the job's iterations) on the path phase's data, every
    dispatch one replay of a captured CUDA graph;
-4. wire phase — PageRank and k-means at 4 shards stacked on the card with
+4. tuning phase — wordcount (K2), PageRank, k-means and GMM (K1) as
+   ``session.program(..., tune=True)`` on the same data, and PageRank's
+   contribution sum as a per-op ``map_reduce(tune=True)`` called twice;
+5. stream phase — k-means, PageRank and wordcount out of core
+   (``session.chunked``: pinned host blocks streamed through one captured
+   graph, ``run_stream``), checkpointed and resumed;
+6. wire phase — PageRank and k-means at 4 shards stacked on the card with
    ``wire="none" | "bf16" | "int8"``, per op and as programs.
 
 K4 (``flash_attention``) is held against ``attention_ref``, which
@@ -256,6 +262,41 @@ iterations with and without the carry are printed, not checked: the
 carry re-injects last round's error, which a power iteration does not
 always cancel.
 
+The tuning phase runs each job's program with ``tune=True``: every variant
+(variant ``j`` pins each node to its ``j``-th candidate, ``cost``'s grids)
+is built, dispatched, timed over one replay and freed; the run fails unless
+every variant that pins the kernel launched it inside its graph, in a form
+it pinned, and no all-eager variant did.  It prints each variant's replay
+time and the winner per job, and the peak memory reserved over the phase.
+Each tuned result is held to the per-op (untuned) result and reference as
+in the program phase.  Besides, in the kernel phase, every K1 candidate at
+k-means', PageRank's and GMM's main-path shapes is held against the plain
+version within the float-sum tolerance counted along that launch (its form
+and grid), and every pinned K2 candidate at wordcount's combine against the
+plain version slot for slot; their kernel times are printed.  The per-op
+``map_reduce(tune=True)`` must measure its candidates once and hit the
+cache on its second call; its results (and an untuned run's) are held to a
+float64 sum within the tolerance counted from each page's in-links plus
+every CTA's flush.  The winners are saved, loaded into a fresh session,
+and every job run again there with ``tune=True`` must measure nothing.
+
+The stream phase holds the k-means points in blocks of ``2^24`` rows (6
+blocks, the last padded), the R-MAT edges and the token lines in 8 blocks,
+in pinned host memory.  The drivers (``kmeans``/``pagerank`` with
+``mode="stream"``, chunked ``wordcount`` per op and as a program) and each
+stream program run 5 epochs with prefetch on and off; k-means and PageRank
+are held to the per-op results with the program phase's tolerances (the
+blocks reassociate the float sums), word counts exactly.  It prints the
+pinned host-to-device rate (one plain copy of one block), each epoch's
+time beside the blocks' bytes over that rate and beside the in-memory
+program's replay of one iteration, and the device memory the stream adds
+at its peak after the first epoch, which must stay under two blocks (the
+static buffer and the staging one) plus the state and the carry plus what
+the graph's pool reserved; every block must be a replay with its K1 (K2:
+two) launches inside the graph and none outside.  A run checkpointed every
+epoch and resumed from its epoch-2 checkpoint in a new program must equal
+the uninterrupted run: word counts exactly, k-means' centres within 1e-4.
+
 Output: after the build, the count of tensor-core instructions (``HGMMA``,
 ``HMMA``) in K4's and K5's libraries (``cuobjdump -sass``; none in K4's
 fails the run, K5's is printed only); one line per check (K1's, K4's and
@@ -295,6 +336,7 @@ LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4}  # f32: vs plain path and f
 LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b")
 REPS = 10
 ROUNDS = 5  # K1 global form against index_add_, in turns
+STREAM_BLOCK_ROWS = 1 << 24  # k-means points a streamed block (6 blocks of 10^8)
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
 
@@ -547,6 +589,9 @@ class Smoke:
         # wire phases are held against.
         self.per_op: dict[str, object] = {}
         self.program_launches: dict[str, dict] = {}  # job -> replays' launches
+        # job -> (build(sess, tune), run, units, check) of the program phase
+        self.program_specs: dict[str, tuple] = {}
+        self.candidates_checked: dict[str, int] = {}  # kernel check -> candidates held
 
     # -- measurement helpers -------------------------------------------------
 
@@ -894,6 +939,74 @@ class Smoke:
             **extra,
         )
 
+    def segment_candidates(self, key, ids, vals, k):
+        """Every tuning candidate of K1 at this main-path shape (each valid
+        form at each measured CTAs an SM, ``cost.dense_tuning_candidates``)
+        held against the plain version within the float-sum tolerance,
+        counted along that launch's own accumulation; each call's form
+        checked; the candidates' times (median of ``REPS``) printed."""
+        torch = self.torch
+        from repro_torch.core import cost
+        from repro_torch.kernels._build import sm_count
+        from repro_torch.kernels.segment_reduce import (
+            THREADS, launch_shape, segment_reduce, segment_reduce_plain)
+
+        n, v = vals.shape
+        sms = sm_count(self.dev.index or 0)
+        want = segment_reduce_plain(ids, vals, k)
+        abs_sum = segment_reduce_plain(ids, vals.abs(), k)
+        counts, times, errs = {}, {}, {}
+        for c in cost.dense_tuning_candidates(k, v, "sum", vals.dtype)[1:]:
+            form, blocks = launch_shape(n, v, k, sms, form=c.form, ctas_per_sm=c.ctas_per_sm)
+            if (form, blocks) not in counts:
+                counts[(form, blocks)] = self.fold_additions(ids, k, form, blocks, THREADS,
+                                                             v, tables=True)
+
+            def call(c=c):
+                return segment_reduce(ids, vals, k, form=c.form, ctas_per_sm=c.ctas_per_sm)
+
+            before = segment_reduce.forms[form]
+            got = call()
+            self.sync()
+            if segment_reduce.forms[form] != before + 1:
+                raise AssertionError(f"{key} {c.describe()}: not launched in its form")
+            errs[c.describe()] = self.compare(f"{key} {c.describe()}", got, want, exact=False,
+                                              abs_sum=abs_sum, count=counts[(form, blocks)])
+            times[c.describe()] = self.time_ms(call)
+            del got
+        del want, abs_sum, counts
+        print(json.dumps({"candidates": key, "kernel_ms": times, "max_abs_err": errs}),
+              flush=True)
+        self.candidates_checked[key] = len(times)
+
+    def hash_candidates(self, key, keys, vals, key_range):
+        """Every pinned tuning candidate of K2 at this main-path shape
+        (``cost.hash_tuning_candidates``: table capacity, probe depth and
+        table of hot keys) against the plain version, slot for slot; the
+        candidates' times printed."""
+        from repro_torch.core import cost
+        from repro_torch.kernels.hash_combine import hash_aggregate, hash_aggregate_plain
+
+        times, plain = {}, {}
+        for c in cost.hash_tuning_candidates(vals.shape[1], "sum", vals.dtype,
+                                             key_range=key_range)[1:]:
+            if c.table_cap not in plain:
+                plain = {c.table_cap: hash_aggregate_plain(keys, vals, c.table_cap,
+                                                           max_probes=c.probe_depth)}
+
+            def call(c=c):
+                return hash_aggregate(keys, vals, c.table_cap, max_probes=c.probe_depth,
+                                      table_bits=c.table_bits)
+
+            got = call()
+            self.sync()
+            for part, a, b in zip(("keys", "vals", "overflow"), got, plain[c.table_cap]):
+                self.compare(f"{key} {c.describe()} {part}", a, b, exact=True)
+            times[c.describe()] = self.time_ms(call)
+            del got
+        print(json.dumps({"candidates": key, "kernel_ms": times}), flush=True)
+        self.candidates_checked[key] = len(times)
+
     def kernel_hash(self, key, keys, vals, cap, shape, *, reducer="sum",
                     init=None, max_probes=None, expect_overflow=False,
                     profile=False):
@@ -998,6 +1111,7 @@ class Smoke:
         vals = torch.cat([x, torch.ones((x.shape[0], 1), device=dev)], 1)
         self.kernel_segment("segment_reduce@kmeans", ids, vals, c.shape[0], "sum",
                             [list(vals.shape), [c.shape[0], 4]], True)
+        self.segment_candidates("segment_reduce@kmeans", ids, vals, c.shape[0])
         # K3 at fig. 6's shape: the same points against the same centres
         self.kernel_kmeans("kmeans_assign@fig6", x, c, vals)
         # Other dtypes and reducers on the first 2^22 of those pairs, with
@@ -1038,6 +1152,8 @@ class Smoke:
         contrib = (1.0 / n_pages) / torch.clamp(deg[src], min=1).float()
         self.kernel_segment("segment_reduce@pagerank", dst, contrib[:, None].contiguous(),
                             n_pages, "sum", [[edges.shape[0], 1], [n_pages, 1]], True)
+        self.segment_candidates("segment_reduce@pagerank", dst,
+                                contrib[:, None].contiguous(), n_pages)
         del src, dst, contrib
         # K1 at GMM op 5's shape, on round 1's memberships (σ = I, α = 1/k):
         # every point emits its k weighted outer products -> [k, d·d]
@@ -1051,6 +1167,7 @@ class Smoke:
         del diff, w, outer
         self.kernel_segment("segment_reduce@gmm", gid, gv, k, "sum",
                             [list(gv.shape), [k, gv.shape[1]]], True)
+        self.segment_candidates("segment_reduce@gmm", gid, gv, k)
         del gid, gv
         torch.cuda.empty_cache()
         from repro_torch.kernels.segment_reduce import FORMS as K1_FORMS
@@ -1070,6 +1187,7 @@ class Smoke:
         self.kernel_hash("hash_aggregate@wordcount-combine", keys, ones, cap,
                          [[keys.shape[0], 1], [cap, 1]], max_probes=probes,
                          profile=True)
+        self.hash_candidates("hash_aggregate@wordcount-combine", keys, ones, vocab)
         tk, tv, _ = hash_aggregate(keys, ones, cap, max_probes=probes)
         bk, bv, _ = bucket_by_dest(tk, tv, tk != EMPTY_KEY, 1, cap, 0)
         target_cap = max(64, 4 * vocab)
@@ -1790,6 +1908,8 @@ class Smoke:
         results = {}
 
         def job(name, build, run, units, check):
+            # kept for the tuning phase, which runs them as tuned programs
+            self.program_specs[name] = (build, run, units, check)
             sess = BlazeSession(device=dev)
             prog, state = build(sess)
             out = self.program_job(name, prog, lambda: run(sess, prog, state), units)
@@ -1801,11 +1921,11 @@ class Smoke:
         lines = data["lines_np"]
         vocab = data["vocab"]
 
-        def wc_build(sess):
+        def wc_build(sess, tune=False):
             hm = sess.make_dist_hashmap(max(64, 4 * vocab), (), torch.int32, "sum")
             step, state = alg["wordcount"]._program_step(
                 DistVector(data["tokens"], lines.shape[0]), hm, vocab, "pallas")
-            prog = sess.program(step)
+            prog = sess.program(step, tune=tune)
             prog.target = hm
             return prog, state
 
@@ -1827,11 +1947,11 @@ class Smoke:
         n_pages, edges = data["n_pages"], data["edges"]
         scores0 = torch.full((n_pages,), 1.0 / n_pages, device=dev)
 
-        def pr_build(sess):
+        def pr_build(sess, tune=False):
             step, state0 = alg["pagerank"]._program_step(
                 DistVector(edges, edges.shape[0]), data["deg"], n_pages, 0.85, "pallas",
                 "none")
-            return sess.program(step), state0(scores0)
+            return sess.program(step, tune=tune), state0(scores0)
 
         def pr_run(sess, prog, state):
             return sess.run_loop(prog, state, cond=lambda s: float(s["delta"]) < 0.0,
@@ -1853,10 +1973,10 @@ class Smoke:
         # k-means: 5 iterations in one dispatch, then the inertia probe
         pts, c0 = data["points"], data["init_centers"]
 
-        def km_build(sess):
+        def km_build(sess, tune=False):
             step, state0 = alg["kmeans"]._program_step(
                 DistVector(pts, pts.shape[0]), c0.shape[0], pts.shape[1], "pallas", "none")
-            return sess.program(step), state0(c0)
+            return sess.program(step, tune=tune), state0(c0)
 
         def km_run(sess, prog, state):
             out, info = sess.run_loop(prog, state, cond=lambda s: float(s["move"]) < 0.0,
@@ -1900,11 +2020,11 @@ class Smoke:
         gpts, k = data["gmm_points"], data["gmm_k"]
         n, d = gpts.shape
 
-        def gmm_build(sess):
+        def gmm_build(sess, tune=False):
             rows = torch.cat([gpts, torch.zeros((n, k), device=dev)], 1)
             step, state0 = alg["gmm"]._program_step(DistVector(rows, n), k, d, n, "pallas")
             init = gpts[:k].cpu().numpy()
-            return sess.program(step), state0(np.full(k, 1.0 / k, np.float32), init,
+            return sess.program(step, tune=tune), state0(np.full(k, 1.0 / k, np.float32), init,
                                               np.tile(np.eye(d, dtype=np.float32), (k, 1, 1)))
 
         def gmm_run(sess, prog, state):
@@ -1976,6 +2096,421 @@ class Smoke:
 
         job("kmeans fig6", fig6_build, fig6_run, 5 * pts.shape[0], fig6_check)
         print(json.dumps({"program_results": results}), flush=True)
+
+    # -- tuning phase ----------------------------------------------------------
+
+    def tuning_phase(self, data):
+        """Measured autotuning at the paper's sizes: wordcount (K2, its key
+        range the vocabulary), PageRank (K1's global form against eager),
+        k-means (K1's register form) and GMM (three K1 nodes, one variant
+        set) as ``session.program(..., tune=True)`` programs on the path
+        phase's data, each variant built, dispatched, timed over a replay
+        and freed; each tuned result held to the per-op (untuned) one as in
+        the program phase; a per-op ``map_reduce(tune=True)`` called twice
+        (one measurement, then a cache hit); the winners saved and loaded
+        into a fresh session, which measures nothing."""
+        torch = self.torch
+        import tempfile
+
+        from repro_torch.core import BlazeSession, DistVector
+        from repro_torch.core.algorithms.pagerank import contrib_mapper
+
+        dev = self.dev
+        self.sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        jobs = (("wordcount", "hash_aggregate"), ("pagerank", "segment_reduce"),
+                ("kmeans", "segment_reduce"), ("gmm", "segment_reduce"))
+        results, winners = {}, {}
+        saved = tempfile.mkdtemp(prefix="blaze-tuning-")
+        path = f"{saved}/tuning.json"
+        store = BlazeSession(device=dev)  # collects every job's winners
+        for name, kernel in jobs:
+            build, run, units, check = self.program_specs[name]
+            sess = BlazeSession(device=dev)
+            prog, state = build(sess, tune=True)
+            (out, _info), wall, launch = self.drive(f"{name} tuned program",
+                                                    lambda: run(sess, prog, state), units)
+            if not prog.tune_walls or launch[kernel] == 0:
+                raise AssertionError(f"{name}: no variant measured or no {kernel} launched")
+            variants = []
+            for ov, vwall, la in prog.tune_walls:
+                pallas = [c for c in ov.values() if c.engine == "pallas"]
+                ran = la.get(kernel, 0)
+                forms = {k.split("/")[1] for k, n in la.items()
+                         if k.startswith(kernel + "/") and n}
+                if (ran > 0) != bool(pallas) or not forms <= {c.form for c in pallas}:
+                    raise AssertionError(f"{name}: variant {[c.describe() for c in ov.values()]}"
+                                         f" launched {la}")
+                variants.append({"configs": sorted({c.describe() for c in ov.values()}),
+                                 "replay_s": vwall, "launches": la.get(kernel, 0)})
+            won = {tk: cfg.describe() for tk, cfg in sess.tuning.items()}
+            applied = sorted({n.tuned.describe() for n in prog.plan.mapreduce_nodes()
+                              if n.tuned is not None})
+            res = check(out)
+            results[name] = {"tuned_wall_s": wall, "measurements": sess.stats.tune_measurements,
+                             "winners": applied, "result": res}
+            winners[name] = won
+            print(json.dumps({"tuning": name, "variants": variants, "winner": applied,
+                              "winner_replay_s": min(v["replay_s"] for v in variants),
+                              "tuned_wall_s": wall}), flush=True)
+            for tk, cfg in sess.tuning.items():
+                store.tuning.put(tk, cfg)
+            self.add_phase_launches(name, sess.stats.graph_launches)
+            del prog, state, out, sess
+            torch.cuda.empty_cache()
+
+        # Per op: PageRank's contribution sum, tuned twice: one measurement
+        # of K1's global form against eager, then a cache hit.
+        edges, deg, n_pages = data["edges"], data["deg"], data["n_pages"]
+        env = (torch.full((n_pages,), 1.0 / n_pages, device=dev), deg)
+        ev = DistVector(edges, edges.shape[0])
+
+        def contrib(sess, tune):
+            return sess.map_reduce(ev, contrib_mapper, "sum",
+                                   torch.zeros(n_pages, device=dev), engine="pallas",
+                                   env=env, tune=tune)
+
+        sess = BlazeSession(device=dev)
+        (first, _, launch) = self.drive("pagerank contribution tuned", lambda: contrib(sess, True),
+                                        edges.shape[0])
+        measured = sess.stats.tune_measurements
+        hits = sess.tuning.hits
+        second = contrib(sess, True)
+        from repro_torch.core import cost
+
+        n_cands = len(cost.dense_tuning_candidates(n_pages, 1, "sum", torch.float32))
+        if (measured != n_cands or sess.stats.tune_measurements != measured
+                or sess.tuning.hits <= hits or launch["segment_reduce"] == 0):
+            raise AssertionError(f"per-op tuning: {measured} then "
+                                 f"{sess.stats.tune_measurements} measurements")
+        untuned = contrib(BlazeSession(device=dev), False)
+        dst, src = edges[:, 1].long(), edges[:, 0].long()
+        want = torch.zeros(n_pages, dtype=torch.float64, device=dev).index_add_(
+            0, dst, (env[0][src] / torch.clamp(deg[src], min=1)).double())
+        # any form's additions: the in-links, plus every CTA's table flush
+        from repro_torch.kernels._build import sm_count
+
+        count = (torch.bincount(dst, minlength=n_pages) + 8 * sm_count(dev.index or 0))
+        errs = [self.compare(f"pagerank contribution {tag}", got, want, exact=False,
+                             abs_sum=want, count=count)
+                for tag, got in (("tuned", first), ("cache hit", second), ("untuned", untuned))]
+        (_, op_cfg), = sess.tuning.items()
+        for tk, cfg in sess.tuning.items():
+            store.tuning.put(tk, cfg)
+        print(json.dumps({"tuning": "pagerank contribution per op",
+                          "candidates": [(e["config"], e["wall_s"]) for e in sess.tune_log],
+                          "winner": op_cfg.describe(), "measurements": measured,
+                          "second_call_measurements": sess.stats.tune_measurements - measured,
+                          "max_abs_err": errs}), flush=True)
+        del first, second, untuned, want, count, sess
+
+        # Saved, then loaded into a fresh session: nothing is measured again.
+        store.save_tuning(path)
+        fresh = BlazeSession(device=dev)
+        loaded = fresh.load_tuning(path)
+        for name, _kernel in jobs:
+            build, run, units, check = self.program_specs[name]
+            prog, state = build(fresh, tune=True)
+            (out, _), _, _ = self.drive(f"{name} loaded tuning", lambda: run(fresh, prog, state),
+                                        units)
+            check(out)
+            if not any(n.tuned is not None and n.tuned.source == "measured"
+                       for n in prog.plan.mapreduce_nodes()):
+                raise AssertionError(f"{name}: the loaded winner was not applied")
+            self.add_phase_launches(name, fresh.stats.graph_launches)
+            fresh.stats.graph_launches = {}
+            del prog, state, out
+            torch.cuda.empty_cache()
+        contrib(fresh, True)
+        if fresh.stats.tune_measurements:
+            raise AssertionError(f"loaded tuning measured {fresh.stats.tune_measurements}")
+        peak = torch.cuda.max_memory_reserved(dev)
+        print(json.dumps({"tuning_results": results, "tuning_entries_loaded": loaded,
+                          "loaded_session_measurements": fresh.stats.tune_measurements,
+                          "tuning_peak_reserved_bytes": peak}), flush=True)
+        import shutil
+
+        shutil.rmtree(saved, ignore_errors=True)
+        del fresh, store
+        torch.cuda.empty_cache()
+
+    def add_phase_launches(self, job, launches):
+        """Add a tuning or stream session's graph replays' launches to the
+        job's program launches (the kernels line's ``program_launches``)."""
+        mine = self.program_launches.setdefault(job, {})
+        for k, n in launches.items():
+            mine[k] = mine.get(k, 0) + n
+
+    # -- stream phase ------------------------------------------------------------
+
+    def stream_epochs(self, name, sess, prog, state, epochs, prefetch, n_blocks):
+        """``epochs`` one-epoch ``run_stream`` calls, each timed to a
+        synchronised end; the first of a fresh program builds and captures.
+        Every block must be a replay of the program's one graph."""
+        times = []
+        replays0 = prog.stats.replays
+        for _ in range(epochs):
+            self.sync()
+            t0 = time.perf_counter()
+            state, info = sess.run_stream(prog, state, max_epochs=1, prefetch=prefetch)
+            self.sync()
+            times.append(time.perf_counter() - t0)
+            if info.dispatches != n_blocks or info.compiles > 1:
+                raise AssertionError(f"{name}: {info.dispatches} dispatches, "
+                                     f"{info.compiles} compiles an epoch")
+        if prog.stats.replays - replays0 != epochs * n_blocks or prog.stats.captures != 1:
+            raise AssertionError(f"{name}: {prog.stats.replays - replays0} replays for "
+                                 f"{epochs * n_blocks} blocks, {prog.stats.captures} captures")
+        return state, times
+
+    def replay_ms(self, prog, state):
+        """One in-memory dispatch's wall time, replay only (after a first
+        that captures), in ms."""
+        prog(state, 1)
+        self.sync()
+        t0 = time.perf_counter()
+        prog(state, 1)
+        self.sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def stream_phase(self, data):
+        """Out of core at the paper's sizes: the k-means points in blocks of
+        2^24 rows (6 blocks, the last padded), the R-MAT edges and the
+        wordcount token lines in 8 blocks each, held in pinned host memory;
+        ``mode="stream"`` k-means and PageRank and chunked wordcount (per op
+        and as a program), with prefetch on and off, held to the per-op
+        results as the program phase holds them (integers exactly); a run
+        checkpointed every epoch and resumed from its epoch-2 checkpoint in
+        a new program held to the uninterrupted run; the pinned
+        host-to-device rate; each epoch's time beside the blocks' bytes over
+        that rate and beside the in-memory program's replay of one
+        iteration; the device memory the stream adds at its peak, against
+        two blocks (the static buffer and the staging one) plus the state
+        plus what the graph's pool reserved."""
+        torch = self.torch
+        import importlib
+        import shutil
+        import tempfile
+
+        import numpy as np
+        from repro_torch.core import BlazeSession, DistVector
+        from repro_torch.core.algorithms import kmeans, pagerank, wordcount
+
+        alg = {m: importlib.import_module("repro_torch.core.algorithms." + m)
+               for m in ("kmeans", "pagerank", "wordcount")}
+        dev = self.dev
+        sess = BlazeSession(device=dev)
+        lines, vocab = data["lines_np"], data["vocab"]
+        edges_np, n_pages = data["edges_np"], data["n_pages"]
+        pts_np, c0 = data["points_np"], data["init_centers"]
+        t0 = time.perf_counter()
+        km_c = sess.chunked(pts_np, STREAM_BLOCK_ROWS)
+        pr_c = sess.chunked(edges_np, -(-len(edges_np) // 8))
+        wc_c = sess.chunked(lines, -(-len(lines) // 8))
+        if (km_c.n_blocks, pr_c.n_blocks, wc_c.n_blocks) != (
+                -(-len(pts_np) // STREAM_BLOCK_ROWS), 8, 8) or km_c.n_blocks < 2:
+            raise AssertionError("stream: block counts")
+        if not all(c.stats()["pinned"] for c in (km_c, pr_c, wc_c)):
+            raise AssertionError("stream: host blocks are not pinned")
+        chunk_s = time.perf_counter() - t0
+        # The pinned host-to-device rate: one plain copy of one block.
+        host = km_c.block_tensor(0)
+        dst = torch.empty(host.shape, dtype=host.dtype, device=dev)
+        h2d_ms = self.time_ms(lambda: dst.copy_(host, non_blocking=True))
+        rate = km_c.block_nbytes / (h2d_ms / 1e3)
+        del dst
+        print(json.dumps({"stream_setup_s": chunk_s, "h2d_block_bytes": km_c.block_nbytes,
+                          "h2d_ms": h2d_ms, "h2d_gb_per_s": rate / 1e9}), flush=True)
+        results = {}
+        km_ref, ref_c, ref_inertia = self.per_op["kmeans"]
+        pr_per_op, pr_ref, pr_tol = self.per_op["pagerank"]
+
+        def km_ok(tag, centers, inertia=None):
+            centers = centers.cpu().numpy() if hasattr(centers, "cpu") else centers
+            errs = (float(np.abs(centers - ref_c).max()),
+                    float(np.abs(centers - km_ref.centers).max()))
+            bad = max(errs) > 1e-4
+            if inertia is not None:
+                bad |= (abs(inertia - ref_inertia) > 1e-4 * ref_inertia
+                        or abs(inertia - km_ref.inertia) > 1e-4 * km_ref.inertia)
+            if bad:
+                raise AssertionError(f"kmeans {tag}: centre errors {errs}, inertia {inertia}")
+            return errs[1]
+
+        def pr_ok(tag, scores):
+            got = torch.as_tensor(scores).to(dev).double()
+            d = (got - torch.from_numpy(pr_per_op).to(dev).double()).abs()
+            if not (bool(((got - pr_ref).abs() <= pr_tol).all()) and bool((d <= pr_tol).all())):
+                raise AssertionError(f"pagerank {tag}: a page is over its tolerance")
+            return float(d.max())
+
+        def wc_ok(tag, hm, times=1):
+            keys, vals = hm.items()
+            got = np.zeros(vocab, np.int64)
+            got[keys] = vals
+            if hm.total_overflow() or not np.array_equal(got, times * self.per_op["wordcount"]):
+                raise AssertionError(f"wordcount {tag} differs from per-op")
+            return int(len(keys))
+
+        # -- the drivers, as a user calls them --------------------------------
+        km, _, launch = self.drive("kmeans stream", lambda: kmeans(
+            km_c, 5, init_centers=c0.cpu().numpy(), tol=0.0, max_iters=5, engine="pallas",
+            mode="stream", session=sess), 5 * len(pts_np))
+        results["kmeans_driver_centre_diff"] = km_ok("stream driver", km.centers, km.inertia)
+        if launch["segment_reduce"] == 0 or km.program_compiles != 1:
+            raise AssertionError("kmeans stream: no K1 launched or not one capture")
+        self.add_phase_launches("kmeans", sess.stats.graph_launches)
+        sess.stats.graph_launches = {}
+        pr, _, launch = self.drive("pagerank stream", lambda: pagerank(
+            pr_c, n_pages, tol=0.0, max_iters=5, engine="pallas", mode="stream",
+            session=sess), 5 * len(edges_np))
+        results["pagerank_driver_diff"] = pr_ok("stream driver", pr.scores)
+        if launch["segment_reduce"] == 0 or pr.iterations != 5:
+            raise AssertionError("pagerank stream: no K1 launched")
+        self.add_phase_launches("pagerank", sess.stats.graph_launches)
+        sess.stats.graph_launches = {}
+        hm, _, launch = self.drive("wordcount chunked per op", lambda: wordcount(
+            wc_c, engine="pallas", vocab_size=vocab, session=sess), int(lines.size))
+        results["wordcount_per_op_distinct"] = wc_ok("chunked per op", hm)
+        if launch["hash_aggregate"] != 2 * wc_c.n_blocks:
+            raise AssertionError(f"wordcount chunked: {launch['hash_aggregate']} K2 calls")
+        wres, _, launch = self.drive("wordcount stream program", lambda: wordcount(
+            wc_c, engine="pallas", vocab_size=vocab, mode="program", session=sess),
+            int(lines.size))
+        results["wordcount_program_distinct"] = wc_ok("stream program", wres.counts)
+        if launch["hash_aggregate"] == 0 or wres.dispatches != wc_c.n_blocks:
+            raise AssertionError("wordcount stream program: no K2 launched")
+        self.add_phase_launches("wordcount", sess.stats.graph_launches)
+        del km, pr, hm, wres, sess
+        torch.cuda.empty_cache()
+
+        # -- epochs, prefetch on and off, the memory the stream adds ----------
+        epochs = 5
+
+        def km_make(s2):
+            step, st0 = alg["kmeans"]._stream_step(km_c, 5, 3, "pallas", "none", dev)
+            return (s2.program(step), st0(c0),
+                    lambda prog, st: km_ok("stream epochs", st["centers"]))
+
+        def pr_make(s2):
+            deg = torch.from_numpy(alg["pagerank"].block_degrees(pr_c, n_pages)).to(dev)
+            step, st0 = alg["pagerank"]._stream_step(pr_c, deg, n_pages, 0.85, "pallas",
+                                                     "none", dev)
+            return (s2.program(step), st0(torch.full((n_pages,), 1.0 / n_pages, device=dev)),
+                    lambda prog, st: pr_ok("stream epochs", st["scores"].cpu().numpy()))
+
+        def wc_make(s2):
+            hm = s2.make_dist_hashmap(max(64, 4 * vocab), (), torch.int32, "sum")
+            step, st = alg["wordcount"]._program_step(wc_c, hm, vocab, "pallas")
+            return (s2.program(step), st,
+                    lambda prog, _st: wc_ok("stream epochs", prog.hash_result(hm), epochs))
+
+        specs = {"kmeans": (km_c, km_make, "segment_reduce", 1),
+                 "pagerank": (pr_c, pr_make, "segment_reduce", 1),
+                 "wordcount": (wc_c, wc_make, "hash_aggregate", 2)}
+        for name, (cv, make, kernel, per_block) in specs.items():
+            for prefetch in (True, False):
+                s2 = BlazeSession(device=dev)
+                self.sync()
+                base0 = torch.cuda.memory_allocated(dev)
+                prog, state, check = make(s2)
+                state, first = self.stream_epochs(name, s2, prog, state, 1, prefetch,
+                                                  cv.n_blocks)
+                torch.cuda.reset_peak_memory_stats(dev)
+                (state, times), _, launch = self.drive(
+                    f"{name} stream epochs prefetch={prefetch}",
+                    lambda: self.stream_epochs(name, s2, prog, state, epochs - 1, prefetch,
+                                               cv.n_blocks), epochs - 1)
+                peak = torch.cuda.max_memory_allocated(dev) - base0
+                if launch[kernel]:
+                    raise AssertionError(f"{name} stream: {kernel} ran outside a graph")
+                per_replay = prog.stats.captured_launches[1].get(kernel, 0)
+                if per_replay != per_block:
+                    raise AssertionError(f"{name} stream: {per_replay} {kernel} a block")
+                state_bytes = sum(x.numel() * x.element_size() for x in state.values())
+                carry = prog._carry[prog._last_sig]
+                state_bytes += sum(t.keys.nbytes + t.vals.nbytes + t.overflow.nbytes
+                                   for t in carry.tables.values())
+                bound = 2 * cv.block_nbytes + state_bytes + prog.stats.pool_reserved_bytes
+                if prefetch and peak > bound:
+                    raise AssertionError(f"{name} stream: peak {peak} over {bound}")
+                diff = check(prog, state)
+                rec = {"stream": name, "prefetch": prefetch, "blocks": cv.n_blocks,
+                       "block_bytes": cv.block_nbytes, "first_epoch_s": first[0],
+                       "epoch_s": times, "epoch_median_s": statistics.median(times),
+                       "bound_s": cv.n_blocks * cv.block_nbytes / rate,
+                       "dataset_bytes": cv.n_blocks * cv.block_nbytes,
+                       "peak_added_bytes": peak, "peak_bound_bytes": bound,
+                       "state_bytes": state_bytes,
+                       "pool_reserved_bytes": prog.stats.pool_reserved_bytes,
+                       "launches_per_block": per_replay, "check": diff}
+                results[f"{name} prefetch={prefetch}"] = {
+                    k: rec[k] for k in ("epoch_median_s", "bound_s", "peak_added_bytes")}
+                print(json.dumps(rec), flush=True)
+                self.add_phase_launches(name, s2.stats.graph_launches)
+                del prog, s2, state, check
+                torch.cuda.empty_cache()
+
+        # -- resume from the epoch-2 checkpoint in a new program --------------
+        ckpt = tempfile.mkdtemp(prefix="blaze-ckpt-")
+        s3 = BlazeSession(device=dev)
+        step, st0 = alg["kmeans"]._stream_step(km_c, 5, 3, "pallas", "none", dev)
+        full, _ = s3.run_stream(s3.program(step), st0(c0), max_epochs=epochs)
+        s3.run_stream(s3.program(step), st0(c0), max_epochs=2, checkpoint=ckpt,
+                      checkpoint_every=1)
+        got, info = s3.run_stream(s3.program(step), st0(c0), max_epochs=epochs,
+                                  checkpoint=ckpt, checkpoint_every=1, resume=True)
+        km_diff = float((got["centers"] - full["centers"]).abs().max())
+        if info.resumed_from != 2 or km_diff > 1e-4:
+            raise AssertionError(f"kmeans resume: from {info.resumed_from}, {km_diff} off")
+        km_ok("resumed", got["centers"])
+        shutil.rmtree(ckpt, ignore_errors=True)
+        ckpt = tempfile.mkdtemp(prefix="blaze-ckpt-")
+
+        def wc_stream(n_epochs, resume=False):
+            hm = s3.make_dist_hashmap(max(64, 4 * vocab), (), torch.int32, "sum")
+            wstep, wstate = alg["wordcount"]._program_step(wc_c, hm, vocab, "pallas")
+            prog = s3.program(wstep)
+            _, winfo = s3.run_stream(prog, wstate, max_epochs=n_epochs, checkpoint=ckpt,
+                                     checkpoint_every=1, resume=resume)
+            return prog.hash_result(hm), winfo
+
+        wfull, _ = wc_stream(3)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        ckpt = tempfile.mkdtemp(prefix="blaze-ckpt-")
+        wc_stream(2)
+        wgot, winfo = wc_stream(3, resume=True)
+        if winfo.resumed_from != 2 or wgot.to_dict() != wfull.to_dict():
+            raise AssertionError("wordcount resume differs from the uninterrupted run")
+        wc_ok("resumed", wgot, times=3)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        for k, n in s3.stats.graph_launches.items():
+            self.add_phase_launches("wordcount" if k.startswith("hash") else "kmeans", {k: n})
+        results["resume"] = {"kmeans_centre_diff": km_diff, "kmeans_resumed_from": 2,
+                             "wordcount_equal": True, "wordcount_resumed_from": 2}
+        del s3, full, got, wfull, wgot
+        torch.cuda.empty_cache()
+
+        # -- the in-memory programs' replay of one iteration, for comparison ---
+        inmem = {}
+        s4 = BlazeSession(device=dev)
+        step, st0 = alg["kmeans"]._program_step(DistVector(data["points"], len(pts_np)),
+                                                5, 3, "pallas", "none")
+        inmem["kmeans"] = self.replay_ms(s4.program(step), st0(c0))
+        step, st0 = alg["pagerank"]._program_step(
+            DistVector(data["edges"], len(edges_np)), data["deg"], n_pages, 0.85, "pallas",
+            "none")
+        inmem["pagerank"] = self.replay_ms(
+            s4.program(step), st0(torch.full((n_pages,), 1.0 / n_pages, device=dev)))
+        hm = s4.make_dist_hashmap(max(64, 4 * vocab), (), torch.int32, "sum")
+        step, state = alg["wordcount"]._program_step(
+            DistVector(data["tokens"], lines.shape[0]), hm, vocab, "pallas")
+        inmem["wordcount"] = self.replay_ms(s4.program(step), state)
+        del s4
+        torch.cuda.empty_cache()
+        print(json.dumps({"stream_results": results, "in_memory_replay_ms": inmem}),
+              flush=True)
 
     # -- wire phase -----------------------------------------------------------
 
@@ -2435,6 +2970,8 @@ class Smoke:
         self.kernel_phase(data)
         self.path_phase(data)
         self.program_phase(data)
+        self.tuning_phase(data)
+        self.stream_phase(data)
         self.wire_phase(data)
         kernels = []
         sources = {
@@ -2491,7 +3028,9 @@ class Smoke:
                     if r.get("kernel") == rec["kernel"] and "form" in r})) else {}),
                 **({"path_forms": forms} if (forms := self.path_launches[path].get(
                     f"{rec['kernel']} forms")) else {}),
-                # the program phase's launches (graph replays), by form too
+                "candidates_checked": self.candidates_checked.get(key),
+                # the program, tuning and stream phases' launches (graph
+                # replays), by form too
                 "program_launches": {k: n for k, n in self.program_launches.get(
                     programs.get(key), {}).items()
                     if k.split("/")[0] == rec["kernel"]} or None,

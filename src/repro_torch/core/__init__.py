@@ -1,9 +1,12 @@
 """Blaze core: in-memory MapReduce + distributed containers in PyTorch."""
 from repro_torch.core.containers import (
     EMPTY_KEY,
+    BlockView,
+    ChunkedDistVector,
     DistHashMap,
     DistRange,
     DistVector,
+    chunked,
     collect,
     distribute,
     foreach,
@@ -26,12 +29,15 @@ __all__ = [
     "EMPTY_KEY",
     "PALLAS_AUTO_MAX_KEYS",
     "BlazeSession",
+    "BlockView",
+    "ChunkedDistVector",
     "DistHashMap",
     "DistRange",
     "DistVector",
     "MapReduceStats",
     "Reducer",
     "SessionStats",
+    "chunked",
     "collect",
     "custom_reducer",
     "distribute",

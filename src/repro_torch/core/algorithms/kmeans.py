@@ -15,7 +15,13 @@ rides the assignment pass there: the mapper emits ``(centre, [x…, 1,
 min_d2])`` into one ``[K, dim+2]`` target, and the inertia of the final
 centres comes from one more dispatch of the same program (its centre update
 discarded), so no per-op stage is ever built.  ``wire`` narrows the sums'
-collective payload.  ``mode="stream"`` comes with the out-of-core slice.
+collective payload.
+
+``mode="stream"`` takes a ``ChunkedDistVector`` of points (out of core): one
+epoch replays the program's graph once a block (``session.run_stream``),
+each block's ``[K, dim+2]`` partial accumulating in the state, the
+refinement taken on the epoch's last block.  Per op, chunked points run one
+stage a block.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import DistVector
+from repro_torch.core import ChunkedDistVector, DistVector
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -91,8 +97,48 @@ def _program_step(pts_v: DistVector, k: int, dim: int, engine: str, wire: str):
     return step, state0
 
 
+def _stream_step(pts_c: ChunkedDistVector, k: int, dim: int, engine: str, wire: str,
+                 device):
+    """(step_fn, state builder) for the out-of-core k-means epoch: each
+    dispatch adds its block's ``[K, dim+2]`` partial to ``acc``; the
+    refinement (centres, move, inertia) is committed only on the epoch's
+    last block, after which ``acc`` resets and the block counter wraps, so
+    one graph serves every block of every epoch."""
+    n_blocks = pts_c.n_blocks
+
+    def step(ctx, s):
+        c = s["centers"]
+        part = ctx.map_reduce(
+            pts_c, assign_inertia_mapper, "sum",
+            torch.zeros((k, dim + 2), dtype=torch.float32, device=device),
+            engine=engine, wire=wire, env=c,
+        )
+        acc = s["acc"] + part
+        last = s["blk"] == n_blocks - 1
+        counts = torch.clamp(acc[:, dim:dim + 1], min=1.0)
+        new_c = acc[:, :dim] / counts  # the refinement, kept on the last block
+        move = torch.max(torch.sum((new_c - c) ** 2, dim=1))
+        inertia = torch.sum(acc[:, dim + 1])
+        return {
+            "centers": torch.where(last, new_c, c),
+            "move": torch.where(last, move, s["move"]),
+            "inertia": torch.where(last, inertia, s["inertia"]),
+            "acc": torch.where(last, torch.zeros_like(acc), acc),
+            "blk": torch.where(last, torch.zeros_like(s["blk"]), s["blk"] + 1),
+        }
+
+    def state0(centers):
+        return {"centers": centers,
+                "move": torch.full((), float("inf"), device=device),
+                "inertia": torch.zeros((), device=device),
+                "acc": torch.zeros((k, dim + 2), dtype=torch.float32, device=device),
+                "blk": torch.zeros((), dtype=torch.int32, device=device)}
+
+    return step, state0
+
+
 def kmeans(
-    points: np.ndarray | DistVector,
+    points: np.ndarray | DistVector | ChunkedDistVector,
     k: int,
     *,
     init_centers: np.ndarray | None = None,
@@ -105,27 +151,58 @@ def kmeans(
     seed: int = 0,
     session: BlazeSession | None = None,
 ) -> KMeansResult:
-    if mode == "stream":
-        raise NotImplementedError(
-            "mode='stream' comes with the out-of-core streaming slice of the "
-            "port; use mode='per_op' or 'program'"
-        )
-    if mode not in ("per_op", "program"):
-        raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
+    if mode not in ("per_op", "program", "stream"):
+        raise ValueError(f"unknown mode {mode!r}; choose 'per_op', 'program' or 'stream'")
     sess = resolve(session)
-    if isinstance(points, DistVector):
+    if isinstance(points, ChunkedDistVector):
+        if mode == "program":
+            raise ValueError("chunked points need mode='stream' (the out-of-core "
+                             "program loop) or mode='per_op'")
         pts_v = points
+        dim = points.shape_tail[0]
+    elif isinstance(points, DistVector):
+        pts_v = points
+        dim = pts_v.data.shape[1]
     else:
         pts_v = sess.distribute(points.astype(np.float32))
-    dim = pts_v.data.shape[1]
+        dim = pts_v.data.shape[1]
     if init_centers is None:
         rng = np.random.RandomState(seed)
-        pool = pts_v.data[: min(len(pts_v), 4096)].cpu().numpy()
+        if isinstance(pts_v, ChunkedDistVector):
+            pool = pts_v.block_host(0)[: min(pts_v.block_true_rows(0), 4096)]
+        else:
+            pool = pts_v.data[: min(len(pts_v), 4096)].cpu().numpy()
         init_centers = pool[rng.choice(len(pool), k, replace=False)]
     centers = torch.as_tensor(np.asarray(init_centers, np.float32), device=sess.device)
     compiles0 = sess.stats.compiles
     dispatches0 = sess.stats.dispatches
     syncs0 = sess.stats.host_syncs
+
+    if mode == "stream":
+        if not isinstance(pts_v, ChunkedDistVector):
+            raise ValueError("mode='stream' needs ChunkedDistVector points "
+                             "(see session.chunked)")
+        step, state0 = _stream_step(pts_v, k, dim, engine, wire, sess.device)
+        prog = sess.program(step)
+        state, info = sess.run_stream(prog, state0(centers),
+                                      cond=lambda s: float(s["move"]) < tol * tol,
+                                      max_epochs=max_iters)
+        # Inertia of the FINAL centres: one more epoch of the same graph, its
+        # refinement discarded (the in-memory program's probe dispatch).
+        probe, _ = sess.run_stream(prog, state, max_epochs=1)
+        inertia = float(sess.host_value(probe["inertia"]))
+        return KMeansResult(
+            centers=state["centers"].cpu().numpy(),
+            iterations=info.epochs,
+            converged=info.converged,
+            inertia=inertia,
+            shuffle_bytes_per_iter=0,
+            compiles=sess.stats.compiles - compiles0,
+            program_compiles=info.compiles,
+            dispatches=sess.stats.dispatches - dispatches0,
+            host_syncs=sess.stats.host_syncs - syncs0,
+            collectives_per_iter=prog.plan.collectives_per_iter,
+        )
 
     if mode == "program":
         step, state0 = _program_step(pts_v, k, dim, engine, wire)

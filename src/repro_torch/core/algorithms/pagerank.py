@@ -20,8 +20,14 @@ scatter is the dynamic-key combine the segment-reduce kernel runs under
   ``wire="int8"`` the program carries each shard's quantisation residual
   across iterations, keeping the power iteration unbiased.
 
+* ``mode="stream"``: the edges are a ``ChunkedDistVector`` (out of core);
+  one epoch is one iteration, replaying the program's graph once a block
+  (``session.run_stream``): MR2's block partial accumulates in the state,
+  and MR1, the update and MR3 are committed on the epoch's last block.  The
+  out-degrees are counted from the blocks on the host, a block at a time.
+
 ``wire`` narrows MR2's collective payload (bf16, or int8 with a shared
-scale).  ``mode="stream"`` comes with the out-of-core slice.
+scale).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import DistRange
+from repro_torch.core import ChunkedDistVector, DistRange
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -95,8 +101,59 @@ def _program_step(edges_v, deg, n_pages: int, damping: float, engine: str,
     return step, state0
 
 
+def _stream_step(edges_c: ChunkedDistVector, deg, n_pages: int, damping: float,
+                 engine: str, wire: str, device):
+    """(step_fn, state builder) for the out-of-core PageRank epoch: MR2 over
+    the resident block accumulates into ``acc``; MR1, Eq. 1 and MR3 run
+    every dispatch but are committed only on the epoch's last block, where
+    ``acc`` holds the whole incoming vector, so one graph serves every block
+    of every epoch."""
+    pages = DistRange(0, n_pages, 1)
+    d = damping
+    n_blocks = edges_c.n_blocks
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=device)
+
+    def step(ctx, s):
+        sc = s["scores"]
+        part = ctx.map_reduce(edges_c, contrib_mapper, "sum", zeros(n_pages),
+                              engine=engine, wire=wire, env=(sc, deg))
+        acc = s["acc"] + part
+        last = s["blk"] == n_blocks - 1
+        sink = ctx.map_reduce(pages, sink_mapper, "sum", zeros(1), engine=engine,
+                              env=(sc, deg))[0]
+        new = (1.0 - d) / n_pages + d * (acc + sink / n_pages)
+        delta = ctx.map_reduce(pages, delta_mapper, "max", zeros(1), engine=engine,
+                               env=(sc, new))[0]
+        return {
+            "scores": torch.where(last, new, sc),
+            "delta": torch.where(last, delta, s["delta"]),
+            "acc": torch.where(last, torch.zeros_like(acc), acc),
+            "blk": torch.where(last, torch.zeros_like(s["blk"]), s["blk"] + 1),
+        }
+
+    def state0(scores):
+        return {"scores": scores,
+                "delta": torch.full((), float("inf"), device=device),
+                "acc": zeros(n_pages),
+                "blk": torch.zeros((), dtype=torch.int32, device=device)}
+
+    return step, state0
+
+
+def block_degrees(edges_c: ChunkedDistVector, n_pages: int) -> np.ndarray:
+    """Out-degrees counted on the host a block at a time (the edge list is
+    never resident); the last block's padding rows are left out."""
+    deg = np.zeros((n_pages,), np.int64)
+    for b in range(edges_c.n_blocks):
+        blk = edges_c.block_host(b)[: edges_c.block_true_rows(b)]
+        deg += np.bincount(blk[:, 0], minlength=n_pages)
+    return deg.astype(np.int32)
+
+
 def pagerank(
-    edges: np.ndarray,
+    edges: np.ndarray | ChunkedDistVector,
     n_pages: int,
     *,
     damping: float = 0.85,
@@ -108,25 +165,49 @@ def pagerank(
     unroll: int = 1,
     session: BlazeSession | None = None,
 ) -> PageRankResult:
-    if mode == "stream":
-        raise NotImplementedError(
-            "mode='stream' comes with the out-of-core streaming slice of the "
-            "port; use mode='per_op' or 'program'"
-        )
-    if mode not in ("per_op", "program"):
-        raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
+    if mode not in ("per_op", "program", "stream"):
+        raise ValueError(f"unknown mode {mode!r}; choose 'per_op', 'program' or 'stream'")
     sess = resolve(session)
     dev = sess.device
-    edges_v = sess.distribute(edges.astype(np.int32))
-    deg = torch.from_numpy(
-        np.bincount(edges[:, 0], minlength=n_pages).astype(np.int32)
-    ).to(dev)
+    if isinstance(edges, ChunkedDistVector):
+        if mode == "program":
+            raise ValueError("chunked edges need mode='stream' (the out-of-core "
+                             "program loop) or mode='per_op'")
+        edges_v = edges
+        deg = torch.from_numpy(block_degrees(edges, n_pages)).to(dev)
+    else:
+        if mode == "stream":
+            raise ValueError("mode='stream' needs ChunkedDistVector edges "
+                             "(see session.chunked)")
+        edges_v = sess.distribute(edges.astype(np.int32))
+        deg = torch.from_numpy(
+            np.bincount(edges[:, 0], minlength=n_pages).astype(np.int32)
+        ).to(dev)
     pages = DistRange(0, n_pages, 1)
     scores = torch.full((n_pages,), 1.0 / n_pages, dtype=torch.float32, device=dev)
     d = damping
     compiles0 = sess.stats.compiles
     dispatches0 = sess.stats.dispatches
     syncs0 = sess.stats.host_syncs
+
+    if mode == "stream":
+        step, state0 = _stream_step(edges_v, deg, n_pages, d, engine, wire, dev)
+        prog = sess.program(step)
+        state, info = sess.run_stream(prog, state0(scores),
+                                      cond=lambda s: float(s["delta"]) < tol,
+                                      max_epochs=max_iters)
+        return PageRankResult(
+            scores=state["scores"].cpu().numpy(),
+            iterations=info.epochs,
+            converged=info.converged,
+            shuffle_bytes_per_iter=0,
+            pairs_shipped_per_iter=0,
+            compiles=sess.stats.compiles - compiles0,
+            program_compiles=info.compiles,
+            dispatches=sess.stats.dispatches - dispatches0,
+            host_syncs=sess.stats.host_syncs - syncs0,
+            collectives_per_iter=prog.plan.collectives_per_iter,
+        )
 
     if mode == "program":
         step, state0 = _program_step(edges_v, deg, n_pages, d, engine, wire)

@@ -13,6 +13,11 @@ batch (the streaming-aggregation setting).  ``mode="program"`` plans the pass
 as a program whose hash table is threaded through the iterations, and
 ``run_loop(unroll=U)`` runs ``iters`` passes in ``ceil(iters / U)``
 dispatches (CUDA graph replays on the card) with no host sync between them.
+
+Lines given as a ``ChunkedDistVector`` (out of core; ``vocab_size`` is then
+required) run one stage a block per op, or with ``mode="program"`` one graph
+replay a block through ``session.run_stream``, ``iters`` epochs, the hash
+table accumulating across blocks as it does across passes.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import DistHashMap
+from repro_torch.core import ChunkedDistVector, DistHashMap
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -30,15 +35,15 @@ def wordcount_mapper(i, tokens, emit):
 
 def _program_step(lines_v, hm, vocab_bound: int, engine: str):
     """(step_fn, initial state) for the planned word count: one hash-target
-    node a pass, the table threaded through the iterations."""
+    node a pass (or a block, for chunked lines), the table threaded through
+    the iterations."""
 
     def step(ctx, s):
         ctx.map_reduce(lines_v, wordcount_mapper, "sum", hm, engine=engine,
                        key_range=vocab_bound)
         return {"it": s["it"] + 1}
 
-    return step, {"it": torch.zeros((), dtype=torch.int32,
-                                    device=lines_v.data.device)}
+    return step, {"it": torch.zeros((), dtype=torch.int32, device=hm.table.keys.device)}
 
 
 @dataclasses.dataclass
@@ -81,7 +86,13 @@ def wordcount(
     if mode not in ("per_op", "program"):
         raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
     sess = resolve(session)
-    lines_v = sess.distribute(lines)
+    is_chunked = isinstance(lines, ChunkedDistVector)
+    if is_chunked:
+        if vocab_size is None:
+            raise ValueError("chunked (out-of-core) wordcount needs an explicit vocab_size")
+        lines_v = lines
+    else:
+        lines_v = sess.distribute(lines)
     vocab = (
         vocab_size if vocab_size is not None
         else (int(lines.max()) + 1 if lines.size else 1)
@@ -108,6 +119,18 @@ def wordcount(
     if mode == "program":
         step, state = _program_step(lines_v, hm, vocab, engine)
         prog = sess.program(step)
+        if is_chunked:
+            # Each epoch replays the graph once a block; the table
+            # accumulates across blocks as across passes.
+            state, info = sess.run_stream(prog, state, max_epochs=iters)
+            return WordCountResult(
+                counts=prog.hash_result(hm),
+                iterations=info.epochs,
+                compiles=sess.stats.compiles - compiles0,
+                program_compiles=info.compiles,
+                dispatches=sess.stats.dispatches - dispatches0,
+                host_syncs=sess.stats.host_syncs - syncs0,
+            )
         state, info = sess.run_loop(prog, state, max_iters=iters, unroll=unroll)
         return WordCountResult(
             counts=prog.hash_result(hm),

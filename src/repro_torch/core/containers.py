@@ -15,11 +15,20 @@ shards a container's leading dimension over a device mesh, the port keeps all
 On one card ``n_shards=1`` is the real deployment; more shards exercise the
 shuffle and let the port be held against the JAX package on several devices.
 Containers are never mutated: every operation returns a new one.
+
+Out of core (the counterpart of the reference's ``ChunkedDistVector``): a
+dataset that stays on the host as blocks (``HostBlockStore``: raw, zlib
+compressed, or spilled to disk past an LRU bound), streamed to the device one
+block at a time, each block seen as a ``BlockView``.  On a CUDA machine the
+raw blocks live in pinned (page-locked) memory, and compressed or spilled
+ones decode into pinned buffers: a copy from pageable memory blocks the host
+and cannot overlap the device's work.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import zlib
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -30,10 +39,14 @@ from repro_torch.kernels.hash_combine import EMPTY_KEY, hash32
 
 __all__ = [
     "EMPTY_KEY",
+    "BlockView",
+    "ChunkedDistVector",
     "DistHashMap",
     "DistRange",
     "DistVector",
     "HashTable",
+    "HostBlockStore",
+    "chunked",
     "collect",
     "distribute",
     "foreach",
@@ -319,3 +332,267 @@ def topk(v: DistVector, k: int, score_fn: Callable | None = None, env=None, *,
     s = s.cpu().numpy().reshape(-1)
     cand = cand.cpu().numpy().reshape((-1,) + tuple(data.shape[1:]))
     return cand[np.argsort(-s, kind="stable")[:k]]
+
+
+# ---------------------------------------------------------------------------
+# Out of core: chunked vectors as host-resident blocks
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BlockView:
+    """One device-resident block of a :class:`ChunkedDistVector`.
+
+    ``data`` is the block's rows, padded to ``block_rows`` (shards stacked as
+    a ``DistVector``'s); ``base`` is a device int32 scalar holding the
+    block's global row offset (a tensor, not a Python int, so that one stage
+    or one captured graph serves every block); ``n`` is the whole dataset's
+    true row count, so mappers see global indices and ``idx < n`` masks the
+    padding.  ``ready``, when set, is the CUDA event the block's copy
+    recorded on the stream that made it: consumers wait on it first.
+    """
+
+    data: torch.Tensor
+    base: torch.Tensor
+    n: int
+    ready: Any = None
+
+    def __len__(self) -> int:
+        return self.n
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
+class HostBlockStore:
+    """Byte provider of a chunked vector: host blocks, optional zlib
+    compression, and LRU spill of cold blocks to a ``BlockStore`` on disk.
+
+    All blocks share one shape and dtype, so bytes decode without per-block
+    metadata.  With ``pin`` (a CUDA machine) raw blocks are kept in pinned
+    memory and :meth:`get_tensor` decodes compressed or spilled blocks into
+    a fresh pinned buffer, taken from PyTorch's caching host allocator,
+    which reuses it only after the copies that read it have finished.
+    """
+
+    def __init__(self, blocks: list[np.ndarray], *, compress: bool = False,
+                 spill=None, max_resident: int | None = None, pin: bool = False):
+        if not blocks:
+            raise ValueError("HostBlockStore needs at least one block")
+        self.block_shape = blocks[0].shape
+        self.dtype = blocks[0].dtype
+        for b in blocks:
+            if b.shape != self.block_shape or b.dtype != self.dtype:
+                raise ValueError("all blocks must share one shape and dtype")
+        self.compress = compress
+        self.spill = spill
+        self.max_resident = max_resident
+        self.pin = pin
+        self.n_blocks = len(blocks)
+        # counters (read through ChunkedDistVector.stats())
+        self.loads_from_disk = 0
+        self.decompressions = 0
+        self.spill_bytes = 0
+        self.compressed_bytes = 0
+        self.raw_bytes = sum(int(b.nbytes) for b in blocks)
+        self._resident: dict[int, Any] = {}  # insertion order is LRU order
+        for i, b in enumerate(blocks):
+            self._admit(i, self._encode(b))
+
+    def _encode(self, arr: np.ndarray):
+        if self.compress:
+            payload = zlib.compress(np.ascontiguousarray(arr).tobytes(), 1)
+            self.compressed_bytes += len(payload)
+            return payload
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory() if self.pin else t
+
+    @staticmethod
+    def _payload_bytes(payload) -> bytes:
+        if isinstance(payload, bytes):
+            return payload
+        return payload.numpy().tobytes()
+
+    def _admit(self, i: int, payload):
+        self._resident[i] = payload
+        if self.max_resident is None or self.spill is None:
+            return
+        while len(self._resident) > max(1, self.max_resident):
+            victim, vpayload = next(iter(self._resident.items()))
+            del self._resident[victim]
+            if not self.spill.has(f"block_{victim:06d}"):
+                self.spill_bytes += self.spill.put(f"block_{victim:06d}",
+                                                   self._payload_bytes(vpayload))
+
+    def _payload(self, i: int):
+        """Block ``i``'s stored payload, loaded from disk (and re-admitted)
+        when it was spilled."""
+        if i in self._resident:
+            payload = self._resident.pop(i)
+            self._resident[i] = payload  # refresh its LRU position
+            return payload
+        self.loads_from_disk += 1
+        raw = self.spill.get(f"block_{i:06d}")
+        payload = raw if self.compress else self._encode(
+            np.frombuffer(bytearray(raw), dtype=self.dtype).reshape(self.block_shape))
+        self._admit(i, payload)
+        return payload
+
+    def get(self, i: int) -> np.ndarray:
+        """Block ``i`` as a host array."""
+        payload = self._payload(i)
+        if self.compress:
+            self.decompressions += 1
+            raw = zlib.decompress(payload)
+            return np.frombuffer(raw, dtype=self.dtype).reshape(self.block_shape)
+        return payload.numpy()
+
+    def get_tensor(self, i: int) -> torch.Tensor:
+        """Block ``i`` as a CPU tensor, pinned when the store pins: a raw
+        block is the stored tensor itself, a compressed one is decoded
+        straight into a fresh (pinned) buffer."""
+        payload = self._payload(i)
+        if not self.compress:
+            return payload
+        self.decompressions += 1
+        out = torch.empty(self.block_shape, dtype=_torch_dtype(self.dtype),
+                          pin_memory=self.pin)
+        np.copyto(out.numpy().reshape(-1).view(np.uint8),
+                  np.frombuffer(zlib.decompress(payload), np.uint8))
+        return out
+
+    def stats(self) -> dict:
+        return {
+            "n_blocks": self.n_blocks,
+            "raw_bytes": self.raw_bytes,
+            "compressed_bytes": self.compressed_bytes if self.compress else 0,
+            "spill_bytes": self.spill_bytes,
+            "loads_from_disk": self.loads_from_disk,
+            "decompressions": self.decompressions,
+            "resident_blocks": len(self._resident),
+            "pinned": self.pin,
+        }
+
+
+class ChunkedDistVector:
+    """An out-of-core ``DistVector``: host blocks streamed to the device.
+
+    The device holds one block at a time (two while the next one's copy
+    overlaps this one's work).  ``session.map_reduce`` with a chunked source
+    runs one stage per block, and ``program.run_stream`` one graph replay
+    per block.  A host-side container: :meth:`block_view` makes the
+    :class:`BlockView` that enters a stage.
+    """
+
+    def __init__(self, provider: HostBlockStore, n: int, block_rows: int,
+                 n_shards: int = 1, device=None):
+        self.provider = provider
+        self.n = n
+        self.block_rows = block_rows
+        self.n_shards = n_shards
+        self.device = resolve_device(device)
+        if block_rows % n_shards:
+            raise ValueError(f"block_rows={block_rows} must be a multiple of "
+                             f"{n_shards} shards")
+
+    @classmethod
+    def from_array(cls, x: np.ndarray, block_rows: int, n_shards: int = 1,
+                   device=None, *, compress: bool = False,
+                   spill_dir: str | None = None,
+                   max_resident: int | None = None) -> "ChunkedDistVector":
+        """Split a host array into blocks of ``block_rows`` (rounded up to a
+        multiple of the shards), the last one padded with zeros; pinned on a
+        CUDA device."""
+        if block_rows <= 0:
+            raise ValueError(f"block_rows must be positive, got {block_rows}")
+        dev = resolve_device(device)
+        x = np.asarray(x)
+        n = x.shape[0]
+        block_rows = max(n_shards, -(-block_rows // n_shards) * n_shards)
+        n_blocks = max(1, -(-n // block_rows))
+        blocks = []
+        for b in range(n_blocks):
+            blk = x[b * block_rows:(b + 1) * block_rows]
+            if blk.shape[0] < block_rows:
+                pad = np.zeros((block_rows - blk.shape[0],) + x.shape[1:], x.dtype)
+                blk = np.concatenate([blk, pad], axis=0)
+            blocks.append(np.ascontiguousarray(blk))
+        spill = None
+        if spill_dir is not None:
+            from repro_torch.checkpoint.manager import BlockStore
+
+            spill = BlockStore(spill_dir)
+        provider = HostBlockStore(blocks, compress=compress, spill=spill,
+                                  max_resident=max_resident, pin=dev.type == "cuda")
+        return cls(provider, n, block_rows, n_shards, dev)
+
+    # -- geometry ------------------------------------------------------------
+
+    @property
+    def n_blocks(self) -> int:
+        return self.provider.n_blocks
+
+    @property
+    def shape_tail(self) -> tuple:
+        return tuple(self.provider.block_shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _torch_dtype(self.provider.dtype)
+
+    @property
+    def block_nbytes(self) -> int:
+        return int(self.block_rows * int(np.prod(self.shape_tail, dtype=np.int64))
+                   * np.dtype(self.provider.dtype).itemsize)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def block_true_rows(self, b: int) -> int:
+        return max(0, min(self.block_rows, self.n - b * self.block_rows))
+
+    # -- access --------------------------------------------------------------
+
+    def block_host(self, b: int) -> np.ndarray:
+        return self.provider.get(b)
+
+    def block_tensor(self, b: int) -> torch.Tensor:
+        """Block ``b`` as a CPU tensor (pinned on a CUDA machine)."""
+        return self.provider.get_tensor(b)
+
+    def block_view(self, b: int, stream=None) -> BlockView:
+        """Copy block ``b`` to the device.  With a CUDA ``stream`` the copy
+        runs there and the view's ``ready`` event marks its end; without
+        one it runs on the current stream."""
+        host = self.block_tensor(b)
+        if stream is None or self.device.type != "cuda":
+            return BlockView(host.to(self.device),
+                             torch.full((), b * self.block_rows, dtype=torch.int32,
+                                        device=self.device), self.n)
+        with torch.cuda.stream(stream):
+            data = host.to(self.device, non_blocking=True)
+            base = torch.full((), b * self.block_rows, dtype=torch.int32,
+                              device=self.device)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return BlockView(data, base, self.n, ready)
+
+    def collect(self) -> np.ndarray:
+        """Host materialisation without the padding (small datasets, tests)."""
+        out = np.concatenate([self.block_host(b) for b in range(self.n_blocks)], axis=0)
+        return out[: self.n]
+
+    def stats(self) -> dict:
+        return self.provider.stats()
+
+
+def chunked(x: np.ndarray, block_rows: int, n_shards: int = 1, device=None, *,
+            compress: bool = False, spill_dir: str | None = None,
+            max_resident: int | None = None) -> ChunkedDistVector:
+    """The paper's ``distribute`` for datasets that do not fit on the device:
+    a host array as blocks streamed one at a time (:class:`ChunkedDistVector`)."""
+    return ChunkedDistVector.from_array(x, block_rows, n_shards, device,
+                                        compress=compress, spill_dir=spill_dir,
+                                        max_resident=max_resident)

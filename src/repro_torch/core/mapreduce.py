@@ -3,11 +3,14 @@
 The counterpart of ``repro/core/mapreduce.py``.  ``map_reduce(source, mapper,
 reducer, target)`` keeps the paper's four-argument API:
 
-* **source** — ``DistRange`` | ``DistVector`` | ``DistHashMap``.
+* **source** — ``DistRange`` | ``DistVector`` | ``DistHashMap`` |
+  ``ChunkedDistVector`` (out of core: the session streams it a block at a
+  time, each block a ``BlockView``).
 * **mapper** — paper-style emit-handler function, run under
   ``torch.func.vmap`` over every element of every shard:
     - ``DistRange``:   ``mapper(value, emit)``            (+ ``env`` if given)
     - ``DistVector``:  ``mapper(index, value, emit)``     (+ ``env`` if given)
+    - chunked block:   ``mapper(index, value, emit)``, ``index`` global
     - ``DistHashMap``: ``mapper(key, value, emit)``       (+ ``env`` if given)
   ``emit(key, value, mask=True)`` may be called any static number of times;
   ``key``/``value`` may be scalars or 1-D batches, ``mask`` marks the real
@@ -35,6 +38,9 @@ Shards are stacked on dim 0 of one device (see ``containers``), and a shard
 stage is written over all of them at once with ``LocalCollectives``.  A
 "compile" is the construction of a stage, cached by the session under the
 same signature as the JAX executable cache, so compile counts carry over.
+``tuned`` (a ``cost.TunedConfig``, the autotuner's winner) pins the kernel's
+launch: K1's form and CTAs per SM, K2's table capacity, probe depth and
+table of hot keys.
 """
 from __future__ import annotations
 
@@ -191,6 +197,15 @@ def _run_mapper_structured(kind, source, mapper, coll, local, env):
         idx = torch.arange(data.shape[0], dtype=torch.int32, device=data.device)
         elem_mask = idx < n_true
         entries = vmap(trace)(idx, data)
+    elif kind == "chunked":
+        # One block of an out-of-core dataset: ``base``, a device scalar,
+        # shifts the block's rows to their global indices (read when the
+        # stage runs, so one captured graph serves every block), and ``idx <
+        # n`` masks the last block's padding as it masks a vector's.
+        data, n_total, base = local
+        idx = base + torch.arange(data.shape[0], dtype=torch.int32, device=data.device)
+        elem_mask = idx < n_total
+        entries = vmap(trace)(idx, data)
     elif kind == "hashmap":
         tkeys, tvals = local
         keys = tkeys.reshape(-1)
@@ -272,6 +287,8 @@ def source_kind(source) -> str:
         return "vector"
     if isinstance(source, C.DistHashMap):
         return "hashmap"
+    if isinstance(source, (C.ChunkedDistVector, C.BlockView)):
+        return "chunked"
     raise TypeError(f"unsupported source {type(source)}")
 
 
@@ -289,11 +306,13 @@ def _source_operands(kind, source) -> tuple:
         return ()
     if kind == "vector":
         return (source.data,)
+    if kind == "chunked":
+        return (source.data, source.base)
     return (source.table.keys, source.table.vals)
 
 
 def _source_extent(kind, source):
-    if kind == "vector":
+    if kind in ("vector", "chunked"):
         return source.n
     if kind == "range":
         return (source.start, source.stop, source.step)
@@ -305,12 +324,22 @@ def _local_view(kind, source):
         return None
     if kind == "vector":
         return (source.data, source.n)
+    if kind == "chunked":
+        return (source.data, source.n, source.base)
     return (source.table.keys, source.table.vals)
+
+
+def _segment_launch(tuned) -> dict:
+    """K1's launch overrides of a tuned config (none for eager or untuned)."""
+    if tuned is None or tuned.engine != "pallas":
+        return {}
+    return {k: getattr(tuned, k) for k in ("form", "ctas_per_sm")
+            if getattr(tuned, k) is not None}
 
 
 def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
                       wire: str = "none", with_stats: bool = True,
-                      feedback: bool = False, collect: bool = True):
+                      feedback: bool = False, collect: bool = True, tuned=None):
     """The per-shard plan for a dense ``[K, ...]`` target, as a function:
 
         ``stage(env, local, coll, residual=None)
@@ -323,10 +352,11 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
     program) runs the collective with error feedback on the ``[S, ...]``
     ``residual``; ``collect=False`` (eager/pallas) stops at the ``[S, K,
     ...]`` partials and leaves the collective to the caller, the seam of
-    the batch-collectives pass.  Returns ``(stage, kernel_meta)``,
-    ``kernel_meta`` filled when the kernel runs.
+    the batch-collectives pass.  ``tuned`` pins K1's launch.  Returns
+    ``(stage, kernel_meta)``, ``kernel_meta`` filled when the kernel runs.
     """
     K = target.shape[0]
+    launch = _segment_launch(tuned) if engine == "pallas" else {}
     target_dtype = target.dtype
     kernel_meta: dict = {}
 
@@ -368,7 +398,7 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
                     ids = torch.where(in_range, dkeys, -1)
                     flat = dvals.reshape(n_shards, dvals.shape[1], -1)
                     seg = torch.stack([
-                        red.pallas_segment(ids[s], flat[s].contiguous(), K)
+                        red.pallas_segment(ids[s], flat[s].contiguous(), K, **launch)
                         for s in range(n_shards)
                     ]).reshape((n_shards, K) + tuple(dvals.shape[2:]))
                     kernel_meta["block_n"] = THREADS
@@ -420,7 +450,7 @@ def reduce_edge_bytes(n_elems: int, full_bytes: int, wire_val_bytes: int,
 
 def _map_reduce_dense(kind, source, mapper, red: Reducer, target, n_shards: int,
                       device, engine: str, wire: str, env, with_stats: bool = True,
-                      cache: dict | None = None, node=None):
+                      cache: dict | None = None, node=None, tuned=None):
     """Dense ``[K, ...]`` target — the paper's small fixed key range."""
     K = target.shape[0]
     cache = cache if cache is not None else {}
@@ -429,12 +459,13 @@ def _map_reduce_dense(kind, source, mapper, red: Reducer, target, n_shards: int,
     cache_key = (
         "dense", mapper, red.name, red, engine, wire, n_shards, str(device),
         kind, with_stats, abstract_sig(_source_operands(kind, source)),
-        _source_extent(kind, source), abstract_sig(target), abstract_sig(env),
+        _source_extent(kind, source), abstract_sig(target), abstract_sig(env), tuned,
     )
     compiled_now = cache_key not in cache
     if compiled_now:
         cache[cache_key] = dense_shard_stage(
-            kind, source, mapper, red, target, engine, wire, with_stats=with_stats
+            kind, source, mapper, red, target, engine, wire, with_stats=with_stats,
+            tuned=tuned,
         )
     stage, kernel_meta = cache[cache_key]
     coll = LocalCollectives(n_shards, device)
@@ -482,7 +513,7 @@ def _wire_key_dtype(key_range: int | None) -> torch.dtype:
 
 
 def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
-                     slack: float, key_range: int | None = None):
+                     slack: float, key_range: int | None = None, tuned=None):
     """The per-shard plan for a ``DistHashMap`` target, as a function:
 
         ``stage(env, table, local, coll)
@@ -497,11 +528,16 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
 
     ``key_range`` (keys known to lie in ``[0, key_range)``) narrows the
     bucket keys on the wire and sizes the kernel's combine table by the
-    distinct-key bound.  Returns ``(stage, kernel_meta)``.
+    distinct-key bound.  ``tuned`` pins K2's pre-shuffle table (capacity and
+    probe depth, only offered with a ``key_range``, so the pinned capacity
+    holds every distinct key) and both calls' table of hot keys.  Returns
+    ``(stage, kernel_meta)``.
     """
     from repro_torch.kernels import hash_combine as HK
 
     use_kernel = engine == "pallas" and red.pallas_hash is not None
+    pinned = tuned if use_kernel and tuned is not None and tuned.engine == "pallas" else None
+    hot = {} if pinned is None or pinned.table_bits is None else {"table_bits": pinned.table_bits}
     kernel_meta: dict = {}
 
     def per_shard(fn, *args):
@@ -523,11 +559,15 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
         if use_kernel:
             # Kernel local combine: raw pairs → a fresh table whose live rows
             # *are* the locally reduced pairs (at most one per key).
-            cap = cost.table_capacity(n_emit, key_range)
-            probes = cost.choose_probe_depth(n_emit, cap)
+            if pinned is not None and pinned.table_cap:
+                cap = pinned.table_cap
+                probes = min(cap, pinned.probe_depth or cost.choose_probe_depth(n_emit, cap))
+            else:
+                cap = cost.table_capacity(n_emit, key_range)
+                probes = cost.choose_probe_depth(n_emit, cap)
             keys, tvals, pre_drop = per_shard(
                 lambda k, v: red.pallas_hash(k, v.contiguous(), cap,
-                                             max_probes=probes),
+                                             max_probes=probes, **hot),
                 torch.where(valid, keys, HK.EMPTY_KEY),
                 vals.reshape(n_shards, n_emit, -1),
             )
@@ -572,7 +612,7 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
             tkeys, tvals, overflow = per_shard(
                 lambda k, v, tk, tv, o: red.pallas_hash(
                     k, v.contiguous(), cap_t, init=(tk, tv.reshape(cap_t, -1), o),
-                    max_probes=merge_probes,
+                    max_probes=merge_probes, **hot,
                 ),
                 torch.where(rvalid, rkeys, HK.EMPTY_KEY),
                 rvals.to(val_dtype).reshape(n_shards, rkeys.shape[1], -1),
@@ -599,7 +639,7 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
 def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
                      device, engine: str, slack: float, env,
                      key_range: int | None = None, cache: dict | None = None,
-                     node=None):
+                     node=None, tuned=None):
     """DistHashMap target: local combine → hash-partition → all_to_all →
     merge."""
     if engine not in ("eager", "pallas", "naive"):
@@ -609,13 +649,13 @@ def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
         "hash", mapper, red.name, red, engine, slack, n_shards, str(device),
         kind, key_range, abstract_sig(_source_operands(kind, source)),
         _source_extent(kind, source),
-        abstract_sig((target.table.keys, target.table.vals)), abstract_sig(env),
+        abstract_sig((target.table.keys, target.table.vals)), abstract_sig(env), tuned,
     )
     compiled_now = cache_key not in cache
     if compiled_now:
         cache[cache_key] = hash_shard_stage(
             kind, source, mapper, red, target.table.vals.dtype, engine, slack,
-            key_range=key_range,
+            key_range=key_range, tuned=tuned,
         )
     stage, kernel_meta = cache[cache_key]
     coll = LocalCollectives(n_shards, device)

@@ -19,8 +19,11 @@ DAG one can optimise and render:
   golden snapshots (``tests/goldens/``) hold it line for line, apart from the
   hash and the cost figures.
 
-Tuning (``apply_tuned``), the hierarchical pass (``apply_hierarchical``) and
-fault degradation (``degrade_node``) come with later slices of the port.
+Measured autotuning (``apply_tuned``: a ``TuningCache`` winner pins a node's
+engine and kernel launch, keyed by ``MapReduceNode.tune_key``, the node's hash
+before any override) runs in ``build_mapreduce_node``.  The hierarchical pass
+(``apply_hierarchical``) and fault degradation (``degrade_node``) come with
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core import containers as C
 from repro_torch.core import cost
+from repro_torch.core.cost import TunedConfig, TuningCache
 from repro_torch.core.reducers import Reducer
 
 ENGINES = ("eager", "pallas", "naive", "auto")
@@ -113,6 +117,11 @@ def source_desc(kind: str, source) -> str:
     if kind == "vector":
         d = source.data
         return f"vector {dtype_name(d.dtype)}[{_shape(d)}] n={source.n}"
+    if kind == "chunked":
+        tail = "x".join(map(str, source.shape_tail))
+        shape = f"{source.block_rows}{'x' + tail if tail else ''}"
+        return (f"chunked {dtype_name(source.dtype)}[{shape}] n={source.n} "
+                f"blocks={source.n_blocks}")
     t = source.table
     return (f"hashmap cap={t.keys.shape[-1]} "
             f"{dtype_name(t.vals.dtype)}[{'x'.join(map(str, t.vals.shape[2:]))}]")
@@ -134,7 +143,7 @@ class MapReduceNode:
     decided for it (engine, batch group, CSE, deadness)."""
 
     idx: int  # call-order index within the plan
-    kind: str  # source kind: range | vector | hashmap (incl. program-locals)
+    kind: str  # source kind: range | vector | chunked | hashmap (incl. program-locals)
     src: str  # stable source description ("local[i]" for program locals)
     source_key: tuple | None  # source-table key (None for program locals)
     mapper: Callable
@@ -153,7 +162,12 @@ class MapReduceNode:
     cse_of: int | None = None  # idx of the identical earlier node it reuses
     dead: bool = False  # result provably unused -> op pruned
     collective: str = ""  # what carries this op's shuffle
+    # -- cost-model and tuning annotations, outside stable_desc: the tuning
+    # cache is keyed by the hash of the untuned node, so applying a winner
+    # must not move the key it was cached under -------------------------------
     cost_estimate: float | None = None  # cost.node_cost of the resolved engine
+    tune_key: str = ""  # node hash at resolve time, before any tuned override
+    tuned: TunedConfig | None = None  # the applied winner (measured or loaded)
 
     def stable_desc(self) -> str:
         return (
@@ -229,6 +243,10 @@ class Plan:
     pruned_sources: int = 0
     residual_specs: list[tuple] = dataclasses.field(default_factory=list)
     hash_targets: dict = dataclasses.field(default_factory=dict)
+    # node idx -> (target_kind, k, v, reducer_name, dtype, key_range,
+    # has_kernel): what the program autotuner needs to build each node's
+    # candidate grid without rediscovering.  Not part of the plan hash.
+    tune_info: dict = dataclasses.field(default_factory=dict)
 
     @property
     def hash(self) -> str:
@@ -265,8 +283,12 @@ class Plan:
                     flags.append(f"group {chr(ord('A') + n.group)}")
                 if n.feedback:
                     flags.append("int8 feedback")
-                if n.engine_requested != n.engine:
+                if n.engine_requested != n.engine and n.tuned is None:
                     flags.append(f"requested {n.engine_requested!r}")
+                if n.tuned is not None:
+                    cfg = n.tuned
+                    wall = f" {cfg.wall_s * 1e3:.2f}ms" if cfg.wall_s is not None else ""
+                    flags.append(f"tuned {cfg.source}: {cfg.describe()}{wall}")
                 mapper_name = _fn_name(n.mapper).rsplit(".", 1)[-1]
                 body = (
                     f"map_reduce {n.reducer:<4} fn={mapper_name} "
@@ -295,6 +317,15 @@ class Plan:
             for s in self.sources:
                 mark = "  (pruned: no live consumer)" if s.pruned else ""
                 lines.append(f"  - {s.desc}{mark}")
+        stream = [s for s in self.sources
+                  if not s.pruned and s.desc.startswith("chunked ")]
+        if stream:
+            lines.append("stream schedule (out-of-core, one graph):")
+            for s in stream:
+                lines.append(
+                    f"  - {s.desc}: {s.source.n_blocks} block dispatches of "
+                    f"{s.source.block_rows} rows each; block k+1 copied host->device "
+                    "on a copy stream while block k replays")
         if self.groups:
             lines.append("batched collective groups:")
             for g, idxs in sorted(self.groups.items()):
@@ -336,12 +367,26 @@ def hier_collective_desc(reducer_name: str, wire: str) -> str:
     return desc + "]"
 
 
+def apply_tuned(node: MapReduceNode, red: Reducer, cfg: TunedConfig) -> None:
+    """Apply a tuning-cache winner to a freshly built node: its engine
+    replaces the resolved one (when the reducer has the kernel the config
+    asks for) and the config pins the kernel's launch in the stage builders.
+    ``tune_key`` was taken before, so the node's key is unchanged."""
+    kernel = red.pallas_hash if node.target_kind == "hash" else red.pallas_segment
+    if cfg.engine == "pallas" and kernel is None:
+        return  # a custom reducer: the config has no kernel to pin
+    node.engine = cfg.engine
+    node.tuned = cfg
+
+
 def build_mapreduce_node(idx: int, kind: str, src: str, source_key: tuple | None,
                          mapper: Callable, red: Reducer, target, engine: str,
-                         wire: str, key_range: int | None, env: Any) -> MapReduceNode:
+                         wire: str, key_range: int | None, env: Any,
+                         tuning: TuningCache | None = None) -> MapReduceNode:
     """Build a MapReduce node and run the resolve-engines pass on it: the one
     node constructor of ``BlazeSession.map_reduce`` and of every program
-    node, which is why both give one op the same hash."""
+    node, which is why both give one op the same hash.  With a ``tuning``
+    cache, a winner cached under the node's untuned hash is applied."""
     target_kind, tdesc = target_desc_of(target)
     if target_kind == "hash":
         wire = "none"  # wire narrowing is a dense-target concept
@@ -368,6 +413,11 @@ def build_mapreduce_node(idx: int, kind: str, src: str, source_key: tuple | None
     )
     if resolved in ("eager", "pallas"):
         node.cost_estimate = cost.node_cost(resolved, node_key_count(target))
+    node.tune_key = node.hash  # identity before any tuned override
+    if tuning is not None:
+        cfg = tuning.get(node.tune_key)
+        if cfg is not None:
+            apply_tuned(node, red, cfg)
     return node
 
 

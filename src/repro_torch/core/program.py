@@ -46,12 +46,34 @@ Hash targets (``DistHashMap``) are per-shard state threaded through the
 iterations and across dispatches; ``Program.hash_result(hm)`` materialises
 the accumulated map.
 
-Tuning (``_maybe_tune``), fault degradation (``degrade``), checkpoints and
-``run_stream`` come with later slices of the port.
+**Tuning.**  ``session.program(step, tune=True)``: on the first build of a
+state signature, ``_maybe_tune`` finds the tunable nodes without a cached
+winner and times throwaway variants of the program, variant ``j`` pinning
+each node to its ``min(j, len - 1)``-th candidate (``cost``); each variant
+is built, dispatched once (discovery, warm-up, capture, replay), then timed
+over a second dispatch, a replay, and freed with its graphs and pool before
+the next is built.  The fastest variant's configs go into
+``session.tuning``.
+
+**Streams.**  A step may read a ``ChunkedDistVector`` (out of core).  The
+program then holds the block in a static device buffer and the block's base
+offset in a device scalar, both made at discovery; the graph reads them, and
+``run_stream`` writes each block and its offset into them before the replay
+(a fresh tensor per block, or a Python int, would be baked into the capture).
+Block k+1 is copied from pinned host memory into a staging buffer on a copy
+stream while block k replays, ordered by CUDA events, with no host sync a
+block.  ``run_loop`` and ``run_stream`` checkpoint the state, the carry and
+the position (``save_checkpoint``), and resume (``restore_checkpoint``),
+restoring into the program's own buffers.
+
+Fault degradation (``degrade``) comes with a later slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
+import math
+import time
 from typing import Any, Callable
 
 import torch
@@ -72,6 +94,7 @@ from repro_torch.core.plan import (
     SourceInfo,
 )
 from repro_torch.core.reducers import _BUILTIN, get_reducer
+from repro_torch.core.session import _cuda_index, _later, _sync
 
 __all__ = [
     "LocalHashMap",
@@ -81,6 +104,7 @@ __all__ = [
     "Program",
     "ProgramContext",
     "ProgramStats",
+    "StreamInfo",
 ]
 
 
@@ -132,16 +156,81 @@ class LoopInfo:
     host_syncs: int  # cond evaluations
     converged: bool  # cond() went True before max_iters
     compiles: int  # compiles during this loop (see ProgramStats.compiles)
+    resumed_from: int | None = None  # checkpointed iteration restored, if any
+
+
+@dataclasses.dataclass
+class StreamInfo:
+    """What one ``run_stream`` cost: the out-of-core contract.  ``compiles``
+    is at most 1 whatever the block count: every block replays one graph."""
+
+    epochs: int  # full passes over the chunked sources (resumed ones included)
+    n_blocks: int  # blocks an epoch
+    dispatches: int  # block dispatches in this call
+    host_syncs: int  # cond evaluations (one an epoch)
+    converged: bool  # cond() went True before max_epochs
+    compiles: int  # compiles during this stream (0 or 1)
+    prefetch: bool  # block k+1 decoded and copied while block k ran
+    bytes_streamed: int  # host-to-device block bytes moved in this call
+    resumed_from: int | None = None  # checkpointed epoch restored, if any
 
 
 def _source_key(kind: str, source) -> tuple:
     """Identity of a source across discovery and execution: a ``DistRange``
-    by value, a container by the identity of its backing tensors."""
+    by value, a container by the identity of its backing tensors, a chunked
+    vector (host blocks, no device tensor of its own) by its own."""
     if kind == "range":
         return ("range", source.start, source.stop, source.step)
     if kind == "vector":
         return ("vector", id(source.data), source.n)
+    if kind == "chunked":
+        return ("chunked", id(source), source.n)
     return ("hashmap", id(source.table.keys), id(source.table.vals))
+
+
+class _StreamSlot:
+    """A chunked source's device side in one program: ``buf``, the static
+    block buffer, and ``base``, the block's row offset as a device int32
+    scalar.  Captured graphs bake both addresses in, so every block is
+    copied into ``buf`` and its offset written into ``base`` before the
+    replay.  On the card, ``staging`` (one more block) takes block k+1's
+    copy from pinned host memory on ``copy`` while block k replays:
+    ``landed`` marks that copy's end, ``drained`` the device-to-device copy
+    out of ``staging`` into ``buf`` (after which ``staging`` may be
+    refilled)."""
+
+    def __init__(self, source, device: torch.device):
+        self.source = source
+        self.buf = torch.zeros((source.block_rows,) + source.shape_tail,
+                               dtype=source.dtype, device=device)
+        self.base = torch.zeros((), dtype=torch.int32, device=device)
+        self.staging = self.copy = self.landed = self.drained = None
+
+    def stage(self, host: torch.Tensor) -> None:
+        """Start copying ``host`` (pinned) into ``staging`` on the copy
+        stream, after the previous block has left it."""
+        if self.staging is None:
+            self.staging = torch.empty_like(self.buf)
+            self.copy = torch.cuda.Stream(self.buf.device)
+            self.landed, self.drained = torch.cuda.Event(), torch.cuda.Event()
+            self.drained.record(torch.cuda.current_stream(self.buf.device))
+        self.copy.wait_event(self.drained)
+        with torch.cuda.stream(self.copy):
+            self.staging.copy_(host, non_blocking=True)
+        self.landed.record(self.copy)
+
+    def install(self, b: int, host: torch.Tensor | None) -> None:
+        """Make block ``b`` the resident one, on the current stream: from
+        ``staging`` once its copy has landed (``host`` None), or straight
+        from ``host``."""
+        if host is None:
+            cur = torch.cuda.current_stream(self.buf.device)
+            cur.wait_event(self.landed)
+            self.buf.copy_(self.staging)
+            self.drained.record(cur)
+        else:
+            self.buf.copy_(host)
+        self.base.fill_(b * self.source.block_rows)
 
 
 def _force_tree(tree):
@@ -287,10 +376,20 @@ class ProgramContext:
 
     def __init__(self, n_shards: int, device, mode: str, residuals=None,
                  hash_tables=None, plan: Plan | None = None,
-                 passes: tuple = DEFAULT_PASSES):
+                 passes: tuple = DEFAULT_PASSES, tuning=None, overrides=None,
+                 streams: dict | None = None):
         self._n_shards = n_shards
         self._device = device
         self._mode = mode  # "discover" | "execute"
+        # Discover-mode tuning hooks: ``tuning`` is the session's cache
+        # (cached winners apply to every node built), ``overrides`` maps
+        # tune_key -> the candidate a measurement variant pins.
+        self._tuning = tuning
+        self._overrides = overrides or {}
+        self._tune_info: dict[int, tuple] = {}  # idx -> candidate-grid parameters
+        # chunked-source key -> _StreamSlot, the program's (shared by every
+        # context of it, so the graphs read one buffer)
+        self._streams = streams if streams is not None else {}
         coll = LocalCollectives(n_shards, device)
         self._coll = _CountingCollectives(coll) if mode == "discover" else coll
         self._plan = plan
@@ -337,6 +436,18 @@ class ProgramContext:
         key = _source_key(kind, source)
         if self._mode == "discover":
             self._sources.setdefault(key, source)
+        if kind == "chunked":
+            # The resident block, through the program's static buffer and
+            # base scalar (their addresses are what a captured graph reads).
+            if not isinstance(source, C.ChunkedDistVector):
+                raise TypeError("a program reads a ChunkedDistVector, not a BlockView")
+            slot = self._streams.get(key)
+            if slot is None:
+                if self._mode != "discover":
+                    raise ValueError("chunked source not registered during discovery")
+                slot = self._streams[key] = _StreamSlot(source, self._device)
+            return (kind, source, (slot.buf, source.n, slot.base),
+                    plan_mod.source_desc(kind, source), key)
         return (kind, source, _mr._local_view(kind, source),
                 plan_mod.source_desc(kind, source), key)
 
@@ -390,6 +501,23 @@ class ProgramContext:
         env_ids = tuple(id(x) for x in pytree.tree_leaves(env))
         return (kind, src_ident, mapper, id(red), engine, wire, key_range,
                 tuple(target.shape), str(target.dtype), env_ids)
+
+    def _build_node(self, kind, src_desc, source_key, mapper, red, target, engine,
+                    wire, key_range, env) -> MapReduceNode:
+        """Discover mode: the next plan node, with the session's cached
+        winner or this variant's override applied."""
+        node = plan_mod.build_mapreduce_node(
+            idx=self._call_i, kind=kind, src=src_desc, source_key=source_key,
+            mapper=mapper, red=red, target=target, engine=engine, wire=wire,
+            key_range=key_range, env=env, tuning=self._tuning,
+        )
+        ov = self._overrides.get(node.tune_key)
+        if ov is not None:
+            plan_mod.apply_tuned(node, red, ov)
+        self._call_i += 1
+        self._nodes.append(node)
+        self.last_op = f"[{node.idx}] {node.stable_desc()}"
+        return node
 
     # -- deferred collectives (the batch-collectives pass) ---------------------
 
@@ -514,15 +642,13 @@ class ProgramContext:
             self._resolve_program_source(source)
         )
         if self._mode == "discover":
-            node = plan_mod.build_mapreduce_node(
-                idx=self._call_i, kind=kind, src=src_desc, source_key=source_key,
-                mapper=mapper, red=red, target=target, engine=engine, wire=wire,
-                key_range=key_range, env=env,
-            )
-            self._call_i += 1
-            self._nodes.append(node)
+            node = self._build_node(kind, src_desc, source_key, mapper, red, target,
+                                    engine, wire, key_range, env)
             self._meta[node.idx] = (red, target)
-            self.last_op = f"[{node.idx}] {node.stable_desc()}"
+            v = math.prod(target.shape[1:]) if target.dim() > 1 else 1
+            self._tune_info[node.idx] = ("dense", target.shape[0] if target.dim() else 0,
+                                         v, red.name, target.dtype, None,
+                                         red.pallas_segment is not None)
             if self._cse and not (wire == "int8" and red.name == "sum"):
                 ck = self._cse_key(kind, source_key, local, mapper, red, target,
                                    node.engine, wire, key_range, env)
@@ -548,6 +674,7 @@ class ProgramContext:
         stage, _ = _mr.dense_shard_stage(
             kind, src_static, mapper, red, target, resolved, wire,
             with_stats=False, feedback=feedback, collect=not deferrable,
+            tuned=node.tuned,
         )
         residual = None
         if feedback:
@@ -580,14 +707,12 @@ class ProgramContext:
             self._resolve_program_source(source)
         )
         if self._mode == "discover":
-            node = plan_mod.build_mapreduce_node(
-                idx=self._call_i, kind=kind, src=src_desc, source_key=source_key,
-                mapper=mapper, red=red, target=target, engine=engine, wire="none",
-                key_range=key_range, env=env,
-            )
-            self._call_i += 1
-            self._nodes.append(node)
-            self.last_op = f"[{node.idx}] {node.stable_desc()}"
+            node = self._build_node(kind, src_desc, source_key, mapper, red, target,
+                                    engine, "none", key_range, env)
+            vals = target.table.vals
+            v = math.prod(vals.shape[2:]) if vals.dim() > 2 else 1
+            self._tune_info[node.idx] = ("hash", 0, v, red.name, vals.dtype, key_range,
+                                         red.pallas_hash is not None)
         else:
             _, node = self._next_node(MapReduceNode)
         tkey = ("hashtarget",) + _source_key("hashmap", target)[1:]
@@ -604,7 +729,7 @@ class ProgramContext:
             self._hash_targets.setdefault(tkey, target)
         stage, _ = _mr.hash_shard_stage(
             kind, src_static, mapper, red, target.table.vals.dtype, node.engine,
-            shuffle_slack, key_range=key_range,
+            shuffle_slack, key_range=key_range, tuned=node.tuned,
         )
         table, _le, _ls, _kp = stage(env, self._hash_tables[tkey], local, self._coll)
         self._hash_tables[tkey] = table
@@ -705,6 +830,7 @@ class ProgramContext:
             pruned_sources=sum(1 for s in sources if s.pruned),
             residual_specs=[n.residual_spec for n in mr if n.residual_spec is not None],
             hash_targets=dict(self._hash_targets),
+            tune_info=dict(self._tune_info),
         )
 
 
@@ -794,12 +920,19 @@ class Program:
     batching and pruning.
     """
 
-    def __init__(self, session, step_fn: Callable, *, passes: tuple | None = None):
+    def __init__(self, session, step_fn: Callable, *, passes: tuple | None = None,
+                 tune: bool = False, overrides: dict | None = None):
         self._session = session
         self._step_fn = step_fn
         self._device = session.device
         self._n_shards = session.n_shards
         self._passes = DEFAULT_PASSES if passes is None else tuple(passes)
+        # ``tune``: measure the candidates on the first build of a signature
+        # (_maybe_tune); ``overrides`` (tune_key -> config) marks a
+        # measurement variant, which never tunes itself.
+        self._tune = bool(tune)
+        self._overrides = overrides
+        self._streams: dict = {}  # chunked-source key -> _StreamSlot
         self._plans: dict = {}  # state signature -> Plan
         self._carry: dict = {}  # state signature -> _Carry
         self._graphs: dict = {}  # (state signature, u) -> _Graph
@@ -810,6 +943,9 @@ class Program:
         self.stats = ProgramStats()
         self.feedback_slots = 0  # error-feedback residual slots (int8 sums)
         self.hash_slots = 0  # hash-target table slots threaded per iteration
+        # per measured variant: (overrides, its replay's wall s, the kernel
+        # launches its graph recorded: none on the CPU)
+        self.tune_walls: list = []
 
     @property
     def _on_card(self) -> bool:
@@ -819,7 +955,8 @@ class Program:
 
     def _discover(self, leaves, spec) -> Plan:
         ctx = ProgramContext(self._n_shards, self._device, "discover",
-                             passes=self._passes)
+                             passes=self._passes, tuning=self._session.tuning,
+                             overrides=self._overrides, streams=self._streams)
         probe = pytree.tree_unflatten([x.clone() for x in leaves], spec)
         out = ctx._finalize_state(self._step_fn(ctx, probe))
         out_leaves, out_spec = _flatten(out, self._device)
@@ -846,11 +983,79 @@ class Program:
         leaves, spec = _flatten(state, self._device)
         return self._plans[self._build(leaves, spec)]
 
+    def _maybe_tune(self, leaves, spec) -> None:
+        """First-build autotuning: time the candidates of every tunable node
+        and cache the winners in the session's ``TuningCache``.
+
+        A probe discovery finds the tunable nodes (a kernel for the target,
+        no ``naive`` request, no winner yet for the ``tune_key``).  Variant
+        ``j`` pins each to its ``min(j, len - 1)``-th candidate; each is a
+        throwaway ``Program``, dispatched once (discovery, warm-up, capture
+        and a replay on the card) and then timed over a second dispatch, a
+        replay, with the device synchronised around it.  Each variant's
+        graphs and pool are freed before the next is built (every k-means
+        graph reserves gigabytes).  The fastest variant's configs are cached
+        under their ``tune_key``s, so the real build that follows, and any
+        later program or ``map_reduce`` with the same op, applies them.
+        Programs that read chunked sources are not tuned: their blocks
+        arrive a dispatch at a time.  A variant that fails raises.
+        """
+        from repro_torch.core import cost
+
+        session = self._session
+        tuning = session.tuning
+        probe = self._discover(leaves, spec)
+        if any(_mr.source_kind(s.source) == "chunked" for s in probe.live_sources()):
+            return
+        cand_lists: list[tuple[str, list]] = []
+        seen: set[str] = set()
+        for n in probe.mapreduce_nodes():
+            if (n.dead or n.cse_of is not None or n.tuned is not None
+                    or n.tune_key in seen or tuning.peek(n.tune_key) is not None):
+                continue
+            tkind, k, v, red_name, dtype, key_range, has_kernel = probe.tune_info[n.idx]
+            if not has_kernel or n.engine_requested == "naive":
+                continue
+            cands = (cost.hash_tuning_candidates(v, red_name, dtype, key_range=key_range)
+                     if tkind == "hash" else
+                     cost.dense_tuning_candidates(k, v, red_name, dtype))
+            if len(cands) < 2:
+                continue
+            seen.add(n.tune_key)
+            cand_lists.append((n.tune_key, cands))
+        if not cand_lists:
+            return
+        state = pytree.tree_unflatten(leaves, spec)
+        best_wall, best_set = None, None
+        for j in range(max(len(c) for _, c in cand_lists)):
+            ov = {tk: cands[min(j, len(cands) - 1)] for tk, cands in cand_lists}
+            variant = Program(session, self._step_fn, passes=self._passes, overrides=ov)
+            variant(state, 1)  # discovery, warm-up, capture, one replay
+            _sync(self._device)
+            t0 = time.perf_counter()
+            variant(state, 1)  # timed: a replay
+            _sync(self._device)
+            wall = time.perf_counter() - t0
+            launches = variant.stats.captured_launches.get(1, {})
+            self.tune_walls.append((ov, wall, dict(launches)))
+            session._record_measurement(",".join(ov), "; ".join(c.describe() for c in ov.values()),
+                                        wall)
+            del variant
+            gc.collect()
+            if self._device.type == "cuda":
+                torch.cuda.empty_cache()  # the variant's graph pool goes back
+            if best_wall is None or wall < best_wall:
+                best_wall, best_set = wall, ov
+        for tk, cfg in best_set.items():
+            tuning.put(tk, dataclasses.replace(cfg, source="measured", wall_s=best_wall))
+
     def _build(self, leaves, spec):
         sig = plan_mod.abstract_sig(pytree.tree_unflatten(leaves, spec))
         if sig in self._plans:
             self.plan = self._plans[sig]
             return sig
+        if self._tune and self._overrides is None:
+            self._maybe_tune(leaves, spec)
         plan = self._discover(leaves, spec)
         self._plans[sig] = plan
         self.plan = plan
@@ -875,7 +1080,7 @@ class Program:
         for _ in range(u):
             ctx = ProgramContext(self._n_shards, self._device, "execute",
                                  residuals=residuals, hash_tables=tables, plan=plan,
-                                 passes=self._passes)
+                                 passes=self._passes, streams=self._streams)
             self._active = ctx
             state = ctx._finalize_state(self._step_fn(ctx, state))
             residuals, tables = ctx._residuals, ctx._hash_tables
@@ -959,22 +1164,41 @@ class Program:
         st.graph_pool_reserved_bytes += grown
         return _Graph(graph, out_leaves, launches)
 
+    def _stream_slots(self, sig) -> list:
+        """The stream slots of the chunked sources the plan reads."""
+        return [self._streams[s.key] for s in self._plans[sig].live_sources()
+                if s.key in self._streams]
+
     def __call__(self, state, n_iters: int = 1):
         """One dispatch of ``n_iters`` iterations: a graph replay on the
-        card, the planned step run eagerly on the CPU."""
-        if n_iters < 1:
-            raise ValueError(f"n_iters must be >= 1, got {n_iters}")
+        card, the planned step run eagerly on the CPU.  A program that reads
+        chunked sources runs through :meth:`run_stream` instead."""
         leaves, spec = _flatten(state, self._device)
         sig = self._build(leaves, spec)
+        if self._stream_slots(sig):
+            raise ValueError("program reads chunked (out-of-core) sources: drive it "
+                             "with program.run_stream(...) / session.run_stream(...)")
+        return self._dispatch(leaves, spec, sig, n_iters)
+
+    def _graph_for(self, sig, spec, leaves, n_iters: int) -> _Graph:
+        """Copy ``leaves`` into the static input state and return the graph
+        of ``n_iters`` iterations, capturing it the first time."""
+        carry = self._carry[sig]
+        if carry.state_in is None:
+            carry.state_in = [torch.empty_like(x) for x in leaves]
+        for dst, src in zip(carry.state_in, leaves):
+            dst.copy_(src)
+        g = self._graphs.get((sig, n_iters))
+        if g is None:
+            g = self._graphs[(sig, n_iters)] = self._capture(sig, spec, carry, n_iters)
+        return g
+
+    def _dispatch(self, leaves, spec, sig, n_iters: int):
+        if n_iters < 1:
+            raise ValueError(f"n_iters must be >= 1, got {n_iters}")
         plan, carry = self._plans[sig], self._carry[sig]
         if self._on_card:
-            if carry.state_in is None:
-                carry.state_in = [torch.empty_like(x) for x in leaves]
-            for dst, src in zip(carry.state_in, leaves):
-                dst.copy_(src)
-            g = self._graphs.get((sig, n_iters))
-            if g is None:
-                g = self._graphs[(sig, n_iters)] = self._capture(sig, spec, carry, n_iters)
+            g = self._graph_for(sig, spec, leaves, n_iters)
             g.graph.replay()
             out = pytree.tree_unflatten([x.clone() for x in g.out_leaves], spec)
             self.stats.replays += 1
@@ -1055,23 +1279,151 @@ class Program:
                                          t.overflow.clone()),
                              reducer_name=target.reducer_name)
 
+    # -- streams (out of core) ------------------------------------------------
+
+    def run_stream(self, state, *, max_epochs: int = 1, cond: Callable | None = None,
+                   prefetch: bool = True, depth: int = 2, checkpoint=None,
+                   checkpoint_every: int | None = None, resume: bool = False):
+        """Out-of-core epochs: every block of the chunked sources through the
+        program's one graph, in order.
+
+        The step sees one resident block a dispatch (global indices through
+        the block's ``base``) and carries its accumulation in the state or a
+        hash target's table.  ``prefetch=True``: a worker thread decodes
+        block k+1 into pinned memory (``data.pipeline.prefetch_iter``,
+        ``depth`` blocks ahead) and, on the card, block k+1's copy to the
+        device runs on a copy stream while block k replays (one static block
+        buffer a source plus one staging buffer: the device holds two blocks
+        whatever the dataset; the staging copy costs one device-to-device
+        copy a block, against a second capture and twice the graphs for two
+        static buffers).  ``prefetch=False`` is the drained baseline: each
+        block is read, copied and replayed, and the device synchronised,
+        before the next is read.  ``cond(state)`` runs once an epoch (one
+        host sync).  ``checkpoint=`` with ``checkpoint_every=K`` saves the
+        state, the carry and the epoch every ``K`` epochs; ``resume=True``
+        restores the latest and goes on from its epoch (a crash mid-epoch
+        replays that epoch).  Returns ``(state, StreamInfo)``.
+        """
+        from repro_torch.data.pipeline import prefetch_iter
+
+        manager = _as_checkpoint_manager(checkpoint)
+        if resume and manager is None:
+            raise ValueError("resume=True needs checkpoint=")
+        compiles0 = self.stats.compiles
+        leaves, spec = _flatten(state, self._device)
+        sig = self._build(leaves, spec)
+        slots = self._stream_slots(sig)
+        if not slots:
+            raise ValueError("program has no chunked sources: use run_loop / __call__")
+        counts = {slot.source.n_blocks for slot in slots}
+        if len(counts) != 1:
+            raise ValueError(f"chunked sources disagree on block count: {sorted(counts)}")
+        n_blocks = counts.pop()
+        bytes_per_block = sum(slot.source.block_nbytes for slot in slots)
+        dev = self._device
+        card = self._on_card
+        index = _cuda_index(dev) if card else None
+        if card:
+            # Capture before any block moves: a capture forbids other
+            # threads' unsafe calls (the pinned allocator's event queries),
+            # and the copy stream must not run beside it.
+            self._graph_for(sig, spec, leaves, 1)
+
+        def produce(b):
+            if card:
+                torch.cuda.set_device(index)
+            return [slot.source.block_tensor(b) for slot in slots]
+
+        resumed_from = None
+        if resume:
+            state, pos = self.restore_checkpoint(manager, state)
+            if pos is not None:
+                resumed_from = pos
+        epochs = resumed_from or 0
+        blocks = syncs = 0
+        converged = False
+        while epochs < max_epochs:
+            items = (prefetch_iter(produce, range(n_blocks), depth=depth) if prefetch
+                     else ((b, produce(b)) for b in range(n_blocks)))
+            overlap = card and prefetch
+            nxt = next(items, None)
+            if overlap:
+                for slot, host in zip(slots, nxt[1]):
+                    slot.stage(host)
+            while nxt is not None:
+                b, hosts = nxt
+                for slot, host in zip(slots, hosts):
+                    slot.install(b, None if overlap else host)
+                nxt = next(items, None)
+                if overlap and nxt is not None:
+                    # Block b+1's copy starts now, beside block b's replay.
+                    for slot, host in zip(slots, nxt[1]):
+                        slot.stage(host)
+                leaves, spec = _flatten(state, dev)
+                state = self._dispatch(leaves, spec, sig, 1)
+                blocks += 1
+                if not prefetch:
+                    _sync(dev)
+            epochs += 1
+            if manager is not None and checkpoint_every and epochs % checkpoint_every == 0:
+                self.save_checkpoint(manager, state, epochs)
+            if cond is not None:
+                self._session.stats.host_syncs += 1
+                syncs += 1
+                if bool(cond(state)):
+                    converged = True
+                    break
+        return state, StreamInfo(
+            epochs=epochs, n_blocks=n_blocks, dispatches=blocks, host_syncs=syncs,
+            converged=converged, compiles=self.stats.compiles - compiles0,
+            prefetch=prefetch, bytes_streamed=blocks * bytes_per_block,
+            resumed_from=resumed_from,
+        )
+
+    # -- checkpoints ----------------------------------------------------------
+
+    def checkpoint_payload(self, state, pos: int) -> dict:
+        """The resume payload: the user state (dict keys sorted, as a program
+        returns it), the carry, the position."""
+        return {"state": _sorted_tree(state), "carry": self.export_carry(state),
+                "pos": torch.tensor(pos, dtype=torch.int64)}
+
+    def save_checkpoint(self, manager, state, pos: int) -> str:
+        """Save the resume payload as checkpoint ``pos`` (host copies; fault
+        retries come with the faults slice)."""
+        return manager.save(pos, self.checkpoint_payload(state, pos))
+
+    def restore_checkpoint(self, manager, state):
+        """Restore the latest checkpoint: returns ``(state, position)``, or
+        ``(state, None)`` when there is none.  The carry is copied into this
+        program's own buffers (the residuals, the hash tables and, on the
+        card, the graphs' static input state), never rebound: a captured
+        graph keeps reading the addresses it was captured with."""
+        step, restored = manager.restore_latest(self.checkpoint_payload(state, 0))
+        if step is None:
+            return state, None
+        state = restored["state"]
+        self.import_carry(state, restored["carry"])
+        leaves, spec = _flatten(state, self._device)
+        carry = self._carry[self._build(leaves, spec)]
+        if carry.state_in is not None:
+            for dst, src in zip(carry.state_in, leaves):
+                dst.copy_(src)
+        return state, int(restored["pos"])
+
     # -- later slices ----------------------------------------------------------
 
     def degrade(self) -> int:
         raise _later("Program.degrade (kernel-fault degradation)",
                      "faults and supervised dispatch")
 
-    def run_stream(self, *args, **kwargs):
-        raise _later("Program.run_stream", "out-of-core streaming")
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _later("Program.save_checkpoint", "out-of-core streaming")
+def _as_checkpoint_manager(checkpoint):
+    """A ``CheckpointManager``, a directory path, or ``None``."""
+    if checkpoint is None:
+        return None
+    if isinstance(checkpoint, str):
+        from repro_torch.checkpoint.manager import CheckpointManager
 
-    def restore_checkpoint(self, *args, **kwargs):
-        raise _later("Program.restore_checkpoint", "out-of-core streaming")
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    from repro_torch.core.session import _later as later
-
-    return later(what, slice_name)
+        return CheckpointManager(checkpoint)
+    return checkpoint

@@ -10,6 +10,15 @@ plan (``core.plan``), so its ``MapReduceStats.plan_hash`` is the hash the same
 op gets inside a fused program (``session.program``, ``explain``,
 ``run_loop``; ``core.program``).
 
+Measured autotuning: ``map_reduce(tune=True)`` and ``program(tune=True)``
+time a node's candidate launches once (``cost.dense_tuning_candidates``,
+``cost.hash_tuning_candidates``) and cache the winner in ``session.tuning``
+under the node's untuned plan hash, which every later build of the same op
+consults; ``save_tuning`` / ``load_tuning`` persist the cache.  Out of core:
+``chunked()`` keeps a dataset on the host as blocks; ``map_reduce`` over one
+runs a stage per block, ``run_stream`` a program's graph per block, and
+``run_loop`` / ``run_stream`` checkpoint and resume (``checkpoint=``).
+
 Its entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA, ``BlazeSession()`` raises.  The free ``map_reduce`` routes
 through a lazily created process-wide default session.
@@ -17,13 +26,16 @@ through a lazily created process-wide default session.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core import containers as C
+from repro_torch.core import cost as cost_mod
 from repro_torch.core import mapreduce as _mr
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.plan import ENGINES, resolve_engine
@@ -63,6 +75,7 @@ class SessionStats:
     graph_replays: int = 0  # CUDA graph replays (one a program block on the card)
     graph_pool_peak_bytes: int = 0  # largest device memory peak over a capture
     graph_pool_reserved_bytes: int = 0  # device memory the captures reserved
+    tune_measurements: int = 0  # candidate configs timed by the autotuner
     # kernel (and "kernel/form") -> launches run by graph replays
     graph_launches: dict = dataclasses.field(default_factory=dict)
 
@@ -78,6 +91,18 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
     )
 
 
+def _sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _cuda_index(device: torch.device) -> int:
+    """A CUDA device's index, the current one for a bare ``"cuda"``: what a
+    worker thread, which starts on device 0, sets before it touches CUDA."""
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 class BlazeSession:
     """Owns a device, a shard count and a shard-stage cache.
 
@@ -88,13 +113,23 @@ class BlazeSession:
     >>> sess.stats.compiles   # 1 — nine of the ten calls reused it
     """
 
-    def __init__(self, device=None, n_shards: int = 1):
+    def __init__(self, device=None, n_shards: int = 1, *, tuning_path: str | None = None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.device = C.resolve_device(device)
         self.n_shards = n_shards
         self._exec_cache: dict = {}
         self.stats = SessionStats()
+        # Measured winners, keyed by node plan hash; consulted by every node
+        # build (per op and in programs), so a winner measured once serves
+        # every later dispatch of the same op.  ``tuning_path`` preloads a
+        # cache saved by ``save_tuning``.
+        self.tuning = cost_mod.TuningCache()
+        self._tuning_path = tuning_path
+        if tuning_path and os.path.exists(tuning_path):
+            self.tuning.load(tuning_path)
+        # every candidate timing: {"tune_key", "config", "wall_s"}
+        self.tune_log: list[dict] = []
 
     def map_reduce(
         self,
@@ -123,8 +158,6 @@ class BlazeSession:
         key_range)``: the shuffle ships narrowed keys and the kernel sizes
         its combine table by the distinct-key bound.
         """
-        if tune:
-            raise _later("tune=True", "cost-model and autotuning")
         red = get_reducer(reducer)
         kind = _mr.source_kind(source)
         hash_target = isinstance(target, C.DistHashMap)
@@ -134,24 +167,169 @@ class BlazeSession:
             idx=0, kind=kind, src=plan_mod.source_desc(kind, source),
             source_key=None, mapper=mapper, red=red, target=target,
             engine=engine, wire=wire, key_range=key_range, env=env,
+            tuning=self.tuning,
         )
-        if hash_target:
+        # Tuning skips chunked sources: their operands arrive a block at a time.
+        if tune and node.tuned is None and kind != "chunked" and self._tunable(node, red, target):
+            self._tune_map_reduce(kind, source, mapper, red, target, wire, env,
+                                  shuffle_slack, key_range, node)
+            cfg = self.tuning.peek(node.tune_key)
+            if cfg is not None:
+                plan_mod.apply_tuned(node, red, cfg)
+        if kind == "chunked":
+            out, stats = self._map_reduce_chunked(source, mapper, red, target, wire, env,
+                                                  shuffle_slack, key_range, node,
+                                                  return_stats)
+        elif hash_target:
             out, stats = _mr._map_reduce_hash(
                 kind, source, mapper, red, target, self.n_shards, self.device,
                 node.engine, shuffle_slack, env, key_range=key_range,
-                cache=self._exec_cache, node=node,
+                cache=self._exec_cache, node=node, tuned=node.tuned,
             )
         else:
             out, stats = _mr._map_reduce_dense(
                 kind, source, mapper, red, target, self.n_shards, self.device,
                 node.engine, wire, env, return_stats, cache=self._exec_cache,
-                node=node,
+                node=node, tuned=node.tuned,
             )
         self.stats.calls += 1
         self.stats.compiles += stats.compiles
         self.stats.cache_hits += stats.cache_hits
         self.stats.dispatches += stats.dispatches
         return (out, stats) if return_stats else out
+
+    def _map_reduce_chunked(self, source: C.ChunkedDistVector, mapper, red, target, wire,
+                            env, shuffle_slack, key_range, node, return_stats):
+        """Out-of-core ``map_reduce``: one stage run a block, each block's
+        result merged into the running target (merged-into-target semantics
+        make the accumulation free).  A worker thread reads block k+1 and,
+        on the card, copies it to the device on a copy stream while block k
+        runs; the stage's stream waits on the copy's event.  The stage is
+        cached once for all blocks (the block's ``base`` is a tensor)."""
+        from repro_torch.data.pipeline import prefetch_iter
+
+        dev = self.device
+        card = dev.type == "cuda"
+        copy = torch.cuda.Stream(dev) if card else None
+        index = _cuda_index(dev) if card else None
+
+        def produce(b):
+            if card:
+                torch.cuda.set_device(index)
+            return source.block_view(b, stream=copy)
+
+        out = target
+        totals = dict(pairs_emitted=0, pairs_shipped=0, shuffle_payload_bytes=0,
+                      intra_bytes=0, inter_bytes=0, compiles=0, cache_hits=0)
+        last = None
+        for _b, bv in prefetch_iter(produce, range(source.n_blocks)):
+            if bv.ready is not None:
+                cur = torch.cuda.current_stream(dev)
+                cur.wait_event(bv.ready)
+                bv.data.record_stream(cur)  # made on the copy stream, read here
+                bv.base.record_stream(cur)
+            if isinstance(target, C.DistHashMap):
+                out, st = _mr._map_reduce_hash(
+                    "chunked", bv, mapper, red, out, self.n_shards, dev, node.engine,
+                    shuffle_slack, env, key_range=key_range, cache=self._exec_cache,
+                    node=node, tuned=node.tuned)
+            else:
+                out, st = _mr._map_reduce_dense(
+                    "chunked", bv, mapper, red, out, self.n_shards, dev, node.engine,
+                    wire, env, return_stats, cache=self._exec_cache, node=node,
+                    tuned=node.tuned)
+            for k in totals:
+                totals[k] = totals[k] + getattr(st, k)
+            last = st
+        return out, dataclasses.replace(last, dispatches=source.n_blocks, **totals)
+
+    # -- measured autotuning (tune=True) -------------------------------------
+
+    @staticmethod
+    def _tunable(node, red: Reducer, target) -> bool:
+        """Nodes the autotuner can act on: a reducer with a kernel for the
+        target kind, and no ``naive`` request (a baseline, not a
+        candidate)."""
+        kernel = red.pallas_hash if isinstance(target, C.DistHashMap) else red.pallas_segment
+        return kernel is not None and node.engine_requested != "naive"
+
+    @staticmethod
+    def _candidates_for(red: Reducer, target, key_range):
+        """The measurement grid of one node (``cost``)."""
+        if isinstance(target, C.DistHashMap):
+            vals = target.table.vals
+            v = int(np.prod(vals.shape[2:])) if vals.dim() > 2 else 1
+            return cost_mod.hash_tuning_candidates(v, red.name, vals.dtype,
+                                                   key_range=key_range)
+        k = target.shape[0] if target.dim() else 0
+        v = int(np.prod(target.shape[1:])) if target.dim() > 1 else 1
+        return cost_mod.dense_tuning_candidates(k, v, red.name, target.dtype)
+
+    def _tune_map_reduce(self, kind, source, mapper, red, target, wire, env,
+                         shuffle_slack, key_range, node):
+        """Time ``node``'s candidates and cache the fastest under its
+        ``tune_key``.
+
+        Each candidate runs twice through the engine's entry points: once to
+        build its stage and warm up, once timed, the device synchronised
+        before and after.  ``map_reduce`` merges into a new result, so the
+        outputs are dropped.  A candidate that fails raises (the reference
+        skips it; the faults slice of the port will absorb injected ones).
+        Every timing is appended to ``tune_log``.
+        """
+        hash_target = isinstance(target, C.DistHashMap)
+        best_cfg, best_wall = None, float("inf")
+        for cfg in self._candidates_for(red, target, key_range):
+            tuned = cfg if cfg.engine == "pallas" else None
+
+            def run():
+                if hash_target:
+                    return _mr._map_reduce_hash(
+                        kind, source, mapper, red, target, self.n_shards, self.device,
+                        cfg.engine, shuffle_slack, env, key_range=key_range,
+                        cache=self._exec_cache, tuned=tuned)
+                return _mr._map_reduce_dense(
+                    kind, source, mapper, red, target, self.n_shards, self.device,
+                    cfg.engine, wire, env, False, cache=self._exec_cache, tuned=tuned)
+
+            _, st = run()  # builds the stage, warms up
+            _sync(self.device)
+            t0 = time.perf_counter()
+            _, st2 = run()
+            _sync(self.device)
+            wall = time.perf_counter() - t0
+            self.stats.compiles += st.compiles + st2.compiles
+            self.stats.cache_hits += st.cache_hits + st2.cache_hits
+            self._record_measurement(node.tune_key, cfg.describe(), wall)
+            if wall < best_wall:
+                best_cfg, best_wall = cfg, wall
+        if best_cfg is not None:
+            self.tuning.put(node.tune_key,
+                            dataclasses.replace(best_cfg, source="measured", wall_s=best_wall))
+
+    def _record_measurement(self, key: str, config: str, wall: float) -> None:
+        """Count one timing (a candidate, or a program variant pinning one
+        candidate a node) and log it."""
+        self.tuning.record_measurements(1)
+        self.stats.tune_measurements += 1
+        self.tune_log.append({"tune_key": key, "config": config, "wall_s": wall})
+
+    def save_tuning(self, path: str | None = None) -> str:
+        """Persist the tuning cache (JSON, atomic); defaults to the session's
+        ``tuning_path``."""
+        path = path or self._tuning_path
+        if not path:
+            raise ValueError("no path given and the session has no tuning_path")
+        self.tuning.save(path)
+        return path
+
+    def load_tuning(self, path: str | None = None) -> int:
+        """Merge a saved tuning cache into this session; returns the entries
+        loaded."""
+        path = path or self._tuning_path
+        if not path:
+            raise ValueError("no path given and the session has no tuning_path")
+        return self.tuning.load(path)
 
     def host_value(self, x) -> np.ndarray:
         """Materialise ``x`` (a tensor, or a tuple of them) on the host as
@@ -182,6 +360,13 @@ class BlazeSession:
         """``distribute`` onto this session's device and shards."""
         return C.distribute(x, self.n_shards, self.device)
 
+    def chunked(self, x, block_rows: int, **kwargs) -> C.ChunkedDistVector:
+        """``distribute`` for datasets that do not fit on the device: a host
+        array as out-of-core blocks for this session's device and shards
+        (``compress=``, ``spill_dir=``, ``max_resident=`` shape the byte
+        provider)."""
+        return C.chunked(x, block_rows, self.n_shards, self.device, **kwargs)
+
     def make_dist_hashmap(self, capacity_per_shard: int, val_shape: tuple = (),
                           val_dtype: torch.dtype = torch.float32,
                           reducer: str | Reducer = "sum") -> C.DistHashMap:
@@ -203,17 +388,18 @@ class BlazeSession:
         Discovery builds the logical plan and runs the passes (per-node
         engines, collective batching, CSE, dead-source pruning);
         ``passes=()`` switches off the optional three.  Run it with
-        ``program(state, n_iters)`` or :meth:`run_loop`; render the plan
-        with :meth:`explain`.  On the card a dispatch is one CUDA graph
-        replay.  ``hierarchical`` keeps the reference's signature: the
-        port's one node has no hierarchy.
+        ``program(state, n_iters)`` or :meth:`run_loop` (:meth:`run_stream`
+        when it reads chunked sources); render the plan with
+        :meth:`explain`.  On the card a dispatch is one CUDA graph replay.
+        ``tune=True``: on the first build, tunable nodes without a winner
+        are measured once (``Program._maybe_tune``) and the winners cached
+        in ``session.tuning``.  ``hierarchical`` keeps the reference's
+        signature: the port's one node has no hierarchy.
         """
         from repro_torch.core.program import Program
 
-        if tune:
-            raise _later("program(tune=True)", "cost-model and autotuning")
         del hierarchical
-        return Program(self, step_fn, passes=passes)
+        return Program(self, step_fn, passes=passes, tune=tune)
 
     def explain(self, program, state=None) -> str:
         """Render ``program``'s optimised logical plan, Spark-EXPLAIN-style:
@@ -235,21 +421,39 @@ class BlazeSession:
         replay on the card).  ``cond(state) -> bool`` (True = converged,
         stop) runs on the host between dispatches, one host sync each.
         Returns ``(state, LoopInfo)``; the state is the program's copy, never
-        a buffer the next replay overwrites."""
-        from repro_torch.core.program import LoopInfo
+        a buffer the next replay overwrites.
 
-        if checkpoint is not None or checkpoint_every is not None or resume:
-            raise _later("run_loop(checkpoint=, resume=)", "out-of-core streaming")
+        ``checkpoint=`` (a ``CheckpointManager`` or a directory) with
+        ``checkpoint_every=k`` saves the state, the program's carry and the
+        iteration every ``k`` iterations at dispatch boundaries;
+        ``resume=True`` restores the latest checkpoint first and goes on from
+        its iteration (``LoopInfo.resumed_from``).  The carry is restored
+        into the program's own buffers, which its graphs read.
+        """
+        from repro_torch.core.program import LoopInfo, _as_checkpoint_manager
+
         if unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {unroll}")
+        manager = _as_checkpoint_manager(checkpoint)
+        if resume and manager is None:
+            raise ValueError("resume=True needs checkpoint=")
         compiles0 = program.stats.compiles
         it = dispatches = host_syncs = 0
+        resumed_from = None
+        if resume:
+            state, pos = program.restore_checkpoint(manager, state)
+            if pos is not None:
+                resumed_from = it = pos
+        start_it = last_saved = it
         converged = False
         while it < max_iters:
             u = min(unroll, max_iters - it)
             state = program(state, u)
             dispatches += 1
             it += u
+            if manager is not None and checkpoint_every and it - last_saved >= checkpoint_every:
+                program.save_checkpoint(manager, state, it)
+                last_saved = it
             if cond is not None:
                 self.stats.host_syncs += 1
                 host_syncs += 1
@@ -257,13 +461,24 @@ class BlazeSession:
                     converged = True
                     break
         return state, LoopInfo(
-            iterations=it, dispatches=dispatches, host_syncs=host_syncs,
+            iterations=it - start_it, dispatches=dispatches, host_syncs=host_syncs,
             converged=converged, compiles=program.stats.compiles - compiles0,
+            resumed_from=resumed_from,
         )
 
-    def run_stream(self, program, state, **kwargs):
-        """Out-of-core epochs over chunked sources: a later slice."""
-        raise _later("run_stream", "out-of-core streaming")
+    def run_stream(self, program, state, *, cond: Callable | None = None,
+                   max_epochs: int = 1, prefetch: bool = True, depth: int = 2,
+                   checkpoint=None, checkpoint_every: int | None = None,
+                   resume: bool = False):
+        """Drive a ``Program`` over its chunked (out-of-core) sources: each
+        epoch replays the program's one graph once a block, block k+1's copy
+        overlapping block k's replay, and ``cond(state)`` runs once an epoch.
+        ``checkpoint=`` / ``checkpoint_every=`` / ``resume=`` work as in
+        :meth:`run_loop`, at epoch granularity.  Returns ``(state,
+        StreamInfo)``; see ``Program.run_stream``."""
+        return program.run_stream(
+            state, max_epochs=max_epochs, cond=cond, prefetch=prefetch, depth=depth,
+            checkpoint=checkpoint, checkpoint_every=checkpoint_every, resume=resume)
 
     def cache_info(self) -> dict:
         """Stage-cache snapshot: entries + cumulative counters."""
@@ -275,6 +490,9 @@ class BlazeSession:
             "hit_rate": self.stats.hit_rate,
             "dispatches": self.stats.dispatches,
             "host_syncs": self.stats.host_syncs,
+            "program_compiles": self.stats.program_compiles,
+            "program_dispatches": self.stats.program_dispatches,
+            "tune_measurements": self.stats.tune_measurements,
         }
 
 

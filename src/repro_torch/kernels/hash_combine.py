@@ -93,6 +93,9 @@ def table_bits(v: int) -> int:
     return bits
 
 
+_default_bits = table_bits  # hash_aggregate's keyword of that name shadows it
+
+
 class DeviceCount:
     """A count that kernels add to in device memory, so that no launch waits
     on the host: ``int()`` reads it (a sync), ``reset()`` sets it to 0."""
@@ -123,7 +126,8 @@ def _kernel() -> ctypes._CFuncPtr:
 
 
 def hash_aggregate(keys: torch.Tensor, vals: torch.Tensor, table_cap: int, *,
-                   reducer: str = "sum", init=None, max_probes: int | None = None):
+                   reducer: str = "sum", init=None, max_probes: int | None = None,
+                   table_bits: int | None = None):
     """Reduce ``keys [N]`` int32 (``EMPTY_KEY`` = dead lane) and ``vals
     [N, V]`` into a ``table_cap``-slot table.
 
@@ -131,7 +135,10 @@ def hash_aggregate(keys: torch.Tensor, vals: torch.Tensor, table_cap: int, *,
     ``overflow`` counts lanes still unplaced after ``max_probes`` rounds,
     plus whatever ``init=(keys, vals, overflow)`` carried.  The kernel on
     CUDA tensors (one launch, no host sync), the plain version on CPU
-    tensors.
+    tensors.  ``table_bits`` pins the log2 slots of the kernel's per-CTA
+    table of hot keys (-1: none; default the module's ``table_bits(V)``, the
+    most that fit); one that does not fit raises, on either device.  The
+    result does not depend on it.
     """
     if reducer not in REDUCERS:
         raise ValueError(f"unknown reducer {reducer!r}; supported: {REDUCERS}")
@@ -141,6 +148,12 @@ def hash_aggregate(keys: torch.Tensor, vals: torch.Tensor, table_cap: int, *,
     if table_cap < 1 or (max_probes is not None and max_probes < 1):
         raise ValueError(f"need table_cap >= 1 and max_probes >= 1, got "
                          f"{table_cap} and {max_probes}")
+    bits = _default_bits(vals.shape[1])
+    if table_bits is not None:
+        if not isinstance(table_bits, int) or not -1 <= table_bits <= bits:
+            raise ValueError(f"hash_aggregate: table_bits {table_bits!r} does not fit "
+                             f"rows of {vals.shape[1]} values (-1 to {bits})")
+        bits = table_bits
     if keys.device.type == "cpu" and vals.device.type == "cpu":
         return hash_aggregate_plain(keys, vals, table_cap, reducer=reducer,
                                     init=init, max_probes=max_probes)
@@ -192,7 +205,7 @@ def hash_aggregate(keys: torch.Tensor, vals: torch.Tensor, table_cap: int, *,
             tkeys.data_ptr(), tvals.data_ptr(),
             ovf.data_ptr(), hash_aggregate.rounds.buffer(dev).data_ptr(), skey, smult,
             sidx, svals.data_ptr(), claim, live, gathered, n, v, table_cap, probes,
-            table_bits(v), _DTYPE_CODE[vals.dtype], _OP_CODE[reducer])
+            bits, _DTYPE_CODE[vals.dtype], _OP_CODE[reducer])
     index = dev.index
     if index == torch.cuda.current_device():  # the launch goes to the current device
         err = _kernel()(*args, _build.raw_stream(index))

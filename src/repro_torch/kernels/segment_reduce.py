@@ -80,24 +80,52 @@ def segment_reduce_plain(ids: torch.Tensor, vals: torch.Tensor,
     return fold_rows(out, ids[keep].long(), vals[keep].to(work), reducer).to(acc)
 
 
-def launch_shape(n: int, v: int, num_segments: int, sms: int) -> tuple[str, int]:
-    """``(form, blocks)`` of the kernel's launch for ``n`` pairs of width
-    ``v`` into ``num_segments`` keys on a card of ``sms`` SMs: the
-    ``"registers"`` form for at most :data:`REG_K` keys, else ``"shared"``
-    while the f32 ``[K, V]`` copy fits :data:`SHARED_BYTES` (the register form
-    merges through one too), else ``"global"``; a grid of ``blocks`` CTAs of
-    :data:`THREADS`.  The shared and global forms stride over the pairs (pair
-    ``i`` goes to CTA ``(i % (blocks * THREADS)) // THREADS``); the register
-    form over the flat values, :data:`SLOTS` a thread a step (element ``e``
-    goes to thread ``(e // SLOTS) % (blocks * THREADS)``), with ``SLOTS *
-    THREADS * blocks`` a multiple of ``v`` so that a thread's slots keep
-    their columns."""
+def valid_forms(num_segments: int, v: int) -> tuple[str, ...]:
+    """The forms the kernel can take for ``num_segments`` keys of ``[v]``
+    rows: ``"registers"`` for at most :data:`REG_K` keys while the f32 ``[K,
+    V]`` copy it merges through fits :data:`SHARED_BYTES`, ``"shared"`` while
+    that copy fits, ``"global"`` always."""
     fits = num_segments * v * 4 <= SHARED_BYTES
-    form = "registers" if fits and num_segments <= REG_K else "shared" if fits else "global"
+    return (("registers",) if fits and num_segments <= REG_K else ()) + (
+        ("shared",) if fits else ()) + ("global",)
+
+
+def check_override(num_segments: int, v: int, form: str | None,
+                   ctas_per_sm: int | None) -> None:
+    """Raise ``ValueError`` for a launch override the kernel cannot take at
+    this shape (a tuned config never falls back to another launch)."""
+    if form is not None and form not in valid_forms(num_segments, v):
+        raise ValueError(f"segment_reduce: form {form!r} is not valid for "
+                         f"{num_segments} keys of width {v} (valid: "
+                         f"{valid_forms(num_segments, v)})")
+    if ctas_per_sm is not None and (not isinstance(ctas_per_sm, int) or ctas_per_sm < 1):
+        raise ValueError(f"segment_reduce: ctas_per_sm must be a positive int, "
+                         f"got {ctas_per_sm!r}")
+
+
+def launch_shape(n: int, v: int, num_segments: int, sms: int, *,
+                 form: str | None = None, ctas_per_sm: int | None = None
+                 ) -> tuple[str, int]:
+    """``(form, blocks)`` of the kernel's launch for ``n`` pairs of width
+    ``v`` into ``num_segments`` keys on a card of ``sms`` SMs: by default the
+    first of :func:`valid_forms` (``"registers"`` for at most :data:`REG_K`
+    keys, else ``"shared"`` while the f32 ``[K, V]`` copy fits
+    :data:`SHARED_BYTES`, else ``"global"``); a grid of ``blocks`` CTAs of
+    :data:`THREADS`, at most ``sms`` times :data:`CTAS_PER_SM` of the form.
+    ``form`` and ``ctas_per_sm`` override both (a tuned launch); an override
+    the shape cannot take raises.  The shared and global forms stride over
+    the pairs (pair ``i`` goes to CTA ``(i % (blocks * THREADS)) //
+    THREADS``); the register form over the flat values, :data:`SLOTS` a
+    thread a step (element ``e`` goes to thread ``(e // SLOTS) % (blocks *
+    THREADS)``), with ``SLOTS * THREADS * blocks`` a multiple of ``v`` so
+    that a thread's slots keep their columns."""
+    check_override(num_segments, v, form, ctas_per_sm)
+    form = form or valid_forms(num_segments, v)[0]
+    per_sm = ctas_per_sm or CTAS_PER_SM[form]
     if form != "registers":
-        return form, max(1, min(-(-n // THREADS), sms * CTAS_PER_SM[form]))
+        return form, max(1, min(-(-n // THREADS), sms * per_sm))
     step = v // math.gcd(v, SLOTS * THREADS)  # blocks must be a multiple of this
-    blocks = min(-(-n * v // (SLOTS * THREADS)), sms * CTAS_PER_SM[form])
+    blocks = min(-(-n * v // (SLOTS * THREADS)), sms * per_sm)
     return form, max(step, -(-blocks // step) * step)
 
 
@@ -111,15 +139,19 @@ def _kernel() -> ctypes._CFuncPtr:
 
 
 def segment_reduce(ids: torch.Tensor, vals: torch.Tensor, num_segments: int,
-                   *, reducer: str = "sum") -> torch.Tensor:
+                   *, reducer: str = "sum", form: str | None = None,
+                   ctas_per_sm: int | None = None) -> torch.Tensor:
     """Dense ``[K, V]`` reduce-by-key of ``ids [N]`` int32 and ``vals
     [N, V]`` (f32, bf16 or i32, contiguous); the kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor.  ``form`` and ``ctas_per_sm`` pin the
+    kernel's launch (:func:`launch_shape`); an override the shape cannot
+    take raises, on either device."""
     if reducer not in REDUCERS:
         raise ValueError(f"unknown reducer {reducer!r}; supported: {REDUCERS}")
     if vals.dim() != 2 or ids.shape != vals.shape[:1]:
         raise ValueError(f"need ids [N] and vals [N, V], got {tuple(ids.shape)} "
                          f"and {tuple(vals.shape)}")
+    check_override(num_segments, vals.shape[1], form, ctas_per_sm)
     if ids.device.type == "cpu" and vals.device.type == "cpu":
         return segment_reduce_plain(ids, vals, num_segments, reducer=reducer)
     if ids.device != vals.device or vals.device.type != "cuda":
@@ -139,7 +171,8 @@ def segment_reduce(ids: torch.Tensor, vals: torch.Tensor, num_segments: int,
     if n == 0 or v == 0 or num_segments == 0:
         return out  # a 0-block grid is a launch error
     dev = vals.device.index
-    form, blocks = launch_shape(n, v, num_segments, _build.sm_count(dev))
+    form, blocks = launch_shape(n, v, num_segments, _build.sm_count(dev), form=form,
+                                ctas_per_sm=ctas_per_sm)
     args = (ids.data_ptr(), vals.data_ptr(), out.data_ptr(), n, v, num_segments,
             _DTYPE_CODE[vals.dtype], _OP_CODE[reducer], FORMS.index(form),
             int(vals.data_ptr() % 16 == 0), blocks, THREADS)

@@ -112,10 +112,14 @@ def test_kmeans_matches_jax(engine):
 
 
 def test_drivers_refuse_modes_of_later_slices():
-    with pytest.raises(NotImplementedError, match="slice"):
+    # mode="stream" is ported (tests/test_torch_streaming.py); as in the
+    # reference it needs chunked input, and unknown modes stay unknown.
+    with pytest.raises(ValueError, match="ChunkedDistVector"):
         pagerank(rmat_edges(4, 2), 16, mode="stream", session=_cpu())
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="ChunkedDistVector"):
         kmeans(np.zeros((8, 2), np.float32), 2, mode="stream", session=_cpu())
+    with pytest.raises(ValueError, match="unknown mode"):
+        kmeans(np.zeros((8, 2), np.float32), 2, mode="spark", session=_cpu())
 
 
 _JAX_4DEV = """

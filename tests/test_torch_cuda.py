@@ -874,3 +874,153 @@ def test_program_capture_that_syncs_raises_naming_the_op(dev):
     with pytest.raises(RuntimeError, match=r"capture.*map_reduce sum"):
         prog({"acc": torch.zeros(4, device=dev)}, 1)
     assert prog.stats.replays == 0
+
+
+# -- tuning candidates and streams on the card ---------------------------------------
+
+
+def _tune_shapes():
+    """(n, v, k): k-means' per-op and program rows, GMM's 9-wide rows, a
+    shared-only key range, PageRank's global form, the register form's key
+    limit."""
+    return [(50_003, 4, 5), (50_003, 5, 5), (20_001, 9, 5), (30_001, 4, 64),
+            (40_001, 1, 1 << 20), (70_001, 6, 8)]
+
+
+@pytest.mark.parametrize("n,v,k", _tune_shapes())
+def test_segment_reduce_every_tuning_candidate_matches_plain_version(dev, n, v, k):
+    """Each K1 form at each measured CTA count: i32 sums exactly, f32 sums
+    within 1e-5 of the addends' magnitudes (the atomics' order is free), and
+    each call in the form it was asked for."""
+    from repro_torch.core import cost
+
+    g = torch.Generator().manual_seed(n + k)
+    ids = torch.randint(-3, k + 3, (n,), generator=g, dtype=torch.int32).to(dev)
+    ints = torch.randint(-50, 51, (n, v), generator=g, dtype=torch.int32).to(dev)
+    x = torch.randn((n, v), generator=g).to(dev)
+    want_i = segment_reduce_plain(ids, ints, k)
+    want_x = segment_reduce_plain(ids, x, k)
+    mag = segment_reduce_plain(ids, x.abs(), k)
+    cands = cost.dense_tuning_candidates(k, v, "sum", torch.float32)[1:]
+    assert len(cands) == 4 * len(SR.valid_forms(k, v))
+    for c in cands:
+        before = dict(SR.segment_reduce.forms)
+        got = segment_reduce(ids, ints, k, form=c.form, ctas_per_sm=c.ctas_per_sm)
+        assert torch.equal(got, want_i), c
+        got = segment_reduce(ids, x, k, form=c.form, ctas_per_sm=c.ctas_per_sm)
+        assert bool(((got - want_x).abs() <= 1e-5 * mag + 1e-6).all()), c
+        assert SR.segment_reduce.forms[c.form] == before[c.form] + 2
+
+
+@pytest.mark.parametrize("v,key_range", [(1, 40), (1, 1 << 15), (4, 3000)])
+def test_hash_aggregate_every_tuning_candidate_matches_plain_version(dev, v, key_range):
+    """Each K2 (capacity, probe depth, table of hot keys) candidate: the
+    table slot for slot and the overflow as the plain version's, i32 values
+    exactly; the table of hot keys changes nothing but the time."""
+    from repro_torch.core import cost
+
+    g = torch.Generator().manual_seed(key_range)
+    n = 200_003
+    keys = torch.randint(0, key_range, (n,), generator=g, dtype=torch.int32)
+    keys[::11] = 3  # a hot key
+    keys[::17] = HK.EMPTY_KEY
+    keys = keys.to(dev)
+    vals = torch.randint(-5, 6, (n, v), generator=g, dtype=torch.int32).to(dev)
+    for c in cost.hash_tuning_candidates(v, "sum", torch.int32, key_range=key_range)[1:]:
+        got = HK.hash_aggregate(keys, vals, c.table_cap, max_probes=c.probe_depth,
+                                table_bits=c.table_bits)
+        want = HK.hash_aggregate_plain(keys, vals, c.table_cap, max_probes=c.probe_depth)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), c
+        assert int(got[2]) == 0
+
+
+def test_invalid_tuned_overrides_raise_on_the_card(dev):
+    ids = torch.zeros(64, dtype=torch.int32, device=dev)
+    vals = torch.ones((64, 2), device=dev)
+    with pytest.raises(ValueError, match="not valid"):
+        segment_reduce(ids, vals, 9, form="registers")
+    with pytest.raises(ValueError, match="not valid"):
+        segment_reduce(ids, vals, 1 << 20, form="shared")
+    with pytest.raises(ValueError, match="table_bits"):
+        HK.hash_aggregate(ids, vals, 128, table_bits=HK.table_bits(2) + 1)
+
+
+def test_tuned_program_matches_untuned_on_the_card(dev):
+    """A tuned k-means program measures each candidate once, runs K1 in the
+    winner's form inside its graph, and gives the untuned program's centres
+    (integer-valued points: exact sums in any order)."""
+    from repro_torch.core.algorithms.kmeans import _program_step
+    from repro_torch.core import cost
+
+    pts = np.random.RandomState(0).randint(-4, 5, size=(20_000, 3)).astype(np.float32)
+    out = {}
+    for tune in (False, True):
+        sess = BlazeSession(device=dev)
+        step, state0 = _program_step(sess.distribute(pts), 5, 3, "pallas", "none")
+        prog = sess.program(step, tune=tune)
+        state, _ = sess.run_loop(prog, state0(torch.as_tensor(pts[:5], device=dev)),
+                                 max_iters=4, unroll=2)
+        out[tune] = state["centers"]
+        if tune:
+            n_cands = len(cost.dense_tuning_candidates(5, 5, "sum", torch.float32))
+            assert sess.stats.tune_measurements == n_cands == len(prog.tune_walls)
+            (_, cfg), = sess.tuning.items()
+            assert prog.plan.mapreduce_nodes()[0].tuned == cfg
+            for ov, wall, launches in prog.tune_walls:
+                (c,) = ov.values()
+                if c.engine == "pallas":
+                    assert launches.get(f"segment_reduce/{c.form}", 0) == 1, c
+                else:
+                    assert launches.get("segment_reduce", 0) == 0
+    assert torch.equal(out[False], out[True])
+
+
+def test_streamed_program_keeps_its_block_buffer_and_restores_in_place(dev, tmp_path):
+    """A streamed program's static block buffer and base scalar keep their
+    addresses across blocks and epochs (the graph reads them), each block's
+    K1 launch is a replay, the result equals the in-memory program's, and a
+    restored checkpoint is copied into the carry and input buffers in
+    place."""
+    from repro_torch.core.algorithms.kmeans import _program_step, _stream_step
+    from repro_torch.core.algorithms.wordcount import _program_step as wc_step
+
+    pts = np.random.RandomState(1).randint(-9, 10, size=(10_000, 3)).astype(np.float32)
+    sess = BlazeSession(device=dev)
+    cv = sess.chunked(pts, block_rows=3000)  # 4 blocks, the last padded
+    assert cv.stats()["pinned"] and cv.block_tensor(0).is_pinned()
+    c0 = torch.as_tensor(pts[:5], device=dev)
+    step, state0 = _stream_step(cv, 5, 3, "pallas", "none", dev)
+    prog = sess.program(step)
+    state, info = sess.run_stream(prog, state0(c0), max_epochs=1)
+    (slot,) = prog._streams.values()
+    ptrs = (slot.buf.data_ptr(), slot.base.data_ptr(), slot.staging.data_ptr())
+    for prefetch in (True, False):
+        state, info = sess.run_stream(prog, state, max_epochs=2, prefetch=prefetch)
+        assert (slot.buf.data_ptr(), slot.base.data_ptr(),
+                slot.staging.data_ptr()) == ptrs
+        assert int(slot.base) == 3 * 3000  # the last block's offset
+    assert prog.stats.captures == 1 and prog.stats.replays == 5 * cv.n_blocks
+    assert prog.stats.replay_launches["segment_reduce"] == 5 * cv.n_blocks
+    mstep, mstate0 = _program_step(sess.distribute(pts), 5, 3, "pallas", "none")
+    mem, _ = sess.run_loop(sess.program(mstep), mstate0(c0), max_iters=5)
+    assert torch.equal(state["centers"], mem["centers"])
+
+    lines = np.random.RandomState(2).randint(0, 40, size=(4000, 8)).astype(np.int32)
+    cl = sess.chunked(lines, block_rows=1024)
+    hm = sess.make_dist_hashmap(160, (), torch.int32, "sum")
+    wstep, wstate = wc_step(cl, hm, 40, "pallas")
+    wprog = sess.program(wstep)
+    ws, _ = sess.run_stream(wprog, wstate, max_epochs=2, checkpoint=str(tmp_path),
+                            checkpoint_every=1)
+    carry = wprog._carry[wprog._last_sig]
+    (table,) = carry.tables.values()
+    ptrs = [t.data_ptr() for t in (table.keys, table.vals, table.overflow,
+                                   *carry.state_in)]
+    ws, info = sess.run_stream(wprog, wstate, max_epochs=3, checkpoint=str(tmp_path),
+                               checkpoint_every=1, resume=True)
+    assert info.resumed_from == 2
+    assert [t.data_ptr() for t in (table.keys, table.vals, table.overflow,
+                                   *carry.state_in)] == ptrs
+    counts = np.bincount(lines.reshape(-1), minlength=40)
+    assert wprog.hash_result(hm).to_dict() == {k: 3 * int(c) for k, c in enumerate(counts)}

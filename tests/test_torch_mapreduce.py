@@ -305,10 +305,12 @@ def test_auto_engine_and_stage_cache():
 
 
 def test_later_slices_raise_not_implemented():
-    sess = BlazeSession(device="cpu")
-    pts = sess.distribute(np.ones((4, 2), np.float32))
+    # tune=True is ported (tests/test_torch_tuning.py); the multi-node
+    # reduce edges still belong to the multi-host slice.
+    from repro_torch.core.mapreduce import reduce_edge_bytes
+
     with pytest.raises(NotImplementedError, match="slice"):
-        sess.map_reduce(pts, _dyn_mapper, "sum", torch.zeros(2), tune=True)
+        reduce_edge_bytes(8, 4, 4, 4, n_nodes=2)
 
 
 def test_free_map_reduce_uses_the_default_session():

@@ -365,12 +365,14 @@ def test_later_slices_of_programs_raise():
         return s
 
     prog = sess.program(step)
-    with pytest.raises(NotImplementedError, match="slice"):
-        sess.program(step, tune=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        sess.run_loop(prog, torch.zeros(1), max_iters=1, checkpoint="ckpt")
-    with pytest.raises(NotImplementedError, match="slice"):
+    # Tuning, checkpoints and streams are ported (tests/test_torch_tuning.py,
+    # test_torch_checkpoint.py, test_torch_streaming.py): a program without
+    # chunked sources is refused by run_stream as in the reference, and a
+    # resume without a checkpoint directory is an error.
+    with pytest.raises(ValueError, match="no chunked"):
         sess.run_stream(prog, torch.zeros(1))
+    with pytest.raises(ValueError, match="checkpoint"):
+        sess.run_loop(prog, torch.zeros(1), max_iters=1, resume=True)
     with pytest.raises(NotImplementedError, match="slice"):
         prog.degrade()
 
