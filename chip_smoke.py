@@ -39,7 +39,17 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    (``session.chunked``: pinned host blocks streamed through one captured
    graph, ``run_stream``), checkpointed and resumed;
 6. wire phase — PageRank and k-means at 4 shards stacked on the card with
-   ``wire="none" | "bf16" | "int8"``, per op and as programs.
+   ``wire="none" | "bf16" | "int8"``, per op and as programs;
+7. fault phase — the supervisor under injected faults (``core.faults``), on
+   the data above: a per-op PageRank dispatch retried, per-op wordcount
+   degraded from K2 to eager, the k-means program (K1 and K3) degraded at
+   its third dispatch and captured again, a fault inside a first capture
+   retried, the k-means stream under read, dispatch and checkpoint faults
+   and resumed after a fatal one, wordcount escalated out of a hash target a
+   rung too small; supervision's own cost with no rule armed.  Every
+   other phase must end with no retry, no degraded node and no escalation
+   in any session it made (supervision would otherwise let a kernel that
+   fails to launch fall back to eager unseen).
 
 K4 (``flash_attention``) is held against ``attention_ref``, which
 materialises the f32 logits.  Both compute each logit as an f32 dot product
@@ -316,6 +326,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 START = time.perf_counter()
@@ -592,6 +603,12 @@ class Smoke:
         # job -> (build(sess, tune), run, units, check) of the program phase
         self.program_specs: dict[str, tuple] = {}
         self.candidates_checked: dict[str, int] = {}  # kernel check -> candidates held
+        # (phase, SessionStats) of every session a phase made, and the phase
+        # running (check_supervision)
+        self.session_stats: list = []
+        self.phase = "setup"
+        self.fault_totals: dict[str, int] = {}  # fault phase: dispositions, injected
+        self.fault_launches: dict[str, int] = {}  # fault phase: kernel launches
 
     # -- measurement helpers -------------------------------------------------
 
@@ -2512,6 +2529,378 @@ class Smoke:
         print(json.dumps({"stream_results": results, "in_memory_replay_ms": inmem}),
               flush=True)
 
+    # -- fault phase ------------------------------------------------------------
+
+    def fault_ledger(self, name, **want):
+        """The registry's ledger after one check: balanced, with the
+        dispositions ``want``; added to ``self.fault_totals`` and reset (each
+        check's ``at=`` rules count hits from 1)."""
+        from repro_torch.core import faults
+
+        snap = faults.snapshot()
+        got = {k: v for k, v in snap["dispositions"].items() if v}
+        if not snap["balanced"] or got != want:
+            raise AssertionError(f"faults {name}: ledger {snap}, want {want}")
+        for k, v in snap["dispositions"].items():
+            self.fault_totals[k] = self.fault_totals.get(k, 0) + v
+        self.fault_totals["injected"] = (self.fault_totals.get("injected", 0)
+                                         + snap["injected_total"])
+        faults.reset(env=False)
+        return got
+
+    def fault_launches_add(self, launches):
+        for k in ("segment_reduce", "hash_aggregate", "kmeans_assign"):
+            self.fault_launches[k] = self.fault_launches.get(k, 0) + launches.get(k, 0)
+
+    def fault_phase(self, data):
+        """The supervisor on the card, under injected faults, on the data of
+        the earlier phases (module docstring, 7).  Each check's ledger must
+        balance with the dispositions it expects; results are held to the
+        fault-free run of the same call within the tolerance the program
+        phase uses for it (the wordcount counts and the escalated hash map
+        exactly).  Prints the drop and the recapture of a degraded program,
+        its captures and the pool's reservation before and after, and the
+        medians of per-op PageRank and of a k-means program replay with
+        supervision on (the default) and off (``retry=None``), in turns."""
+        torch = self.torch
+        import importlib
+        import shutil
+        import tempfile
+
+        import numpy as np
+        from repro_torch.core import BlazeSession, DistVector, faults
+        from repro_torch.core.algorithms import pagerank, wordcount
+        from repro_torch.core.algorithms.wordcount import wordcount_mapper
+        from repro_torch.kernels import ops
+
+        km_alg = importlib.import_module("repro_torch.core.algorithms.kmeans")
+        dev = self.dev
+        t_phase = time.perf_counter()
+        faults.reset(env=False)
+        res = {}
+
+        def sync_ms(fn):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn()
+            self.sync()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        # -- a per-op PageRank dispatch retried (K1's global form) ------------
+        edges_np, n_pages = data["edges_np"], data["n_pages"]
+        _, _, pr_tol = self.per_op["pagerank"]
+        sess = BlazeSession(device=dev)
+        clean = pagerank(edges_np, n_pages, tol=0.0, max_iters=1, engine="pallas",
+                         session=sess)
+        faults.configure("dispatch", at=1)
+        pr, _, launch = self.drive("faults pagerank retry", lambda: pagerank(
+            edges_np, n_pages, tol=0.0, max_iters=1, engine="pallas", session=sess),
+            len(edges_np))
+        self.fault_launches_add(launch)
+        diff = (torch.from_numpy(pr.scores).to(dev).double()
+                - torch.from_numpy(clean.scores).to(dev).double()).abs()
+        if sess.stats.retries != 1 or not bool((diff <= pr_tol).all()) or \
+                launch["segment_reduce"] == 0:
+            raise AssertionError(f"faults retry: {sess.stats.retries} retries, "
+                                 f"{float(diff.max())} off, {launch['segment_reduce']} K1")
+        res["retry"] = {"retries": sess.stats.retries, "max_diff": float(diff.max()),
+                        "ledger": self.fault_ledger("retry", retried=1)}
+        del sess
+
+        # -- per-op wordcount degraded from K2 to eager -------------------------
+        vocab = data["vocab"]
+        prefix = data["lines_np"][: 1 << 16]  # 2^22 tokens: eager takes ~7.5 s at 2^27
+        want = np.bincount(prefix[prefix >= 0], minlength=vocab)
+
+        def counts(hm):
+            keys, vals = hm.items()
+            got = np.zeros(vocab, np.int64)
+            got[keys] = vals
+            return got
+
+        sess = BlazeSession(device=dev)
+        clean = counts(wordcount(prefix, engine="pallas", vocab_size=vocab, session=sess))
+        faults.configure("kernel.hash", at=1)
+        (hm, st), _, launch = self.drive("faults wordcount degrade", lambda: wordcount(
+            prefix, engine="pallas", vocab_size=vocab, return_stats=True, session=sess),
+            int(prefix.size))
+        compiles0 = sess.stats.compiles
+        hm2, st2 = wordcount(prefix, engine="pallas", vocab_size=vocab, return_stats=True,
+                             session=sess)
+        if not (st.engine == "eager" and st.degraded_engine == "pallas"
+                and st2.degraded_engine == "pallas" and st2.cache_hits == 1
+                and sess.stats.compiles == compiles0 and launch["hash_aggregate"] == 0
+                and np.array_equal(counts(hm), clean) and np.array_equal(clean, want)
+                and np.array_equal(counts(hm2), want)):
+            raise AssertionError(f"faults degrade: {st.engine} from {st.degraded_engine}, "
+                                 f"follow-up {st2.compiles} compiles, "
+                                 f"{launch['hash_aggregate']} K2 launches")
+        res["per_op_degrade"] = {"tokens": int(prefix.size), "engine": st.engine,
+                                 "degraded_engine": st.degraded_engine,
+                                 "follow_up_compiles": st2.compiles,
+                                 "ledger": self.fault_ledger("per-op degrade", degraded=1)}
+        del sess, hm, hm2
+
+        # -- the k-means program (K1 and K3) degraded at its third dispatch -----
+        # Twice: on all 10^8 points for the cost (the centres are then the
+        # eager engine's, whose f32 counts stop at 2^24: ROADMAP Queue 3 item
+        # 3), and on a 2^20-point prefix for the result.
+        pts, c0 = data["points"], data["init_centers"]
+
+        def both_step(x):
+            km_step, km0 = km_alg._program_step(DistVector(x, x.shape[0]), 5, 3, "pallas",
+                                                "none")
+
+            def both(ctx, s):
+                out = km_step(ctx, {k: s[k] for k in ("centers", "move", "inertia")})
+                st = ops.kmeans_assign(x, s["c3"])[1]
+                out["c3"] = st[:, :3] / torch.clamp(st[:, 3:], min=1.0)
+                return out
+
+            return both, km_step, km0
+
+        def loop(sess, prog, km0, marks=None):
+            state, walls = dict(km0(c0), c3=c0), []
+            for i in range(5):
+                if marks is not None and i == 2:
+                    marks["before"] = (prog.stats.captures, torch.cuda.memory_reserved(dev),
+                                       dict(prog.stats.captured_launches[1]))
+                state, ms = sync_ms(lambda s=state: sess.supervised(
+                    lambda: prog(s, 1), program=prog))
+                walls.append(ms)
+            return state, walls
+
+        def degrade_run(x, tag):
+            both, km_step, km0 = both_step(x)
+            sess = BlazeSession(device=dev)
+            want, clean_walls = loop(sess, sess.program(both), km0)
+            del sess
+            torch.cuda.empty_cache()
+            sess = BlazeSession(device=dev)
+            prog = sess.program(both)
+            timings = {"degrade_ms": [], "discover_ms": [], "capture_ms": []}
+
+            def timed(name, fn):
+                def run(*a, **kw):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **kw)
+                    timings[name].append((time.perf_counter() - t0) * 1e3)
+                    return out
+                return run
+
+            prog.degrade = timed("degrade_ms", prog.degrade)
+            prog._discover = timed("discover_ms", prog._discover)
+            prog._capture = timed("capture_ms", prog._capture)
+            marks = {}
+            faults.configure("kernel.segment", at=3)
+            (got, walls), _, launch = self.drive(f"faults kmeans program degrade {tag}",
+                                                 lambda: loop(sess, prog, km0, marks),
+                                                 5 * x.shape[0])
+            self.fault_launches_add(launch)
+            self.fault_launches_add(prog.stats.replay_launches)
+            caps0, reserved0, launches0 = marks["before"]
+            after = dict(prog.stats.captured_launches[1])
+            errs = {k: float((got[k] - want[k]).abs().max()) for k in ("centers", "c3")}
+            if not (prog.stats.degradations == 1 and prog.stats.graphs_dropped == 1
+                    and caps0 == 1 and prog.stats.captures == 2
+                    and torch.equal(got["c3"], want["c3"])
+                    and launches0.get("segment_reduce") and launches0.get("kmeans_assign")
+                    and not after.get("segment_reduce") and after.get("kmeans_assign")):
+                raise AssertionError(f"faults program degrade {tag}: {prog.stats}, errors "
+                                     f"{errs}, launches {launches0} -> {after}")
+            rec = {"points": int(x.shape[0]), "centre_err": errs, "dispatch_ms": walls,
+                   "fault_free_dispatch_ms": clean_walls,
+                   "degrade_drop_ms": timings["degrade_ms"],
+                   "rediscover_ms": timings["discover_ms"][-1],
+                   "recapture_ms": timings["capture_ms"][-1],
+                   "graph_captures": [caps0, prog.stats.captures],
+                   "reserved_bytes": [reserved0, torch.cuda.memory_reserved(dev)],
+                   "launches_per_replay": [launches0, after],
+                   "ledger": self.fault_ledger(f"program degrade {tag}", degraded=1)}
+            print(json.dumps({"fault_program_degrade": rec}), flush=True)
+            del sess, prog
+            torch.cuda.empty_cache()
+            return rec, want, km_step, km0
+
+        res["program_degrade_cost"], want_km, km_step, km0 = degrade_run(pts, "all")
+        rec, _, _, _ = degrade_run(pts[: 1 << 20], "prefix")
+        if rec["centre_err"]["centers"] > 1e-4:
+            raise AssertionError(f"faults program degrade: centres {rec['centre_err']} off")
+        res["program_degrade"] = rec
+
+        # -- a fault inside a fresh program's first capture, retried ---------------
+        sess = BlazeSession(device=dev)
+        prog = sess.program(km_step)
+        faults.configure("collective", at=1)
+        out, _ = sess.run_loop(prog, km0(c0), max_iters=5, unroll=5)
+        torch.cuda.synchronize()  # raises if the failed capture left the context bad
+        err = float((out["centers"] - want_km["centers"]).abs().max())
+        if prog.stats.captures != 1 or err > 1e-4:
+            raise AssertionError(f"faults capture: {prog.stats.captures} captures, {err} off")
+        self.fault_launches_add(prog.stats.replay_launches)
+        res["capture_fault"] = {"captures": prog.stats.captures, "centre_err": err,
+                                "ledger": self.fault_ledger("capture", retried=1)}
+        del sess, prog
+        torch.cuda.empty_cache()
+
+        # -- the k-means stream under faults, then a crash and a resume -----------
+        sess = BlazeSession(device=dev)
+        km_c = sess.chunked(data["points_np"], STREAM_BLOCK_ROWS)
+        sstep, s0 = km_alg._stream_step(km_c, 5, 3, "pallas", "none", dev)
+        clean, _ = sess.run_stream(sess.program(sstep), s0(c0), max_epochs=3)
+        # K1's CTAs merge their sums with atomics in no fixed order, so two
+        # fault-free streams differ by a few f32 steps of the centres
+        # (``noise``, measured here).  The faulted stream is one more such
+        # run, so its distance from ``clean`` has the size of ``noise``: it
+        # is held to 4x that, and never below 4 f32 steps of the centres'
+        # magnitude.  A block lost or counted twice moves a centre by its
+        # share of the data (one block in 18), orders of magnitude more.
+        again, _ = sess.run_stream(sess.program(sstep), s0(c0), max_epochs=3)
+        noise = float((again["centers"] - clean["centers"]).abs().max())
+        scale = float(clean["centers"].abs().max())
+        stream_bound = 4 * max(noise, float(torch.finfo(torch.float32).eps) * scale)
+        ckpt = tempfile.mkdtemp(prefix="blaze-ckpt-")
+        faults.configure("prefetch.read", at=2)
+        faults.configure("dispatch", at=3)
+        faults.configure("checkpoint.write", at=1)
+        prog = sess.program(sstep)
+        got, info = sess.run_stream(prog, s0(c0), max_epochs=3, checkpoint=ckpt,
+                                    checkpoint_every=1)
+        self.fault_launches_add(prog.stats.replay_launches)
+        stream_err = float((got["centers"] - clean["centers"]).abs().max())
+        if stream_err > stream_bound or info.dispatches != 3 * km_c.n_blocks:
+            raise AssertionError(f"faults stream: {stream_err} off, bound {stream_bound} "
+                                 f"(fault-free runs {noise} apart), {info.dispatches} blocks")
+        ledger = self.fault_ledger("stream", retried=3)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        ckpt = tempfile.mkdtemp(prefix="blaze-ckpt-")
+        faults.configure("dispatch", at=2 * km_c.n_blocks + 2, fatal=True)  # in epoch 3
+        try:
+            sess.run_stream(sess.program(sstep), s0(c0), max_epochs=3, checkpoint=ckpt,
+                            checkpoint_every=1)
+        except faults.FatalFault:
+            pass
+        else:
+            raise AssertionError("faults stream: the fatal fault did not propagate")
+        crash = self.fault_ledger("crash", fatal=1)
+        resumed, rinfo = sess.run_stream(sess.program(sstep), s0(c0), max_epochs=3,
+                                         checkpoint=ckpt, checkpoint_every=1, resume=True)
+        resume_err = float((resumed["centers"] - clean["centers"]).abs().max())
+        if rinfo.resumed_from != 2 or resume_err > 1e-4:
+            raise AssertionError(f"faults resume: from {rinfo.resumed_from}, {resume_err} off")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        res["stream"] = {"blocks": km_c.n_blocks, "centre_err": stream_err,
+                         "fault_free_runs_apart": noise, "centre_scale": scale,
+                         "bound": stream_bound,
+                         "ledger": ledger, "crash_ledger": crash,
+                         "resumed_from": rinfo.resumed_from, "resume_err": resume_err}
+        del sess, prog, km_c
+        torch.cuda.empty_cache()
+
+        # -- wordcount escalated out of a hash target a rung too small -----------
+        sess = BlazeSession(device=dev, escalate_overflow=True)
+        distinct = int((want > 0).sum())
+        cap = 1 << (distinct.bit_length() - 1)
+        cap = cap // 2 if cap >= distinct else cap
+        hm = sess.make_dist_hashmap(cap, (), torch.int32, "sum")
+        tokens = data["tokens"][: prefix.shape[0]]
+        (out, st), _, launch = self.drive("faults wordcount escalate", lambda: sess.map_reduce(
+            DistVector(tokens, prefix.shape[0]), wordcount_mapper, "sum", hm,
+            engine="pallas", key_range=vocab, return_stats=True), int(prefix.size))
+        self.fault_launches_add(launch)
+        if not (st.escalations >= 1 and out.total_overflow() == 0
+                and np.array_equal(counts(out), want) and launch["hash_aggregate"] > 0):
+            raise AssertionError(f"faults escalate: {st.escalations} escalations, "
+                                 f"{out.total_overflow()} dropped")
+        res["escalation"] = {"distinct": distinct, "capacity": [cap, out.capacity_per_shard],
+                             "escalations": st.escalations,
+                             "host_syncs": sess.stats.host_syncs,
+                             "ledger": self.fault_ledger("escalation")}
+        del sess, hm, out
+
+        # -- supervision's cost with no rule armed, supervised and not, in turns --
+        # End to end: 20 runs each, interleaved.  Directly: the host time of
+        # the supervised wrapper around a dispatch that does nothing, against
+        # the bare call, which is all that retry=None takes away.
+        sessions = {"supervised": BlazeSession(device=dev),
+                    "unsupervised": BlazeSession(device=dev, retry=None)}
+        order = ("supervised", "unsupervised", "unsupervised", "supervised") * 10
+        pr_ms = {k: [] for k in sessions}
+        for k in order:
+            pr_ms[k].append(sync_ms(lambda: pagerank(
+                edges_np, n_pages, tol=0.0, max_iters=5, engine="pallas",
+                session=sessions[k]))[1])
+        pr_dispatches = sessions["supervised"].stats.dispatches // len(pr_ms["supervised"])
+        progs = {k: s.program(km_step) for k, s in sessions.items()}
+        state = km0(c0)
+        for k, p_ in progs.items():
+            sessions[k].run_loop(p_, state, max_iters=1)  # captures
+        rp_ms = {k: [] for k in sessions}
+        for k in order:
+            rp_ms[k].append(sync_ms(lambda: sessions[k].run_loop(progs[k], state,
+                                                                  max_iters=1))[1])
+        sup = sessions["supervised"]
+        node = types.SimpleNamespace(engine="pallas", degraded_from=None)
+        noop = (None, None)
+        calls = 100_000
+        wrap_us = {"supervised": [], "bare": []}
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                sup._dispatch_supervised(lambda: noop, node)
+            wrap_us["supervised"].append((time.perf_counter() - t0) / calls * 1e6)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                (lambda: noop)()
+            wrap_us["bare"].append((time.perf_counter() - t0) / calls * 1e6)
+        per_call_us = (statistics.median(wrap_us["supervised"])
+                       - statistics.median(wrap_us["bare"]))
+
+        def spread(v):
+            q = statistics.quantiles(v, n=4)
+            return {"median": statistics.median(v), "q1": q[0], "q3": q[2],
+                    "min": min(v), "max": max(v)}
+
+        res["overhead"] = {
+            "runs_each": len(order) // 2,
+            "pagerank_per_op_5_iters_ms": {k: spread(v) for k, v in pr_ms.items()},
+            "pagerank_per_op_runs_ms": pr_ms,
+            "pagerank_supervised_dispatches_per_run": pr_dispatches,
+            "kmeans_replay_ms": {k: spread(v) for k, v in rp_ms.items()},
+            "kmeans_replay_runs_ms": rp_ms,
+            "wrapper_us_per_call": {k: statistics.median(v) for k, v in wrap_us.items()},
+            "wrapper_added_us_per_dispatch": per_call_us,
+            "wrapper_added_ms_per_pagerank_run": per_call_us * pr_dispatches / 1e3}
+        del sessions, progs
+        torch.cuda.empty_cache()
+        res["totals"] = dict(self.fault_totals)
+        res["balanced"] = (self.fault_totals.get("injected", 0) == sum(
+            v for k, v in self.fault_totals.items() if k != "injected"))
+        if not res["balanced"] or faults.snapshot()["injected_total"]:
+            raise AssertionError(f"faults: the ledger does not balance: {self.fault_totals}")
+        res["phase_s"] = time.perf_counter() - t_phase
+        return res
+
+    def check_supervision(self):
+        """Every session the other phases made ended with no retry, no
+        degraded node and no escalation."""
+        seen = {}
+        for phase, st in self.session_stats:
+            if phase == "fault":
+                continue
+            agg = seen.setdefault(phase, {"sessions": 0, "retries": 0, "degraded_nodes": 0,
+                                          "escalations": 0})
+            agg["sessions"] += 1
+            for k in ("retries", "degraded_nodes", "escalations"):
+                agg[k] += getattr(st, k)
+        print(json.dumps({"supervision": seen}), flush=True)
+        bad = {p: a for p, a in seen.items()
+               if a["retries"] or a["degraded_nodes"] or a["escalations"]}
+        if bad:
+            raise AssertionError(f"supervision retried or degraded outside the fault "
+                                 f"phase: {bad}")
+        return seen
+
     # -- wire phase -----------------------------------------------------------
 
     def wire_phase(self, data):
@@ -2952,10 +3341,26 @@ class Smoke:
         if not sum(counts["flash_attention"].values()):
             raise AssertionError("K4's library holds no tensor-core instruction")
 
+    def track_sessions(self):
+        """Record every ``BlazeSession`` a phase makes (its stats), for
+        ``check_supervision``; disarm any ambient fault rule."""
+        from repro_torch.core import faults
+        from repro_torch.core import session as session_mod
+
+        faults.reset(env=False)
+        init = session_mod.BlazeSession.__init__
+
+        def tracked(sess, *args, **kwargs):
+            init(sess, *args, **kwargs)
+            self.session_stats.append((self.phase, sess.stats))
+
+        session_mod.BlazeSession.__init__ = tracked
+
     def run(self):
         torch = self.torch
         from repro_torch.kernels import _build
 
+        self.track_sessions()
         t0 = time.perf_counter()
         _build.build(["segment_reduce", "hash_combine", "kmeans_assign",
                       "flash_attention", "ssd_scan", "rwkv6_scan"])
@@ -2967,12 +3372,13 @@ class Smoke:
             print(json.dumps({"lm_results": self.lm_path(arch)}), flush=True)
             torch.cuda.empty_cache()
         data = self.make_data()
-        self.kernel_phase(data)
-        self.path_phase(data)
-        self.program_phase(data)
-        self.tuning_phase(data)
-        self.stream_phase(data)
-        self.wire_phase(data)
+        for name in ("kernel", "path", "program", "tuning", "stream", "wire"):
+            self.phase = name
+            getattr(self, f"{name}_phase")(data)
+        self.phase = "fault"
+        fault_results = self.fault_phase(data)
+        fault_results["other_phases"] = self.check_supervision()
+        print(json.dumps({"faults": fault_results}), flush=True)
         kernels = []
         sources = {
             "segment_reduce": ("src/repro_torch/kernels/csrc/segment_reduce.cu",
@@ -3034,6 +3440,9 @@ class Smoke:
                 "program_launches": {k: n for k, n in self.program_launches.get(
                     programs.get(key), {}).items()
                     if k.split("/")[0] == rec["kernel"]} or None,
+                # the fault phase's launches of the kernel (its graph replays
+                # included), on every path of that phase together
+                "fault_launches": self.fault_launches.get(rec["kernel"]),
             })
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"total_s": time.perf_counter() - START}), flush=True)

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import faults
+
 _SENTINEL = "MANIFEST.json"
 
 
@@ -63,7 +65,10 @@ class CheckpointManager:
     def save(self, step: int, tree, *, blocking: bool = True) -> str:
         """Write ``tree`` as checkpoint ``step``.  The leaves are copied to
         the host on the caller's thread; ``blocking=False`` writes the files
-        on a thread (:meth:`wait` joins it)."""
+        on a thread (:meth:`wait` joins it).  The ``checkpoint.write`` fault
+        point fires first, on the caller's thread, so an injected write
+        fault reaches whoever supervises the save."""
+        faults.fault_point("checkpoint.write")
         leaves, spec = _flatten(tree)
         if blocking:
             return self._write(step, leaves, str(spec))

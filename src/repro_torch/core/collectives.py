@@ -10,18 +10,25 @@ wire (``wire="bf16" | "int8"``, through ``distributed.collectives``), the
 counterpart of ``RealCollectives.reduce``/``reduce_feedback``'s flat form.
 Collectives across cards, and the hierarchical form, come with the
 multi-host slice.
+
+``fire=True`` makes every :meth:`reduce` hit the ``collective`` fault point
+(``core.faults``).  The reference hits it while ``jax.jit`` traces a stage;
+here a stage runs eagerly on every call, so its owner sets ``fire`` only on
+the runs that stand for a trace (``mapreduce.CachedStage``, ``Program``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.reducers import Reducer
 
 
 class LocalCollectives:
-    def __init__(self, n_shards: int, device: torch.device):
+    def __init__(self, n_shards: int, device: torch.device, fire: bool = False):
         self.n_shards = n_shards
         self.device = device
+        self.fire = fire
 
     def axis_index(self) -> torch.Tensor:
         """Every shard's index, ``[S]``."""
@@ -34,6 +41,8 @@ class LocalCollectives:
         for prod and custom reducers); a sum with ``wire="bf16" | "int8"``
         goes through ``compressed_psum`` (shared-scale int8 over the int8
         lattice, or bf16)."""
+        if self.fire:
+            faults.fault_point("collective")
         if wire == "none" or red.name != "sum":
             return red.collective(partial)
         if wire not in ("bf16", "int8"):

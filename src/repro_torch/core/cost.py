@@ -76,6 +76,19 @@ def table_capacity(n: int, distinct_hint: int | None = None) -> int:
     return cap
 
 
+def next_capacity(cap: int, *, limit: int = MAX_TABLE_CAP) -> int | None:
+    """The next rung of the hash-capacity grid above ``cap``: powers of two
+    from ``MIN_TABLE_CAP`` up to ``limit``.  Overflow escalation climbs it
+    one rung a re-dispatch; ``None`` means the grid is exhausted (the
+    overflow stays counted)."""
+    if cap >= limit:
+        return None
+    nxt = MIN_TABLE_CAP
+    while nxt <= cap:
+        nxt *= 2
+    return min(nxt, limit)
+
+
 def node_cost(engine: str, k: int) -> float:
     """Modelled cost of one shard-local combine over ``k`` accumulator rows,
     in accumulator-row units (EXPLAIN's ``cost~``): the kernel touches each

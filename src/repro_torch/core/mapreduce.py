@@ -41,6 +41,12 @@ same signature as the JAX executable cache, so compile counts carry over.
 ``tuned`` (a ``cost.TunedConfig``, the autotuner's winner) pins the kernel's
 launch: K1's form and CTAs per SM, K2's table capacity, probe depth and
 table of hot keys.
+
+Fault points (``core.faults``): every dispatch hits ``dispatch``, and
+``kernel.segment`` / ``kernel.hash`` when the engine is ``"pallas"``, before
+its stage runs, so a supervised retry runs the same op again.  A cached
+stage's reduces hit ``collective`` where the reference's ``jax.jit`` traces
+(:class:`CachedStage`): on its runs until one succeeds.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from torch.func import vmap
 
 from repro_torch.core import containers as C
 from repro_torch.core import cost
+from repro_torch.core import faults
 from repro_torch.core.collectives import LocalCollectives
 from repro_torch.core.plan import abstract_sig
 from repro_torch.core.reducers import Reducer
@@ -93,6 +100,12 @@ class MapReduceStats:
     # stable digest of this op's plan node (``core.plan``), the same for the
     # per-op and program spellings of the op
     plan_hash: str | None = None
+    # supervised-dispatch provenance (``core.faults``, the session's
+    # supervisor): the engine a kernel fault degraded the node from (None:
+    # never degraded), retries absorbed, hash-capacity escalations taken
+    degraded_engine: str | None = None
+    retries: int = 0
+    escalations: int = 0
 
     def finalize(self) -> "MapReduceStats":
         def _get(x):
@@ -117,6 +130,23 @@ class MapReduceStats:
             kernel_pairs=kernel_pairs,
             kernel_occupancy=occupancy,
         )
+
+
+@dataclasses.dataclass
+class CachedStage:
+    """A shard stage in the session's cache.  ``fire``: the next run's
+    reduces hit the ``collective`` fault point, as the reference's ``jax.jit``
+    traces on a stage's first call; true until a run succeeds."""
+
+    stage: Callable
+    kernel_meta: dict
+    fire: bool = True
+
+    def run(self, n_shards: int, device, *args):
+        """``stage(*args, coll)`` with this run's collectives."""
+        out = self.stage(*args, LocalCollectives(n_shards, device, fire=self.fire))
+        self.fire = False
+        return out
 
 
 def _scalar(x):
@@ -461,15 +491,21 @@ def _map_reduce_dense(kind, source, mapper, red: Reducer, target, n_shards: int,
         kind, with_stats, abstract_sig(_source_operands(kind, source)),
         _source_extent(kind, source), abstract_sig(target), abstract_sig(env), tuned,
     )
-    compiled_now = cache_key not in cache
+    if node is not None:
+        node.cache_sig = cache_key
+    entry = cache.get(cache_key)
+    compiled_now = entry is None
     if compiled_now:
-        cache[cache_key] = dense_shard_stage(
+        entry = cache[cache_key] = CachedStage(*dense_shard_stage(
             kind, source, mapper, red, target, engine, wire, with_stats=with_stats,
             tuned=tuned,
-        )
-    stage, kernel_meta = cache[cache_key]
-    coll = LocalCollectives(n_shards, device)
-    total, live, kernel_pairs, _ = stage(env, _local_view(kind, source), coll)
+        ))
+    kernel_meta = entry.kernel_meta
+    faults.fault_point("dispatch")
+    if engine == "pallas":
+        faults.fault_point("kernel.segment")
+    total, live, kernel_pairs, _ = entry.run(n_shards, device, env,
+                                             _local_view(kind, source))
     merged = red.combine(target, total.to(target.dtype))
 
     full_bytes = target.element_size()
@@ -651,17 +687,21 @@ def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
         _source_extent(kind, source),
         abstract_sig((target.table.keys, target.table.vals)), abstract_sig(env), tuned,
     )
-    compiled_now = cache_key not in cache
+    if node is not None:
+        node.cache_sig = cache_key
+    entry = cache.get(cache_key)
+    compiled_now = entry is None
     if compiled_now:
-        cache[cache_key] = hash_shard_stage(
+        entry = cache[cache_key] = CachedStage(*hash_shard_stage(
             kind, source, mapper, red, target.table.vals.dtype, engine, slack,
             key_range=key_range, tuned=tuned,
-        )
-    stage, kernel_meta = cache[cache_key]
-    coll = LocalCollectives(n_shards, device)
-    table, emitted, shipped, kernel_pairs = stage(
-        env, target.table, _local_view(kind, source), coll
-    )
+        ))
+    kernel_meta = entry.kernel_meta
+    faults.fault_point("dispatch")
+    if engine == "pallas":
+        faults.fault_point("kernel.hash")
+    table, emitted, shipped, kernel_pairs = entry.run(
+        n_shards, device, env, target.table, _local_view(kind, source))
     out = C.DistHashMap(table, reducer_name=red.name)
     val_bytes = target.table.vals.element_size()
     key_bytes = _wire_key_dtype(key_range).itemsize

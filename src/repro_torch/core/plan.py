@@ -21,9 +21,10 @@ DAG one can optimise and render:
 
 Measured autotuning (``apply_tuned``: a ``TuningCache`` winner pins a node's
 engine and kernel launch, keyed by ``MapReduceNode.tune_key``, the node's hash
-before any override) runs in ``build_mapreduce_node``.  The hierarchical pass
-(``apply_hierarchical``) and fault degradation (``degrade_node``) come with
-later slices of the port.
+before any override) runs in ``build_mapreduce_node``, and so does fault
+degradation: a node whose ``tune_key`` the session has degraded after a
+kernel fault is born eager (``degrade_node``).  The hierarchical pass
+(``apply_hierarchical``) comes with the multi-host slice of the port.
 """
 from __future__ import annotations
 
@@ -162,12 +163,17 @@ class MapReduceNode:
     cse_of: int | None = None  # idx of the identical earlier node it reuses
     dead: bool = False  # result provably unused -> op pruned
     collective: str = ""  # what carries this op's shuffle
+    cache_sig: tuple | None = None  # the session's stage-cache key of this op
     # -- cost-model and tuning annotations, outside stable_desc: the tuning
     # cache is keyed by the hash of the untuned node, so applying a winner
     # must not move the key it was cached under -------------------------------
     cost_estimate: float | None = None  # cost.node_cost of the resolved engine
     tune_key: str = ""  # node hash at resolve time, before any tuned override
     tuned: TunedConfig | None = None  # the applied winner (measured or loaded)
+    # -- fault supervision: the engine a kernel fault degraded this node from
+    # (None: never degraded).  Outside stable_desc, like tuned, but the
+    # degradation rewrites ``engine``, which is inside it.
+    degraded_from: str | None = None
 
     def stable_desc(self) -> str:
         return (
@@ -283,7 +289,10 @@ class Plan:
                     flags.append(f"group {chr(ord('A') + n.group)}")
                 if n.feedback:
                     flags.append("int8 feedback")
-                if n.engine_requested != n.engine and n.tuned is None:
+                if n.degraded_from is not None:
+                    flags.append(f"degraded {n.degraded_from!r} -> {n.engine!r} "
+                                 "(kernel fault)")
+                elif n.engine_requested != n.engine and n.tuned is None:
                     flags.append(f"requested {n.engine_requested!r}")
                 if n.tuned is not None:
                     cfg = n.tuned
@@ -379,14 +388,31 @@ def apply_tuned(node: MapReduceNode, red: Reducer, cfg: TunedConfig) -> None:
     node.tuned = cfg
 
 
+def degrade_node(node: MapReduceNode) -> None:
+    """Degrade a kernel-faulted node to the always-available eager engine:
+    record where it came from (EXPLAIN, ``MapReduceStats.degraded_engine``)
+    and drop its tuned config (a pinned kernel launch cannot run the eager
+    plan).  The new ``engine`` moves the node's hash and stage-cache key, so
+    the eager stage caches beside, never over, the faulted one; ``tune_key``
+    was taken before and stays."""
+    if node.engine == "eager":
+        return
+    node.degraded_from = node.engine
+    node.engine = "eager"
+    node.tuned = None
+
+
 def build_mapreduce_node(idx: int, kind: str, src: str, source_key: tuple | None,
                          mapper: Callable, red: Reducer, target, engine: str,
                          wire: str, key_range: int | None, env: Any,
-                         tuning: TuningCache | None = None) -> MapReduceNode:
+                         tuning: TuningCache | None = None,
+                         degraded: set | None = None) -> MapReduceNode:
     """Build a MapReduce node and run the resolve-engines pass on it: the one
     node constructor of ``BlazeSession.map_reduce`` and of every program
     node, which is why both give one op the same hash.  With a ``tuning``
-    cache, a winner cached under the node's untuned hash is applied."""
+    cache, a winner cached under the node's untuned hash is applied; a node
+    whose ``tune_key`` is in ``degraded`` (the session's kernel-faulted
+    nodes) is born eager, so it reuses the stage its recovery built."""
     target_kind, tdesc = target_desc_of(target)
     if target_kind == "hash":
         wire = "none"  # wire narrowing is a dense-target concept
@@ -418,6 +444,8 @@ def build_mapreduce_node(idx: int, kind: str, src: str, source_key: tuple | None
         cfg = tuning.get(node.tune_key)
         if cfg is not None:
             apply_tuned(node, red, cfg)
+    if degraded and node.tune_key in degraded:
+        degrade_node(node)
     return node
 
 

@@ -66,7 +66,27 @@ block.  ``run_loop`` and ``run_stream`` checkpoint the state, the carry and
 the position (``save_checkpoint``), and resume (``restore_checkpoint``),
 restoring into the program's own buffers.
 
-Fault degradation (``degrade``) comes with a later slice of the port.
+**Faults.**  A dispatch hits the ``dispatch`` fault point, then
+``kernel.segment`` / ``kernel.hash`` for each live kernel node, before any
+graph is captured or replayed, so a supervised retry
+(``BlazeSession.supervised``) replays the same carry.  The ``collective``
+point fires at each reduce of a plan's runs after discovery until one
+succeeds (on the card, its capture), never at a replay.
+:meth:`Program.degrade` puts the live kernel nodes' ``tune_key``s into the
+session's degraded set and drops their plans and CUDA graphs (the
+supervisor calls it after an injected kernel fault only; a real error
+propagates); the next dispatch rediscovers the plan with
+those nodes eager and captures again, into the carry buffers, the static
+input state and the stream slots the old graphs read, which it keeps (so a
+checkpoint restores into them as before).  A capture that raises leaves no
+graph and no stale context behind.  Captures run in ``thread_local`` error
+mode: a degrade in the middle of a stream captures again while the prefetch
+worker may be allocating pinned memory on its own thread, which the
+default (``global``) mode would turn into a failed capture; the program's
+own thread still may not make an unsafe call, and a host sync in the step
+raises (the sync-debug mode).  ``run_stream`` dispatches each block
+supervised; ``save_checkpoint`` retries a transient ``checkpoint.write``
+fault.
 """
 from __future__ import annotations
 
@@ -81,6 +101,7 @@ from torch.func import vmap
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import containers as C
+from repro_torch.core import faults
 from repro_torch.core import mapreduce as _mr
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.collectives import LocalCollectives
@@ -94,7 +115,7 @@ from repro_torch.core.plan import (
     SourceInfo,
 )
 from repro_torch.core.reducers import _BUILTIN, get_reducer
-from repro_torch.core.session import _cuda_index, _later, _sync
+from repro_torch.core.session import _cuda_index, _sync
 
 __all__ = [
     "LocalHashMap",
@@ -145,6 +166,8 @@ class ProgramStats:
     captured_launches: dict = dataclasses.field(default_factory=dict)
     pool_peak_bytes: int = 0  # largest device memory peak over a capture
     pool_reserved_bytes: int = 0  # device memory the captures reserved, all graphs
+    degradations: int = 0  # degrade() calls that degraded a node
+    graphs_dropped: int = 0  # CUDA graphs degrade() dropped
 
 
 @dataclasses.dataclass
@@ -377,7 +400,8 @@ class ProgramContext:
     def __init__(self, n_shards: int, device, mode: str, residuals=None,
                  hash_tables=None, plan: Plan | None = None,
                  passes: tuple = DEFAULT_PASSES, tuning=None, overrides=None,
-                 streams: dict | None = None):
+                 streams: dict | None = None, degraded: set | None = None,
+                 fire: bool = False):
         self._n_shards = n_shards
         self._device = device
         self._mode = mode  # "discover" | "execute"
@@ -385,12 +409,15 @@ class ProgramContext:
         # (cached winners apply to every node built), ``overrides`` maps
         # tune_key -> the candidate a measurement variant pins.
         self._tuning = tuning
+        self._degraded = degraded  # the session's kernel-faulted tune_keys
         self._overrides = overrides or {}
         self._tune_info: dict[int, tuple] = {}  # idx -> candidate-grid parameters
         # chunked-source key -> _StreamSlot, the program's (shared by every
         # context of it, so the graphs read one buffer)
         self._streams = streams if streams is not None else {}
-        coll = LocalCollectives(n_shards, device)
+        # ``fire``: this run stands for the reference's trace, so its reduces
+        # hit the ``collective`` fault point (never discovery's).
+        coll = LocalCollectives(n_shards, device, fire=fire and mode == "execute")
         self._coll = _CountingCollectives(coll) if mode == "discover" else coll
         self._plan = plan
         self._passes = tuple(passes)
@@ -509,10 +536,10 @@ class ProgramContext:
         node = plan_mod.build_mapreduce_node(
             idx=self._call_i, kind=kind, src=src_desc, source_key=source_key,
             mapper=mapper, red=red, target=target, engine=engine, wire=wire,
-            key_range=key_range, env=env, tuning=self._tuning,
+            key_range=key_range, env=env, tuning=self._tuning, degraded=self._degraded,
         )
         ov = self._overrides.get(node.tune_key)
-        if ov is not None:
+        if ov is not None and node.degraded_from is None:
             plan_mod.apply_tuned(node, red, ov)
         self._call_i += 1
         self._nodes.append(node)
@@ -937,6 +964,9 @@ class Program:
         self._carry: dict = {}  # state signature -> _Carry
         self._graphs: dict = {}  # (state signature, u) -> _Graph
         self._pool = None  # the first graph's memory pool, which later captures share
+        # Signatures whose next run (on the card, capture) hits the
+        # ``collective`` point: discovered and not yet run to the end.
+        self._unproven: set = set()
         self._last_sig = None
         self._active: ProgramContext | None = None  # the iteration running
         self.plan: Plan | None = None
@@ -956,7 +986,8 @@ class Program:
     def _discover(self, leaves, spec) -> Plan:
         ctx = ProgramContext(self._n_shards, self._device, "discover",
                              passes=self._passes, tuning=self._session.tuning,
-                             overrides=self._overrides, streams=self._streams)
+                             overrides=self._overrides, streams=self._streams,
+                             degraded=self._session._degraded)
         probe = pytree.tree_unflatten([x.clone() for x in leaves], spec)
         out = ctx._finalize_state(self._step_fn(ctx, probe))
         out_leaves, out_spec = _flatten(out, self._device)
@@ -994,11 +1025,15 @@ class Program:
         and a replay on the card) and then timed over a second dispatch, a
         replay, with the device synchronised around it.  Each variant's
         graphs and pool are freed before the next is built (every k-means
-        graph reserves gigabytes).  The fastest variant's configs are cached
-        under their ``tune_key``s, so the real build that follows, and any
-        later program or ``map_reduce`` with the same op, applies them.
-        Programs that read chunked sources are not tuned: their blocks
-        arrive a dispatch at a time.  A variant that fails raises.
+        graph reserves gigabytes), whether it ran or raised.  The fastest
+        variant's configs are cached under their ``tune_key``s, so the real
+        build that follows, and any later program or ``map_reduce`` with the
+        same op, applies them.  Programs that read chunked sources are not
+        tuned: their blocks arrive a dispatch at a time.  Each variant hits
+        ``tuning.measure`` first; a variant that takes an injected fault is
+        skipped and the fault recorded ``absorbed``.  A real error raises:
+        a variant that fails to build, launch or capture is a defect, not a
+        slow candidate.
         """
         from repro_torch.core import cost
 
@@ -1011,7 +1046,8 @@ class Program:
         seen: set[str] = set()
         for n in probe.mapreduce_nodes():
             if (n.dead or n.cse_of is not None or n.tuned is not None
-                    or n.tune_key in seen or tuning.peek(n.tune_key) is not None):
+                    or n.degraded_from is not None or n.tune_key in seen
+                    or tuning.peek(n.tune_key) is not None):
                 continue
             tkind, k, v, red_name, dtype, key_range, has_kernel = probe.tune_info[n.idx]
             if not has_kernel or n.engine_requested == "naive":
@@ -1030,23 +1066,29 @@ class Program:
         for j in range(max(len(c) for _, c in cand_lists)):
             ov = {tk: cands[min(j, len(cands) - 1)] for tk, cands in cand_lists}
             variant = Program(session, self._step_fn, passes=self._passes, overrides=ov)
-            variant(state, 1)  # discovery, warm-up, capture, one replay
-            _sync(self._device)
-            t0 = time.perf_counter()
-            variant(state, 1)  # timed: a replay
-            _sync(self._device)
-            wall = time.perf_counter() - t0
-            launches = variant.stats.captured_launches.get(1, {})
-            self.tune_walls.append((ov, wall, dict(launches)))
+            try:
+                faults.fault_point("tuning.measure")
+                variant(state, 1)  # discovery, warm-up, capture, one replay
+                _sync(self._device)
+                t0 = time.perf_counter()
+                variant(state, 1)  # timed: a replay
+                _sync(self._device)
+                wall = time.perf_counter() - t0
+                launches = dict(variant.stats.captured_launches.get(1, {}))
+            except faults.InjectedFault as e:
+                faults.record("absorbed", e)
+                continue
+            finally:
+                del variant
+                gc.collect()
+                if self._device.type == "cuda":
+                    torch.cuda.empty_cache()  # the variant's graph pool goes back
+            self.tune_walls.append((ov, wall, launches))
             session._record_measurement(",".join(ov), "; ".join(c.describe() for c in ov.values()),
                                         wall)
-            del variant
-            gc.collect()
-            if self._device.type == "cuda":
-                torch.cuda.empty_cache()  # the variant's graph pool goes back
             if best_wall is None or wall < best_wall:
                 best_wall, best_set = wall, ov
-        for tk, cfg in best_set.items():
+        for tk, cfg in (best_set or {}).items():
             tuning.put(tk, dataclasses.replace(cfg, source="measured", wall_s=best_wall))
 
     def _build(self, leaves, spec):
@@ -1058,9 +1100,12 @@ class Program:
             self._maybe_tune(leaves, spec)
         plan = self._discover(leaves, spec)
         self._plans[sig] = plan
+        self._unproven.add(sig)
         self.plan = plan
         self.feedback_slots = len(plan.residual_specs)
         self.hash_slots = len(plan.hash_targets)
+        # A signature rebuilt after degrade() keeps its carry: the graphs
+        # captured next read the same buffers, and checkpoints restore into them.
         if sig not in self._carry:
             self._carry[sig] = _Carry(
                 residuals=[torch.zeros(shape, dtype=dtype, device=self._device)
@@ -1076,21 +1121,25 @@ class Program:
 
     # -- run -----------------------------------------------------------------
 
-    def _run_iters(self, plan: Plan, state, residuals: list, tables: dict, u: int):
-        for _ in range(u):
+    def _run_iters(self, plan: Plan, state, residuals: list, tables: dict, u: int,
+                   fire: bool = False):
+        """``u`` iterations of the plan; with ``fire`` the first one's
+        reduces hit the ``collective`` fault point."""
+        for i in range(u):
             ctx = ProgramContext(self._n_shards, self._device, "execute",
                                  residuals=residuals, hash_tables=tables, plan=plan,
-                                 passes=self._passes, streams=self._streams)
+                                 passes=self._passes, streams=self._streams,
+                                 fire=fire and i == 0)
             self._active = ctx
             state = ctx._finalize_state(self._step_fn(ctx, state))
             residuals, tables = ctx._residuals, ctx._hash_tables
         return state, residuals, tables
 
-    def _run_block(self, plan: Plan, state, carry: _Carry, u: int):
+    def _run_block(self, plan: Plan, state, carry: _Carry, u: int, fire: bool = False):
         """``u`` iterations from ``state``; the carry's new values are
         copied into its buffers in place."""
         out, residuals, tables = self._run_iters(
-            plan, state, list(carry.residuals), dict(carry.tables), u)
+            plan, state, list(carry.residuals), dict(carry.tables), u, fire)
         for buf, new in zip(carry.residuals, residuals):
             buf.copy_(new)
         for key, t in carry.tables.items():
@@ -1102,9 +1151,23 @@ class Program:
 
     def _capture(self, sig, spec, carry: _Carry, u: int) -> _Graph:
         """Capture ``u`` iterations as one CUDA graph, after one warm-up
-        iteration on a side stream on clones of the state and carry."""
+        iteration on a side stream on clones of the state and carry.
+
+        The graph shares the program's pool while any of its graphs lives;
+        once ``degrade`` has dropped them all, the capture starts a new one
+        (PyTorch's allocator asserts on a capture into a pool whose graphs
+        are all gone while a tensor allocated in it still lives).  An injected fault
+        (the ``collective`` point) passes through as it is, for the
+        supervisor; any other error is raised naming the op.  Either way
+        nothing is left behind: no graph, no stale context, the sync-debug
+        mode restored."""
         dev = self._device
         plan = self._plans[sig]
+        # A block's copy may still be landing in a stream slot's staging
+        # buffer (a capture in the middle of a stream): let it finish first.
+        for slot in self._streams.values():
+            if slot.copy is not None:
+                slot.copy.synchronize()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -1120,12 +1183,13 @@ class Program:
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         self._active = None
+        pool = self._pool if self._graphs else None
         try:
             # Every graph of the program allocates from the first one's pool:
             # they never replay at once, each reads its input from the
             # static state_in and its outputs are copied out after each
             # replay, so a later graph may reuse what an earlier one frees.
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                 # Entering emptied the allocator's cache: from here on what
                 # the device reserves is the graphs' pool growing.
                 reserved = torch.cuda.memory_reserved(dev)
@@ -1134,12 +1198,17 @@ class Program:
                 debug = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    out = self._run_block(
-                        plan, pytree.tree_unflatten(carry.state_in, spec), carry, u)
+                    out = self._fired(sig, lambda fire: self._run_block(
+                        plan, pytree.tree_unflatten(carry.state_in, spec), carry, u,
+                        fire=fire))
                 finally:
                     torch.cuda.set_sync_debug_mode(debug)
+        except faults.InjectedFault:
+            self._active = None
+            raise
         except Exception as e:
             where = self._active.last_op if self._active is not None else "the step"
+            self._active = None
             raise RuntimeError(
                 f"CUDA graph capture of the program failed at or after plan node "
                 f"{where}: {e}"
@@ -1147,7 +1216,7 @@ class Program:
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev) - base
         grown = max(0, torch.cuda.memory_reserved(dev) - reserved)
-        if self._pool is None:
+        if pool is None:
             self._pool = graph.pool()
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -1164,6 +1233,13 @@ class Program:
         st.graph_pool_reserved_bytes += grown
         return _Graph(graph, out_leaves, launches)
 
+    def _fired(self, sig, run):
+        """``run(fire)``, ``fire`` telling whether its reduces hit the
+        ``collective`` point: until a run of the signature succeeds."""
+        out = run(sig in self._unproven)
+        self._unproven.discard(sig)
+        return out
+
     def _stream_slots(self, sig) -> list:
         """The stream slots of the chunked sources the plan reads."""
         return [self._streams[s.key] for s in self._plans[sig].live_sources()
@@ -1179,6 +1255,12 @@ class Program:
             raise ValueError("program reads chunked (out-of-core) sources: drive it "
                              "with program.run_stream(...) / session.run_stream(...)")
         return self._dispatch(leaves, spec, sig, n_iters)
+
+    def _block(self, leaves, spec):
+        """One dispatch of one iteration over the resident blocks, the plan
+        (re)built first: a supervised retry after ``degrade`` rediscovers
+        it."""
+        return self._dispatch(leaves, spec, self._build(leaves, spec), 1)
 
     def _graph_for(self, sig, spec, leaves, n_iters: int) -> _Graph:
         """Copy ``leaves`` into the static input state and return the graph
@@ -1197,6 +1279,14 @@ class Program:
         if n_iters < 1:
             raise ValueError(f"n_iters must be >= 1, got {n_iters}")
         plan, carry = self._plans[sig], self._carry[sig]
+        # Every fault point fires before anything runs or any carry moves,
+        # so a supervised retry replays exactly this dispatch.
+        faults.fault_point("dispatch")
+        if faults.registry.armed:
+            for node in plan.mapreduce_nodes():
+                if node.engine == "pallas" and not node.dead and node.cse_of is None:
+                    faults.fault_point("kernel.hash" if node.target_kind == "hash"
+                                       else "kernel.segment")
         if self._on_card:
             g = self._graph_for(sig, spec, leaves, n_iters)
             g.graph.replay()
@@ -1208,8 +1298,8 @@ class Program:
                                  self._session.stats.graph_launches):
                     launches[k] = launches.get(k, 0) + n
         else:
-            out = self._run_block(plan, pytree.tree_unflatten(leaves, spec), carry,
-                                  n_iters)
+            out = self._fired(sig, lambda fire: self._run_block(
+                plan, pytree.tree_unflatten(leaves, spec), carry, n_iters, fire=fire))
             out = pytree.tree_unflatten(_flatten(out, self._device)[0], spec)
         self._last_sig = sig
         self.stats.dispatches += 1
@@ -1302,7 +1392,11 @@ class Program:
         host sync).  ``checkpoint=`` with ``checkpoint_every=K`` saves the
         state, the carry and the epoch every ``K`` epochs; ``resume=True``
         restores the latest and goes on from its epoch (a crash mid-epoch
-        replays that epoch).  Returns ``(state, StreamInfo)``.
+        replays that epoch).  Each block's dispatch runs supervised
+        (``session.supervised``): a retry replays the block already resident
+        in the static buffer (block k+1 waits in the staging buffer), and a
+        degrade captures again after the copy stream has drained.  Returns
+        ``(state, StreamInfo)``.
         """
         from repro_torch.data.pipeline import prefetch_iter
 
@@ -1323,11 +1417,12 @@ class Program:
         dev = self._device
         card = self._on_card
         index = _cuda_index(dev) if card else None
+        supervised = self._session.supervised
         if card:
-            # Capture before any block moves: a capture forbids other
-            # threads' unsafe calls (the pinned allocator's event queries),
-            # and the copy stream must not run beside it.
-            self._graph_for(sig, spec, leaves, 1)
+            # Capture before any block moves: the copy stream must not run
+            # beside the capture.
+            supervised(lambda: self._graph_for(self._build(leaves, spec), spec, leaves, 1),
+                       program=self)
 
         def produce(b):
             if card:
@@ -1360,7 +1455,7 @@ class Program:
                     for slot, host in zip(slots, nxt[1]):
                         slot.stage(host)
                 leaves, spec = _flatten(state, dev)
-                state = self._dispatch(leaves, spec, sig, 1)
+                state = supervised(lambda: self._block(leaves, spec), program=self)
                 blocks += 1
                 if not prefetch:
                     _sync(dev)
@@ -1389,9 +1484,11 @@ class Program:
                 "pos": torch.tensor(pos, dtype=torch.int64)}
 
     def save_checkpoint(self, manager, state, pos: int) -> str:
-        """Save the resume payload as checkpoint ``pos`` (host copies; fault
-        retries come with the faults slice)."""
-        return manager.save(pos, self.checkpoint_payload(state, pos))
+        """Save the resume payload as checkpoint ``pos`` (host copies),
+        supervised: a transient ``checkpoint.write`` fault is retried, at
+        most 3 tries in all; a fatal one propagates."""
+        payload = self.checkpoint_payload(state, pos)
+        return faults.retry_in_place(lambda: manager.save(pos, payload))
 
     def restore_checkpoint(self, manager, state):
         """Restore the latest checkpoint: returns ``(state, position)``, or
@@ -1411,11 +1508,36 @@ class Program:
                 dst.copy_(src)
         return state, int(restored["pos"])
 
-    # -- later slices ----------------------------------------------------------
+    # -- fault supervision ------------------------------------------------------
 
     def degrade(self) -> int:
-        raise _later("Program.degrade (kernel-fault degradation)",
-                     "faults and supervised dispatch")
+        """Degrade every live kernel node of this program to eager; returns
+        how many (0 once none is left, so the supervisor never loops).
+
+        The nodes' ``tune_key``s go into the session's degraded set, so every
+        later build (this program's, another's, a per-op call) is born eager;
+        the plans of the signatures they belong to and those signatures'
+        CUDA graphs are dropped (the graphs released before the next
+        capture).  The next dispatch rediscovers the plan and captures
+        again into the carry, the static input state and the stream slots,
+        which stay where they are.  The tuning cache is never touched."""
+        degraded = self._session._degraded
+        n = 0
+        for sig, plan in list(self._plans.items()):
+            live = [node for node in plan.mapreduce_nodes()
+                    if node.engine == "pallas" and not node.dead and node.cse_of is None]
+            if not live:
+                continue
+            degraded.update(node.tune_key for node in live)
+            n += len(live)
+            del self._plans[sig]
+            for key in [k for k in self._graphs if k[0] == sig]:
+                del self._graphs[key]
+                self.stats.graphs_dropped += 1
+        if n:
+            self._active = None  # its tensors live in the dropped graphs' pool
+            self.stats.degradations += 1
+        return n
 
 
 def _as_checkpoint_manager(checkpoint):

@@ -19,6 +19,15 @@ consults; ``save_tuning`` / ``load_tuning`` persist the cache.  Out of core:
 runs a stage per block, ``run_stream`` a program's graph per block, and
 ``run_loop`` / ``run_stream`` checkpoint and resume (``checkpoint=``).
 
+Supervision (``core.faults``): every dispatch the session makes (a per-op
+call, a chunked block, a program block) runs under ``retry``, a
+``RetryPolicy``.  A transient fault is retried with backoff; an injected
+kernel fault degrades the node (per op) or the program's kernel nodes to
+eager and runs the dispatch again; a fatal fault, and any real error,
+propagates.  ``escalate_overflow=True`` regrows a hash target that
+overflowed along the capacity grid and runs the op again.  ``retry=None``
+turns supervision off.
+
 Its entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA, ``BlazeSession()`` raises.  The free ``map_reduce`` routes
 through a lazily created process-wide default session.
@@ -36,6 +45,7 @@ import torch
 
 from repro_torch.core import containers as C
 from repro_torch.core import cost as cost_mod
+from repro_torch.core import faults
 from repro_torch.core import mapreduce as _mr
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.plan import ENGINES, resolve_engine
@@ -76,6 +86,9 @@ class SessionStats:
     graph_pool_peak_bytes: int = 0  # largest device memory peak over a capture
     graph_pool_reserved_bytes: int = 0  # device memory the captures reserved
     tune_measurements: int = 0  # candidate configs timed by the autotuner
+    retries: int = 0  # transient-fault dispatches run again
+    degraded_nodes: int = 0  # kernel faults that degraded nodes to eager
+    escalations: int = 0  # hash targets regrown after overflow
     # kernel (and "kernel/form") -> launches run by graph replays
     graph_launches: dict = dataclasses.field(default_factory=dict)
 
@@ -84,11 +97,9 @@ class SessionStats:
         return self.cache_hits / self.calls if self.calls else 0.0
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with the {slice_name} slice "
-        "of the port (ROADMAP.md, Queue 1)"
-    )
+# The default supervision policy: 3 attempts, 5 ms first backoff, 30 s
+# deadline (one instance, so the default is introspectable).
+_DEFAULT_RETRY = faults.RetryPolicy()
 
 
 def _sync(device: torch.device) -> None:
@@ -113,13 +124,25 @@ class BlazeSession:
     >>> sess.stats.compiles   # 1 — nine of the ten calls reused it
     """
 
-    def __init__(self, device=None, n_shards: int = 1, *, tuning_path: str | None = None):
+    def __init__(self, device=None, n_shards: int = 1, *, tuning_path: str | None = None,
+                 retry: faults.RetryPolicy | None = _DEFAULT_RETRY,
+                 escalate_overflow: bool = False, max_escalations: int = 3):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.device = C.resolve_device(device)
         self.n_shards = n_shards
         self._exec_cache: dict = {}
         self.stats = SessionStats()
+        # Supervision (module docstring).  Escalation is opt-in: overflow
+        # counted and dropped is itself a contract, and reading it costs a
+        # host sync a hash call.
+        self.retry = retry
+        self.escalate_overflow = escalate_overflow
+        self.max_escalations = max_escalations
+        # tune_keys of nodes degraded to eager after a kernel fault; every
+        # node build consults it, so a node degraded once stays degraded for
+        # the session and its eager stage caches under its own signature.
+        self._degraded: set = set()
         # Measured winners, keyed by node plan hash; consulted by every node
         # build (per op and in programs), so a winner measured once serves
         # every later dispatch of the same op.  ``tuning_path`` preloads a
@@ -167,7 +190,7 @@ class BlazeSession:
             idx=0, kind=kind, src=plan_mod.source_desc(kind, source),
             source_key=None, mapper=mapper, red=red, target=target,
             engine=engine, wire=wire, key_range=key_range, env=env,
-            tuning=self.tuning,
+            tuning=self.tuning, degraded=self._degraded,
         )
         # Tuning skips chunked sources: their operands arrive a block at a time.
         if tune and node.tuned is None and kind != "chunked" and self._tunable(node, red, target):
@@ -181,16 +204,23 @@ class BlazeSession:
                                                   shuffle_slack, key_range, node,
                                                   return_stats)
         elif hash_target:
-            out, stats = _mr._map_reduce_hash(
-                kind, source, mapper, red, target, self.n_shards, self.device,
-                node.engine, shuffle_slack, env, key_range=key_range,
-                cache=self._exec_cache, node=node, tuned=node.tuned,
-            )
+            def dispatch_hash(tgt):
+                return _mr._map_reduce_hash(
+                    kind, source, mapper, red, tgt, self.n_shards, self.device,
+                    node.engine, shuffle_slack, env, key_range=key_range,
+                    cache=self._exec_cache, node=node, tuned=node.tuned,
+                )
+
+            out, stats = self._dispatch_supervised(lambda: dispatch_hash(target), node)
+            out, stats = self._maybe_escalate(out, stats, target, red, node, dispatch_hash)
         else:
-            out, stats = _mr._map_reduce_dense(
-                kind, source, mapper, red, target, self.n_shards, self.device,
-                node.engine, wire, env, return_stats, cache=self._exec_cache,
-                node=node, tuned=node.tuned,
+            out, stats = self._dispatch_supervised(
+                lambda: _mr._map_reduce_dense(
+                    kind, source, mapper, red, target, self.n_shards, self.device,
+                    node.engine, wire, env, return_stats, cache=self._exec_cache,
+                    node=node, tuned=node.tuned,
+                ),
+                node,
             )
         self.stats.calls += 1
         self.stats.compiles += stats.compiles
@@ -205,7 +235,9 @@ class BlazeSession:
         make the accumulation free).  A worker thread reads block k+1 and,
         on the card, copies it to the device on a copy stream while block k
         runs; the stage's stream waits on the copy's event.  The stage is
-        cached once for all blocks (the block's ``base`` is a tensor)."""
+        cached once for all blocks (the block's ``base`` is a tensor).  Each
+        block's dispatch is supervised; a retry runs the block view it
+        holds again, and never pulls the next block."""
         from repro_torch.data.pipeline import prefetch_iter
 
         dev = self.device
@@ -220,7 +252,7 @@ class BlazeSession:
 
         out = target
         totals = dict(pairs_emitted=0, pairs_shipped=0, shuffle_payload_bytes=0,
-                      intra_bytes=0, inter_bytes=0, compiles=0, cache_hits=0)
+                      intra_bytes=0, inter_bytes=0, compiles=0, cache_hits=0, retries=0)
         last = None
         for _b, bv in prefetch_iter(produce, range(source.n_blocks)):
             if bv.ready is not None:
@@ -229,19 +261,158 @@ class BlazeSession:
                 bv.data.record_stream(cur)  # made on the copy stream, read here
                 bv.base.record_stream(cur)
             if isinstance(target, C.DistHashMap):
-                out, st = _mr._map_reduce_hash(
-                    "chunked", bv, mapper, red, out, self.n_shards, dev, node.engine,
-                    shuffle_slack, env, key_range=key_range, cache=self._exec_cache,
-                    node=node, tuned=node.tuned)
+                out, st = self._dispatch_supervised(
+                    lambda bv=bv, out=out: _mr._map_reduce_hash(
+                        "chunked", bv, mapper, red, out, self.n_shards, dev, node.engine,
+                        shuffle_slack, env, key_range=key_range, cache=self._exec_cache,
+                        node=node, tuned=node.tuned),
+                    node)
             else:
-                out, st = _mr._map_reduce_dense(
-                    "chunked", bv, mapper, red, out, self.n_shards, dev, node.engine,
-                    wire, env, return_stats, cache=self._exec_cache, node=node,
-                    tuned=node.tuned)
+                out, st = self._dispatch_supervised(
+                    lambda bv=bv, out=out: _mr._map_reduce_dense(
+                        "chunked", bv, mapper, red, out, self.n_shards, dev, node.engine,
+                        wire, env, return_stats, cache=self._exec_cache, node=node,
+                        tuned=node.tuned),
+                    node)
             for k in totals:
                 totals[k] = totals[k] + getattr(st, k)
             last = st
         return out, dataclasses.replace(last, dispatches=source.n_blocks, **totals)
+
+    # -- supervised dispatch (fault recovery) ---------------------------------
+
+    def supervised(self, attempt: Callable, *, program=None, degrade=None):
+        """Run one dispatch ``attempt()`` under the session's retry policy.
+
+        * ``faults.FatalFault``: recorded and raised at once;
+        * an injected ``kernel.*`` fault: when ``degrade()`` (``program``:
+          ``program.degrade``, which drops its plans and CUDA graphs and
+          keeps its carry) degrades at least one kernel node to eager, the
+          dispatch runs again; every fault point fires before anything runs,
+          so the retry runs the same block on the same carry;
+        * any other ``faults.TransientFault``: run again up to
+          ``retry.attempts`` times with exponential backoff, within
+          ``retry.deadline_s``; exhaustion records the fault fatal and
+          raises;
+        * a real error propagates.  The reference also degrades on any real
+          error while a kernel node is live; here a kernel that fails to
+          build, launch or capture must fail the call, not be replaced by
+          the plain engine unseen (and a sticky CUDA error poisons the
+          context for any retry).
+
+        Every injected fault is recorded under exactly one disposition, so
+        ``faults.snapshot()["balanced"]`` holds across any schedule.
+        """
+        policy = self.retry
+        if policy is None:
+            return attempt()
+        if program is not None:
+            degrade = program.degrade
+        t0 = time.monotonic()
+        delay = policy.backoff_s
+        tries = 0
+        while True:
+            try:
+                return attempt()
+            except faults.FatalFault as e:
+                faults.record("fatal", e)
+                raise
+            except faults.TransientFault as e:
+                if e.point.startswith("kernel.") and degrade is not None and degrade() > 0:
+                    faults.record("degraded", e)
+                    self.stats.degraded_nodes += 1
+                    continue
+                tries += 1
+                deadline_hit = (policy.deadline_s is not None
+                                and time.monotonic() - t0 + delay > policy.deadline_s)
+                if tries >= policy.attempts or deadline_hit:
+                    faults.record("fatal", e)
+                    raise
+                faults.record("retried", e)
+                self.stats.retries += 1
+                if delay > 0:
+                    time.sleep(delay)
+                delay *= policy.multiplier
+
+    def _degrade_op_node(self, node) -> int:
+        """Degrade a per-op kernel node to eager (returns 1; 0 for a node
+        that runs no kernel): its tune_key joins ``_degraded`` (every later
+        build of the op is born eager), the faulted stage's cache entry is
+        dropped, and the eager stage caches under the node's new signature,
+        so nothing else in the cache moves."""
+        if node.engine != "pallas":
+            return 0
+        self._degraded.add(node.tune_key)
+        if node.cache_sig is not None:
+            self._exec_cache.pop(node.cache_sig, None)
+        plan_mod.degrade_node(node)
+        return 1
+
+    def _dispatch_supervised(self, dispatch: Callable, node):
+        """:meth:`supervised` for one per-op node: a kernel fault degrades
+        just this node, and the returned ``MapReduceStats`` carries the
+        recovery (``degraded_engine``, ``retries``)."""
+        retries0 = self.stats.retries
+        out, stats = self.supervised(dispatch, degrade=lambda: self._degrade_op_node(node))
+        retries = self.stats.retries - retries0
+        if retries or node.degraded_from is not None:
+            stats = dataclasses.replace(stats, retries=retries,
+                                        degraded_engine=node.degraded_from)
+        return out, stats
+
+    def _maybe_escalate(self, out, stats, target, red, node, dispatch):
+        """Hash-overflow recovery (``escalate_overflow=True``): when the op
+        dropped pairs (the overflow grew), regrow the original target to the
+        next capacity of the grid (``cost.next_capacity``) and run the same
+        op against it; the overflowed output is dropped.  ``map_reduce``
+        returns a new container and ``shard_of_key`` does not depend on
+        capacity, so the re-run is exact.  At most ``max_escalations``
+        rounds, counted in ``MapReduceStats.escalations`` and
+        ``stats.escalations``.  The overflow lives on the device: each check
+        is one host sync, counted in ``stats.host_syncs``."""
+        if self.retry is None or not self.escalate_overflow:
+            return out, stats
+
+        def grew(new, old) -> bool:
+            self.stats.host_syncs += 1
+            return bool(new.table.overflow.sum() > old.table.overflow.sum())
+
+        escal = 0
+        cur = target
+        while escal < self.max_escalations and grew(out, cur):
+            cap = cost_mod.next_capacity(cur.capacity_per_shard)
+            if cap is None:
+                break
+            cur = self._grow_hash_target(cur, cap, red)
+            escal += 1
+            out, st = self._dispatch_supervised(lambda tgt=cur: dispatch(tgt), node)
+            stats = dataclasses.replace(
+                st, escalations=escal, compiles=stats.compiles + st.compiles,
+                cache_hits=stats.cache_hits + st.cache_hits,
+                dispatches=stats.dispatches + st.dispatches,
+                retries=stats.retries + st.retries,
+            )
+        self.stats.escalations += escal
+        return out, stats
+
+    def _grow_hash_target(self, target: C.DistHashMap, new_cap: int, red) -> C.DistHashMap:
+        """``target`` rebuilt with ``new_cap`` slots a shard, every live entry
+        inserted again on its own shard (``shard_of_key`` does not depend on
+        capacity), each shard's overflow counter carried over so the
+        caller sees only new drops."""
+        t = target.table
+        grown = self.make_dist_hashmap(new_cap, tuple(t.vals.shape[2:]), t.vals.dtype, red)
+        g = grown.table
+        keys, vals, ovf = [], [], []
+        for s in range(target.n_shards):
+            ins = C.hashmap_insert(C.HashTable(g.keys[s], g.vals[s], g.overflow[s]),
+                                   t.keys[s], t.vals[s], t.keys[s] != C.EMPTY_KEY, red,
+                                   max_probes=64)
+            keys.append(ins.keys)
+            vals.append(ins.vals)
+            ovf.append(ins.overflow + t.overflow[s])
+        return C.DistHashMap(C.HashTable(torch.stack(keys), torch.stack(vals),
+                                         torch.stack(ovf)), reducer_name=red.name)
 
     # -- measured autotuning (tune=True) -------------------------------------
 
@@ -273,9 +444,10 @@ class BlazeSession:
         Each candidate runs twice through the engine's entry points: once to
         build its stage and warm up, once timed, the device synchronised
         before and after.  ``map_reduce`` merges into a new result, so the
-        outputs are dropped.  A candidate that fails raises (the reference
-        skips it; the faults slice of the port will absorb injected ones).
-        Every timing is appended to ``tune_log``.
+        outputs are dropped.  Each candidate hits ``tuning.measure`` first; a
+        candidate that takes an injected fault is skipped and the fault
+        recorded ``absorbed`` (tuning is an optimisation, nothing retries
+        it); a real error raises.  Every timing is appended to ``tune_log``.
         """
         hash_target = isinstance(target, C.DistHashMap)
         best_cfg, best_wall = None, float("inf")
@@ -292,12 +464,17 @@ class BlazeSession:
                     kind, source, mapper, red, target, self.n_shards, self.device,
                     cfg.engine, wire, env, False, cache=self._exec_cache, tuned=tuned)
 
-            _, st = run()  # builds the stage, warms up
-            _sync(self.device)
-            t0 = time.perf_counter()
-            _, st2 = run()
-            _sync(self.device)
-            wall = time.perf_counter() - t0
+            try:
+                faults.fault_point("tuning.measure")
+                _, st = run()  # builds the stage, warms up
+                _sync(self.device)
+                t0 = time.perf_counter()
+                _, st2 = run()
+                _sync(self.device)
+                wall = time.perf_counter() - t0
+            except faults.InjectedFault as e:
+                faults.record("absorbed", e)
+                continue
             self.stats.compiles += st.compiles + st2.compiles
             self.stats.cache_hits += st.cache_hits + st2.cache_hits
             self._record_measurement(node.tune_key, cfg.describe(), wall)
@@ -428,7 +605,8 @@ class BlazeSession:
         iteration every ``k`` iterations at dispatch boundaries;
         ``resume=True`` restores the latest checkpoint first and goes on from
         its iteration (``LoopInfo.resumed_from``).  The carry is restored
-        into the program's own buffers, which its graphs read.
+        into the program's own buffers, which its graphs read.  Dispatches
+        run supervised (:meth:`supervised`).
         """
         from repro_torch.core.program import LoopInfo, _as_checkpoint_manager
 
@@ -448,7 +626,8 @@ class BlazeSession:
         converged = False
         while it < max_iters:
             u = min(unroll, max_iters - it)
-            state = program(state, u)
+            state = self.supervised(lambda state=state, u=u: program(state, u),
+                                    program=program)
             dispatches += 1
             it += u
             if manager is not None and checkpoint_every and it - last_saved >= checkpoint_every:
@@ -493,6 +672,9 @@ class BlazeSession:
             "program_compiles": self.stats.program_compiles,
             "program_dispatches": self.stats.program_dispatches,
             "tune_measurements": self.stats.tune_measurements,
+            "retries": self.stats.retries,
+            "degraded_nodes": self.stats.degraded_nodes,
+            "escalations": self.stats.escalations,
         }
 
 

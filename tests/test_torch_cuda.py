@@ -1024,3 +1024,140 @@ def test_streamed_program_keeps_its_block_buffer_and_restores_in_place(dev, tmp_
                                    *carry.state_in)] == ptrs
     counts = np.bincount(lines.reshape(-1), minlength=40)
     assert wprog.hash_result(hm).to_dict() == {k: 3 * int(c) for k, c in enumerate(counts)}
+
+
+# -- faults and supervised dispatch on the card ----------------------------------------
+
+
+@pytest.fixture
+def ledger():
+    """A disarmed fault registry with a zeroed ledger, before and after."""
+    from repro_torch.core import faults
+
+    faults.reset(env=False)
+    yield faults
+    faults.reset(env=False)
+
+
+def _k1_k2_step(sess, src, hm, dev):
+    """A step with a K2 node (hash target) and a K1 node (dense sum) on
+    integer-valued rows, so every engine's sums are exact."""
+    def step(ctx, s):
+        ctx.map_reduce(src, lambda i, x, emit: emit(x.to(torch.int32) % 97, x), "sum", hm,
+                       engine="pallas", key_range=97)
+        t = ctx.map_reduce(src, lambda i, x, emit: emit(i % 8, x), "sum",
+                           torch.zeros(8, device=dev), engine="pallas")
+        return {"acc": s["acc"] + t}
+
+    return step
+
+
+def test_degraded_program_recaptures_and_matches(dev, ledger):
+    """A kernel fault at a replay's dispatch degrades both kernel nodes:
+    the program drops its graph, rediscovers the plan with the nodes eager
+    and captures again, into the same carry and input buffers; the run
+    equals one that was eager from the start, exactly."""
+    x = np.arange(1 << 16, dtype=np.float32) % 509
+
+    def run(engine_fault):
+        sess = BlazeSession(device=dev)
+        hm = sess.make_dist_hashmap(256, (), torch.float32, "sum")
+        prog = sess.program(_k1_k2_step(sess, sess.distribute(x), hm, dev))
+        state = prog({"acc": torch.zeros(8, device=dev)}, 1)
+        carry = prog._carry[prog._last_sig]
+        bufs = [*carry.state_in] + [a for t in carry.tables.values()
+                                    for a in (t.keys, t.vals, t.overflow)]
+        ptrs = [b.data_ptr() for b in bufs]
+        if engine_fault:
+            ledger.configure("kernel.hash", at=1)
+        for _ in range(2):
+            state = sess.supervised(lambda s=state: prog(s, 1), program=prog)
+        assert [b.data_ptr() for b in bufs] == ptrs
+        return sess, prog, state, prog.hash_result(hm)
+
+    sess, prog, state, hm = run(True)
+    assert prog.stats.degradations == 1 and prog.stats.graphs_dropped == 1
+    assert prog.stats.captures == 2 and sess.stats.degraded_nodes == 1
+    assert all(n.engine == "eager" for n in prog.plan.mapreduce_nodes())
+    assert "segment_reduce" not in prog.stats.captured_launches[1]
+    snap = ledger.snapshot()
+    assert snap["balanced"] and snap["dispositions"]["degraded"] == 1
+    ledger.reset(env=False)
+    _, _, want, want_hm = run(False)
+    assert torch.equal(state["acc"], want["acc"])
+    assert hm.to_dict() == want_hm.to_dict()
+
+
+def test_capture_that_raised_leaves_no_graph(dev, ledger):
+    """An injected fault inside the first capture (the ``collective``
+    point) leaves no graph, no stale context and the sync-debug mode as it
+    was; the device is usable and the next capture succeeds."""
+    sess = BlazeSession(device=dev)
+    src = sess.distribute(np.arange(1 << 12, dtype=np.float32) % 7)
+
+    def step(ctx, s):
+        t = ctx.map_reduce(src, lambda i, x, emit: emit(i % 4, x), "sum",
+                           torch.zeros(4, device=dev), engine="pallas")
+        return {"acc": s["acc"] + t}
+
+    prog = sess.program(step)
+    s0 = {"acc": torch.zeros(4, device=dev)}
+    debug = torch.cuda.get_sync_debug_mode()
+    ledger.configure("collective", at=1)
+    with pytest.raises(ledger.TransientFault):
+        prog(s0, 1)
+    assert not prog._graphs and prog._active is None and prog.stats.captures == 0
+    assert torch.cuda.get_sync_debug_mode() == debug
+    torch.cuda.synchronize()
+    out = prog(s0, 1)  # captures again, fires again (as the reference's
+    assert prog.stats.captures == 1  # jit traces again), at=1 is spent
+    want = np.zeros(4)
+    np.add.at(want, np.arange(1 << 12) % 4, np.arange(1 << 12) % 7)
+    np.testing.assert_array_equal(out["acc"].cpu().numpy(), want)
+    # supervised, the same fault is retried and recorded so
+    ledger.reset(env=False)
+    ledger.configure("collective", at=1)
+    prog2 = sess.program(step)
+    out2, _ = sess.run_loop(prog2, s0, max_iters=1)
+    assert torch.equal(out2["acc"], out["acc"]) and prog2.stats.captures == 1
+    snap = ledger.snapshot()
+    assert snap["balanced"] and snap["dispositions"]["retried"] == 1
+    torch.cuda.synchronize()
+
+
+def test_mid_stream_degrade_replays_the_right_block(dev, ledger):
+    """A kernel fault at block 3's dispatch, while block 4 is landing in the
+    staging buffer and the prefetch worker decodes block 5 into fresh pinned
+    memory (compressed blocks): the program captures again after the copy
+    stream drains and replays block 3 from the static buffer.  Every block
+    is summed once, exactly as in the fault-free stream."""
+    rows = (np.arange(6 * 4096 * 2, dtype=np.float32) % 251).reshape(-1, 2)
+
+    def run(fault):
+        sess = BlazeSession(device=dev)
+        cv = sess.chunked(rows, 4096, compress=True)  # 6 blocks
+        assert cv.n_blocks == 6
+
+        def step(ctx, s):
+            t = ctx.map_reduce(cv, lambda i, x, emit: emit(i % 16, x[0] + 2 * x[1]),
+                               "sum", torch.zeros(16, device=dev), engine="pallas")
+            return {"acc": s["acc"] + t, "blocks": s["blocks"] + 1}
+
+        prog = sess.program(step)
+        if fault:
+            ledger.configure("kernel.segment", at=3)
+        state, info = sess.run_stream(prog, {"acc": torch.zeros(16, device=dev),
+                                             "blocks": torch.zeros((), device=dev)},
+                                      max_epochs=2)
+        return prog, state, info
+
+    prog, state, info = run(True)
+    assert info.dispatches == 12 and float(state["blocks"]) == 12
+    assert prog.stats.degradations == 1 and prog.stats.captures == 2
+    assert ledger.snapshot()["dispositions"]["degraded"] == 1
+    ledger.reset(env=False)
+    _, want, _ = run(False)
+    exact = np.zeros(16)
+    np.add.at(exact, np.arange(len(rows)) % 16, rows[:, 0] + 2 * rows[:, 1])
+    np.testing.assert_array_equal(want["acc"].cpu().numpy(), 2 * exact)
+    assert torch.equal(state["acc"], want["acc"])

@@ -365,16 +365,17 @@ def test_later_slices_of_programs_raise():
         return s
 
     prog = sess.program(step)
-    # Tuning, checkpoints and streams are ported (tests/test_torch_tuning.py,
-    # test_torch_checkpoint.py, test_torch_streaming.py): a program without
-    # chunked sources is refused by run_stream as in the reference, and a
-    # resume without a checkpoint directory is an error.
+    # Tuning, checkpoints, streams and fault degradation are ported
+    # (tests/test_torch_tuning.py, test_torch_checkpoint.py,
+    # test_torch_streaming.py, test_torch_faults.py): a program without
+    # chunked sources is refused by run_stream as in the reference, a resume
+    # without a checkpoint directory is an error, and degrading a program
+    # with no kernel node degrades nothing.
     with pytest.raises(ValueError, match="no chunked"):
         sess.run_stream(prog, torch.zeros(1))
     with pytest.raises(ValueError, match="checkpoint"):
         sess.run_loop(prog, torch.zeros(1), max_iters=1, resume=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        prog.degrade()
+    assert prog.degrade() == 0
 
 
 # -- the six jobs in program mode: against JAX's program mode and per_op -------
