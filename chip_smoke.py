@@ -49,7 +49,13 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    rung too small; supervision's own cost with no rule armed.  Every
    other phase must end with no retry, no degraded node and no escalation
    in any session it made (supervision would otherwise let a kernel that
-   fails to launch fall back to eager unseen).
+   fails to launch fall back to eager unseen);
+8. serve phase — the query server (``repro_torch.serve.BlazeServer``, its
+   session on the card, a resident program's phase 1 under sync-debug
+   ``"error"``) over the path phase's data
+   (``edges``, ``lines``, ``points``, and ``gmm_points`` for GMM), the six
+   prepared queries in process and through ``BlazeClient``, then the
+   reference's three serving fault cases on a server of their own.
 
 K4 (``flash_attention``) is held against ``attention_ref``, which
 materialises the f32 logits.  Both compute each logit as an f32 dot product
@@ -307,13 +313,56 @@ two) launches inside the graph and none outside.  A run checkpointed every
 epoch and resumed from its epoch-2 checkpoint in a new program must equal
 the uninterrupted run: word counts exactly, k-means' centres within 1e-4.
 
+The serve phase sends 72 requests from 3 tenants (``serve_traffic``): the
+first of each query alone (its capture), the other 66 while dispatch is
+paused, then released at once (``max_batch`` 8), with one more request
+over HTTP while the queue is full, which must get a typed ``QUEUE_FULL``
+429 within 2 s.  It fails unless every request succeeds, the server
+compiled 6 times (one a plan, whatever ``iters`` the requests sent),
+``cache_hits + compiles == dispatched_plans``, a batch served several
+requests and one deduplicated another.  ``strict_phase_1`` runs the
+dispatch of every program that has dispatched before under
+``torch.cuda.set_sync_debug_mode("error")``, so a host sync there fails its
+request; the groups that ran so must number the cache hits.  Word counts
+must equal the path phase's
+exactly and π's counts the hand-rolled count at the served sample count
+(``SERVE_PI_SAMPLES``: 2^30 samples would reserve a 43 GB graph pool
+beside the other five resident programs).  Each distinct float request is
+held against ``run_direct`` on a fresh session on the card with the program
+phase's tolerances (PageRank per page within the per-op tolerance at its
+iterations, and against the float64 reference; k-means centres 1e-4,
+inertia 1e-4 relative, seed 0 at 5 iterations against the per-op reference
+too; GMM log-likelihood 1e-5 relative, α 1e-4, μ and Σ 1e-3; kNN distances
+1e-5 relative, the rows equal but for ties of the 100th): the two runs are
+the same sums in the atomics' order.  As ``run_direct`` lowers the same
+program, GMM is also held to the same tolerances against a float64 EM from
+the request's initial means, and kNN against a float64 ``torch.topk`` of
+every distance to the query point.  One HTTP round trip a query, paired
+with an in-process request of the same parameters (so both carry one
+execution's payload: float sums by atomics differ from run to run), must
+decode bit for bit to the in-process result.  The served requests must
+launch K1 and K2, in the wrappers (discovery, warm-up, capture) and in the
+graph replays, counted from 0 just before the traffic and read just after
+its last HTTP round trip, before the checks run anything; the served
+k-means step is one ``[K, dim+2]`` MapReduce and runs no K3.  It prints each query's p50 and p99 latency over the released
+burst and the burst's requests a second, each batch's wall time beside its
+executions' replays (one replay of each plan timed alone, times the
+iterations), the first request's latency beside a hit's, each resident
+program's graph pool and their total, and the launches.  The fault cases:
+a transient ``dispatch`` fault retried, a ``kernel.segment`` fault
+degrading the k-means program at 10^8 points (captured again, the
+follow-up request a hit with no new compile), and shutdown answering a
+held backlog with ``SHUTDOWN``, each ledger balanced; every other session
+of the phase must end with no retry and no degraded node.
+
 Output: after the build, the count of tensor-core instructions (``HGMMA``,
 ``HMMA``) in K4's and K5's libraries (``cuobjdump -sass``; none in K4's
 fails the run, K5's is printed only); one line per check (K1's, K4's and
 K5's with the form each call took), then a ``{"kernels": [...]}`` summary
 line (with each K1, K4, K5 and K6 call's form, the forms its path's calls
-took and the program phase's launches by kernel and form), the script's
-total seconds, the card's name and power limit, and as the last line
+took, the program phase's launches by kernel and form and the serve
+phase's), the script's total seconds, the card's name and power limit,
+and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Without CUDA, or without the rest of the repository beside it, it exits 2 and
 prints no result.
@@ -348,6 +397,11 @@ LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b")
 REPS = 10
 ROUNDS = 5  # K1 global form against index_add_, in turns
 STREAM_BLOCK_ROWS = 1 << 24  # k-means points a streamed block (6 blocks of 10^8)
+FORMED = ("flash_attention", "segment_reduce", "ssd_scan", "rwkv6_scan")  # count by form
+# The serve phase: π's samples (the path phase's 2^30 would take a 35 GB
+# graph pool beside the other five resident programs) and kNN's query points.
+SERVE_PI_SAMPLES = 1 << 28
+KNN_QUERIES = ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [-2.0, 0.5, 1.0], [2.0, -1.0, 0.0])
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
 
@@ -571,6 +625,28 @@ def kmeans_int8_reach(x, c, shards, iters, program):
     return iters * reach.cpu().numpy()[:, None]
 
 
+def serve_traffic() -> list[tuple[str, str, dict]]:
+    """The serve phase's 72 requests: 3 tenants × 24, each tenant's i-th
+    request of kind ``i % 6``, its parameters varied by round and tenant
+    (PageRank's ``iters`` 3, 5 or 7; k-means' seed 0–2 with ``iters`` 5, 3,
+    5; kNN's query point one of four), so some requests repeat exactly."""
+    work = []
+    for t in range(3):
+        for i in range(24):
+            j = i // 6 + t
+            q, p = (
+                ("pagerank", {"engine": "pallas", "iters": (3, 5, 7)[j % 3]}),
+                ("wordcount", {"engine": "pallas", "iters": 1}),
+                ("kmeans", {"engine": "pallas", "k": 5, "seed": j % 3,
+                            "iters": (5, 3, 5)[j % 3]}),
+                ("gmm", {"engine": "pallas", "k": 5, "dataset": "gmm_points", "iters": 5}),
+                ("knn", {"k": 100, "query": list(KNN_QUERIES[j % 4])}),
+                ("pi", {"engine": "pallas", "n_samples": SERVE_PI_SAMPLES, "iters": 1}),
+            )[i % 6]
+            work.append((f"tenant{t}", q, p))
+    return work
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -609,6 +685,7 @@ class Smoke:
         self.phase = "setup"
         self.fault_totals: dict[str, int] = {}  # fault phase: dispositions, injected
         self.fault_launches: dict[str, int] = {}  # fault phase: kernel launches
+        self.serve_launches: dict = {}  # serve phase: wrappers' and graph replays' launches
 
     # -- measurement helpers -------------------------------------------------
 
@@ -1579,9 +1656,8 @@ class Smoke:
 
     # -- path phase ---------------------------------------------------------
 
-    def drive(self, name, fn, units):
-        """Run ``fn`` with the launch counts set to 0 just before; return its
-        result, the wall time and the launches it made."""
+    def kernel_wrappers(self) -> dict:
+        """The six kernel wrappers by name (each counts its launches)."""
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.hash_combine import hash_aggregate
         from repro_torch.kernels.kmeans_assign import kmeans_assign
@@ -1589,25 +1665,39 @@ class Smoke:
         from repro_torch.kernels.segment_reduce import segment_reduce
         from repro_torch.kernels.ssd_scan import ssd_scan
 
-        wrappers = {"segment_reduce": segment_reduce, "hash_aggregate": hash_aggregate,
-                    "kmeans_assign": kmeans_assign, "flash_attention": flash_attention,
-                    "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
-        self.sync()
-        formed = {"flash_attention": flash_attention, "segment_reduce": segment_reduce,
-                  "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
+        return {"segment_reduce": segment_reduce, "hash_aggregate": hash_aggregate,
+                "kmeans_assign": kmeans_assign, "flash_attention": flash_attention,
+                "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
+
+    def zero_launch_counts(self):
+        """Every wrapper's launch count to 0, K2's rounds and the counts by
+        form too."""
+        wrappers = self.kernel_wrappers()
         for fn_ in wrappers.values():
             fn_.launches = 0
-        hash_aggregate.rounds.reset()
-        for fn_ in formed.values():
-            fn_.forms = dict.fromkeys(fn_.forms, 0)
+        wrappers["hash_aggregate"].rounds.reset()
+        for name in FORMED:
+            wrappers[name].forms = dict.fromkeys(wrappers[name].forms, 0)
+
+    def read_launch_counts(self) -> dict:
+        """Every wrapper's launch count, K2's rounds and the counts by form."""
+        wrappers = self.kernel_wrappers()
+        launches = {name: fn_.launches for name, fn_ in wrappers.items()}
+        launches["hash_aggregate rounds"] = int(wrappers["hash_aggregate"].rounds)
+        for name in FORMED:
+            launches[f"{name} forms"] = dict(wrappers[name].forms)
+        return launches
+
+    def drive(self, name, fn, units):
+        """Run ``fn`` with the launch counts set to 0 just before; return its
+        result, the wall time and the launches it made."""
+        self.sync()
+        self.zero_launch_counts()
         t0 = time.perf_counter()
         out = fn()
         self.sync()
         wall = time.perf_counter() - t0
-        launches = {name: fn_.launches for name, fn_ in wrappers.items()}
-        launches["hash_aggregate rounds"] = int(hash_aggregate.rounds)
-        for name_, fn_ in formed.items():
-            launches[f"{name_} forms"] = dict(fn_.forms)
+        launches = self.read_launch_counts()
         print(json.dumps({"path": name, "wall_s": wall, "units": units,
                           "units_per_s": units / wall, "launches": launches}),
               flush=True)
@@ -1810,10 +1900,10 @@ class Smoke:
         return {"gmm_err": err, "gmm_eager_err": errors(ge),
                 "gmm_log_likelihood": g.log_likelihood}
 
-    def gmm_reference(self, x, k, iters):
+    def gmm_reference(self, x, k, iters, mu0=None):
         """EM by ``gmm_em_reference``'s update rules, in float64 on the card,
-        from the first ``k`` points as means, unit covariances and equal
-        weights."""
+        from ``mu0`` as means (by default the first ``k`` points), unit
+        covariances and equal weights."""
         torch = self.torch
         import math
 
@@ -1821,7 +1911,7 @@ class Smoke:
         n, d = x.shape
         eye = torch.eye(d, dtype=torch.float64, device=self.dev)
         alpha = torch.full((k,), 1.0 / k, dtype=torch.float64, device=self.dev)
-        mu = x[:k].clone()
+        mu = x[:k].clone() if mu0 is None else mu0.double()
         sigma = eye.repeat(k, 1, 1)
         for _ in range(iters):
             prec = torch.linalg.inv(sigma)
@@ -1844,31 +1934,39 @@ class Smoke:
     def knn_path(self, sess, data):
         """Fig. 8: 100 nearest neighbours of the origin by the ``topk``
         container, against a float64 ``torch.topk`` of every distance."""
-        torch = self.torch
         import numpy as np
         from repro_torch.core.algorithms import knn
 
         pts, k = data["knn_points_np"], 100
         q = np.zeros(pts.shape[1], np.float32)
         res, _, _ = self.drive("knn", lambda: knn(pts, q, k, session=sess), len(pts))
-        x = data["knn_points"]
-        d2 = ((x.double() - torch.from_numpy(q).to(self.dev).double()) ** 2).sum(1)
-        best = torch.topk(d2, k, largest=False)
-        want = best.values.sqrt().cpu().numpy()
+        want, want_rows, kth = self.knn_reference(data["knn_points"], q, k)
         got = np.sort(res.distances.astype(np.float64))
         rel = float((np.abs(got - want) / want).max())
         if rel > 1e-5:
             raise AssertionError(f"knn: distances off by {rel} relative")
         # Same neighbour set, except rows whose distance ties the k-th.
-        want_rows = {tuple(r) for r in x[best.indices].cpu().numpy().tolist()}
         got_rows = {tuple(r) for r in res.neighbors.tolist()}
-        kth = float(best.values[-1])
         for row in got_rows ^ want_rows:
             if float(((np.asarray(row, np.float64) - q) ** 2).sum()) != kth:
                 raise AssertionError("knn: a neighbour differs from the float64 top-k")
         self.per_op["knn"] = (res, want, want_rows, kth)
         return {"knn_dist_rel_err": rel, "knn_kth_distance": float(want[-1]),
                 "knn_set_differences": len(got_rows ^ want_rows)}
+
+    def knn_reference(self, x, q, k):
+        """The ``k`` rows of ``x`` nearest to ``q`` by a float64
+        ``torch.topk`` of every squared distance (summed a column at a time,
+        so no float64 copy of ``x`` is made): their distances ascending, the
+        rows as a set of tuples, and the k-th squared distance."""
+        torch = self.torch
+
+        d2 = torch.zeros(len(x), dtype=torch.float64, device=self.dev)
+        for j, qj in enumerate(q.tolist()):
+            d2 += (x[:, j].double() - qj) ** 2
+        best = torch.topk(d2, k, largest=False)
+        rows = {tuple(r) for r in x[best.indices].cpu().numpy().tolist()}
+        return best.values.sqrt().cpu().numpy(), rows, float(best.values[-1])
 
     # -- program phase ------------------------------------------------------
 
@@ -2881,12 +2979,433 @@ class Smoke:
         res["phase_s"] = time.perf_counter() - t_phase
         return res
 
+    # -- serve phase -----------------------------------------------------------
+
+    def serve_phase(self, data):
+        """The query server on the card (module docstring, 8): one
+        ``BlazeServer`` over the path phase's data, a resident program's
+        phase 1 under sync-debug ``"error"`` (``strict_phase_1``), 72
+        requests of 3 tenants, the first of each query alone (its capture),
+        the other 66 submitted while dispatch is paused and released at
+        once; one HTTP round trip a query and the queue saturated.  The
+        launch counts are the served traffic's own: set to 0 just before it
+        and read just after it, before the checks (``serve_checks``) and the
+        timed replays run anything.  Then the reference's three serving
+        fault cases on a server of their own.  Returns the phase's
+        results."""
+        torch = self.torch
+        import gc
+        import threading
+
+        import numpy as np
+        from repro_torch.core import faults
+        from repro_torch.serve import BlazeClient, BlazeServer, RemoteServeError
+
+        dev = self.dev
+        t_phase = time.perf_counter()
+        faults.reset(env=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        work = serve_traffic()
+        first = {}  # query -> the tenant-0 params of its first request
+        for _t, q, p in work:
+            first.setdefault(q, p)
+        burst = [w for w in work if not (w[0] == "tenant0" and first[w[1]] is w[2])]
+        srv = BlazeServer(device=dev, max_queue=len(burst), per_tenant_inflight=24,
+                          max_batch=8)
+        strict = self.strict_phase_1(srv)
+        srv.register_dataset("edges", data["edges_np"], n_pages=data["n_pages"])
+        srv.register_dataset("lines", data["lines_np"], vocab_size=data["vocab"])
+        srv.register_dataset("points", data["points_np"])
+        srv.register_dataset("gmm_points", data["gmm_points_np"])
+        batches, finished = [], {}
+        execute, finish = srv._execute_batch, srv._finish
+
+        def timed(batch):
+            t0 = time.perf_counter()
+            execute(batch)
+            batches.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                            "groups": [(r.query, r.params.get("iters", 1))
+                                       for r in batch if r.meta.get("cache") != "dedup"],
+                            "size": len(batch)})
+
+        def finished_at(req, *, ok):
+            # the dispatcher accounts a request just before releasing it
+            finished[req.id] = time.perf_counter()
+            return finish(req, ok=ok)
+
+        srv._execute_batch, srv._finish = timed, finished_at
+        srv.start()
+        self.sync()
+        self.zero_launch_counts()
+        srv.session.stats.graph_launches = {}
+        res = {}
+        try:
+            # -- the first request of each query, alone: its capture ----------
+            first_ms = {}
+            for q, p in first.items():
+                t0 = time.perf_counter()
+                _r, meta = srv.submit_and_wait("tenant0", q, p)
+                first_ms[q] = (time.perf_counter() - t0) * 1e3
+                if meta["cache"] != "compile":
+                    raise AssertionError(f"serve: the first {q} request was a {meta['cache']}")
+            # -- the burst: 66 requests, dispatch paused, then released -------
+            srv.pause_dispatch()
+            reqs = [(q, p, srv.submit(t, q, p)) for t, q, p in burst]
+            t0 = time.perf_counter()
+            try:
+                BlazeClient(srv.url, tenant="probe").query("pi", first["pi"])
+                raise AssertionError("serve: a full queue admitted a request")
+            except RemoteServeError as e:
+                full_ms = (time.perf_counter() - t0) * 1e3
+                if (e.code, e.status) != ("QUEUE_FULL", 429) or full_ms > 2000:
+                    raise AssertionError(f"serve: saturation gave {e.code} {e.status} "
+                                         f"in {full_ms} ms") from e
+            t_release = time.perf_counter()
+            srv.resume_dispatch()
+            for q, _p, r in reqs:
+                if not r.done.wait(600) or r.error is not None:
+                    raise AssertionError(f"serve: a {q} request failed: {r.error}")
+            burst_s = max(finished[r.id] for *_x, r in reqs) - t_release
+            st = srv.stats.snapshot()
+            if (st["compiles"] != 6 or st["cache_hits"] + st["compiles"] != st["dispatched_plans"]
+                    or st["batched_dispatches"] < 1 or st["dedup_hits"] < 1
+                    or st["completed"] != len(work) or srv.session.stats.program_compiles != 6):
+                raise AssertionError(f"serve: stats after the traffic {st}")
+            latency = {}
+            for q in first:
+                lat = [(finished[r.id] - r.t_submit) * 1e3 for q2, _p, r in reqs if q2 == q]
+                latency[q] = {"n": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+                              "p99_ms": float(np.percentile(lat, 99))}
+            # -- a hit of each query, alone ------------------------------------
+            hit_ms = {}
+            for q, p in first.items():
+                t0 = time.perf_counter()
+                _r, meta = srv.submit_and_wait("tenant0", q, p)
+                hit_ms[q] = (time.perf_counter() - t0) * 1e3
+                if meta["cache"] != "hit":
+                    raise AssertionError(f"serve: a repeated {q} request was a {meta['cache']}")
+            # -- one HTTP round trip a query, deduplicated with an in-process
+            # request, so both carry one execution's payload -----------------
+            srv.pause_dispatch()
+            inproc = {q: srv.submit("inproc", q, p) for q, p in first.items()}
+            http, errors = {}, []
+
+            def call(q, p):
+                try:
+                    http[q] = BlazeClient(srv.url, tenant="http").query(q, p)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=call, args=qp) for qp in first.items()]
+            for th in threads:
+                th.start()
+            deadline = time.perf_counter() + 30
+            while srv.queue_depth < 2 * len(first) and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            srv.resume_dispatch()
+            for th in threads:
+                th.join(600)
+            if errors or len(http) != len(first):
+                raise AssertionError(f"serve: HTTP round trips failed: {errors}")
+            for q, r in inproc.items():
+                if not r.done.wait(600) or r.error is not None:
+                    raise AssertionError(f"serve: in-process {q} failed: {r.error}")
+                got, meta = http[q]
+                if meta["cache"] != "dedup":
+                    raise AssertionError(f"serve: the HTTP {q} request was a {meta['cache']}")
+                for key, want in r.result.items():
+                    g = got[key]
+                    same = (g == want if isinstance(want, float) else
+                            np.asarray(g).dtype == want.dtype and
+                            np.asarray(g).tobytes() == want.tobytes())
+                    if not same:
+                        raise AssertionError(f"serve: HTTP {q} {key} differs from in-process")
+            res["http_bit_equal"] = sorted(http)
+            # -- the served traffic's launches and strict groups, read before
+            # the checks and the timed replays launch anything ------------
+            launches = self.read_launch_counts()
+            launches["graph_replays"] = dict(srv.session.stats.graph_launches)
+            served = srv.stats.snapshot()
+            strict_groups = strict["groups"]
+            res.update(self.serve_checks(data, srv, reqs))
+            res["replays"] = self.serve_replays(srv, first, batches)
+            snap = srv.stats_snapshot()
+        finally:
+            srv.stop()
+        for kernel in ("segment_reduce", "hash_aggregate"):
+            if not launches[kernel] or not launches["graph_replays"].get(kernel):
+                raise AssertionError(f"serve: the served requests launched no {kernel}")
+        if strict_groups != served["cache_hits"] or not strict_groups:
+            raise AssertionError(f"serve: {strict_groups} groups ran phase 1 under "
+                                 f"sync-debug, {served['cache_hits']} cache hits")
+        if srv.session.stats.retries or srv.session.stats.degraded_nodes:
+            raise AssertionError("serve: the traffic retried or degraded")
+        self.serve_launches = launches
+        res.update({
+            "requests": served["completed"],
+            "rejected_queue_full": served["rejected_queue_full"],
+            "compiles": served["compiles"], "cache_hits": served["cache_hits"],
+            "dispatched_plans": served["dispatched_plans"], "dispatches": served["dispatches"],
+            "batched_dispatches": served["batched_dispatches"],
+            "coalesced_queries": served["coalesced_queries"],
+            "dedup_hits": served["dedup_hits"],
+            "queue_full_ms": full_ms, "burst_requests": len(burst), "burst_s": burst_s,
+            "burst_qps": len(burst) / burst_s, "latency": latency,
+            "first_request_ms": first_ms, "hit_ms": hit_ms,
+            "pools": {r["query"]: r["pool_reserved_bytes"] for r in snap["resident"]},
+            "pool_reserved_bytes": snap["pool_reserved_bytes"],
+            "launches": launches,
+            "phase1_strict_sync_groups": strict_groups})
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.phase = "serve faults"
+        res["faults"] = self.serve_fault_cases(data)
+        res["phase_s"] = time.perf_counter() - t_phase
+        print(json.dumps({"serve": res}), flush=True)
+        return res
+
+    def strict_phase_1(self, srv):
+        """Wrap ``srv.session.supervised`` so that the dispatch of a
+        resident program (one that has dispatched before, with no fault rule
+        armed: a first dispatch captures and a degradation recaptures, both
+        of which synchronise) runs under sync-debug ``"error"``: a host sync
+        in that phase 1 raises and fails its requests.  Returns the count of
+        groups that ran so, ``{"groups": n}``."""
+        torch = self.torch
+        from repro_torch.core import faults
+
+        strict = {"groups": 0}
+        supervised = srv.session.supervised
+
+        def strict_supervised(attempt, *, program=None, **kw):
+            if program is None or not program.stats.dispatches or faults.registry.armed:
+                return supervised(attempt, program=program, **kw)
+            strict["groups"] += 1
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return supervised(attempt, program=program, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+        srv.session.supervised = strict_supervised
+        return strict
+
+    def serve_checks(self, data, srv, reqs):
+        """The served results: word counts against the path phase's exactly,
+        π's counts against the hand-rolled count exactly, and every distinct
+        float request against ``run_direct`` on a fresh session on the card
+        and against a plain reference of its own (PageRank per page within
+        the per-op tolerance, and against the float64 reference; k-means
+        centres 1e-4 and inertia 1e-4 relative, seed 0's centres against the
+        per-op reference too; GMM log-likelihood 1e-5 relative, α 1e-4, μ and
+        Σ 1e-3, and the same against a float64 EM from the request's initial
+        means; kNN distances 1e-5 relative and the same rows but for ties of
+        the 100th, and the same against a float64 ``torch.topk`` of every
+        distance)."""
+        torch = self.torch
+        import gc
+
+        import numpy as np
+        from repro_torch.core import BlazeSession
+        from repro_torch.core.algorithms.pi import handrolled_count
+        from repro_torch.serve import run_direct
+        from repro_torch.serve.queries import canonical_params
+
+        dev = self.dev
+        served = {}
+        for q, p, r in reqs:
+            served.setdefault((q, canonical_params(p)), (q, p, r.result))
+        out = {"checked": {}}
+        fresh = BlazeSession(device=dev)
+        hand = {}
+        for (q, _c), (_q, p, got) in served.items():
+            if q == "wordcount":
+                dense = np.zeros(data["vocab"], np.int64)
+                dense[got["keys"]] = got["counts"]
+                if not np.array_equal(dense, self.per_op["wordcount"]):
+                    raise AssertionError("serve: word counts differ from the path phase's")
+                out["wordcount_distinct"] = int(len(got["keys"]))
+                continue
+            if q == "pi":
+                n = p["n_samples"]
+                hand.setdefault(n, handrolled_count(n, dev))
+                if int(got["counts"][0]) != hand[n] or got["pi"] != 4.0 * hand[n] / n:
+                    raise AssertionError("serve: pi differs from the hand-rolled count")
+                out["pi"] = got["pi"]
+                continue
+            want = run_direct(fresh, srv.datasets, q, p)
+            if q == "pagerank":
+                ref, tol, _ = self.pagerank_reference(data, p["iters"], 0.85)
+                g = torch.from_numpy(got["scores"]).to(dev).double()
+                d = (g - torch.from_numpy(want["scores"]).to(dev).double()).abs()
+                if not (bool((d <= tol).all()) and bool(((g - ref).abs() <= tol).all())):
+                    raise AssertionError(f"serve: pagerank {p} over its tolerance")
+                err = {"max_diff_direct": float(d.max()),
+                       "max_rel_err": float(((g - ref).abs() / ref).max())}
+            elif q == "kmeans":
+                err = {"centre_diff_direct": float(np.abs(got["centers"] - want["centers"]).max()),
+                       "inertia_rel_diff": abs(got["inertia"] - want["inertia"]) / want["inertia"]}
+                if p["seed"] == 0 and p["iters"] == 5:
+                    _km, ref_c, _ri = self.per_op["kmeans"]
+                    err["centre_err_ref"] = float(np.abs(got["centers"] - ref_c).max())
+                if max(err["centre_diff_direct"], err.get("centre_err_ref", 0.0)) > 1e-4 \
+                        or err["inertia_rel_diff"] > 1e-4:
+                    raise AssertionError(f"serve: kmeans {p}: {err}")
+            elif q == "gmm":
+                x = data["gmm_points"]
+                idx = np.random.RandomState(p.get("seed", 0)).choice(len(x), p["k"],
+                                                                      replace=False)
+                ref = self.gmm_reference(x, p["k"], p["iters"],
+                                         mu0=x[torch.from_numpy(idx).to(dev)])
+                ref["log_likelihood"] = ref.pop("ll")
+                err = {}
+                for tag, w in (("", want), ("_ref", ref)):
+                    e = {k: float(np.abs(got[k] - w[k]).max()) for k in ("alpha", "mu", "sigma")}
+                    e["ll_rel"] = (abs(got["log_likelihood"] - w["log_likelihood"])
+                                   / abs(w["log_likelihood"]))
+                    if (e["ll_rel"] > 1e-5 or e["alpha"] > 1e-4
+                            or max(e["mu"], e["sigma"]) > 1e-3):
+                        raise AssertionError(f"serve: gmm {p}{tag}: {e}")
+                    err.update({k + tag: v for k, v in e.items()})
+            else:  # knn
+                qv = np.asarray(p["query"], np.float64)
+                g = np.sort(got["distances"].astype(np.float64))
+                rows = {tuple(x) for x in got["neighbors"].tolist()}
+                ref_d, ref_rows, _ = self.knn_reference(data["points"], qv, p["k"])
+                err = {}
+                for tag, w, wrows in (
+                        ("_direct", np.sort(want["distances"].astype(np.float64)),
+                         {tuple(x) for x in want["neighbors"].tolist()}),
+                        ("_ref", ref_d, ref_rows)):
+                    err["dist_rel_diff" + tag] = float(
+                        (np.abs(g - w) / np.maximum(w, 1e-30)).max())
+                    kth = max(float(g[-1]), float(w[-1])) ** 2
+                    for row in rows ^ wrows:
+                        if abs(float(((np.asarray(row, np.float64) - qv) ** 2).sum()) - kth) \
+                                > 1e-5 * kth:
+                            raise AssertionError(f"serve: knn {p}: a neighbour differs{tag}")
+                    if err["dist_rel_diff" + tag] > 1e-5:
+                        raise AssertionError(f"serve: knn {p}: {err}")
+            out["checked"].setdefault(q, []).append({"params": p, **err})
+            del want
+            gc.collect()
+            torch.cuda.empty_cache()
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def serve_replays(self, srv, first, batches):
+        """One replay of each resident plan timed alone (CUDA events around
+        one dispatch of the program, from the state a one-iteration ``run``
+        returned: no per-request host work inside), and each batch's wall
+        time beside the sum of its executions' replays (iterations × that
+        plan's replay)."""
+        torch = self.torch
+        replay_ms = {}
+        with srv.session.lock:
+            for prep in srv._programs.values():
+                q = prep.plan_key[0]
+                prep.program.reset_carry()
+                out = prep.run({**first[q], "iters": 1})
+                state = out["state"] if q == "wordcount" else out
+                self.sync()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                prep.program(state, 1)
+                end.record()
+                end.synchronize()
+                replay_ms[q] = start.elapsed_time(end)
+        rows = []
+        for b in batches:
+            if b["size"] < 2:
+                continue
+            est = sum(replay_ms[q] * (1 if q == "knn" else it) for q, it in b["groups"])
+            rows.append({"size": b["size"], "executions": len(b["groups"]),
+                         "query": b["groups"][0][0], "wall_ms": b["wall_ms"],
+                         "replays_ms": est})
+        print(json.dumps({"serve_batches": rows, "replay_ms": replay_ms}), flush=True)
+        return {"replay_ms": replay_ms, "batches": rows}
+
+    def serve_fault_cases(self, data):
+        """The reference's three serving fault cases on a server of their
+        own (``tests/test_faults.py``'s ``serve`` cases): a transient
+        ``dispatch`` fault retried; a ``kernel.segment`` fault degrading the
+        k-means program at 10^8 points, which captures again, the follow-up
+        request a hit with no new compile; shutdown draining a held backlog
+        with typed ``SHUTDOWN``.  Each ledger balanced."""
+        import numpy as np
+        from repro_torch.core import faults
+        from repro_torch.serve import BlazeServer
+
+        dev = self.dev
+        out = {}
+        srv = BlazeServer(device=dev, max_batch=4)
+        srv.register_dataset("points", data["points_np"])
+        with srv:
+            q = {"engine": "pallas", "n_samples": 1 << 20, "iters": 2}
+            r0, _ = srv.submit_and_wait("t", "pi", q)
+            faults.configure("dispatch", at=1)
+            r1, m1 = srv.submit_and_wait("t", "pi", q)
+            rec = srv.stats_snapshot()["recovery"]
+            if (int(r1["counts"][0]) != int(r0["counts"][0]) or rec["retried_batches"] != 1
+                    or m1["cache"] != "hit"):
+                raise AssertionError(f"serve faults: retry {rec}, {m1}")
+            out["retry"] = {"ledger": self.fault_ledger("serve retry", retried=1),
+                            "retried_batches": rec["retried_batches"]}
+            kq = {"engine": "pallas", "k": 5, "iters": 3, "seed": 0}
+            c0, _ = srv.submit_and_wait("t", "kmeans", kq)
+            prog = next(p.program for p in srv._programs.values() if p.plan_key[0] == "kmeans")
+            before = dict(prog.stats.captured_launches[1])
+            faults.configure("kernel.segment", at=1)
+            t0 = time.perf_counter()
+            c1, m1 = srv.submit_and_wait("t", "kmeans", kq)
+            degrade_ms = (time.perf_counter() - t0) * 1e3
+            compiles0 = srv.session.stats.program_compiles
+            t0 = time.perf_counter()
+            c2, m2 = srv.submit_and_wait("t", "kmeans", kq)
+            follow_ms = (time.perf_counter() - t0) * 1e3
+            rec = srv.stats_snapshot()["recovery"]
+            if (m2["cache"] != "hit" or srv.session.stats.program_compiles != compiles0
+                    or rec["degraded_batches"] != 1 or rec["session_degraded_nodes"] != 1
+                    or prog.stats.captures != 2
+                    or "segment_reduce" in prog.stats.captured_launches[1]
+                    or not np.isfinite(c2["centers"]).all()):
+                raise AssertionError(f"serve faults: degrade {rec}, {m1}, {m2}, "
+                                     f"{prog.stats.captured_launches}")
+            out["degrade"] = {
+                "ledger": self.fault_ledger("serve degrade", degraded=1),
+                "degrading_request_ms": degrade_ms, "follow_up_ms": follow_ms,
+                "captures": prog.stats.captures,
+                "launches_per_replay": [before, dict(prog.stats.captured_launches[1])],
+                # eager's f32 counts at 10^8 points (ROADMAP Queue 3 item 3)
+                "centre_diff_eager": float(np.abs(c2["centers"] - c0["centers"]).max())}
+        srv = BlazeServer(device=dev, max_batch=4)
+        srv.start()
+        srv.pause_dispatch()
+        reqs = [srv.submit("t", "pi", {"n_samples": 1 << 20}) for _ in range(5)]
+        srv.stop(drain_timeout=2.0)
+        snap = srv.stats.snapshot()
+        if (not all(r.done.is_set() and r.error is not None and r.error.code == "SHUTDOWN"
+                    for r in reqs)
+                or snap["queued"] or snap["submitted"] != snap["completed"] + snap["failed"]):
+            raise AssertionError(f"serve faults: shutdown {snap}")
+        faults_snap = faults.snapshot()
+        if faults_snap["injected_total"] or not faults_snap["balanced"]:
+            raise AssertionError(f"serve faults: shutdown ledger {faults_snap}")
+        out["shutdown"] = {"drained": len(reqs), "failed": snap["failed"]}
+        return out
+
     def check_supervision(self):
         """Every session the other phases made ended with no retry, no
         degraded node and no escalation."""
         seen = {}
         for phase, st in self.session_stats:
-            if phase == "fault":
+            if phase in ("fault", "serve faults"):
                 continue
             agg = seen.setdefault(phase, {"sessions": 0, "retries": 0, "degraded_nodes": 0,
                                           "escalations": 0})
@@ -3377,6 +3896,8 @@ class Smoke:
             getattr(self, f"{name}_phase")(data)
         self.phase = "fault"
         fault_results = self.fault_phase(data)
+        self.phase = "serve"
+        self.serve_phase(data)
         fault_results["other_phases"] = self.check_supervision()
         print(json.dumps({"faults": fault_results}), flush=True)
         kernels = []
@@ -3443,6 +3964,13 @@ class Smoke:
                 # the fault phase's launches of the kernel (its graph replays
                 # included), on every path of that phase together
                 "fault_launches": self.fault_launches.get(rec["kernel"]),
+                # the serve phase's: the wrappers' (discovery, warm-up,
+                # capture) and its graph replays', by form too
+                "serve_launches": {
+                    "wrappers": self.serve_launches[rec["kernel"]],
+                    "graph_replays": {k: n for k, n in
+                                      self.serve_launches["graph_replays"].items()
+                                      if k.split("/")[0] == rec["kernel"]}},
             })
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"total_s": time.perf_counter() - START}), flush=True)

@@ -171,6 +171,10 @@ def _program_step(rows_v, k: int, d: int, n: int, engine: str):
 
     def state0(alpha, mu, sigma):
         def dev_f32(a):
+            # A tensor already on the device (the serving layer's, copied
+            # without a host sync) is taken as it is.
+            if isinstance(a, torch.Tensor):
+                return a.to(dev, torch.float32)
             return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
         return {"alpha": dev_f32(alpha), "mu": dev_f32(mu), "sigma": dev_f32(sigma),

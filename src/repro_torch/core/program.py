@@ -924,6 +924,7 @@ class _Carry:
 
     residuals: list
     tables: dict  # hash-target key -> HashTable
+    targets: dict  # hash-target key -> the DistHashMap the step captured (initial values)
     state_in: list | None = None  # the graphs' static input state
 
 
@@ -1113,6 +1114,7 @@ class Program:
                 tables={k: C.HashTable(hm.table.keys.clone(), hm.table.vals.clone(),
                                        hm.table.overflow.clone())
                         for k, hm in plan.hash_targets.items()},
+                targets=dict(plan.hash_targets),
             )
         if not self._on_card:  # the card counts captures instead
             self.stats.compiles += 1
@@ -1317,14 +1319,14 @@ class Program:
     # -- the carry -------------------------------------------------------------
 
     def reset_carry(self) -> None:
-        """Reset the residuals and hash tables of every built signature to
-        their initial values, in place (the graphs keep their addresses),
-        without dropping a plan or a graph."""
-        for sig, plan in self._plans.items():
-            carry = self._carry[sig]
+        """Reset the residuals and hash tables of every signature to their
+        initial values, in place (the graphs keep their addresses), without
+        dropping a plan or a graph.  A signature whose plan ``degrade``
+        dropped keeps its carry for the rediscovery, so it is reset too."""
+        for carry in self._carry.values():
             for r in carry.residuals:
                 r.zero_()
-            for key, hm in plan.hash_targets.items():
+            for key, hm in carry.targets.items():
                 t = carry.tables[key]
                 t.keys.copy_(hm.table.keys)
                 t.vals.copy_(hm.table.vals)

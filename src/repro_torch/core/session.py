@@ -153,6 +153,12 @@ class BlazeSession:
             self.tuning.load(tuning_path)
         # every candidate timing: {"tune_key", "config", "wall_s"}
         self.tune_log: list[dict] = []
+        # Session state (stage cache, stats, program carries and graphs) is
+        # not safe to mutate from concurrent threads.  Multi-threaded front
+        # ends (the serving layer's dispatcher, notably) serialize all
+        # session work under this lock; single-threaded drivers never need
+        # to take it.
+        self.lock = threading.RLock()
 
     def map_reduce(
         self,

@@ -1161,3 +1161,197 @@ def test_mid_stream_degrade_replays_the_right_block(dev, ledger):
     np.add.at(exact, np.arange(len(rows)) % 16, rows[:, 0] + 2 * rows[:, 1])
     np.testing.assert_array_equal(want["acc"].cpu().numpy(), 2 * exact)
     assert torch.equal(state["acc"], want["acc"])
+
+
+# -- the query server on the card ---------------------------------------------
+
+
+def _serve_datasets(srv):
+    from repro_torch.data.synthetic import zipf_corpus
+
+    lines, _ = zipf_corpus(1024, 16, 512, seed=3)
+    pts, _ = cluster_points(1 << 16, 3, 5, seed=1)
+    srv.register_dataset("edges", rmat_edges(10, 8, seed=3), n_pages=1 << 10)
+    srv.register_dataset("lines", lines, vocab_size=512)
+    srv.register_dataset("points", pts)
+
+
+def _strict_phase_1(srv):
+    """Run the dispatch of every resident program of ``srv`` (one that has
+    dispatched before, with no fault rule armed: a capture synchronises)
+    under sync-debug ``"error"``, so a host sync in that phase 1 fails its
+    requests.  Returns the count of groups that ran so, ``{"groups": n}``."""
+    from repro_torch.core import faults
+
+    strict = {"groups": 0}
+    supervised = srv.session.supervised
+
+    def strict_supervised(attempt, *, program=None, **kw):
+        if program is None or not program.stats.dispatches or faults.registry.armed:
+            return supervised(attempt, program=program, **kw)
+        strict["groups"] += 1
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return supervised(attempt, program=program, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    srv.session.supervised = strict_supervised
+    return strict
+
+
+SERVED = (
+    ("pagerank", {"engine": "pallas"}),
+    ("wordcount", {"engine": "pallas"}),
+    ("kmeans", {"engine": "pallas", "k": 5}),
+    ("gmm", {"engine": "pallas", "k": 5}),
+    ("knn", {"k": 16, "query": [0.5, 0.0, -0.5]}),
+    ("pi", {"engine": "pallas", "n_samples": 1 << 16}),
+)
+
+
+def test_served_compiles_equal_distinct_plans_whatever_iters(dev):
+    """A request's ``iters`` is not captured: each plan captures one graph
+    of one iteration, replayed ``iters`` times, and the server compiles once
+    a plan whatever ``iters`` its requests send."""
+    from repro_torch.serve import BlazeServer, run_direct
+
+    with BlazeServer(device=dev) as srv:
+        _serve_datasets(srv)
+        for i in (1, 4, 2, 7, 3):
+            for q, p in SERVED[:4]:
+                r, _ = srv.submit_and_wait("t", q, {**p, "iters": i, "seed": i % 3})
+        assert srv.stats.compiles == srv.session.stats.program_compiles == 4
+        for prep in srv._programs.values():
+            st = prep.program.stats
+            assert st.captures == 1 and list(prep.program._graphs) == [
+                (prep.program._last_sig, 1)]
+            assert st.replays == st.iterations
+        want = run_direct(BlazeSession(device=dev), srv.datasets, "wordcount",
+                          {"engine": "pallas", "iters": 3})
+        got, meta = srv.submit_and_wait("t", "wordcount", {"engine": "pallas", "iters": 3})
+        assert meta["cache"] == "hit"
+        np.testing.assert_array_equal(got["keys"], want["keys"])
+        np.testing.assert_array_equal(got["counts"], want["counts"])
+
+
+def test_served_cache_hit_batch_makes_no_host_sync_in_phase_1(dev):
+    """A resident program's phase 1 run under sync-debug ``"error"``
+    (``_strict_phase_1``): a batch of cache hits of all six queries (their
+    per-request state copied from pinned memory) succeeds, every hit having
+    run so, and a query whose ``run`` syncs fails with ``QUERY_ERROR`` once
+    it is resident."""
+    from repro_torch.serve import BlazeServer, PreparedQuery, QuerySpec
+
+    class Syncing(QuerySpec):
+        name = "syncing"
+
+        def plan_key(self, params):
+            return ("syncing",)
+
+        def prepare(self, res, params):
+            from repro_torch.core.algorithms.pi import _program_step
+
+            step, state0 = _program_step(1 << 12, "pallas", res.device)
+            prog = res.session.program(step)
+
+            def run(p):
+                out = prog(state0, 1)
+                float(out["counts"][0])  # a host sync
+                return out
+
+            return PreparedQuery(self.plan_key(params), prog.build(state0).hash, prog,
+                                 run, lambda dev: {"counts": dev["counts"].cpu().numpy()})
+
+    with BlazeServer(device=dev, max_batch=8) as srv:
+        strict = _strict_phase_1(srv)
+        _serve_datasets(srv)
+        srv.register_query(Syncing())
+        for q, p in SERVED:  # first requests capture (not checked)
+            srv.submit_and_wait("t", q, {**p, "iters": 2})
+        srv.submit_and_wait("t", "syncing", {})
+        assert strict["groups"] == 0
+        srv.pause_dispatch()
+        reqs = [srv.submit(f"t{j}", q, {**p, "iters": 1 + j, "seed": j})
+                for j in range(3) for q, p in SERVED]
+        srv.resume_dispatch()
+        for r in reqs:
+            assert r.done.wait(120) and r.error is None, r.error
+            assert r.meta["cache"] in ("hit", "dedup")
+        assert srv.stats.batched_dispatches >= 1
+        assert strict["groups"] == srv.stats.cache_hits > 0
+        with pytest.raises(Exception) as ei:
+            srv.submit_and_wait("t", "syncing", {})
+        assert getattr(ei.value, "code", None) == "QUERY_ERROR"
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_dispatcher_thread_works_on_the_session_device(dev):
+    from repro_torch.serve import BlazeServer, PreparedQuery, QuerySpec
+
+    seen = {}
+
+    class Where(QuerySpec):
+        name = "where"
+
+        def plan_key(self, params):
+            return ("where",)
+
+        def prepare(self, res, params):
+            from repro_torch.core.algorithms.pi import _program_step
+
+            step, state0 = _program_step(1 << 10, "eager", res.device)
+            prog = res.session.program(step)
+
+            def run(p):
+                seen["device"] = torch.cuda.current_device()
+                seen["locked"] = res.session.lock._is_owned()
+                return prog(state0, 1)
+
+            return PreparedQuery(self.plan_key(params), prog.build(state0).hash, prog,
+                                 run, lambda dev: {"counts": dev["counts"].cpu().numpy()})
+
+    index = torch.cuda.device_count() - 1
+    sess = BlazeSession(device=torch.device("cuda", index))
+    with BlazeServer(sess) as srv:
+        srv.register_query(Where())
+        r, _ = srv.submit_and_wait("t", "where", {})
+    assert seen == {"device": index, "locked": True}
+    assert int(r["counts"][0]) > 0
+
+
+def test_served_pallas_kmeans_launches_k1_in_its_graph(dev):
+    """A served ``engine: "pallas"`` k-means request runs K1's register form
+    inside its graph (counted at capture by ``launch_counts()``, then once a
+    replay).  K3 is not on this path: the k-means program's step
+    (``kmeans._program_step``) is one ``[K, dim+2]`` MapReduce, as the
+    reference's is; fig. 6's hand-fused assignment is the one that runs K3."""
+    from repro_torch.core.program import launch_counts
+    from repro_torch.serve import BlazeServer
+
+    with BlazeServer(device=dev) as srv:
+        _serve_datasets(srv)
+        before = launch_counts()
+        srv.submit_and_wait("t", "kmeans", {"engine": "pallas", "k": 5, "iters": 3})
+        after = launch_counts()
+        (prep,) = srv._programs.values()
+    grew = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert grew.get("segment_reduce", 0) > 0 and grew.get("segment_reduce/registers", 0) > 0
+    assert "kmeans_assign" not in grew
+    assert prep.program.stats.captured_launches[1] == {
+        "segment_reduce": 1, "segment_reduce/registers": 1}
+    assert prep.program.stats.replay_launches["segment_reduce"] == 3
+
+
+def test_codec_round_trips_card_tensors_bit_for_bit(dev):
+    import json
+
+    from repro_torch.serve import decode_payload, encode_payload
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32 = torch.randn(64, 3, device=dev, generator=g)
+    bf16 = f32.to(torch.bfloat16)
+    got = decode_payload(json.loads(json.dumps(encode_payload({"f32": f32, "bf16": bf16}))))
+    assert got["f32"].tobytes() == f32.cpu().numpy().tobytes()
+    assert torch.equal(got["bf16"].view(torch.int16), bf16.cpu().view(torch.int16))

@@ -25,8 +25,9 @@ tolerances of the other ``test_torch_*`` files (integers exactly, k-means
 centres within 1e-4, PageRank within ``atol=1e-7``, the small float
 programs within ``rtol=1e-6``).
 
-29 of the reference's 32 cases are here.  Its three ``serve`` cases wait for
-the port's serving layer (ROADMAP.md, Queue 1 item 7).  The tuning case
+All 32 of the reference's cases are here: its three ``serve`` cases run the
+port's ``BlazeServer`` beside the reference's, each on a session with fast
+supervision, armed by one rule in both registries.  The tuning case
 compares the ledger but not the hit counts: the port's candidate grid is its
 own (``repro_torch/core/cost.py``), so it dispatches other candidates.  Two
 more cases are the port's own: a program rediscovered after ``degrade()``
@@ -809,3 +810,115 @@ def test_rediscovery_after_degrade_keeps_the_carry():
     assert torch.equal(out, eout)
     assert prog.hash_result(hm).to_dict() == eprog.hash_result(ehm).to_dict()
     assert torch.equal(carry2.residuals[0], eprog._carry[eprog._last_sig].residuals[0])
+
+
+def test_reset_carry_after_degrade_resets_the_kept_carry():
+    """``degrade()`` drops the plan but keeps its carry for the
+    rediscovery; ``reset_carry()`` resets that carry all the same, as the
+    reference's does (its ``degrade`` keeps the plans), so a request the
+    server retries after a degradation starts from an empty table."""
+    s = _sess()
+    src = s.distribute(np.arange(64, dtype=np.float32))
+    hm = s.make_dist_hashmap(64, reducer="sum")
+
+    def step(ctx, state):
+        def kv(i, v, emit):
+            emit(v.to(torch.int32) % 16, v)
+
+        ctx.map_reduce(src, kv, "sum", hm, engine="pallas")
+        return state
+
+    prog = s.program(step)
+    prog(T1, 1)
+    want = prog.hash_result(hm).to_dict()
+    assert prog.degrade() == 1
+    prog.reset_carry()
+    prog(T1, 1)
+    got = prog.hash_result(hm).to_dict()
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+
+
+# -- serving under faults --------------------------------------------------------
+
+
+def _server(package, **kw):
+    """The reference's server or the port's, on a fast-retry session."""
+    from repro.serve import BlazeServer as JaxServer
+    from repro_torch.serve import BlazeServer
+
+    kw.setdefault("max_queue", 64)
+    kw.setdefault("per_tenant_inflight", 64)
+    if package == "repro":
+        return JaxServer(_jsess(), **kw)
+    return BlazeServer(_sess(), **kw)
+
+
+def _servers():
+    return _server("repro"), _server("repro_torch")
+
+
+PI = {"n_samples": 512, "iters": 1}
+
+
+def test_serve_transient_fault_retries_and_reports():
+    jsrv, srv = _servers()
+    with jsrv, srv:
+        jr0, _ = jsrv.submit_and_wait("t", "pi", PI)
+        r0, _ = srv.submit_and_wait("t", "pi", PI)
+        # hits count only while armed: each server's next dispatch is hit 1
+        _arm("dispatch", at=1)
+        jr1, _ = jsrv.submit_and_wait("t", "pi", PI)
+        r1, _ = srv.submit_and_wait("t", "pi", PI)
+        snaps = (jsrv.stats_snapshot(), srv.stats_snapshot())
+    assert r1["pi"] == r0["pi"] == jr1["pi"] == jr0["pi"]
+    np.testing.assert_array_equal(r1["counts"], np.asarray(jr1["counts"]))
+    for snap in snaps:
+        rec = snap["recovery"]
+        assert rec["retried_batches"] == 1 and rec["balanced"]
+        assert rec["dispositions"]["retried"] == 1
+        assert snap["completed"] == 2 and snap["failed"] == 0
+    _same_ledger(retried=1)
+
+
+def test_serve_kernel_fault_degrades_and_keeps_serving():
+    jsrv, srv = _servers()
+    q = {**PI, "engine": "pallas"}
+    with jsrv, srv:
+        _arm("kernel.segment", at=1)
+        out = []
+        for server in (jsrv, srv):
+            r1, _ = server.submit_and_wait("t", "pi", q)
+            # follow-up identical query: answered from the degraded program,
+            # zero new program compiles
+            compiles0 = server.session.stats.program_compiles
+            r2, m2 = server.submit_and_wait("t", "pi", q)
+            assert server.session.stats.program_compiles == compiles0
+            assert m2["cache"] == "hit"
+            out.append((r1, r2, server.stats_snapshot()))
+    (jr1, jr2, jsnap), (r1, r2, snap) = out
+    assert r2["pi"] == r1["pi"] == jr1["pi"] == jr2["pi"]
+    for s in (jsnap, snap):
+        rec = s["recovery"]
+        assert rec["degraded_batches"] == 1 and rec["balanced"]
+        assert rec["session_degraded_nodes"] == 1
+        assert s["completed"] == 2
+    _same_ledger(degraded=1)
+
+
+@pytest.mark.parametrize("package", ["repro", "repro_torch"])
+def test_serve_shutdown_drains_with_typed_shutdown(package):
+    srv = _server(package, max_batch=4)
+    srv.start()
+    srv.pause_dispatch()  # hold the backlog so stop() must drain it
+    reqs = [srv.submit("t", "pi", PI) for _ in range(5)]
+    srv.stop(drain_timeout=2.0)
+    for req in reqs:
+        assert req.done.is_set()
+        assert req.error is not None and req.error.code == "SHUTDOWN"
+    snap = srv.stats.snapshot()
+    # conservation after drain: nothing is left queued or unaccounted
+    assert snap["queued"] == 0
+    assert snap["submitted"] == snap["completed"] + snap["failed"] == 5
+    # stop() is idempotent
+    srv.stop()

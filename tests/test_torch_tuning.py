@@ -6,8 +6,8 @@ dense and hash candidate gives the same bits on exact inputs, equal to the
 reference's untuned result; winners saved to disk load without measuring.
 
 The reference's two serving cases (``test_serve_tuning_stats_conservation``,
-``test_serve_untuned_plans_are_fallback``) wait for the port's ``serve/``
-slice (ROADMAP Queue 1 item 9).
+``test_serve_untuned_plans_are_fallback``) run against the port's
+``BlazeServer`` on the CPU.
 
 On the CPU every wrapper runs its plain version, so the times measured here
 are the CPU's and only the counters and the results are checked.  Exact
@@ -211,3 +211,68 @@ def test_chunked_sources_are_not_tuned():
     assert sess.stats.tune_measurements == 0 and len(sess.tuning) == 0
     for a, b in zip(_counts(out), _jax_counts()):
         np.testing.assert_array_equal(a, b)
+
+
+# -- serving ------------------------------------------------------------------
+
+
+def test_serve_tuning_stats_conservation():
+    from repro_torch.serve import BlazeServer
+
+    rng = np.random.RandomState(0)
+    pts = rng.randn(128, 4).astype(np.float32)
+    lines = rng.randint(0, VOCAB, size=(128, 1)).astype(np.int32)
+    srv = BlazeServer(device="cpu", tune=True)
+    srv.register_dataset("points", pts)
+    srv.register_dataset("lines", lines, vocab_size=VOCAB)
+    srv.start()
+    try:
+        srv.submit_and_wait(
+            "t", "kmeans", {"k": 4, "iters": 2, "engine": "auto"}
+        )
+        srv.submit_and_wait("t", "wordcount", {"engine": "auto"})
+        measured = srv.session.stats.tune_measurements
+        assert measured > 0
+        # resubmission: plan-cache hit, no re-measure
+        srv.submit_and_wait(
+            "t", "kmeans", {"k": 4, "iters": 2, "engine": "auto"}
+        )
+        assert srv.session.stats.tune_measurements == measured
+        snap = srv.stats_snapshot()
+        t = snap["tuning"]
+        assert (
+            t["tuned_plans"] + t["fallback_plans"]
+            == snap["resident_programs"]
+        )
+        assert t["tuned_plans"] >= 1
+        for info in t["plans"].values():
+            for op in info["ops"]:
+                assert op["source"] in ("measured", "loaded", "model",
+                                        "fallback")
+                if op["source"] == "model":
+                    assert op["config"] is None
+                else:
+                    assert op["config"]
+        assert t["cache"]["measurements"] == measured
+    finally:
+        srv.stop()
+
+
+def test_serve_untuned_plans_are_fallback():
+    from repro_torch.serve import BlazeServer
+
+    rng = np.random.RandomState(0)
+    srv = BlazeServer(device="cpu")  # tune off: everything rides the model
+    srv.register_dataset("points", rng.randn(64, 4).astype(np.float32))
+    srv.start()
+    try:
+        srv.submit_and_wait(
+            "t", "kmeans", {"k": 4, "iters": 2, "engine": "auto"}
+        )
+        snap = srv.stats_snapshot()
+        t = snap["tuning"]
+        assert t["tuned_plans"] == 0
+        assert t["fallback_plans"] == snap["resident_programs"] == 1
+        assert srv.session.stats.tune_measurements == 0
+    finally:
+        srv.stop()
