@@ -40,7 +40,16 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    graph, ``run_stream``), checkpointed and resumed;
 6. wire phase — PageRank and k-means at 4 shards stacked on the card with
    ``wire="none" | "bf16" | "int8"``, per op and as programs;
-7. fault phase — the supervisor under injected faults (``core.faults``), on
+7. multinode phase — the ``("node", "data")`` topology: the 8 shards
+   stacked on the card as (1x8), (2x4) and (4x2) node rows
+   (``launch.mesh.make_node_data_mesh``), on (2x4) and (4x2) with the
+   hierarchical collectives and flat: PageRank, k-means and wordcount per
+   op and as programs, PageRank and k-means also with ``wire="int8"``,
+   fig. 6's hand-fused step (K3 on each shard's points, the partials
+   reduced over the mesh) as a program, one k-means ``run_stream`` on
+   (2x4), the exactness law, the byte accounting, and a transient
+   ``collective.inter`` fault retried;
+8. fault phase — the supervisor under injected faults (``core.faults``), on
    the data above: a per-op PageRank dispatch retried, per-op wordcount
    degraded from K2 to eager, the k-means program (K1 and K3) degraded at
    its third dispatch and captured again, a fault inside a first capture
@@ -50,7 +59,7 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    other phase must end with no retry, no degraded node and no escalation
    in any session it made (supervision would otherwise let a kernel that
    fails to launch fall back to eager unseen);
-8. serve phase — the query server (``repro_torch.serve.BlazeServer``, its
+9. serve phase — the query server (``repro_torch.serve.BlazeServer``, its
    session on the card, a resident program's phase 1 under sync-debug
    ``"error"``) over the path phase's data
    (``edges``, ``lines``, ``points``, and ``gmm_points`` for GMM), the six
@@ -278,6 +287,35 @@ iterations with and without the carry are printed, not checked: the
 carry re-injects last round's error, which a power iteration does not
 always cancel.
 
+The multinode phase holds every float job to the tolerance its per-op
+run has against the float64 reference (PageRank per page, k-means' centres
+1e-4 and inertia 1e-4 relative), word counts exactly, fig. 6 on the mesh
+to the k-means reference within 1e-4, and the (2x4) stream to the
+in-memory (2x4) program within 1e-4 (centres) and 1e-4 relative
+(inertia).  Its int8 runs are held to the wire phase's bounds with the
+addends of the one narrowed hop: ``n_nodes`` node partials on the
+hierarchical wire, 8 shard partials on the flat one (per op, PageRank to
+``pagerank_int8_emulation`` over that many contiguous blocks, the node's
+rows being contiguous; k-means to ``kmeans_int8_reach``; int8 PageRank
+programs within 2e-2 relative); both errors are printed beside each other.
+The exactness law: a dense ``map_reduce`` of 2^22 rows of integers in [0,
+4) keyed ``i % 64`` (every partial and total an integer below 2^24) gives
+the same bits hierarchical and flat, on all three topologies, per op and
+as a program (3 iterations, divided by 3), and equals a NumPy int64 sum.
+The dense op's ``intra_bytes``/``inter_bytes`` must equal
+``reduce_edge_bytes``; wordcount's shuffle must put ``(S − S/nodes)/S`` of
+its payload on inter-node links within one byte.  K1, K2 and K3 must each
+run on every topology (the wrappers' launches and the graph replays', both
+printed, and the replays); every session ends with 0 retries, 0 degraded
+nodes and 0 escalations.  A transient ``collective.inter`` fault (the inter
+hop of the first hierarchical reduce a session runs) on (2x4) must be
+retried once with a balanced ledger: on the law's op the result is the
+fault-free bits; on per-op PageRank, whose float sums K1's global form adds
+by atomics (two fault-free runs need not share bits), each page within its
+per-op tolerance of the fault-free (2x4) run.  Wall times per op and per
+replay are printed for each topology beside the (1x8) run's (single
+samples, the card's name and power limit beside them).
+
 The tuning phase runs each job's program with ``tune=True``: every variant
 (variant ``j`` pins each node to its ``j``-th candidate, ``cost``'s grids)
 is built, dispatched, timed over one replay and freed; the run fails unless
@@ -360,8 +398,9 @@ Output: after the build, the count of tensor-core instructions (``HGMMA``,
 fails the run, K5's is printed only); one line per check (K1's, K4's and
 K5's with the form each call took), then a ``{"kernels": [...]}`` summary
 line (with each K1, K4, K5 and K6 call's form, the forms its path's calls
-took, the program phase's launches by kernel and form and the serve
-phase's), the script's total seconds, the card's name and power limit,
+took, the program phase's launches by kernel and form, the multinode
+phase's by topology (K1–K3: the wrappers' and the graph replays') and the
+serve phase's), the script's total seconds, the card's name and power limit,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Without CUDA, or without the rest of the repository beside it, it exits 2 and
@@ -686,6 +725,11 @@ class Smoke:
         self.fault_totals: dict[str, int] = {}  # fault phase: dispositions, injected
         self.fault_launches: dict[str, int] = {}  # fault phase: kernel launches
         self.serve_launches: dict = {}  # serve phase: wrappers' and graph replays' launches
+        # program job -> its two runs' walls [first, replay] and the first's
+        # launches outside a graph (discovery, warm-up, capture)
+        self.program_runs: dict[str, dict] = {}
+        # multinode phase: kernel -> topology -> {"wrappers", "graph_replays"}
+        self.multinode_launches: dict[str, dict] = {}
 
     # -- measurement helpers -------------------------------------------------
 
@@ -1985,6 +2029,8 @@ class Smoke:
             (out, info), wall, launch = self.drive(
                 f"{name} program" + (" replay" if i else ""), run, units)
             walls.append(wall)
+            if i == 0:
+                first_launch = launch
         st = prog.stats
         eager = {k: launch[k] for k in ("segment_reduce", "hash_aggregate", "kmeans_assign")}
         if not (st.captures >= 1 and st.replays == st.dispatches >= 2) or any(eager.values()):
@@ -2001,6 +2047,7 @@ class Smoke:
                           "pool_peak_bytes": st.pool_peak_bytes,
                           "pool_reserved_bytes": st.pool_reserved_bytes}), flush=True)
         self.program_launches[name] = dict(st.replay_launches)
+        self.program_runs[name] = {"walls": walls, "first_launches": first_launch}
         return out
 
     def program_phase(self, data):
@@ -2652,7 +2699,7 @@ class Smoke:
 
     def fault_phase(self, data):
         """The supervisor on the card, under injected faults, on the data of
-        the earlier phases (module docstring, 7).  Each check's ledger must
+        the earlier phases (module docstring, 8).  Each check's ledger must
         balance with the dispositions it expects; results are held to the
         fault-free run of the same call within the tolerance the program
         phase uses for it (the wordcount counts and the escalated hash map
@@ -2982,7 +3029,7 @@ class Smoke:
     # -- serve phase -----------------------------------------------------------
 
     def serve_phase(self, data):
-        """The query server on the card (module docstring, 8): one
+        """The query server on the card (module docstring, 9): one
         ``BlazeServer`` over the path phase's data, a resident program's
         phase 1 under sync-debug ``"error"`` (``strict_phase_1``), 72
         requests of 3 tenants, the first of each query alone (its capture),
@@ -3405,7 +3452,7 @@ class Smoke:
         degraded node and no escalation."""
         seen = {}
         for phase, st in self.session_stats:
-            if phase in ("fault", "serve faults"):
+            if phase in ("fault", "serve faults", "multinode faults"):
                 continue
             agg = seen.setdefault(phase, {"sessions": 0, "retries": 0, "degraded_nodes": 0,
                                           "escalations": 0})
@@ -3560,6 +3607,340 @@ class Smoke:
         del sess, prog, edges_v
         torch.cuda.empty_cache()
         print(json.dumps({"wire_results": out}), flush=True)
+
+    # -- multinode phase ------------------------------------------------------
+
+    def multinode_phase(self, data):
+        """The ``("node", "data")`` topology on the card (module docstring,
+        7): the 8 shards stacked on the card as (1x8), (2x4) and (4x2),
+        ``engine="pallas"``, the path phase's data.  Per topology, and on
+        (2x4) and (4x2) hierarchical and flat: PageRank, k-means and
+        wordcount per op and as programs, PageRank and k-means also with
+        ``wire="int8"``, fig. 6's hand-fused step (K3 on each shard, the
+        partials reduced over the mesh) as a program, and the exactness law
+        (integer-valued rows: the same bits everywhere); one k-means
+        ``run_stream`` on (2x4); the byte accounting; K1, K2 and K3's
+        launches and the graph replays per topology; a transient
+        ``collective.inter`` fault retried on (2x4)."""
+        torch = self.torch
+        import functools
+        import importlib
+
+        import numpy as np
+        from repro_torch.core import BlazeSession, DistVector, faults
+        from repro_torch.core.algorithms import kmeans, pagerank, wordcount
+        from repro_torch.core.mapreduce import make_collectives, reduce_edge_bytes
+        from repro_torch.core.reducers import get_reducer
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_node_data_mesh
+
+        alg = {m: importlib.import_module("repro_torch.core.algorithms." + m)
+               for m in ("kmeans", "pagerank", "wordcount")}
+        dev = self.dev
+        t_phase = time.perf_counter()
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+        kernels = ("segment_reduce", "hash_aggregate", "kmeans_assign")
+        edges_np, n_pages = data["edges_np"], data["n_pages"]
+        edges_v = DistVector(data["edges"], edges_np.shape[0])
+        scores0 = torch.full((n_pages,), 1.0 / n_pages, device=dev)
+        pts, c0 = data["points"], data["init_centers"]
+        n_pts, dim = pts.shape
+        pts_v = DistVector(pts, n_pts)
+        init = c0.cpu().numpy()
+        lines, vocab = data["lines_np"], data["vocab"]
+        tokens_v = DistVector(data["tokens"], lines.shape[0])
+        _, pr_ref, pr_tol = self.per_op["pagerank"]
+        km_ref, ref_c, ref_inertia = self.per_op["kmeans"]
+
+        # The exactness law's rows: integers in [0, 4), 2^22 rows keyed
+        # i % 64, so every partial and total is an integer below 2^24.
+        g = torch.Generator(device=dev).manual_seed(0)
+        law_rows = torch.randint(0, 4, (1 << 22, 4), generator=g, device=dev).float()
+        law_v = DistVector(law_rows, law_rows.shape[0])
+        law_oracle = law_rows.cpu().numpy().astype(np.int64).reshape(-1, 64, 4).sum(0)
+
+        def law_mapper(i, x, emit):
+            emit(i % 64, x)
+
+        def law_step(ctx, s):
+            t = ctx.map_reduce(law_v, law_mapper, "sum", torch.zeros(64, 4, device=dev),
+                               engine="pallas")
+            return {"acc": s["acc"] + t}
+
+        def pr_check(tag, scores, wire, mode, shards):
+            got = torch.as_tensor(scores).to(dev).double()
+            rel = float(((got - pr_ref).abs() / pr_ref).max())
+            if wire == "none":
+                if not bool(((got - pr_ref).abs() <= pr_tol).all()):
+                    raise AssertionError(f"multinode pagerank {tag}: a page is over its "
+                                         "tolerance")
+                return {"max_rel_err": rel}
+            if mode == "program":  # the wire phase's 2e-2
+                err = float((got - pr_ref).abs().max() / pr_ref.max())
+                if err > 2e-2:
+                    raise AssertionError(f"multinode pagerank {tag}: {err} over 2e-2")
+                return {"max_rel_err": rel, "float64_rel_err": err}
+            emu, steps = pagerank_int8_emulation(data["edges"], data["deg"], n_pages, shards, 5)
+            err = (got - emu).abs()
+            share = float((err / (sum(steps) + 1e-5 * emu)).max())
+            agree = float((err <= 1e-3 * emu).double().mean())
+            if share > 1.0 or agree < 0.9:
+                raise AssertionError(f"multinode pagerank {tag}: off its int8 emulation "
+                                     f"({share} of the bound, {agree} within 1e-3)")
+            return {"max_rel_err": rel, "share_of_emulation_bound": share,
+                    "pages_agreeing": agree,
+                    "float64_rel_err": float((got - pr_ref).abs().max() / pr_ref.max())}
+
+        def km_check(tag, centers, inertia, wire, mode, shards):
+            centers = centers.cpu().numpy() if hasattr(centers, "cpu") else centers
+            err = float(np.abs(centers - ref_c).max())
+            if wire == "int8":
+                reach = kmeans_int8_reach(pts, ref_c, shards, 5, mode == "program")
+                share = float((np.abs(centers - ref_c) / reach).max())
+                if share > 1.0:
+                    raise AssertionError(f"multinode kmeans {tag}: {share} of the int8 reach")
+                return {"centre_err": err, "share_of_int8_reach": share}
+            if err > 1e-4 or abs(inertia - ref_inertia) > 1e-4 * ref_inertia:
+                raise AssertionError(f"multinode kmeans {tag}: centre error {err}, inertia "
+                                     f"{inertia} vs {ref_inertia}")
+            return {"centre_err": err, "inertia_rel_err": abs(inertia - ref_inertia)
+                    / ref_inertia}
+
+        def wc_check(tag, hm):
+            keys, vals = hm.items()
+            got = np.zeros(vocab, np.int64)
+            got[keys] = vals
+            if hm.total_overflow() or not np.array_equal(got, self.per_op["wordcount"]):
+                raise AssertionError(f"multinode wordcount {tag} differs from per-op")
+            return {"distinct": int(len(keys))}
+
+        results = {"card": card, "topologies": {}, "graph_replays": {}}
+        law_bits, km_program, pr_clean = {}, {}, {}
+        for n_nodes in (1, 2, 4):
+            mesh = make_node_data_mesh(n_nodes, n_shards=8, device=dev)
+            topo = f"{n_nodes}x{8 // n_nodes}"
+            counts = {k: {"wrappers": 0, "graph_replays": 0} for k in kernels}
+            replays = 0
+            res_t = results["topologies"][topo] = {}
+            for hier in ((True,) if n_nodes == 1 else (True, False)):
+                tag = f"{topo} {'hier' if hier else 'flat'}"
+                sess = BlazeSession(mesh=mesh)
+                if not hier:  # every op and program of this session flat
+                    sess.map_reduce = functools.partial(sess.map_reduce, hierarchical=False)
+                    sess.program = functools.partial(sess.program, hierarchical=False)
+                shards = n_nodes if hier and n_nodes > 1 else 8  # addends of the narrowed hop
+                r = res_t["hier" if hier else "flat"] = {"walls": {}, "checks": {}}
+
+                def per_op(name, fn, units):
+                    out, wall, launch = self.drive(f"multinode {tag} {name}", fn, units)
+                    r["walls"].setdefault(name, {})["per_op_s"] = wall
+                    for k in kernels:
+                        counts[k]["wrappers"] += launch[k]
+                    return out
+
+                def program(name, prog, run, units):
+                    nonlocal replays
+                    key = f"multinode {tag} {name}"
+                    out = self.program_job(key, prog, run, units)
+                    first, replay = self.program_runs[key]["walls"]
+                    r["walls"].setdefault(name, {}).update(
+                        program_first_s=first, program_replay_s=replay)
+                    for k in kernels:
+                        counts[k]["wrappers"] += self.program_runs[key]["first_launches"][k]
+                        counts[k]["graph_replays"] += prog.stats.replay_launches.get(k, 0)
+                    replays += prog.stats.replays
+                    return out
+
+                # the exactness law, per op and as a program; its bytes
+                got, st = per_op("law", lambda: sess.map_reduce(
+                    law_v, law_mapper, "sum", torch.zeros(64, 4, device=dev),
+                    engine="pallas", return_stats=True), law_rows.shape[0])
+                st = st.finalize()
+                want_bytes = reduce_edge_bytes(256, 4, 4, 8, n_nodes, hier)
+                if (st.intra_bytes, st.inter_bytes) != want_bytes:
+                    raise AssertionError(f"multinode {tag}: law bytes {st}, want {want_bytes}")
+                if ("hier" in st.collective) != (hier and n_nodes > 1):
+                    raise AssertionError(f"multinode {tag}: collective {st.collective}")
+                prog = sess.program(law_step)
+                state0 = {"acc": torch.zeros(64, 4, device=dev)}
+                acc = program("law", prog, lambda: sess.run_loop(prog, state0, max_iters=3,
+                                                                  unroll=3), 3 * law_rows.shape[0])
+                law_bits[f"{tag} per_op"] = got
+                law_bits[f"{tag} program"] = acc["acc"] / 3
+                if not (np.array_equal(got.cpu().numpy(), law_oracle)
+                        and np.array_equal(acc["acc"].cpu().numpy(), 3 * law_oracle)):
+                    raise AssertionError(f"multinode {tag}: the law's sums differ from NumPy")
+                r["bytes"] = {"dense": {"collective": st.collective, "intra": st.intra_bytes,
+                                        "inter": st.inter_bytes}}
+                del prog
+
+                # PageRank, k-means, wordcount per op; PageRank, k-means int8
+                for wire in ("none", "int8"):
+                    pr = per_op(f"pagerank {wire}", lambda: pagerank(
+                        edges_np, n_pages, tol=0.0, max_iters=5, engine="pallas", wire=wire,
+                        session=sess), 5 * len(edges_np))
+                    r["checks"][f"pagerank {wire} per_op"] = pr_check(
+                        tag, pr.scores, wire, "per_op", shards)
+                    if wire == "none" and topo == "2x4" and hier:
+                        pr_clean["scores"] = pr.scores
+                    km = per_op(f"kmeans {wire}", lambda: kmeans(
+                        pts_v, 5, init_centers=init, tol=0.0, max_iters=5, engine="pallas",
+                        wire=wire, session=sess), 5 * n_pts)
+                    r["checks"][f"kmeans {wire} per_op"] = km_check(
+                        tag, km.centers, km.inertia, wire, "per_op", shards)
+                hm, st = per_op("wordcount", lambda: wordcount(
+                    lines, engine="pallas", vocab_size=vocab, return_stats=True,
+                    session=sess), int(lines.size))
+                r["checks"]["wordcount per_op"] = wc_check(tag, hm)
+                st = st.finalize()
+                frac = (8 - 8 // n_nodes) / 8
+                if (abs(st.inter_bytes - frac * st.shuffle_payload_bytes) > 1
+                        or abs(st.intra_bytes + st.inter_bytes - st.shuffle_payload_bytes) > 1):
+                    raise AssertionError(f"multinode {tag}: hash bytes {st}")
+                r["bytes"]["hash"] = {"collective": st.collective, "intra": st.intra_bytes,
+                                      "inter": st.inter_bytes}
+                del hm
+
+                # the same jobs as programs, unroll = their iterations
+                for wire in ("none", "int8"):
+                    step, s0 = alg["pagerank"]._program_step(edges_v, data["deg"], n_pages,
+                                                             0.85, "pallas", wire)
+                    prog = sess.program(step)
+                    out = program(f"pagerank {wire}", prog, lambda: sess.run_loop(
+                        prog, s0(scores0), cond=lambda s: float(s["delta"]) < 0.0,
+                        max_iters=5, unroll=5), 5 * len(edges_np))
+                    r["checks"][f"pagerank {wire} program"] = pr_check(
+                        tag, out["scores"], wire, "program", shards)
+                    step, s0 = alg["kmeans"]._program_step(pts_v, 5, dim, "pallas", wire)
+                    prog = sess.program(step)
+
+                    def km_run(prog=prog, s0=s0):
+                        out, info = sess.run_loop(prog, s0(c0), cond=lambda s: float(
+                            s["move"]) < 0.0, max_iters=5, unroll=5)
+                        return (out["centers"], float(prog(out, 1)["inertia"])), info
+
+                    centers, inertia = program(f"kmeans {wire}", prog, km_run, 5 * n_pts)
+                    r["checks"][f"kmeans {wire} program"] = km_check(
+                        tag, centers, inertia, wire, "program", shards)
+                    if wire == "none":
+                        km_program[tag] = (centers, inertia)
+                    del prog
+                hm = sess.make_dist_hashmap(max(64, 4 * vocab), (), torch.int32, "sum")
+                step, s0 = alg["wordcount"]._program_step(tokens_v, hm, vocab, "pallas")
+                prog = sess.program(step)
+
+                def wc_run(prog=prog, s0=s0, hm=hm):
+                    _, info = sess.run_loop(prog, s0, max_iters=1)
+                    return prog.hash_result(hm), info
+
+                r["checks"]["wordcount program"] = wc_check(
+                    tag, program("wordcount", prog, wc_run, int(lines.size)))
+                del prog, hm
+
+                # fig. 6's hand-fused step on the mesh: K3 on each shard's
+                # points, the [K, D+1] partials reduced over the mesh
+                per = n_pts // 8
+                coll = make_collectives(mesh)
+                total = get_reducer("sum")
+
+                def fig6_step(ctx, s, hier=hier, coll=coll):
+                    parts = torch.stack([ops.kmeans_assign(pts[i * per:(i + 1) * per],
+                                                           s["c"])[1] for i in range(8)])
+                    st = coll.reduce(parts, total, hier=hier)
+                    return {"c": st[:, :dim] / torch.clamp(st[:, dim:], min=1.0)}
+
+                prog = sess.program(fig6_step)
+                out = program("fig6", prog, lambda: sess.run_loop(
+                    prog, {"c": c0}, max_iters=5, unroll=5), 5 * n_pts)
+                err = float(np.abs(out["c"].cpu().numpy() - ref_c).max())
+                if err > 1e-4:
+                    raise AssertionError(f"multinode fig6 {tag}: centre error {err}")
+                r["checks"]["fig6 program"] = {"centre_err": err}
+                del prog, out
+
+                if topo == "2x4" and hier:  # one k-means stream against the in-memory run
+                    km_c = sess.chunked(data["points_np"], STREAM_BLOCK_ROWS)
+                    ks = per_op("kmeans stream", lambda: kmeans(
+                        km_c, 5, init_centers=init, tol=0.0, max_iters=5, engine="pallas",
+                        mode="stream", session=sess), 5 * n_pts)
+                    mem_c, mem_inertia = km_program[tag]
+                    err = float(np.abs(ks.centers - mem_c.cpu().numpy()).max())
+                    if err > 1e-4 or abs(ks.inertia - mem_inertia) > 1e-4 * mem_inertia:
+                        raise AssertionError(f"multinode stream {tag}: {err} from the "
+                                             f"in-memory run, inertia {ks.inertia} vs "
+                                             f"{mem_inertia}")
+                    r["checks"]["kmeans stream"] = {"centre_diff_in_memory": err}
+                    del km_c, ks
+                print(json.dumps({"multinode": tag, **r}), flush=True)
+                del sess
+                torch.cuda.empty_cache()
+            for k in kernels:
+                if counts[k]["wrappers"] + counts[k]["graph_replays"] == 0:
+                    raise AssertionError(f"multinode {topo}: {k} did not run")
+                self.multinode_launches.setdefault(k, {})[topo] = counts[k]
+            if replays == 0:
+                raise AssertionError(f"multinode {topo}: no graph replay")
+            results["graph_replays"][topo] = replays
+
+        # The law: the same bits hierarchical and flat, on every topology,
+        # per op and as a program.
+        first = law_bits["1x8 hier per_op"]
+        if not all(torch.equal(first, b) for b in law_bits.values()):
+            raise AssertionError("multinode: the exactness law's bits differ")
+        results["law_bit_equal"] = sorted(law_bits)
+        for wire in ("none", "int8"):
+            results[f"hier_vs_flat_{wire}"] = {
+                topo: {h: {k: v for k, v in res_t[h]["checks"].items()
+                           if k.startswith(("pagerank " + wire, "kmeans " + wire))}
+                       for h in res_t}
+                for topo, res_t in results["topologies"].items() if topo != "1x8"}
+        results["walls_vs_1x8"] = {
+            f"{topo} {h}": {job: {k: v / results["topologies"]["1x8"]["hier"]["walls"][job][k]
+                                  for k, v in w.items()}
+                            for job, w in res_t[h]["walls"].items()
+                            if job in results["topologies"]["1x8"]["hier"]["walls"]}
+            for topo, res_t in results["topologies"].items() for h in res_t}
+
+        # A transient collective.inter fault on (2x4), retried: the law's op
+        # gives the fault-free bits; per-op PageRank (float sums by K1's
+        # atomics, which two fault-free runs need not share) stays within
+        # its per-page tolerance of the fault-free run.
+        self.phase = "multinode faults"
+        mesh = make_node_data_mesh(2, n_shards=8, device=dev)
+        fast = faults.RetryPolicy(attempts=3, backoff_s=0.0, multiplier=1.0, deadline_s=None)
+        fault = {}
+        for name in ("law", "pagerank"):
+            faults.reset(env=False)
+            sess = BlazeSession(mesh=mesh, retry=fast)
+            faults.configure("collective.inter", at=1)
+            if name == "law":
+                got = sess.map_reduce(law_v, law_mapper, "sum", torch.zeros(64, 4, device=dev),
+                                      engine="pallas")
+                ok = torch.equal(got, law_bits["2x4 hier per_op"])
+                diff = 0.0
+            else:
+                pr = pagerank(edges_np, n_pages, tol=0.0, max_iters=5, engine="pallas",
+                              session=sess)
+                d = (torch.from_numpy(pr.scores).to(dev).double()
+                     - torch.from_numpy(pr_clean["scores"]).to(dev).double()).abs()
+                ok, diff = bool((d <= pr_tol).all()), float(d.max())
+            snap = faults.snapshot()
+            fault[name] = {"retries": sess.stats.retries, "max_diff": diff,
+                           "injected": snap["injected"], "balanced": snap["balanced"],
+                           "retried": snap["dispositions"]["retried"]}
+            if not (ok and sess.stats.retries == 1 and snap["balanced"]
+                    and snap["dispositions"]["retried"] == 1
+                    and snap["injected"] == {"collective.inter": 1}):
+                raise AssertionError(f"multinode collective.inter {name}: {fault[name]}")
+            del sess
+        faults.reset(env=False)
+        results["collective_inter_fault"] = fault
+        self.phase = "multinode"
+        results["multinode_s"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        print(json.dumps({"multinode_results": results}, default=str), flush=True)
 
     def lm_path(self, arch):
         """The LM serving path: ``repro_torch.launch.serve_lm.generate`` on
@@ -3891,7 +4272,7 @@ class Smoke:
             print(json.dumps({"lm_results": self.lm_path(arch)}), flush=True)
             torch.cuda.empty_cache()
         data = self.make_data()
-        for name in ("kernel", "path", "program", "tuning", "stream", "wire"):
+        for name in ("kernel", "path", "program", "tuning", "stream", "wire", "multinode"):
             self.phase = name
             getattr(self, f"{name}_phase")(data)
         self.phase = "fault"
@@ -3964,6 +4345,9 @@ class Smoke:
                 # the fault phase's launches of the kernel (its graph replays
                 # included), on every path of that phase together
                 "fault_launches": self.fault_launches.get(rec["kernel"]),
+                # the multinode phase's, by topology: the wrappers' and the
+                # graph replays'
+                "multinode_launches": self.multinode_launches.get(rec["kernel"]),
                 # the serve phase's: the wrappers' (discovery, warm-up,
                 # capture) and its graph replays', by form too
                 "serve_launches": {

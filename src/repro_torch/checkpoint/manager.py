@@ -3,8 +3,11 @@
 The counterpart of ``repro/checkpoint/manager.py``.  A checkpoint stores the
 logical arrays of a tree of tensors as numpy (``arrays.npz``) and a manifest
 of the tree's structure, shapes and dtypes; restore puts them back onto the
-structure, dtypes and device of a given tree.  The format is the port's own:
-it does not read the JAX package's checkpoints.
+structure and dtypes of a given tree, on its devices or on the placements
+asked for.  The arrays are logical (a stacked-shard container's leading dim
+does not depend on the mesh's node split), so a checkpoint restores bit for
+bit onto any topology: elastic restore.  The format is the port's own: it
+does not read the JAX package's checkpoints.
 
 Atomicity: write ``step_N.tmp-<nonce>/``, then commit with a rename-aside
 swap, ``rename(final, final.old-<nonce>)``; ``rename(tmp, final)``;
@@ -45,6 +48,23 @@ def _flatten(tree) -> tuple[list[np.ndarray], Any]:
         else:
             out.append(np.asarray(x))
     return out, spec
+
+
+def _placements(shardings, n: int) -> list:
+    """One ``torch.device`` (or ``None``: the like-leaf's own) per leaf."""
+    from repro_torch.core.containers import Mesh
+
+    def device_of(p):
+        if p is None:
+            return None
+        return p.device if isinstance(p, Mesh) else torch.device(p)
+
+    if shardings is None or isinstance(shardings, (str, torch.device, Mesh)):
+        return [device_of(shardings)] * n
+    flat = pytree.tree_flatten(shardings)[0]
+    if len(flat) != n:
+        raise ValueError(f"shardings has {len(flat)} placements for {n} leaves")
+    return [device_of(p) for p in flat]
 
 
 class CheckpointManager:
@@ -164,11 +184,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like, device=None):
-        """Checkpoint ``step`` onto the structure of ``like``: each leaf gets
-        the dtype of ``like``'s leaf and goes to ``device`` (default: that
-        leaf's own device).  Raises ``ValueError`` when the leaf counts
-        differ."""
+    def restore(self, step: int, like, shardings=None):
+        """Checkpoint ``step`` onto the structure of ``like`` (elastic: any
+        device or mesh).  Each leaf gets the dtype of ``like``'s leaf and
+        goes to its placement: ``shardings`` is one placement for every
+        leaf or a tree of them matching ``like``, a placement being a device
+        (or its name) or a ``containers.Mesh`` (its device); ``None``, the
+        default, keeps each leaf on the device of ``like``'s.  Raises
+        ``ValueError`` when the leaf counts differ."""
         path = self._path(step)
         with open(os.path.join(path, _SENTINEL)) as f:
             manifest = json.load(f)
@@ -178,16 +201,17 @@ class CheckpointManager:
         if len(like_leaves) != len(leaves):
             raise ValueError(f"checkpoint has {len(leaves)} leaves, target has "
                              f"{len(like_leaves)}")
+        places = _placements(shardings, len(leaves))
         out = []
-        for arr, lk in zip(leaves, like_leaves):
+        for arr, lk, place in zip(leaves, like_leaves, places):
             if isinstance(lk, torch.Tensor):
-                dev = lk.device if device is None else torch.device(device)
+                dev = lk.device if place is None else place
                 out.append(torch.from_numpy(np.array(arr, copy=True)).to(dev, lk.dtype))
             else:
                 out.append(np.asarray(arr).astype(np.asarray(lk).dtype))
         return pytree.tree_unflatten(out, spec)
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, shardings=None):
         """``(step, tree)`` of the newest complete checkpoint, or ``(None,
         None)`` when there is none."""
         self._recover()
@@ -203,7 +227,7 @@ class CheckpointManager:
                 if step is None:
                     return None, None
             try:
-                return step, self.restore(step, like, device)
+                return step, self.restore(step, like, shardings)
             except (FileNotFoundError, NotADirectoryError):
                 continue
         raise RuntimeError(f"restore_latest: checkpoints in {self.dir} kept "

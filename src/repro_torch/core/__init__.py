@@ -1,8 +1,8 @@
 """Blaze core: in-memory MapReduce + distributed containers in PyTorch.
 
-Exports every name of the reference's ``repro.core`` but ``data_mesh``,
-which waits for the multi-host slice (ROADMAP.md, Queue 1 item 6): the
-port's session owns a device and a shard count, not a mesh.
+Exports every name of the reference's ``repro.core``.  ``data_mesh`` is the
+port's 1-D mesh (``containers.Mesh``: shards stacked on one device); the
+2-D ``("node", "data")`` one is ``repro_torch.launch.mesh.make_node_data_mesh``.
 """
 from repro_torch.core.containers import (
     EMPTY_KEY,
@@ -14,6 +14,7 @@ from repro_torch.core.containers import (
     HostBlockStore,
     chunked,
     collect,
+    data_mesh,
     distribute,
     foreach,
     make_dist_hashmap,
@@ -66,6 +67,7 @@ __all__ = [
     "chunked",
     "collect",
     "custom_reducer",
+    "data_mesh",
     "distribute",
     "foreach",
     "get_default_session",

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import DistVector
+from repro_torch.core.containers import Mesh
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -195,12 +196,13 @@ def gmm_em(
     mode: str = "per_op",
     unroll: int = 1,
     seed: int = 0,
+    mesh: Mesh | None = None,
     session: BlazeSession | None = None,
 ) -> GMMResult:
     if mode not in ("per_op", "program"):
         raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
-    sess = resolve(session)
-    dev = sess.device
+    sess, mesh = resolve(session, mesh)
+    dev = mesh.device
     n, d = points.shape
     rng = np.random.RandomState(seed)
     if init_mu is None:
@@ -210,7 +212,7 @@ def gmm_em(
     sigma = np.tile(np.eye(d, dtype=np.float32), (k, 1, 1))
 
     rows0 = np.concatenate([points, np.zeros((n, k), np.float32)], axis=1)
-    rows_v: DistVector = sess.distribute(rows0.astype(np.float32))
+    rows_v: DistVector = sess.distribute(rows0.astype(np.float32), mesh=mesh)
     compiles0 = sess.stats.compiles
     dispatches0 = sess.stats.dispatches
     syncs0 = sess.stats.host_syncs
@@ -222,7 +224,7 @@ def gmm_em(
             ll_, prev = float(s["ll"]), float(s["prev_ll"])
             return abs(ll_ - prev) < tol * max(1.0, abs(prev))
 
-        prog = sess.program(step)
+        prog = sess.program(step, mesh=mesh)
         state, info = sess.run_loop(prog, state0(alpha, mu, sigma), cond=cond,
                                     max_iters=max_iters, unroll=unroll)
         return GMMResult(
@@ -249,19 +251,19 @@ def gmm_em(
         rows_p = sess.foreach(rows_v, density_fn, env=env)  # op 1
         # op 6 (log-likelihood of the CURRENT model) reads the p-block:
         ll_t = sess.map_reduce(rows_p, loglik_mapper, "sum", zeros(1),
-                               engine=engine, env=env[0])[0]
+                               engine=engine, env=env[0], mesh=mesh)[0]
         rows_w = sess.foreach(rows_p, membership_fn, env=env)  # op 2
         nk = sess.map_reduce(rows_w, nk_mapper, "sum", zeros(k),  # op 3
-                             engine=engine, env=env[1])
+                             engine=engine, env=env[1], mesh=mesh)
         musum, stats = sess.map_reduce(  # op 4
             rows_w, musum_mapper, "sum", zeros(k, d), engine=engine,
-            env=env[1], return_stats=True,
+            env=env[1], return_stats=True, mesh=mesh,
         )
         nk_np = np.maximum(sess.host_value(nk), 1e-8)
         new_mu = sess.host_value(musum) / nk_np[:, None]
         sigsum = sess.map_reduce(  # op 5
             rows_w, sigmasum_mapper, "sum", zeros(k, d, d), engine=engine,
-            env=torch.as_tensor(new_mu, device=dev),
+            env=torch.as_tensor(new_mu, device=dev), mesh=mesh,
         )
         alpha = (nk_np / n).astype(np.float32)
         mu = new_mu.astype(np.float32)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ChunkedDistVector, DistVector
+from repro_torch.core.containers import Mesh
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -149,11 +150,12 @@ def kmeans(
     mode: str = "per_op",
     unroll: int = 1,
     seed: int = 0,
+    mesh: Mesh | None = None,
     session: BlazeSession | None = None,
 ) -> KMeansResult:
     if mode not in ("per_op", "program", "stream"):
         raise ValueError(f"unknown mode {mode!r}; choose 'per_op', 'program' or 'stream'")
-    sess = resolve(session)
+    sess, mesh = resolve(session, mesh)
     if isinstance(points, ChunkedDistVector):
         if mode == "program":
             raise ValueError("chunked points need mode='stream' (the out-of-core "
@@ -164,7 +166,7 @@ def kmeans(
         pts_v = points
         dim = pts_v.data.shape[1]
     else:
-        pts_v = sess.distribute(points.astype(np.float32))
+        pts_v = sess.distribute(points.astype(np.float32), mesh=mesh)
         dim = pts_v.data.shape[1]
     if init_centers is None:
         rng = np.random.RandomState(seed)
@@ -173,7 +175,7 @@ def kmeans(
         else:
             pool = pts_v.data[: min(len(pts_v), 4096)].cpu().numpy()
         init_centers = pool[rng.choice(len(pool), k, replace=False)]
-    centers = torch.as_tensor(np.asarray(init_centers, np.float32), device=sess.device)
+    centers = torch.as_tensor(np.asarray(init_centers, np.float32), device=mesh.device)
     compiles0 = sess.stats.compiles
     dispatches0 = sess.stats.dispatches
     syncs0 = sess.stats.host_syncs
@@ -182,8 +184,8 @@ def kmeans(
         if not isinstance(pts_v, ChunkedDistVector):
             raise ValueError("mode='stream' needs ChunkedDistVector points "
                              "(see session.chunked)")
-        step, state0 = _stream_step(pts_v, k, dim, engine, wire, sess.device)
-        prog = sess.program(step)
+        step, state0 = _stream_step(pts_v, k, dim, engine, wire, mesh.device)
+        prog = sess.program(step, mesh=mesh)
         state, info = sess.run_stream(prog, state0(centers),
                                       cond=lambda s: float(s["move"]) < tol * tol,
                                       max_epochs=max_iters)
@@ -206,7 +208,7 @@ def kmeans(
 
     if mode == "program":
         step, state0 = _program_step(pts_v, k, dim, engine, wire)
-        prog = sess.program(step)
+        prog = sess.program(step, mesh=mesh)
         state, info = sess.run_loop(
             prog, state0(centers),
             cond=lambda s: float(s["move"]) < tol * tol,
@@ -234,8 +236,8 @@ def kmeans(
     for it in range(1, max_iters + 1):
         sums, stats = sess.map_reduce(
             pts_v, assign_mapper, "sum",
-            torch.zeros((k, dim + 1), dtype=torch.float32, device=sess.device),
-            engine=engine, wire=wire, env=centers, return_stats=True,
+            torch.zeros((k, dim + 1), dtype=torch.float32, device=mesh.device),
+            engine=engine, wire=wire, env=centers, return_stats=True, mesh=mesh,
         )
         counts = torch.clamp(sums[:, dim:], min=1.0)
         new_centers = sums[:, :dim] / counts  # serial refinement step
@@ -251,8 +253,8 @@ def kmeans(
     # through the session so the sync is counted.
     inertia = sess.map_reduce(
         pts_v, inertia_mapper, "sum",
-        torch.zeros((1,), dtype=torch.float32, device=sess.device),
-        engine=engine, env=centers,
+        torch.zeros((1,), dtype=torch.float32, device=mesh.device),
+        engine=engine, env=centers, mesh=mesh,
     )[0]
     inertia = float(sess.host_value(inertia))
     fs = stats.finalize() if stats is not None else None

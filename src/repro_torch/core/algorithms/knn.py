@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import DistVector
+from repro_torch.core.containers import Mesh
 from repro_torch.core.plan import ENGINES
 from repro_torch.core.session import BlazeSession, resolve
 
@@ -56,43 +57,44 @@ def knn(
     *,
     engine: str = "auto",
     mode: str = "per_op",
+    mesh: Mesh | None = None,
     session: BlazeSession | None = None,
 ) -> KNNResult:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     if mode not in ("per_op", "program"):
         raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
-    sess = resolve(session)
+    sess, mesh = resolve(session, mesh)
     if isinstance(points, DistVector):
         pts_v = points
     else:
-        pts_v = sess.distribute(points.astype(np.float32))
-    q = torch.as_tensor(np.asarray(query, np.float32), device=sess.device)
+        pts_v = sess.distribute(points.astype(np.float32), mesh=mesh)
+    q = torch.as_tensor(np.asarray(query, np.float32), device=mesh.device)
     if mode == "program":
-        per = pts_v.data.shape[0] // sess.n_shards
+        per = pts_v.data.shape[0] // mesh.n_shards
         kk = min(k, per)
-        m = min(k, kk * sess.n_shards)
+        m = min(k, kk * mesh.n_shards)
         dim = pts_v.data.shape[1]
-        prog = sess.program(_program_step(pts_v, k, engine))
+        prog = sess.program(_program_step(pts_v, k, engine), mesh=mesh)
         state = {
             "q": q,
             "neighbors": torch.zeros((m, dim), dtype=pts_v.data.dtype,
-                                     device=sess.device),
-            "scores": torch.full((m,), float("-inf"), device=sess.device),
+                                     device=mesh.device),
+            "scores": torch.full((m,), float("-inf"), device=mesh.device),
         }
         state, _info = sess.run_loop(prog, state, max_iters=1)
         nbrs, scores = sess.host_value((state["neighbors"], state["scores"]))
         return KNNResult(
             neighbors=nbrs, distances=np.sqrt(np.maximum(-scores, 0.0)),
-            wire_candidates=kk * sess.n_shards,
+            wire_candidates=kk * mesh.n_shards,
             engine="container:topk", engine_requested=engine,
         )
     # The query rides in env; session.topk counts the blocking candidate
     # materialisation in stats.host_syncs.
-    nbrs = sess.topk(pts_v, k, score_fn=_neg_sq_dist, env=q)
+    nbrs = sess.topk(pts_v, k, score_fn=_neg_sq_dist, env=q, mesh=mesh)
     d = np.sqrt(((nbrs - np.asarray(query)[None]) ** 2).sum(1))
     return KNNResult(
-        neighbors=nbrs, distances=d, wire_candidates=k * sess.n_shards,
+        neighbors=nbrs, distances=d, wire_candidates=k * mesh.n_shards,
         engine="container:topk", engine_requested=engine,
     )
 

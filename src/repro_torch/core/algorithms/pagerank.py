@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ChunkedDistVector, DistRange
+from repro_torch.core.containers import Mesh
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -163,12 +164,13 @@ def pagerank(
     wire: str = "none",
     mode: str = "per_op",
     unroll: int = 1,
+    mesh: Mesh | None = None,
     session: BlazeSession | None = None,
 ) -> PageRankResult:
     if mode not in ("per_op", "program", "stream"):
         raise ValueError(f"unknown mode {mode!r}; choose 'per_op', 'program' or 'stream'")
-    sess = resolve(session)
-    dev = sess.device
+    sess, mesh = resolve(session, mesh)
+    dev = mesh.device
     if isinstance(edges, ChunkedDistVector):
         if mode == "program":
             raise ValueError("chunked edges need mode='stream' (the out-of-core "
@@ -179,7 +181,7 @@ def pagerank(
         if mode == "stream":
             raise ValueError("mode='stream' needs ChunkedDistVector edges "
                              "(see session.chunked)")
-        edges_v = sess.distribute(edges.astype(np.int32))
+        edges_v = sess.distribute(edges.astype(np.int32), mesh=mesh)
         deg = torch.from_numpy(
             np.bincount(edges[:, 0], minlength=n_pages).astype(np.int32)
         ).to(dev)
@@ -192,7 +194,7 @@ def pagerank(
 
     if mode == "stream":
         step, state0 = _stream_step(edges_v, deg, n_pages, d, engine, wire, dev)
-        prog = sess.program(step)
+        prog = sess.program(step, mesh=mesh)
         state, info = sess.run_stream(prog, state0(scores),
                                       cond=lambda s: float(s["delta"]) < tol,
                                       max_epochs=max_iters)
@@ -211,7 +213,7 @@ def pagerank(
 
     if mode == "program":
         step, state0 = _program_step(edges_v, deg, n_pages, d, engine, wire)
-        prog = sess.program(step)
+        prog = sess.program(step, mesh=mesh)
         state, info = sess.run_loop(
             prog, state0(scores),
             cond=lambda s: float(s["delta"]) < tol,  # counted by run_loop
@@ -237,16 +239,16 @@ def pagerank(
     for it in range(1, max_iters + 1):
         sink_total = sess.map_reduce(
             pages, sink_mapper, "sum", zeros(1), engine=engine,
-            env=(scores, deg),
+            env=(scores, deg), mesh=mesh,
         )[0]
         incoming, stats2 = sess.map_reduce(
             edges_v, contrib_mapper, "sum", zeros(n_pages), engine=engine,
-            wire=wire, env=(scores, deg), return_stats=True,
+            wire=wire, env=(scores, deg), return_stats=True, mesh=mesh,
         )
         new_scores = (1.0 - d) / n_pages + d * (incoming + sink_total / n_pages)
         delta = sess.map_reduce(
             pages, delta_mapper, "max", zeros(1), engine=engine,
-            env=(scores, new_scores),
+            env=(scores, new_scores), mesh=mesh,
         )[0]
         scores = new_scores
         if float(sess.host_value(delta)) < tol:

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import DistRange
-from repro_torch.core.containers import hash32
+from repro_torch.core.containers import Mesh, hash32
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -51,27 +51,29 @@ def estimate_pi(
     engine: str = "eager",
     mode: str = "per_op",
     return_stats: bool = False,
+    mesh: Mesh | None = None,
     session: BlazeSession | None = None,
 ):
     if mode not in ("per_op", "program"):
         raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
-    sess = resolve(session)
+    sess, mesh = resolve(session, mesh)
     if mode == "program":
         if return_stats:
             raise ValueError(
                 "return_stats is a per-op feature; inside a program the op "
                 "has no stats of its own: see session.explain instead"
             )
-        step, state = _program_step(n_samples, engine, sess.device)
-        state, _info = sess.run_loop(sess.program(step), state, max_iters=1)
+        step, state = _program_step(n_samples, engine, mesh.device)
+        state, _info = sess.run_loop(sess.program(step, mesh=mesh), state, max_iters=1)
         return 4.0 * float(sess.host_value(state["counts"])[0]) / n_samples
     out = sess.map_reduce(
         DistRange(0, n_samples, 1),
         pi_mapper,
         "sum",
-        torch.zeros((1,), dtype=torch.int32, device=sess.device),
+        torch.zeros((1,), dtype=torch.int32, device=mesh.device),
         engine=engine,
         return_stats=return_stats,
+        mesh=mesh,
     )
     counts, stats = out if return_stats else (out, None)
     pi = 4.0 * float(sess.host_value(counts)[0]) / n_samples

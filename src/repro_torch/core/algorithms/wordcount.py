@@ -26,6 +26,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import ChunkedDistVector, DistHashMap
+from repro_torch.core.containers import Mesh
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -69,6 +70,7 @@ def wordcount(
     iters: int = 1,
     unroll: int = 1,
     return_stats: bool = False,
+    mesh: Mesh | None = None,
     session: BlazeSession | None = None,
 ):
     """Count token occurrences.
@@ -85,14 +87,14 @@ def wordcount(
         raise ValueError(f"unknown target {target!r}; choose 'hash' or 'dense'")
     if mode not in ("per_op", "program"):
         raise ValueError(f"unknown mode {mode!r}; choose 'per_op' or 'program'")
-    sess = resolve(session)
+    sess, mesh = resolve(session, mesh)
     is_chunked = isinstance(lines, ChunkedDistVector)
     if is_chunked:
         if vocab_size is None:
             raise ValueError("chunked (out-of-core) wordcount needs an explicit vocab_size")
         lines_v = lines
     else:
-        lines_v = sess.distribute(lines)
+        lines_v = sess.distribute(lines, mesh=mesh)
     vocab = (
         vocab_size if vocab_size is not None
         else (int(lines.max()) + 1 if lines.size else 1)
@@ -103,22 +105,22 @@ def wordcount(
                 "mode='program' wordcount targets the hash path; use the "
                 "generic session.program for dense iteration"
             )
-        counts = torch.zeros((vocab,), dtype=torch.int32, device=sess.device)
+        counts = torch.zeros((vocab,), dtype=torch.int32, device=mesh.device)
         return sess.map_reduce(
             lines_v, wordcount_mapper, "sum", counts, engine=engine,
-            return_stats=return_stats,
+            return_stats=return_stats, mesh=mesh,
         )
     if capacity_per_shard is None:
         capacity_per_shard = max(64, 4 * vocab)
     hm: DistHashMap = sess.make_dist_hashmap(
-        capacity_per_shard, (), torch.int32, "sum"
+        capacity_per_shard, (), torch.int32, "sum", mesh=mesh
     )
     compiles0 = sess.stats.compiles
     dispatches0 = sess.stats.dispatches
     syncs0 = sess.stats.host_syncs
     if mode == "program":
         step, state = _program_step(lines_v, hm, vocab, engine)
-        prog = sess.program(step)
+        prog = sess.program(step, mesh=mesh)
         if is_chunked:
             # Each epoch replays the graph once a block; the table
             # accumulates across blocks as across passes.
@@ -144,7 +146,7 @@ def wordcount(
     for _ in range(iters):
         hm, stats = sess.map_reduce(
             lines_v, wordcount_mapper, "sum", hm, engine=engine, key_range=vocab,
-            return_stats=True,
+            return_stats=True, mesh=mesh,
         )
     if iters > 1:
         return WordCountResult(

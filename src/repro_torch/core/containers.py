@@ -14,6 +14,9 @@ shards a container's leading dimension over a device mesh, the port keeps all
 
 On one card ``n_shards=1`` is the real deployment; more shards exercise the
 shuffle and let the port be held against the JAX package on several devices.
+The shards group node-major into the rows of a ``("node", "data")`` mesh
+(``Mesh``; ``data_mesh`` is the 1-D one), which the collectives read; a
+container's layout depends on the shard count only.
 Containers are never mutated: every operation returns a new one.
 
 Out of core (the counterpart of the reference's ``ChunkedDistVector``): a
@@ -38,7 +41,9 @@ from repro_torch.core.reducers import Reducer, get_reducer, segmented_scan
 from repro_torch.kernels.hash_combine import EMPTY_KEY, hash32
 
 __all__ = [
+    "DATA_AXIS",
     "EMPTY_KEY",
+    "NODE_AXIS",
     "BlockView",
     "ChunkedDistVector",
     "DistHashMap",
@@ -46,15 +51,20 @@ __all__ = [
     "DistVector",
     "HashTable",
     "HostBlockStore",
+    "Mesh",
     "chunked",
     "collect",
+    "data_axes",
+    "data_mesh",
     "distribute",
     "foreach",
     "hash32",
     "hashmap_insert",
     "make_dist_hashmap",
     "make_table",
+    "n_nodes",
     "resolve_device",
+    "shard_count",
     "shard_of_key",
     "topk",
     "unique_combine",
@@ -72,6 +82,63 @@ def resolve_device(device=None) -> torch.device:
             "port's plain PyTorch versions on the CPU"
         )
     return dev
+
+
+# ---------------------------------------------------------------------------
+# The topology: a (node, data) mesh of stacked shards
+#
+# The reference shards its containers over the data-parallel axes of a JAX
+# mesh: the 1-D ``("data",)`` mesh of one host, or the 2-D ``("node",
+# "data")`` mesh of a multi-host launch, ``node`` the slow inter-host axis
+# and ``data`` the fast intra-host one.  The port's shards are stacked on
+# dim 0 of one device, so its mesh is just that grouping: ``n_nodes`` rows
+# of ``n_data`` shards, shard ``s = node * n_data + d`` (the reference's
+# node-major flattening).  A container's layout depends only on the shard
+# count, so one built on a (1x8) mesh runs unchanged on a (2x4) one.
+# ---------------------------------------------------------------------------
+
+DATA_AXIS = "data"
+NODE_AXIS = "node"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``n_nodes`` node rows of ``n_data`` shards each, stacked on one
+    device.  Hashable, so it keys caches; a 1-node mesh is the 1-D
+    ``("data",)`` mesh."""
+
+    n_nodes: int
+    n_data: int
+    device: torch.device
+
+    def __post_init__(self):
+        if self.n_nodes < 1 or self.n_data < 1:
+            raise ValueError(f"a mesh needs >= 1 node and >= 1 shard a node, got "
+                             f"({self.n_nodes}, {self.n_data})")
+
+    @property
+    def n_shards(self) -> int:
+        return self.n_nodes * self.n_data
+
+
+def data_mesh(n_shards: int | None = None, device=None) -> Mesh:
+    """The 1-D mesh: ``n_shards`` (default 1) shards on ``device``."""
+    return Mesh(1, 1 if n_shards is None else int(n_shards), resolve_device(device))
+
+
+def data_axes(mesh: Mesh) -> tuple[str, ...]:
+    """The axes a container's leading dim shards over, slowest (node) first."""
+    return (NODE_AXIS, DATA_AXIS) if mesh.n_nodes > 1 else (DATA_AXIS,)
+
+
+def n_nodes(mesh: Mesh) -> int:
+    """The node rows of the mesh (1 on a 1-D mesh)."""
+    return mesh.n_nodes
+
+
+def shard_count(mesh: Mesh) -> int:
+    """Total data-parallel shards, the product over ``data_axes(mesh)``."""
+    return mesh.n_shards
 
 
 def shard_of_key(keys: torch.Tensor, n_shards: int) -> torch.Tensor:

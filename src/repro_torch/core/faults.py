@@ -15,9 +15,10 @@ deterministically, which hits of which points raise.
                     reference's ``jax.jit`` trace: a stage's runs until
                     one succeeds (a program's on the card: its capture);
                     never a graph replay
-``collective.inter``the inter-node hop of a hierarchical reduce; it fires
-                    only on a multi-node mesh, which the port does not
-                    have yet (ROADMAP.md, Queue 1 item 6)
+``collective.inter``the inter-node hop of a hierarchical reduce on a
+                    multi-node mesh (``core/collectives.py``), right
+                    before the node partials cross it, on the same runs
+                    as ``collective``
 ``kernel.segment``  the segment-reduce kernel path of a dense dispatch
 ``kernel.hash``     the hash-aggregation kernel path of a hash dispatch
 ``prefetch.read``   a block read inside the prefetch worker

@@ -35,7 +35,11 @@ sums (``distributed.collectives``); the stats count the narrowed widths as
 JAX does.
 
 Shards are stacked on dim 0 of one device (see ``containers``), and a shard
-stage is written over all of them at once with ``LocalCollectives``.  A
+stage is written over all of them at once with ``LocalCollectives``.  On a
+multi-node mesh a dense reduce the plan marks ``hier`` takes the two-hop
+form (``core.collectives``), its stats say so (``collective``) and split
+the bytes by link (``reduce_edge_bytes``); hash targets are never
+hierarchical.  A
 "compile" is the construction of a stage, cached by the session under the
 same signature as the JAX executable cache, so compile counts carry over.
 ``tuned`` (a ``cost.TunedConfig``, the autotuner's winner) pins the kernel's
@@ -62,7 +66,7 @@ from repro_torch.core import containers as C
 from repro_torch.core import cost
 from repro_torch.core import faults
 from repro_torch.core.collectives import LocalCollectives
-from repro_torch.core.plan import abstract_sig
+from repro_torch.core.plan import abstract_sig, hier_collective_desc
 from repro_torch.core.reducers import Reducer
 from repro_torch.core.serialization import narrowest_int_dtype
 from repro_torch.kernels.segment_reduce import THREADS
@@ -83,8 +87,8 @@ class MapReduceStats:
     pairs_emitted: Any  # live emitted pairs
     pairs_shipped: Any  # pairs that went on the wire after the local combine
     shuffle_payload_bytes: Any  # bytes the shuffle moves (all shards, one call)
-    # The shuffle payload by link (combine-edge model): a reduce over P
-    # shards has P - 1 combine edges; on one node they are all intra-node.
+    # The shuffle payload by link (combine-edge model, ``reduce_edge_bytes``;
+    # a shuffle's by the share of its peer links that leave a node row).
     intra_bytes: Any = 0
     inter_bytes: Any = 0
     overflow: Any = None  # hash-table / bucket drops
@@ -142,11 +146,24 @@ class CachedStage:
     kernel_meta: dict
     fire: bool = True
 
-    def run(self, n_shards: int, device, *args):
-        """``stage(*args, coll)`` with this run's collectives."""
-        out = self.stage(*args, LocalCollectives(n_shards, device, fire=self.fire))
+    def run(self, mesh: C.Mesh, *args):
+        """``stage(*args, coll)`` with this run's collectives over ``mesh``."""
+        out = self.stage(*args, make_collectives(mesh, fire=self.fire))
         self.fire = False
         return out
+
+
+def make_collectives(mesh: C.Mesh, fire: bool = False) -> LocalCollectives:
+    """The mesh's collectives (topology-aware on a multi-node mesh)."""
+    return LocalCollectives(mesh.n_shards, mesh.device, fire=fire, n_nodes=mesh.n_nodes)
+
+
+def mesh_key(mesh: C.Mesh) -> tuple:
+    """A mesh's part of a stage-cache key: the shard count and device, as a
+    1-D session always had, and the node rows only when there are several,
+    so every 1-node key is what it was before meshes existed."""
+    return (mesh.n_shards, str(mesh.device)) + (
+        (f"nodes={mesh.n_nodes}",) if mesh.n_nodes > 1 else ())
 
 
 def _scalar(x):
@@ -369,7 +386,8 @@ def _segment_launch(tuned) -> dict:
 
 def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
                       wire: str = "none", with_stats: bool = True,
-                      feedback: bool = False, collect: bool = True, tuned=None):
+                      feedback: bool = False, collect: bool = True, tuned=None,
+                      hier: bool = False):
     """The per-shard plan for a dense ``[K, ...]`` target, as a function:
 
         ``stage(env, local, coll, residual=None)
@@ -384,6 +402,9 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
     ...]`` partials and leaves the collective to the caller, the seam of
     the batch-collectives pass.  ``tuned`` pins K1's launch.  Returns
     ``(stage, kernel_meta)``, ``kernel_meta`` filled when the kernel runs.
+    ``hier=True`` (multi-node meshes, set by the plan layer's
+    ``hierarchical-collectives`` pass) makes the collective the two-hop
+    reduce of ``LocalCollectives``.
     """
     K = target.shape[0]
     launch = _segment_launch(tuned) if engine == "pallas" else {}
@@ -444,9 +465,10 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
             if not collect:
                 total = partial  # the caller runs the (batched) collective
             elif feedback:
-                total, residual = coll.reduce_feedback(partial, red, wire, residual)
+                total, residual = coll.reduce_feedback(partial, red, wire, residual,
+                                                       hier=hier)
             else:
-                total = coll.reduce(partial, red, wire)
+                total = coll.reduce(partial, red, wire, hier=hier)
         else:
             # Conventional plan: every raw pair goes to every shard, and the
             # reduction happens only there.
@@ -466,31 +488,61 @@ def reduce_edge_bytes(n_elems: int, full_bytes: int, wire_val_bytes: int,
                       ) -> tuple[int, int]:
     """``(intra_bytes, inter_bytes)`` of one dense reduction, combine-edge
     model: a reduction over ``n_shards`` participants moves ``n_shards - 1``
-    combine edges of ``n_elems`` values at the wire's width, all intra-node
-    on the port's one node.  The multi-node split comes with the multi-host
-    slice."""
-    if n_nodes > 1 or hier:
-        raise NotImplementedError(
-            "multi-node reduce edges are not ported yet; they come with the "
-            "multi-host slice of the port (ROADMAP.md, Queue 1)"
-        )
-    del full_bytes  # the hierarchical split's intra-node width
+    combine edges of ``n_elems`` values.
+
+    * one node: every edge intra-node at the wire's width;
+    * a flat reduce on several nodes knows no topology: every edge pays the
+      inter-node price at the wire's width;
+    * hierarchical: ``n_shards - n_nodes`` edges inside the nodes at full
+      width, ``n_nodes - 1`` across them at the wire's width.
+    """
+    if n_nodes > 1 and hier:
+        return (n_elems * full_bytes * (n_shards - n_nodes),
+                n_elems * wire_val_bytes * (n_nodes - 1))
+    if n_nodes > 1:
+        return 0, n_elems * wire_val_bytes * (n_shards - 1)
     return n_elems * wire_val_bytes * (n_shards - 1), 0
 
 
-def _map_reduce_dense(kind, source, mapper, red: Reducer, target, n_shards: int,
-                      device, engine: str, wire: str, env, with_stats: bool = True,
-                      cache: dict | None = None, node=None, tuned=None):
-    """Dense ``[K, ...]`` target — the paper's small fixed key range."""
+def inter_node_fraction(n_shards: int, n_nodes: int, peers: bool) -> float:
+    """The share of a shuffle's payload that leaves its node row.  An
+    all_gather reaches the ``n_shards - 1`` peers of a shard (``peers``),
+    of which ``n_shards - n_shards / n_nodes`` are in other rows; an
+    all_to_all with hash-uniform destinations sends ``(n_shards - n_shards /
+    n_nodes) / n_shards`` of its pairs out of the row."""
+    if n_nodes <= 1 or n_shards <= 1:
+        return 0.0
+    return (n_shards - n_shards // n_nodes) / (n_shards - 1 if peers else n_shards)
+
+
+def split_by_link(payload: torch.Tensor, frac: float):
+    """``(intra, inter)``: a payload (a device tensor, read at ``finalize``)
+    split by its inter-node share, in float64 so byte counts past 2^24
+    stay exact to the byte; all intra-node (and integral) on one node."""
+    if not frac:
+        return payload, 0
+    inter = payload.double() * frac
+    return payload.double() - inter, inter
+
+
+def _map_reduce_dense(kind, source, mapper, red: Reducer, target, mesh: C.Mesh,
+                      engine: str, wire: str, env, with_stats: bool = True,
+                      cache: dict | None = None, node=None, tuned=None,
+                      hier: bool = False):
+    """Dense ``[K, ...]`` target — the paper's small fixed key range.
+    ``hier`` (the node's ``hierarchical-collectives`` rewrite) takes hold on
+    a multi-node mesh with the eager or kernel plan only."""
     K = target.shape[0]
     cache = cache if cache is not None else {}
     if engine not in ("eager", "pallas", "naive"):
         raise ValueError(f"unknown engine {engine!r}")
+    n_shards, nodes = mesh.n_shards, mesh.n_nodes
+    hier = bool(hier) and nodes > 1 and engine in ("eager", "pallas")
     cache_key = (
-        "dense", mapper, red.name, red, engine, wire, n_shards, str(device),
+        "dense", mapper, red.name, red, engine, wire, *mesh_key(mesh),
         kind, with_stats, abstract_sig(_source_operands(kind, source)),
         _source_extent(kind, source), abstract_sig(target), abstract_sig(env), tuned,
-    )
+    ) + (("hier",) if hier else ())
     if node is not None:
         node.cache_sig = cache_key
     entry = cache.get(cache_key)
@@ -498,14 +550,13 @@ def _map_reduce_dense(kind, source, mapper, red: Reducer, target, n_shards: int,
     if compiled_now:
         entry = cache[cache_key] = CachedStage(*dense_shard_stage(
             kind, source, mapper, red, target, engine, wire, with_stats=with_stats,
-            tuned=tuned,
+            tuned=tuned, hier=hier,
         ))
     kernel_meta = entry.kernel_meta
     faults.fault_point("dispatch")
     if engine == "pallas":
         faults.fault_point("kernel.segment")
-    total, live, kernel_pairs, _ = entry.run(n_shards, device, env,
-                                             _local_view(kind, source))
+    total, live, kernel_pairs, _ = entry.run(mesh, env, _local_view(kind, source))
     merged = red.combine(target, total.to(target.dtype))
 
     full_bytes = target.element_size()
@@ -514,14 +565,18 @@ def _map_reduce_dense(kind, source, mapper, red: Reducer, target, n_shards: int,
     n_elems = target.numel()
     if engine in ("eager", "pallas"):
         payload = n_elems * val_bytes * n_shards
-        collective = f"psum[{K}x{val_bytes}B]"
+        collective = (hier_collective_desc(red.name, wire) if hier
+                      else f"psum[{K}x{val_bytes}B]")
         shipped = n_elems * n_shards
-        intra, inter = reduce_edge_bytes(n_elems, full_bytes, val_bytes, n_shards)
+        intra, inter = reduce_edge_bytes(n_elems, full_bytes, val_bytes, n_shards,
+                                         nodes, hier)
     else:
         payload = live.sum() * (key_bytes + val_bytes) * n_shards
         collective = f"all_gather[pairs x {key_bytes + val_bytes}B]"
         shipped = live
-        intra, inter = payload, 0  # every peer link is intra-node
+        # every shard's pairs reach its n_shards - 1 peers, some in other rows
+        intra, inter = split_by_link(payload, inter_node_fraction(n_shards, nodes,
+                                                                  peers=True))
     stats = MapReduceStats(
         engine=engine,
         collective=collective,
@@ -672,17 +727,17 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
     return stage, kernel_meta
 
 
-def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
-                     device, engine: str, slack: float, env,
+def _map_reduce_hash(kind, source, mapper, red: Reducer, target, mesh: C.Mesh,
+                     engine: str, slack: float, env,
                      key_range: int | None = None, cache: dict | None = None,
                      node=None, tuned=None):
     """DistHashMap target: local combine → hash-partition → all_to_all →
-    merge."""
+    merge.  Never hierarchical: the all_to_all is point to point."""
     if engine not in ("eager", "pallas", "naive"):
         raise ValueError(f"unknown engine {engine!r}")
     cache = cache if cache is not None else {}
     cache_key = (
-        "hash", mapper, red.name, red, engine, slack, n_shards, str(device),
+        "hash", mapper, red.name, red, engine, slack, *mesh_key(mesh),
         kind, key_range, abstract_sig(_source_operands(kind, source)),
         _source_extent(kind, source),
         abstract_sig((target.table.keys, target.table.vals)), abstract_sig(env), tuned,
@@ -701,19 +756,21 @@ def _map_reduce_hash(kind, source, mapper, red: Reducer, target, n_shards: int,
     if engine == "pallas":
         faults.fault_point("kernel.hash")
     table, emitted, shipped, kernel_pairs = entry.run(
-        n_shards, device, env, target.table, _local_view(kind, source))
+        mesh, env, target.table, _local_view(kind, source))
     out = C.DistHashMap(table, reducer_name=red.name)
     val_bytes = target.table.vals.element_size()
     key_bytes = _wire_key_dtype(key_range).itemsize
     payload = shipped.sum() * (key_bytes + val_bytes)
+    intra, inter = split_by_link(
+        payload, inter_node_fraction(mesh.n_shards, mesh.n_nodes, peers=False))
     stats = MapReduceStats(
         engine=engine,
         collective=f"all_to_all[pairs x {key_bytes + val_bytes}B]",
         pairs_emitted=emitted,
         pairs_shipped=shipped,
         shuffle_payload_bytes=payload,
-        intra_bytes=payload,  # all_to_all on one node: every pair stays intra
-        inter_bytes=0,
+        intra_bytes=intra,
+        inter_bytes=inter,
         overflow=table.overflow,
         compiles=int(compiled_now),
         cache_hits=int(not compiled_now),

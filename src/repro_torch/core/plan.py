@@ -23,8 +23,12 @@ Measured autotuning (``apply_tuned``: a ``TuningCache`` winner pins a node's
 engine and kernel launch, keyed by ``MapReduceNode.tune_key``, the node's hash
 before any override) runs in ``build_mapreduce_node``, and so does fault
 degradation: a node whose ``tune_key`` the session has degraded after a
-kernel fault is born eager (``degrade_node``).  The hierarchical pass
-(``apply_hierarchical``) comes with the multi-host slice of the port.
+kernel fault is born eager (``degrade_node``).  So does the
+``hierarchical-collectives`` pass (``apply_hierarchical``): on a multi-node
+mesh an eligible dense reduce becomes the two-hop one, before ``tune_key``
+is taken, so a hierarchical node never inherits a flat node's winner.  On a
+1-node mesh it is a no-op, and every plan hash and EXPLAIN line is what it
+was before the pass existed.
 """
 from __future__ import annotations
 
@@ -174,14 +178,20 @@ class MapReduceNode:
     # (None: never degraded).  Outside stable_desc, like tuned, but the
     # degradation rewrites ``engine``, which is inside it.
     degraded_from: str | None = None
+    # -- the hierarchical-collectives pass: True when the node's collective
+    # was rewritten to the two-hop (intra-node full precision, inter-node
+    # wire) reduce.  In stable_desc only when set, so a 1-node plan hashes
+    # and renders as before the pass existed.
+    hier: bool = False
 
     def stable_desc(self) -> str:
-        return (
+        desc = (
             f"map_reduce {self.reducer} fn={_fn_name(self.mapper)} "
             f"src={self.kind}:{self.src} "
             f"-> {self.target_desc} engine={self.engine} wire={self.wire} "
             f"key_range={self.key_range} env={_sig_desc(self.env_sig)}"
         )
+        return desc + " hier" if self.hier else desc
 
     @property
     def hash(self) -> str:
@@ -240,6 +250,7 @@ class Plan:
     state_desc: str
     n_shards: int
     passes: tuple[str, ...]
+    n_nodes: int = 1  # node rows of the mesh (1: a 1-D mesh)
     groups: dict[int, list[int]] = dataclasses.field(default_factory=dict)
     group_keys: dict[int, tuple] = dataclasses.field(default_factory=dict)
     collectives_per_iter: int = 0  # after batching/CSE/pruning
@@ -259,6 +270,8 @@ class Plan:
         """Stable digest of the whole optimised plan (nodes, live sources,
         state, groups)."""
         parts = [self.state_desc, f"shards={self.n_shards}"]
+        if self.n_nodes > 1:  # absent on a 1-D mesh: its hashes are unchanged
+            parts.append(f"nodes={self.n_nodes}")
         parts += [n.stable_desc() for n in self.nodes]
         parts += [s.desc for s in self.sources if not s.pruned]
         parts += [f"group{g}={idxs}" for g, idxs in sorted(self.groups.items())]
@@ -273,10 +286,14 @@ class Plan:
     # -- EXPLAIN -------------------------------------------------------------
 
     def render(self, title: str = "Blaze logical plan") -> str:
+        mesh = (f"node[{self.n_nodes}]×data[{self.n_shards // self.n_nodes}]"
+                if self.n_nodes > 1 else f"data[{self.n_shards}]")
         lines = [f"== {title} (hash {self.hash}) ==",
-                 f"mesh: data[{self.n_shards}]",
+                 f"mesh: {mesh}",
                  f"state: {self.state_desc}",
-                 "passes: resolve-engines" + "".join(f", {p}" for p in self.passes),
+                 "passes: resolve-engines"
+                 + (", hierarchical-collectives" if self.n_nodes > 1 else "")
+                 + "".join(f", {p}" for p in self.passes),
                  "nodes:"]
         for n in self.nodes:
             flags = []
@@ -338,9 +355,12 @@ class Plan:
         if self.groups:
             lines.append("batched collective groups:")
             for g, idxs in sorted(self.groups.items()):
-                red, wire, dt = self.group_keys.get(g, ("?", "?", "?"))
-                lines.append(f"  {chr(ord('A') + g)}: {red}/{wire}/{dt} carries nodes "
-                             f"{idxs} ({len(idxs)} collectives -> 1)")
+                # (reducer, wire, dtype, hier): a group never mixes
+                # hierarchical and flat reduces
+                red, wire, dt, hier = self.group_keys.get(g, ("?", "?", "?", False))
+                lines.append(f"  {chr(ord('A') + g)}: {red}/{wire}/{dt}"
+                             + ("/hier" if hier else "")
+                             + f" carries nodes {idxs} ({len(idxs)} collectives -> 1)")
         lines.append(
             f"collectives/iter: {self.collectives_per_iter} "
             f"(unbatched: {self.collectives_unbatched})"
@@ -367,8 +387,8 @@ def target_desc_of(target) -> tuple[str, str]:
 
 def hier_collective_desc(reducer_name: str, wire: str) -> str:
     """EXPLAIN's rendering of a hierarchical collective, e.g.
-    ``psum[node×data, hier, wire=int8@inter]``.  The port has one node, so
-    no plan takes it yet; the multi-host slice will."""
+    ``psum[node×data, hier, wire=int8@inter]``: the intra-node hop always
+    runs at full precision; ``@inter`` marks where the wire narrows."""
     op = "psum" if reducer_name == "sum" else f"{reducer_name}-reduce"
     desc = f"{op}[node×data, hier"
     if wire != "none" and reducer_name == "sum":
@@ -386,6 +406,22 @@ def apply_tuned(node: MapReduceNode, red: Reducer, cfg: TunedConfig) -> None:
         return  # a custom reducer: the config has no kernel to pin
     node.engine = cfg.engine
     node.tuned = cfg
+
+
+def apply_hierarchical(node: MapReduceNode, n_nodes: int) -> bool:
+    """The ``hierarchical-collectives`` pass, applied per node: an eligible
+    node's collective becomes the two-hop reduce, each node's shards at full
+    precision over the fast links, then the node partials over the slow
+    hop, the only one a wire narrows.  Eligible: dense targets on the eager
+    or kernel plan (``naive`` all-gathers raw pairs and a hash target
+    shuffles point to point, neither has a reduction tree to reshape).  A
+    no-op on a 1-node mesh.  Batched groups carry their members' shared
+    ``hier`` flag through one concatenated two-hop reduce."""
+    if n_nodes <= 1 or node.target_kind != "dense" or node.engine not in ("eager", "pallas"):
+        return False
+    node.hier = True
+    node.collective = hier_collective_desc(node.reducer, node.wire)
+    return True
 
 
 def degrade_node(node: MapReduceNode) -> None:
@@ -406,10 +442,14 @@ def build_mapreduce_node(idx: int, kind: str, src: str, source_key: tuple | None
                          mapper: Callable, red: Reducer, target, engine: str,
                          wire: str, key_range: int | None, env: Any,
                          tuning: TuningCache | None = None,
-                         degraded: set | None = None) -> MapReduceNode:
+                         degraded: set | None = None, n_nodes: int = 1,
+                         hierarchical: bool = True) -> MapReduceNode:
     """Build a MapReduce node and run the resolve-engines pass on it: the one
     node constructor of ``BlazeSession.map_reduce`` and of every program
-    node, which is why both give one op the same hash.  With a ``tuning``
+    node, which is why both give one op the same hash.  On a multi-node
+    mesh (``n_nodes > 1``) the ``hierarchical-collectives`` pass runs here
+    too, unless the caller keeps the flat collective (``hierarchical=False``,
+    the A/B baseline), and before ``tune_key`` is taken.  With a ``tuning``
     cache, a winner cached under the node's untuned hash is applied; a node
     whose ``tune_key`` is in ``degraded`` (the session's kernel-faulted
     nodes) is born eager, so it reuses the stage its recovery built."""
@@ -437,6 +477,8 @@ def build_mapreduce_node(idx: int, kind: str, src: str, source_key: tuple | None
         engine_requested=engine, engine=resolved, wire=wire,
         key_range=key_range, env_sig=abstract_sig(env), collective=collective,
     )
+    if hierarchical:
+        apply_hierarchical(node, n_nodes)
     if resolved in ("eager", "pallas"):
         node.cost_estimate = cost.node_cost(resolved, node_key_count(target))
     node.tune_key = node.hash  # identity before any tuned override
@@ -449,7 +491,8 @@ def build_mapreduce_node(idx: int, kind: str, src: str, source_key: tuple | None
     return node
 
 
-def single_op_plan(node: MapReduceNode, n_shards: int) -> Plan:
+def single_op_plan(node: MapReduceNode, n_shards: int, n_nodes: int = 1) -> Plan:
     """The standalone ``map_reduce`` path: one op is a one-node plan."""
     return Plan(nodes=[node], sources=[], state_desc="-", n_shards=n_shards,
-                passes=(), collectives_per_iter=1, collectives_unbatched=1)
+                n_nodes=n_nodes, passes=(), collectives_per_iter=1,
+                collectives_unbatched=1)

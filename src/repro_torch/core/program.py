@@ -17,9 +17,13 @@ the classical fix: batch the whole superstep, synchronise once.  Here:
   - *resolve-engines*: each node its own engine (``plan.resolve_engine``);
   - *batch-collectives*: dense results come back as lazy
     :class:`PlanValue`s; the collective waits until the step consumes the
-    value, and everything pending then with the same (reducer, wire, dtype)
-    is concatenated and reduced in one collective (GMM's four sums a round
-    become two);
+    value, and everything pending then with the same (reducer, wire, dtype,
+    hierarchical or not) is concatenated and reduced in one collective
+    (GMM's four sums a round become two);
+  - *hierarchical-collectives* (a multi-node mesh): each eligible dense
+    reduce takes two hops, each node's shards first at full precision
+    (``plan.apply_hierarchical``; ``hierarchical=False`` plans the program
+    as on a flat mesh);
   - *cse*: a node identical to an earlier one reuses its total;
   - *prune-dead-sources*: a node whose value is never consumed is dropped,
     and a source only it read is marked pruned.
@@ -377,13 +381,13 @@ class _CountingCollectives:
         self.count += 1
         return self._inner.all_to_all_tiled(x)
 
-    def reduce(self, partial, red, wire="none"):
+    def reduce(self, partial, red, wire="none", hier=False):
         self.count += 1
-        return self._inner.reduce(partial, red, wire)
+        return self._inner.reduce(partial, red, wire, hier=hier)
 
-    def reduce_feedback(self, partial, red, wire, residual):
+    def reduce_feedback(self, partial, red, wire, residual, hier=False):
         self.count += 1
-        return self._inner.reduce_feedback(partial, red, wire, residual)
+        return self._inner.reduce_feedback(partial, red, wire, residual, hier=hier)
 
 
 class ProgramContext:
@@ -394,16 +398,21 @@ class ProgramContext:
     ``"discover"`` builds the logical plan (nodes, sources, batch groups,
     CSE aliases, dead ops) while it runs; ``"execute"`` runs a finished
     plan: it skips pruned nodes, reuses CSE'd totals and flushes the same
-    batched collectives.
+    batched collectives.  The collectives span the whole ``mesh``; whether
+    a reduce takes the two hops is the node's ``hier`` flag, which
+    discovery sets when ``n_nodes > 1`` (the plan's node rows: 1 for a flat
+    build on any mesh).
     """
 
-    def __init__(self, n_shards: int, device, mode: str, residuals=None,
+    def __init__(self, mesh: C.Mesh, mode: str, residuals=None,
                  hash_tables=None, plan: Plan | None = None,
                  passes: tuple = DEFAULT_PASSES, tuning=None, overrides=None,
                  streams: dict | None = None, degraded: set | None = None,
-                 fire: bool = False):
-        self._n_shards = n_shards
-        self._device = device
+                 fire: bool = False, n_nodes: int = 1, hierarchical: bool = True):
+        self._n_shards = mesh.n_shards
+        self._device = mesh.device
+        self._n_nodes = n_nodes
+        self._hierarchical = hierarchical
         self._mode = mode  # "discover" | "execute"
         # Discover-mode tuning hooks: ``tuning`` is the session's cache
         # (cached winners apply to every node built), ``overrides`` maps
@@ -417,7 +426,7 @@ class ProgramContext:
         self._streams = streams if streams is not None else {}
         # ``fire``: this run stands for the reference's trace, so its reduces
         # hit the ``collective`` fault point (never discovery's).
-        coll = LocalCollectives(n_shards, device, fire=fire and mode == "execute")
+        coll = _mr.make_collectives(mesh, fire=fire and mode == "execute")
         self._coll = _CountingCollectives(coll) if mode == "discover" else coll
         self._plan = plan
         self._passes = tuple(passes)
@@ -436,7 +445,7 @@ class ProgramContext:
         # -- shared runtime state ---------------------------------------------
         self._call_i = 0  # ctx-op call counter (node index)
         self._pending: list[int] = []  # deferred ops awaiting their collective
-        self._partials: dict[int, tuple] = {}  # idx -> (partial, red, wire)
+        self._partials: dict[int, tuple] = {}  # idx -> (partial, red, wire, hier)
         self._totals: dict[int, torch.Tensor] = {}  # idx -> reduced total
         self._results: dict[int, torch.Tensor] = {}  # idx -> merged result
         self._meta: dict[int, tuple] = {}  # idx -> (red, target) for the merge
@@ -537,6 +546,7 @@ class ProgramContext:
             idx=self._call_i, kind=kind, src=src_desc, source_key=source_key,
             mapper=mapper, red=red, target=target, engine=engine, wire=wire,
             key_range=key_range, env=env, tuning=self._tuning, degraded=self._degraded,
+            n_nodes=self._n_nodes, hierarchical=self._hierarchical,
         )
         ov = self._overrides.get(node.tune_key)
         if ov is not None and node.degraded_from is None:
@@ -582,21 +592,22 @@ class ProgramContext:
         self._pending = [i for i in self._pending if i not in set(idxs)]
         by_key: dict[tuple, list[int]] = {}
         for i in idxs:
-            partial, red, wire = self._partials[i]
-            key = (red.name, wire, plan_mod.dtype_name(partial.dtype))
+            partial, red, wire, hier = self._partials[i]
+            key = (red.name, wire, plan_mod.dtype_name(partial.dtype), hier)
             by_key.setdefault(key, []).append(i)
         for key, members in by_key.items():
             if len(members) == 1 or not self._batch:
                 for i in members:
-                    partial, red, wire = self._partials[i]
-                    self._totals[i] = self._coll.reduce(partial, red, wire)
+                    partial, red, wire, hier = self._partials[i]
+                    self._totals[i] = self._coll.reduce(partial, red, wire, hier=hier)
                 continue
             # One collective for the group: flatten each shard's partial,
             # concatenate, reduce once, split.  Exact for every built-in
-            # reducer: the shard reduction is elementwise.
-            _, red, wire = self._partials[members[0]]
+            # reducer: the shard reduction (each hop of a hierarchical one
+            # too) is elementwise.
+            _, red, wire, hier = self._partials[members[0]]
             flats = [self._partials[i][0].reshape(self._n_shards, -1) for i in members]
-            total_cat = self._coll.reduce(torch.cat(flats, dim=1), red, wire)
+            total_cat = self._coll.reduce(torch.cat(flats, dim=1), red, wire, hier=hier)
             off = 0
             for i, f in zip(members, flats):
                 shape = self._partials[i][0].shape[1:]
@@ -701,7 +712,7 @@ class ProgramContext:
         stage, _ = _mr.dense_shard_stage(
             kind, src_static, mapper, red, target, resolved, wire,
             with_stats=False, feedback=feedback, collect=not deferrable,
-            tuned=node.tuned,
+            tuned=node.tuned, hier=node.hier,
         )
         residual = None
         if feedback:
@@ -717,7 +728,7 @@ class ProgramContext:
                 self._residuals[self._res_i] = new_residual
             self._res_i += 1
         if deferrable:
-            self._partials[node.idx] = (total, red, wire)
+            self._partials[node.idx] = (total, red, wire, node.hier)
             self._pending.append(node.idx)
             return PlanValue(self, node.idx)
         self._totals[node.idx] = total
@@ -847,6 +858,7 @@ class ProgramContext:
             sources=sources,
             state_desc=state_desc,
             n_shards=self._n_shards,
+            n_nodes=self._n_nodes,
             passes=passes,
             groups=dict(self._groups),
             group_keys=dict(self._group_keys),
@@ -945,15 +957,21 @@ class Program:
     iterations; ``session.run_loop`` drives it.  ``program.plan`` (after
     :meth:`build` or the first dispatch) is the optimised plan;
     ``session.explain(program)`` renders it; ``passes=()`` switches off CSE,
-    batching and pruning.
+    batching and pruning.  ``mesh`` (the session's by default) is the
+    topology it runs on; on a multi-node mesh ``hierarchical=False`` plans
+    it as a flat one (the A/B baseline: flat collectives, the 1-D plan).
     """
 
-    def __init__(self, session, step_fn: Callable, *, passes: tuple | None = None,
-                 tune: bool = False, overrides: dict | None = None):
+    def __init__(self, session, step_fn: Callable, *, mesh: C.Mesh | None = None,
+                 passes: tuple | None = None, tune: bool = False,
+                 overrides: dict | None = None, hierarchical: bool = True):
         self._session = session
         self._step_fn = step_fn
-        self._device = session.device
-        self._n_shards = session.n_shards
+        self._mesh = mesh if mesh is not None else session.mesh
+        self._device = self._mesh.device
+        self._n_shards = self._mesh.n_shards
+        self._hierarchical = bool(hierarchical)
+        self._n_nodes = self._mesh.n_nodes if self._hierarchical else 1
         self._passes = DEFAULT_PASSES if passes is None else tuple(passes)
         # ``tune``: measure the candidates on the first build of a signature
         # (_maybe_tune); ``overrides`` (tune_key -> config) marks a
@@ -985,10 +1003,11 @@ class Program:
     # -- build ---------------------------------------------------------------
 
     def _discover(self, leaves, spec) -> Plan:
-        ctx = ProgramContext(self._n_shards, self._device, "discover",
+        ctx = ProgramContext(self._mesh, "discover",
                              passes=self._passes, tuning=self._session.tuning,
                              overrides=self._overrides, streams=self._streams,
-                             degraded=self._session._degraded)
+                             degraded=self._session._degraded, n_nodes=self._n_nodes,
+                             hierarchical=self._hierarchical)
         probe = pytree.tree_unflatten([x.clone() for x in leaves], spec)
         out = ctx._finalize_state(self._step_fn(ctx, probe))
         out_leaves, out_spec = _flatten(out, self._device)
@@ -1066,7 +1085,8 @@ class Program:
         best_wall, best_set = None, None
         for j in range(max(len(c) for _, c in cand_lists)):
             ov = {tk: cands[min(j, len(cands) - 1)] for tk, cands in cand_lists}
-            variant = Program(session, self._step_fn, passes=self._passes, overrides=ov)
+            variant = Program(session, self._step_fn, mesh=self._mesh, passes=self._passes,
+                              overrides=ov, hierarchical=self._hierarchical)
             try:
                 faults.fault_point("tuning.measure")
                 variant(state, 1)  # discovery, warm-up, capture, one replay
@@ -1128,10 +1148,11 @@ class Program:
         """``u`` iterations of the plan; with ``fire`` the first one's
         reduces hit the ``collective`` fault point."""
         for i in range(u):
-            ctx = ProgramContext(self._n_shards, self._device, "execute",
+            ctx = ProgramContext(self._mesh, "execute",
                                  residuals=residuals, hash_tables=tables, plan=plan,
                                  passes=self._passes, streams=self._streams,
-                                 fire=fire and i == 0)
+                                 fire=fire and i == 0, n_nodes=self._n_nodes,
+                                 hierarchical=self._hierarchical)
             self._active = ctx
             state = ctx._finalize_state(self._step_fn(ctx, state))
             residuals, tables = ctx._residuals, ctx._hash_tables

@@ -1,7 +1,8 @@
 """BlazeSession — the long-lived driver context for iterative MapReduce.
 
-The counterpart of ``repro/core/session.py``.  A session owns the device
-and the shard count (the JAX session owns a mesh), caches the shard stage of
+The counterpart of ``repro/core/session.py``.  A session owns a mesh
+(``containers.Mesh``: a device, and the shards stacked on it in ``n_nodes``
+node rows), caches the shard stage of
 every MapReduce configuration it has run, keyed on (source spec, mapper
 identity, reducer, target spec, engine, wire, env spec), and counts compiles
 (stages built) and cache hits, so "10 iterations, 1 compile per
@@ -27,6 +28,14 @@ eager and runs the dispatch again; a fatal fault, and any real error,
 propagates.  ``escalate_overflow=True`` regrows a hash target that
 overflowed along the capacity grid and runs the op again.  ``retry=None``
 turns supervision off.
+
+Topology: on a multi-node mesh (``launch.mesh.make_node_data_mesh``) the
+``hierarchical-collectives`` pass makes every eligible dense reduce two
+hops (each node's shards at full precision, then the node partials, the
+only hop a wire narrows); ``map_reduce(..., hierarchical=False)`` and
+``program(..., hierarchical=False)`` keep the flat collective, the A/B
+baseline.  On a 1-node mesh the flag changes nothing.  ``mesh=`` on a call
+overrides the session's mesh for that call, as in the reference.
 
 Its entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA, ``BlazeSession()`` raises.  The free ``map_reduce`` routes
@@ -115,7 +124,8 @@ def _cuda_index(device: torch.device) -> int:
 
 
 class BlazeSession:
-    """Owns a device, a shard count and a shard-stage cache.
+    """Owns a mesh (a device and its stacked shards) and a shard-stage
+    cache.
 
     >>> sess = BlazeSession(device="cpu")
     >>> for _ in range(10):
@@ -124,13 +134,22 @@ class BlazeSession:
     >>> sess.stats.compiles   # 1 — nine of the ten calls reused it
     """
 
-    def __init__(self, device=None, n_shards: int = 1, *, tuning_path: str | None = None,
+    def __init__(self, device=None, n_shards: int | None = None, *,
+                 mesh: C.Mesh | None = None, tuning_path: str | None = None,
                  retry: faults.RetryPolicy | None = _DEFAULT_RETRY,
                  escalate_overflow: bool = False, max_escalations: int = 3):
-        if n_shards < 1:
+        if n_shards is not None and n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-        self.device = C.resolve_device(device)
-        self.n_shards = n_shards
+        if mesh is None:
+            mesh = C.data_mesh(n_shards, device)
+        elif n_shards is not None and n_shards != mesh.n_shards:
+            raise ValueError(f"n_shards={n_shards} conflicts with the mesh's "
+                             f"{mesh.n_shards} shards")
+        elif device is not None and C.resolve_device(device) != mesh.device:
+            raise ValueError(f"device={device!r} conflicts with the mesh's {mesh.device}")
+        self._mesh = mesh
+        self.device = mesh.device
+        self.n_shards = mesh.n_shards
         self._exec_cache: dict = {}
         self.stats = SessionStats()
         # Supervision (module docstring).  Escalation is opt-in: overflow
@@ -160,6 +179,11 @@ class BlazeSession:
         # to take it.
         self.lock = threading.RLock()
 
+    @property
+    def mesh(self) -> C.Mesh:
+        """The session's mesh: its device and its ``(node, data)`` shards."""
+        return self._mesh
+
     def map_reduce(
         self,
         source,
@@ -174,6 +198,8 @@ class BlazeSession:
         key_range: int | None = None,
         return_stats: bool = False,
         tune: bool = False,
+        mesh: C.Mesh | None = None,
+        hierarchical: bool = True,
     ):
         """Run one MapReduce op, reusing this session's cached stages.
 
@@ -185,36 +211,41 @@ class BlazeSession:
         a dense sum's collective payload; hash targets ship keys and values
         as they are.  ``key_range`` (hash targets) promises keys in ``[0,
         key_range)``: the shuffle ships narrowed keys and the kernel sizes
-        its combine table by the distinct-key bound.
+        its combine table by the distinct-key bound.  ``mesh`` overrides the
+        session's mesh for this call.  On a multi-node mesh an eligible dense
+        reduce is hierarchical (``MapReduceStats.collective`` says which ran);
+        ``hierarchical=False`` keeps it flat.
         """
         red = get_reducer(reducer)
+        mesh = mesh or self.mesh
         kind = _mr.source_kind(source)
         hash_target = isinstance(target, C.DistHashMap)
         if not hash_target:
-            target = torch.as_tensor(target, device=self.device)
+            target = torch.as_tensor(target, device=mesh.device)
         node = plan_mod.build_mapreduce_node(
             idx=0, kind=kind, src=plan_mod.source_desc(kind, source),
             source_key=None, mapper=mapper, red=red, target=target,
             engine=engine, wire=wire, key_range=key_range, env=env,
-            tuning=self.tuning, degraded=self._degraded,
+            tuning=self.tuning, degraded=self._degraded, n_nodes=mesh.n_nodes,
+            hierarchical=hierarchical,
         )
         # Tuning skips chunked sources: their operands arrive a block at a time.
         if tune and node.tuned is None and kind != "chunked" and self._tunable(node, red, target):
-            self._tune_map_reduce(kind, source, mapper, red, target, wire, env,
+            self._tune_map_reduce(kind, source, mapper, red, target, mesh, wire, env,
                                   shuffle_slack, key_range, node)
             cfg = self.tuning.peek(node.tune_key)
             if cfg is not None:
                 plan_mod.apply_tuned(node, red, cfg)
         if kind == "chunked":
-            out, stats = self._map_reduce_chunked(source, mapper, red, target, wire, env,
-                                                  shuffle_slack, key_range, node,
+            out, stats = self._map_reduce_chunked(source, mapper, red, target, mesh, wire,
+                                                  env, shuffle_slack, key_range, node,
                                                   return_stats)
         elif hash_target:
             def dispatch_hash(tgt):
                 return _mr._map_reduce_hash(
-                    kind, source, mapper, red, tgt, self.n_shards, self.device,
-                    node.engine, shuffle_slack, env, key_range=key_range,
-                    cache=self._exec_cache, node=node, tuned=node.tuned,
+                    kind, source, mapper, red, tgt, mesh, node.engine, shuffle_slack,
+                    env, key_range=key_range, cache=self._exec_cache, node=node,
+                    tuned=node.tuned,
                 )
 
             out, stats = self._dispatch_supervised(lambda: dispatch_hash(target), node)
@@ -222,9 +253,9 @@ class BlazeSession:
         else:
             out, stats = self._dispatch_supervised(
                 lambda: _mr._map_reduce_dense(
-                    kind, source, mapper, red, target, self.n_shards, self.device,
-                    node.engine, wire, env, return_stats, cache=self._exec_cache,
-                    node=node, tuned=node.tuned,
+                    kind, source, mapper, red, target, mesh, node.engine, wire, env,
+                    return_stats, cache=self._exec_cache, node=node, tuned=node.tuned,
+                    hier=node.hier,
                 ),
                 node,
             )
@@ -234,8 +265,8 @@ class BlazeSession:
         self.stats.dispatches += stats.dispatches
         return (out, stats) if return_stats else out
 
-    def _map_reduce_chunked(self, source: C.ChunkedDistVector, mapper, red, target, wire,
-                            env, shuffle_slack, key_range, node, return_stats):
+    def _map_reduce_chunked(self, source: C.ChunkedDistVector, mapper, red, target, mesh,
+                            wire, env, shuffle_slack, key_range, node, return_stats):
         """Out-of-core ``map_reduce``: one stage run a block, each block's
         result merged into the running target (merged-into-target semantics
         make the accumulation free).  A worker thread reads block k+1 and,
@@ -246,7 +277,7 @@ class BlazeSession:
         holds again, and never pulls the next block."""
         from repro_torch.data.pipeline import prefetch_iter
 
-        dev = self.device
+        dev = mesh.device
         card = dev.type == "cuda"
         copy = torch.cuda.Stream(dev) if card else None
         index = _cuda_index(dev) if card else None
@@ -269,16 +300,16 @@ class BlazeSession:
             if isinstance(target, C.DistHashMap):
                 out, st = self._dispatch_supervised(
                     lambda bv=bv, out=out: _mr._map_reduce_hash(
-                        "chunked", bv, mapper, red, out, self.n_shards, dev, node.engine,
+                        "chunked", bv, mapper, red, out, mesh, node.engine,
                         shuffle_slack, env, key_range=key_range, cache=self._exec_cache,
                         node=node, tuned=node.tuned),
                     node)
             else:
                 out, st = self._dispatch_supervised(
                     lambda bv=bv, out=out: _mr._map_reduce_dense(
-                        "chunked", bv, mapper, red, out, self.n_shards, dev, node.engine,
+                        "chunked", bv, mapper, red, out, mesh, node.engine,
                         wire, env, return_stats, cache=self._exec_cache, node=node,
-                        tuned=node.tuned),
+                        tuned=node.tuned, hier=node.hier),
                     node)
             for k in totals:
                 totals[k] = totals[k] + getattr(st, k)
@@ -442,7 +473,7 @@ class BlazeSession:
         v = int(np.prod(target.shape[1:])) if target.dim() > 1 else 1
         return cost_mod.dense_tuning_candidates(k, v, red.name, target.dtype)
 
-    def _tune_map_reduce(self, kind, source, mapper, red, target, wire, env,
+    def _tune_map_reduce(self, kind, source, mapper, red, target, mesh, wire, env,
                          shuffle_slack, key_range, node):
         """Time ``node``'s candidates and cache the fastest under its
         ``tune_key``.
@@ -463,20 +494,20 @@ class BlazeSession:
             def run():
                 if hash_target:
                     return _mr._map_reduce_hash(
-                        kind, source, mapper, red, target, self.n_shards, self.device,
-                        cfg.engine, shuffle_slack, env, key_range=key_range,
+                        kind, source, mapper, red, target, mesh, cfg.engine,
+                        shuffle_slack, env, key_range=key_range,
                         cache=self._exec_cache, tuned=tuned)
                 return _mr._map_reduce_dense(
-                    kind, source, mapper, red, target, self.n_shards, self.device,
-                    cfg.engine, wire, env, False, cache=self._exec_cache, tuned=tuned)
+                    kind, source, mapper, red, target, mesh, cfg.engine, wire, env,
+                    False, cache=self._exec_cache, tuned=tuned, hier=node.hier)
 
             try:
                 faults.fault_point("tuning.measure")
                 _, st = run()  # builds the stage, warms up
-                _sync(self.device)
+                _sync(mesh.device)
                 t0 = time.perf_counter()
                 _, st2 = run()
-                _sync(self.device)
+                _sync(mesh.device)
                 wall = time.perf_counter() - t0
             except faults.InjectedFault as e:
                 faults.record("absorbed", e)
@@ -532,37 +563,44 @@ class BlazeSession:
         return C.foreach(v, fn, env=env)
 
     def topk(self, v: C.DistVector, k: int, score_fn: Callable | None = None,
-             env: Any = None) -> np.ndarray:
-        """Session-scoped ``topk`` over this session's shards: selects on the
+             env: Any = None, mesh: C.Mesh | None = None) -> np.ndarray:
+        """Session-scoped ``topk`` over the mesh's shards: selects on the
         device, then materialises the ``k·n_shards`` candidates on the host,
         a blocking sync counted in ``stats.host_syncs``."""
         self.stats.host_syncs += 1
-        return C.topk(v, k, score_fn=score_fn, env=env, n_shards=self.n_shards)
+        return C.topk(v, k, score_fn=score_fn, env=env,
+                      n_shards=(mesh or self.mesh).n_shards)
 
-    def distribute(self, x) -> C.DistVector:
-        """``distribute`` onto this session's device and shards."""
-        return C.distribute(x, self.n_shards, self.device)
+    def distribute(self, x, mesh: C.Mesh | None = None) -> C.DistVector:
+        """``distribute`` onto the mesh's device and shards (the session's
+        by default)."""
+        mesh = mesh or self.mesh
+        return C.distribute(x, mesh.n_shards, mesh.device)
 
-    def chunked(self, x, block_rows: int, **kwargs) -> C.ChunkedDistVector:
+    def chunked(self, x, block_rows: int, mesh: C.Mesh | None = None,
+                **kwargs) -> C.ChunkedDistVector:
         """``distribute`` for datasets that do not fit on the device: a host
-        array as out-of-core blocks for this session's device and shards
+        array as out-of-core blocks for the mesh's device and shards
         (``compress=``, ``spill_dir=``, ``max_resident=`` shape the byte
         provider)."""
-        return C.chunked(x, block_rows, self.n_shards, self.device, **kwargs)
+        mesh = mesh or self.mesh
+        return C.chunked(x, block_rows, mesh.n_shards, mesh.device, **kwargs)
 
     def make_dist_hashmap(self, capacity_per_shard: int, val_shape: tuple = (),
                           val_dtype: torch.dtype = torch.float32,
-                          reducer: str | Reducer = "sum") -> C.DistHashMap:
-        """``make_dist_hashmap`` on this session's device and shards."""
+                          reducer: str | Reducer = "sum",
+                          mesh: C.Mesh | None = None) -> C.DistHashMap:
+        """``make_dist_hashmap`` on the mesh's device and shards."""
+        mesh = mesh or self.mesh
         return C.make_dist_hashmap(
             capacity_per_shard, val_shape, val_dtype, reducer,
-            n_shards=self.n_shards, device=self.device,
+            n_shards=mesh.n_shards, device=mesh.device,
         )
 
     # -- fused iteration programs (see repro_torch.core.program) -------------
 
-    def program(self, step_fn: Callable, *, passes=None, tune: bool = False,
-                hierarchical: bool = True):
+    def program(self, step_fn: Callable, *, mesh: C.Mesh | None = None, passes=None,
+                tune: bool = False, hierarchical: bool = True):
         """Plan ``step_fn(ctx, state) -> state``, a whole iteration of
         MapReduce ops plus elementwise glue, as one program.
 
@@ -576,13 +614,14 @@ class BlazeSession:
         :meth:`explain`.  On the card a dispatch is one CUDA graph replay.
         ``tune=True``: on the first build, tunable nodes without a winner
         are measured once (``Program._maybe_tune``) and the winners cached
-        in ``session.tuning``.  ``hierarchical`` keeps the reference's
-        signature: the port's one node has no hierarchy.
+        in ``session.tuning``.  ``mesh`` overrides the session's mesh; on a
+        multi-node mesh ``hierarchical=False`` keeps the collectives flat (a
+        no-op on a 1-node mesh).
         """
         from repro_torch.core.program import Program
 
-        del hierarchical
-        return Program(self, step_fn, passes=passes, tune=tune)
+        return Program(self, step_fn, mesh=mesh or self.mesh, passes=passes, tune=tune,
+                       hierarchical=hierarchical)
 
     def explain(self, program, state=None) -> str:
         """Render ``program``'s optimised logical plan, Spark-EXPLAIN-style:
@@ -716,6 +755,9 @@ def reset_default_session() -> None:
         _default_session = None
 
 
-def resolve(session: BlazeSession | None) -> BlazeSession:
-    """The session, or the default one — the driver entry idiom."""
-    return session if session is not None else get_default_session()
+def resolve(session: BlazeSession | None,
+            mesh: C.Mesh | None = None) -> tuple[BlazeSession, C.Mesh]:
+    """``(session or the default one, mesh or the session's)`` — the driver
+    entry idiom."""
+    sess = session if session is not None else get_default_session()
+    return sess, (mesh or sess.mesh)

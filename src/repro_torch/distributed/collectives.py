@@ -11,8 +11,16 @@ unbiased.
 
 As in the reference, the int8 sum runs in int32 over the int8 lattice
 (numerically an int8 wire), and a bf16 sum folds the shards in order,
-rounding to bf16 at every addition, as a bf16 ring would.  The
-hierarchical form (``intra_axis``) comes with the multi-host slice.
+rounding to bf16 at every addition, as a bf16 ring would.
+
+**Hierarchical form.**  On a ``("node", "data")`` mesh the intra-node links
+are the fast ones.  ``n_nodes > 1`` is the reference's ``intra_axis=``: the
+shards, grouped node-major ``[n_nodes, n_data, ...]``, are first summed
+over each node's ``n_data`` shards at full precision (the reference's
+``psum`` over ``intra_axis``), and only the ``n_nodes`` node partials cross
+the narrowed wire (its ``axis``, the node axis): the int8 scale is the
+largest magnitude over the node partials, the reference's ``pmax`` over
+the node axis.  One quantisation addend a node instead of one a shard.
 """
 from __future__ import annotations
 
@@ -20,12 +28,11 @@ import numpy as np
 import torch
 
 
-def _flat_only(intra_axis) -> None:
-    if intra_axis is not None:
-        raise NotImplementedError(
-            "intra_axis (the hierarchical collective) is not ported yet; it "
-            "comes with the multi-host slice of the port (ROADMAP.md, Queue 1)"
-        )
+def intra_node_sum(x: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """``[S, ...]`` → ``[n_nodes, ...]``: each node's ``S / n_nodes``
+    shards summed at full precision (the hierarchical reduce's first hop)."""
+    return x.reshape((n_nodes, x.shape[0] // n_nodes) + tuple(x.shape[1:])).sum(
+        1, dtype=x.dtype)
 
 
 def _int8_scale(x: torch.Tensor) -> torch.Tensor:
@@ -39,10 +46,12 @@ def _int8_lattice(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compressed_psum(x: torch.Tensor, *, wire: str = "none",
-                    intra_axis=None) -> torch.Tensor:
+                    n_nodes: int = 1) -> torch.Tensor:
     """Sum ``x [S, ...]`` over its shard dimension with the payload narrowed
-    per ``wire``."""
-    _flat_only(intra_axis)
+    per ``wire``; with ``n_nodes > 1``, hierarchically: each node's shards
+    at full precision first, then the narrowed sum of the node partials."""
+    if n_nodes > 1:
+        x = intra_node_sum(x, n_nodes)
     if wire == "none":
         return x.sum(0, dtype=x.dtype)
     if wire == "bf16":
@@ -60,15 +69,22 @@ def compressed_psum(x: torch.Tensor, *, wire: str = "none",
 
 
 def psum_with_feedback(x: torch.Tensor, residual: torch.Tensor, *, wire: str,
-                       intra_axis=None) -> tuple[torch.Tensor, torch.Tensor]:
+                       n_nodes: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """``(reduced, new_residual)``: error feedback around the lossy sum.
 
     ``residual`` is ``[S, ...]`` f32, one per shard.  With a shared scale
     the quantisation is deterministic, so each shard's loss is recomputed
-    rather than echoed back, as in the reference.
+    rather than echoed back, as in the reference.  With ``n_nodes > 1`` the
+    intra-node hop is folded at full precision before the quantisation, so
+    the residual tracks the one lossy hop: one per node, added to the node
+    partial, and every shard of a node carries the same rows (the
+    reference's residual is replicated within a node).
     """
-    _flat_only(intra_axis)
-    target = x.to(torch.float32) + residual
+    if n_nodes > 1:
+        per = x.shape[0] // n_nodes
+        target = intra_node_sum(x, n_nodes).to(torch.float32) + residual[::per]
+    else:
+        target = x.to(torch.float32) + residual
     reduced = compressed_psum(target, wire=wire)
     if wire == "int8":
         scale = _int8_scale(target)
@@ -77,6 +93,8 @@ def psum_with_feedback(x: torch.Tensor, residual: torch.Tensor, *, wire: str,
         new_residual = target - target.to(torch.bfloat16).to(torch.float32)
     else:
         new_residual = torch.zeros_like(target)
+    if n_nodes > 1:
+        new_residual = new_residual.repeat_interleave(per, dim=0)
     return reduced, new_residual
 
 

@@ -8,11 +8,17 @@ interrupted, on the card by default or on the CPU with ``--device cpu``::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --port 8787
   PYTHONPATH=src python -m repro_torch.launch.serve --port 8787 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --nodes 2 --shards 8
 
   curl -s localhost:8787/health
   curl -s -X POST localhost:8787/query -d \\
       '{"tenant": "alice", "query": "pagerank", "params": {"iters": 10}}'
   curl -s localhost:8787/stats
+
+``--nodes N --shards S`` serves on a ``("node", "data")`` mesh of ``S``
+shards stacked on the device in ``N`` node rows (``launch.mesh.
+make_node_data_mesh``); ``/stats`` reports it as ``mesh_nodes`` and
+``mesh_shards``.
 
 ``--arch`` invocations are forwarded to ``repro_torch.launch.serve_lm`` (the
 LM decode launcher), as the reference forwards them to its own.
@@ -50,13 +56,15 @@ def register_standard_datasets(server, *, scale: str = "smoke",
 
 def build_server(*, host: str = "127.0.0.1", port: int = 0,
                  max_queue: int = 64, per_tenant: int = 8, max_batch: int = 8,
-                 scale: str = "smoke", seed: int = 0, device=None):
+                 scale: str = "smoke", seed: int = 0, device=None, mesh=None):
     """A ready-to-start server with the standard datasets registered, its
-    session on ``device`` (the card unless ``"cpu"``)."""
+    session on ``mesh`` when given, else on ``device`` (the card unless
+    ``"cpu"``)."""
     from repro_torch.serve import BlazeServer
 
     server = BlazeServer(
-        device=device, host=host, port=port, max_queue=max_queue,
+        mesh=mesh, device=None if mesh is not None else device, host=host, port=port,
+        max_queue=max_queue,
         per_tenant_inflight=per_tenant, max_batch=max_batch,
     )
     register_standard_datasets(server, scale=scale, seed=seed)
@@ -84,12 +92,20 @@ def main(argv=None):
     ap.add_argument("--scale", choices=("smoke", "full"), default="smoke")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--nodes", type=int, default=1,
+                    help="node rows of the (node, data) mesh")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="shards stacked on the device (default: --nodes)")
     args = ap.parse_args(argv)
 
+    from repro_torch.launch.mesh import make_node_data_mesh
+
+    mesh = make_node_data_mesh(args.nodes, n_shards=args.shards or args.nodes,
+                               device=args.device)
     server = build_server(
         host=args.host, port=args.port, max_queue=args.max_queue,
         per_tenant=args.per_tenant, max_batch=args.max_batch,
-        scale=args.scale, seed=args.seed, device=args.device,
+        scale=args.scale, seed=args.seed, mesh=mesh,
     )
     server.start()
     print(json.dumps({
@@ -97,7 +113,8 @@ def main(argv=None):
         "queries": server.queries,
         "datasets": sorted(server.datasets),
         "device": str(server.device),
-        "mesh_shards": server.session.n_shards,
+        "mesh_shards": server.mesh.n_shards,
+        "mesh_nodes": server.mesh.n_nodes,
     }))
     sys.stdout.flush()
     try:

@@ -34,8 +34,9 @@ Where the port differs from the reference:
   copied with ``non_blocking=True`` (``_to_device``); everything else is
   made on the device (``torch.full``, ``torch.zeros``).  A pageable copy
   would wait for every replay queued before it.
-* ``ServeResources`` holds the session, its device and its shard count
-  where the reference holds a mesh, and ``run_direct`` takes no mesh.
+* ``ServeResources`` holds the session and the mesh the server runs on
+  (the session's unless the server names another), with its device and
+  shard count; ``run_direct`` takes no mesh: it runs on the session's.
 
 The six paper algorithms are provided as built-ins, reusing each driver's
 ``_program_step`` — the serving path and the direct ``session`` path lower
@@ -95,16 +96,18 @@ class DatasetEntry:
 
 
 class ServeResources:
-    """What ``prepare`` sees: the resident session (its ``device`` and
-    ``n_shards``), the dataset table, and a cache for *derived* distributed
-    objects (the ``DistVector`` built from a dataset must be built once and
-    reused — program source identity is keyed on the backing tensors)."""
+    """What ``prepare`` sees: the resident session, the mesh the queries run
+    on (its ``device`` and ``n_shards``; the session's by default), the
+    dataset table, and a cache for *derived* distributed objects (the
+    ``DistVector`` built from a dataset must be built once and reused —
+    program source identity is keyed on the backing tensors)."""
 
     def __init__(self, session, datasets: dict[str, DatasetEntry],
-                 tune: bool = False):
+                 tune: bool = False, mesh=None):
         self.session = session
-        self.device = session.device
-        self.n_shards = session.n_shards
+        self.mesh = mesh if mesh is not None else session.mesh
+        self.device = self.mesh.device
+        self.n_shards = self.mesh.n_shards
         self.datasets = datasets
         self.tune = tune  # first-prepare autotuning for every built program
         self._derived: dict[tuple, Any] = {}
@@ -221,7 +224,7 @@ class PiQuery(QuerySpec):
     def prepare(self, res, params):
         n = _int(params, "n_samples", 4096, 1)
         step, state0 = _pi_step(n, _engine(params), res.device)
-        prog = res.session.program(step, tune=res.tune)
+        prog = res.session.program(step, tune=res.tune, mesh=res.mesh)
         plan = prog.build(state0)
 
         def run(p):
@@ -256,7 +259,7 @@ class PageRankQuery(QuerySpec):
         damping = _float(params, "damping", 0.85)
 
         def build():
-            edges_v = res.session.distribute(edges.astype(np.int32))
+            edges_v = res.session.distribute(edges.astype(np.int32), mesh=res.mesh)
             deg = torch.from_numpy(
                 np.bincount(edges[:, 0], minlength=n_pages).astype(np.int32)
             ).to(res.device)
@@ -266,7 +269,7 @@ class PageRankQuery(QuerySpec):
         step, state0 = _pagerank_step(
             edges_v, deg, n_pages, damping, _engine(params), _wire(params)
         )
-        prog = res.session.program(step, tune=res.tune)
+        prog = res.session.program(step, tune=res.tune, mesh=res.mesh)
         init = state0(torch.full((n_pages,), 1.0 / n_pages, dtype=torch.float32,
                                  device=res.device))
         plan = prog.build(init)
@@ -304,15 +307,15 @@ class WordCountQuery(QuerySpec):
         ))
         lines_v = res.derived(
             ("wordcount", entry.name),
-            lambda: res.session.distribute(lines.astype(np.int32)),
+            lambda: res.session.distribute(lines.astype(np.int32), mesh=res.mesh),
         )
         hm = res.session.make_dist_hashmap(
-            max(64, 4 * vocab_bound), (), torch.int32, "sum"
+            max(64, 4 * vocab_bound), (), torch.int32, "sum", mesh=res.mesh
         )
         step, state0 = _wordcount_step(
             lines_v, hm, vocab_bound, _engine(params)
         )
-        prog = res.session.program(step, tune=res.tune)
+        prog = res.session.program(step, tune=res.tune, mesh=res.mesh)
         plan = prog.build(state0)
 
         def run(p):
@@ -347,12 +350,12 @@ class KMeansQuery(QuerySpec):
         dim = pts.shape[1]
         pts_v = res.derived(
             ("points", entry.name),
-            lambda: res.session.distribute(pts.astype(np.float32)),
+            lambda: res.session.distribute(pts.astype(np.float32), mesh=res.mesh),
         )
         step, state0 = _kmeans_step(
             pts_v, k, dim, _engine(params), _wire(params)
         )
-        prog = res.session.program(step, tune=res.tune)
+        prog = res.session.program(step, tune=res.tune, mesh=res.mesh)
 
         def init_for(p):
             rng = np.random.RandomState(_int(p, "seed", 0, 0))
@@ -394,11 +397,11 @@ class GMMQuery(QuerySpec):
             rows0 = np.concatenate(
                 [pts, np.zeros((n, k), np.float32)], axis=1
             )
-            return res.session.distribute(rows0.astype(np.float32))
+            return res.session.distribute(rows0.astype(np.float32), mesh=res.mesh)
 
         rows_v = res.derived(("gmm", entry.name, k), build)
         step, state0 = _gmm_step(rows_v, k, d, n, _engine(params))
-        prog = res.session.program(step, tune=res.tune)
+        prog = res.session.program(step, tune=res.tune, mesh=res.mesh)
 
         def init_for(p):
             rng = np.random.RandomState(_int(p, "seed", 0, 0))
@@ -443,13 +446,13 @@ class KNNQuery(QuerySpec):
         dim = pts.shape[1]
         pts_v = res.derived(
             ("points", entry.name),
-            lambda: res.session.distribute(pts.astype(np.float32)),
+            lambda: res.session.distribute(pts.astype(np.float32), mesh=res.mesh),
         )
         per = pts_v.data.shape[0] // res.n_shards
         kk = min(k, per)
         m = min(k, kk * res.n_shards)
         step = _knn_step(pts_v, k, "auto")
-        prog = res.session.program(step, tune=res.tune)
+        prog = res.session.program(step, tune=res.tune, mesh=res.mesh)
 
         def state_for(p):
             q = p.get("query")

@@ -49,6 +49,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import faults
+from repro_torch.core.containers import n_nodes, shard_count
 from repro_torch.core.session import BlazeSession, _cuda_index
 from repro_torch.serve import batching
 from repro_torch.serve.admission import (
@@ -88,16 +89,19 @@ class BlazeServer:
     admitted-but-unfinished requests, ``max_batch`` caps how many
     plan-compatible requests one dispatcher cycle serves, and
     ``request_timeout`` bounds how long the HTTP layer waits for a result.
-    Without ``session`` the server makes ``BlazeSession(device, n_shards)``,
-    on the card unless ``device="cpu"``.
+    Without ``session`` the server makes ``BlazeSession(device, n_shards,
+    mesh=mesh)``, on the card unless ``device="cpu"``; ``mesh`` (the
+    session's by default) is the topology every query runs on, and
+    ``/stats`` reports it (``mesh_shards``, ``mesh_nodes``).
     """
 
     def __init__(
         self,
         session: BlazeSession | None = None,
         *,
+        mesh=None,
         device=None,
-        n_shards: int = 1,
+        n_shards: int | None = None,
         host: str = "127.0.0.1",
         port: int = 0,
         max_queue: int = 64,
@@ -108,8 +112,9 @@ class BlazeServer:
         tune: bool = False,
     ):
         self.session = (session if session is not None
-                        else BlazeSession(device, n_shards))
-        self.device = self.session.device
+                        else BlazeSession(device, n_shards, mesh=mesh))
+        self.mesh = mesh if mesh is not None else self.session.mesh
+        self.device = self.mesh.device
         self.stats = ServerStats()
         self.max_batch = max_batch
         self.request_timeout = request_timeout
@@ -121,7 +126,8 @@ class BlazeServer:
         # engine/block configs (program autotuning) and caches winners in
         # the resident session's TuningCache — later prepares of plans
         # containing the same ops reuse them without re-measuring.
-        self._resources = ServeResources(self.session, self._datasets, tune=tune)
+        self._resources = ServeResources(self.session, self._datasets, tune=tune,
+                                         mesh=self.mesh)
         self._programs: dict[tuple, PreparedQuery] = {}  # the plan cache
         self._running = False
         self._paused = threading.Event()
@@ -423,8 +429,8 @@ class BlazeServer:
         # node.  Each resident program's CUDA graphs allocate from one pool
         # it keeps for the server's lifetime (0 on the CPU).
         snap["device"] = str(self.device)
-        snap["mesh_shards"] = self.session.n_shards
-        snap["mesh_nodes"] = 1
+        snap["mesh_shards"] = shard_count(self.mesh)
+        snap["mesh_nodes"] = n_nodes(self.mesh)
         resident = [
             {"query": prep.plan_key[0], "plan_hash": prep.plan_hash,
              "pool_reserved_bytes": prep.program.stats.pool_reserved_bytes}

@@ -1,10 +1,11 @@
 """The port's checkpoint manager (``repro_torch/checkpoint/manager.py``),
 mirroring ``tests/test_checkpoint.py`` (atomic commit, keep-N, async save,
 the rename-aside swap under injected crashes, concurrent saves and
-restores, ``BlockStore``), without the elastic-sharding case, which waits
-for the multi-host slice.  It adds resume: ``run_loop`` and ``run_stream``
-restarted from a checkpoint in a new ``Program`` equal the uninterrupted run
-bit for bit, the k-means one also the reference's uninterrupted run.
+restores, ``BlockStore``, elastic restore onto explicit placements).  It
+adds resume: ``run_loop`` and ``run_stream`` restarted from a checkpoint in
+a new ``Program`` equal the uninterrupted run bit for bit, the k-means one
+also the reference's uninterrupted run, and a run checkpointed on a (1x8)
+mesh and resumed on a (2x4) one equals the uninterrupted (2x4) run.
 
 Exact comparisons throughout: restored leaves are the saved bytes, and the
 resumed runs sum integer-valued points (exact in f32) and count tokens.
@@ -23,10 +24,11 @@ from repro.core import BlazeSession as JaxSession
 from repro.core import containers as JC
 from repro.core.algorithms.kmeans import _program_step as _jkmeans_step
 from repro_torch.checkpoint.manager import BlockStore, CheckpointManager
-from repro_torch.core import BlazeSession
+from repro_torch.core import BlazeSession, data_mesh
 from repro_torch.core.algorithms.kmeans import _program_step as _kmeans_step
 from repro_torch.core.algorithms.kmeans import _stream_step as _kmeans_stream_step
 from repro_torch.core.algorithms.wordcount import _program_step as _wc_step
+from repro_torch.launch.mesh import make_node_data_mesh
 
 
 def _tree(seed=0):
@@ -53,7 +55,7 @@ def test_save_restore_roundtrip():
         # onto another dtype and device of the template, and a 0-d leaf stays 0-d
         like = {"a": torch.zeros(4, 8, dtype=torch.float64),
                 "b": [torch.zeros(3), torch.tensor(0)]}
-        got = mgr.restore(10, like, device="cpu")
+        got = mgr.restore(10, like, shardings="cpu")
         assert got["a"].dtype == torch.float64 and got["b"][1].shape == ()
         assert torch.equal(got["a"], t["a"].double())
 
@@ -82,6 +84,26 @@ def test_unfinished_tmp_dirs_ignored():
         assert mgr.latest_step() == 1
         mgr.save(3, _tree())  # gc cleans orphans on the next save
         assert not any(".tmp-" in n for n in os.listdir(d))
+
+
+def test_elastic_restore_with_explicit_sharding():
+    """Checkpoints hold logical arrays: restore onto any placement, a device
+    or a mesh, one for every leaf or a tree of them."""
+    mesh = make_node_data_mesh(2, n_shards=8, device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t = {"w": torch.arange(16, dtype=torch.float32).reshape(4, 4),
+             "v": torch.arange(8, dtype=torch.int32)}
+        mgr.save(1, t)
+        for shardings in ({"v": data_mesh(8, "cpu"), "w": mesh}, mesh, "cpu"):
+            got = mgr.restore(1, t, shardings=shardings)
+            _assert_tree_equal(t, got)
+            assert all(x.device == mesh.device for x in got.values())
+        step, got = mgr.restore_latest(t, shardings={"v": "cpu", "w": mesh})
+        assert step == 1
+        _assert_tree_equal(t, got)
+        with pytest.raises(ValueError, match="placements"):
+            mgr.restore(1, t, shardings={"w": mesh})
 
 
 def test_restore_mismatched_tree_raises():
@@ -252,6 +274,34 @@ def test_run_loop_resume_bit_equal(unroll):
     jout, _ = js.run_loop(js.program(jstep), jstate0(jnp.asarray(pts[:5])), max_iters=6,
                           unroll=unroll)
     np.testing.assert_array_equal(got["centers"].numpy(), np.asarray(jout["centers"]))
+
+
+def test_run_loop_checkpointed_on_one_node_resumes_on_two_nodes():
+    """Elastic resume: 4 iterations on a (1x8) mesh, checkpointed, then 2 more
+    on a (2x4) mesh (its sums hierarchical) equal 6 uninterrupted (2x4)
+    iterations bit for bit: the points are integer-valued, so every sum is
+    exact in any order, and the state is logical."""
+    pts = _points()
+    flat = BlazeSession(mesh=make_node_data_mesh(1, n_shards=8, device="cpu"))
+    two = BlazeSession(mesh=make_node_data_mesh(2, n_shards=8, device="cpu"))
+    c0 = torch.as_tensor(pts[:5])
+
+    def program(sess):
+        step, state0 = _kmeans_step(sess.distribute(pts), 5, 4, "pallas", "none")
+        return sess.program(step), state0(c0)
+
+    prog, state = program(two)
+    full, _ = two.run_loop(prog, state, max_iters=6, unroll=2)
+    assert any(n.hier for n in prog.plan.mapreduce_nodes())
+    with tempfile.TemporaryDirectory() as d:
+        flat.run_loop(*program(flat), max_iters=4, unroll=2, checkpoint=d,
+                      checkpoint_every=2)
+        prog, state = program(two)
+        got, info = two.run_loop(prog, state, max_iters=6, unroll=2, checkpoint=d,
+                                 resume=True)
+    assert info.resumed_from == 4 and info.iterations == 2
+    for k in full:
+        assert torch.equal(full[k], got[k]), k
 
 
 def test_run_loop_resume_without_a_checkpoint_starts_over():

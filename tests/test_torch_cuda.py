@@ -1355,3 +1355,86 @@ def test_codec_round_trips_card_tensors_bit_for_bit(dev):
     got = decode_payload(json.loads(json.dumps(encode_payload({"f32": f32, "bf16": bf16}))))
     assert got["f32"].tobytes() == f32.cpu().numpy().tobytes()
     assert torch.equal(got["bf16"].view(torch.int16), bf16.cpu().view(torch.int16))
+
+
+# -- the (node, data) mesh on the card ------------------------------------------
+
+
+def test_hierarchical_reduce_matches_flat_on_k1_and_k2(dev):
+    """On a (2x4) mesh of shards stacked on the card: K1's per-shard
+    partials reduced hierarchically equal the flat reduce bit for bit on
+    integer-valued rows (every partial and total exact in f32), min and max
+    too; K2's tables (never hierarchical) count every token exactly.  Each
+    kernel launches once a shard a call."""
+    from repro_torch.launch.mesh import make_node_data_mesh
+
+    sess = BlazeSession(mesh=make_node_data_mesh(2, n_shards=8, device=dev))
+    g = np.random.RandomState(0)
+    rows = g.randint(0, 100, (1 << 14, 4)).astype(np.float32)
+    v = sess.distribute(rows)
+
+    def dense(i, x, emit):
+        emit(i % 16, x)
+
+    for red in ("sum", "min", "max"):
+        t = torch.full((16, 4), {"sum": 0.0, "min": float("inf"),
+                                 "max": float("-inf")}[red], device=dev)
+        before = segment_reduce.launches
+        hier, st = sess.map_reduce(v, dense, red, t, engine="pallas", return_stats=True)
+        assert segment_reduce.launches - before == 8 and "hier" in st.collective
+        flat = sess.map_reduce(v, dense, red, t, engine="pallas", hierarchical=False)
+        assert torch.equal(hier, flat)
+        want = getattr(torch.from_numpy(rows).reshape(-1, 16, 4), "amin" if red == "min"
+                       else "amax" if red == "max" else "sum")(0)
+        assert torch.equal(hier.cpu(), want)
+    words = g.randint(0, 500, 1 << 14).astype(np.int32)
+    hm = sess.make_dist_hashmap(1024, (), torch.int32, "sum")
+    before = HK.hash_aggregate.launches
+    hm, st = sess.map_reduce(sess.distribute(words), lambda i, w, emit: emit(w, 1), "sum",
+                             hm, engine="pallas", key_range=500, return_stats=True)
+    assert HK.hash_aggregate.launches - before == 16  # combine and merge, a shard each
+    assert {int(k): int(c) for k, c in hm.to_dict().items()} == dict(
+        zip(*np.unique(words, return_counts=True)))
+    st = st.finalize()
+    assert abs(st.inter_bytes - 0.5 * st.shuffle_payload_bytes) <= 1
+
+
+def test_multinode_program_captures_degrades_and_recaptures(dev, ledger):
+    """The degraded-program case on a (2x4) mesh: the program's dense node
+    is hierarchical, a kernel fault at a replay's dispatch degrades it, the
+    program captures again into the same carry and buffers, and the run
+    equals one that was eager from the start, exactly."""
+    from repro_torch.launch.mesh import make_node_data_mesh
+
+    mesh = make_node_data_mesh(2, n_shards=8, device=dev)
+    x = np.arange(1 << 16, dtype=np.float32) % 509
+
+    def run(engine_fault):
+        sess = BlazeSession(mesh=mesh)
+        hm = sess.make_dist_hashmap(256, (), torch.float32, "sum")
+        prog = sess.program(_k1_k2_step(sess, sess.distribute(x), hm, dev))
+        state = prog({"acc": torch.zeros(8, device=dev)}, 1)
+        assert prog.plan.n_nodes == 2
+        assert [n.hier for n in prog.plan.mapreduce_nodes()] == [False, True]
+        carry = prog._carry[prog._last_sig]
+        bufs = [*carry.state_in] + [a for t in carry.tables.values()
+                                    for a in (t.keys, t.vals, t.overflow)]
+        ptrs = [b.data_ptr() for b in bufs]
+        if engine_fault:
+            ledger.configure("kernel.segment", at=1)
+        for _ in range(2):
+            state = sess.supervised(lambda s=state: prog(s, 1), program=prog)
+        assert [b.data_ptr() for b in bufs] == ptrs
+        return sess, prog, state, prog.hash_result(hm)
+
+    sess, prog, state, hm = run(True)
+    assert prog.stats.degradations == 1 and prog.stats.captures == 2
+    assert sess.stats.degraded_nodes == 1
+    assert all(n.engine == "eager" for n in prog.plan.mapreduce_nodes())
+    assert prog.plan.mapreduce_nodes()[1].hier  # still hierarchical, now eager
+    snap = ledger.snapshot()
+    assert snap["balanced"] and snap["dispositions"]["degraded"] == 1
+    ledger.reset(env=False)
+    _, _, want, want_hm = run(False)
+    assert torch.equal(state["acc"], want["acc"])
+    assert hm.to_dict() == want_hm.to_dict()

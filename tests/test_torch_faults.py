@@ -32,7 +32,10 @@ compares the ledger but not the hit counts: the port's candidate grid is its
 own (``repro_torch/core/cost.py``), so it dispatches other candidates.  Two
 more cases are the port's own: a program rediscovered after ``degrade()``
 keeps its carry's tensors, and a real error propagates where the reference
-degrades (per op, in a program and in a tuning candidate).
+degrades (per op, in a program and in a tuning candidate).  And
+``tests/test_multihost.py``'s ``collective.inter`` case runs here on the
+port's (2x4) mesh, held to the reference's assertions; its JAX side, which
+needs eight devices, is in ``tests/test_torch_multihost.py``.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from repro_torch.core import BlazeSession
 from repro_torch.core import faults as tf
 from repro_torch.core.algorithms.kmeans import kmeans
 from repro_torch.core.algorithms.pagerank import pagerank
+from repro_torch.launch.mesh import make_node_data_mesh
 
 # Fast supervision for tests: no sleeps, no wall-clock deadline.
 JFAST = jf.RetryPolicy(attempts=3, backoff_s=0.0, multiplier=1.0, deadline_s=None)
@@ -757,6 +761,46 @@ def test_chaos_pagerank_per_op_bit_equal():
     js, ts = _same_ledger(hits=False, counts=False)
     assert ts["injected_total"] >= 1 and ts["hits"]["collective"] >= 1
     assert ts["hits"]["collective"] <= js["hits"]["collective"]
+
+
+@pytest.mark.parametrize("spelling", ("per_op", "program"))
+def test_collective_inter_fault_retries_bit_equal_8dev(spelling):
+    """``collective.inter`` (the slow inter-node hop of a hierarchical
+    reduce) on a (2x4) mesh: an injected transient retries once and the run
+    equals the fault-free one bit for bit.  The reference needs eight
+    devices for this case, so its side runs in tests/test_torch_multihost.py
+    (the same case, per op, against JAX's result and ledger); here the port
+    is held to the reference's assertions, per op and in a program."""
+    vals = np.random.RandomState(3).randint(0, 100, (64, 4)).astype(np.float32)
+    mesh = make_node_data_mesh(2, n_shards=8, device="cpu")
+
+    def run(sess):
+        v = sess.distribute(vals)
+        if spelling == "per_op":
+            return sess.map_reduce(v, _row, "sum", torch.zeros(1, 4))
+
+        def step(ctx, state):
+            t = ctx.map_reduce(v, _row, "sum", torch.zeros(1, 4), engine="pallas")
+            return {"acc": state["acc"] + t[0]}
+
+        out, _ = sess.run_loop(sess.program(step), {"acc": torch.zeros(4)}, max_iters=3)
+        return out["acc"]
+
+    ref = run(_sess(mesh=mesh))
+    s = _sess(mesh=mesh)
+    tf.configure("collective.inter", at=1)
+    got = run(s)
+    ts = tf.snapshot()
+    assert torch.equal(got, ref)
+    assert np.array_equal(_np(got).reshape(-1), (3 if spelling == "program" else 1)
+                          * vals.sum(0))
+    assert s.stats.retries == 1
+    assert ts["balanced"] and ts["dispositions"]["retried"] == 1
+    assert ts["injected"] == {"collective.inter": 1}
+
+
+def _row(i, r, emit):
+    emit(0, r)
 
 
 # -- the carry across a degradation (the port's own) ---------------------------

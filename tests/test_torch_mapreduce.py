@@ -304,13 +304,16 @@ def test_auto_engine_and_stage_cache():
         sess.map_reduce(pts, _dyn_mapper, "sum", t8, engine="spark")
 
 
-def test_later_slices_raise_not_implemented():
-    # tune=True is ported (tests/test_torch_tuning.py); the multi-node
-    # reduce edges still belong to the multi-host slice.
-    from repro_torch.core.mapreduce import reduce_edge_bytes
+def test_later_slices_raise_not_implemented(monkeypatch):
+    # tune=True and the in-process (node, data) mesh are ported
+    # (tests/test_torch_tuning.py, tests/test_torch_multihost.py); a mesh
+    # across processes waits for cross-process collectives, and raises
+    # rather than simulate one.
+    from repro_torch.launch import mesh as mesh_mod
 
-    with pytest.raises(NotImplementedError, match="slice"):
-        reduce_edge_bytes(8, 4, 4, 4, n_nodes=2)
+    monkeypatch.setattr(mesh_mod, "process_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        mesh_mod.make_node_data_mesh(2, n_shards=8, device="cpu")
 
 
 def test_free_map_reduce_uses_the_default_session():

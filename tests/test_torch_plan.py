@@ -522,12 +522,16 @@ def test_node_cost_and_pick_engine_match_jax():
 
 def test_reduce_edge_bytes_flat_case_matches_jax():
     """The combine-edge model on one node: every edge intra-node at the
-    wire's width; more nodes wait for the multi-host slice."""
+    wire's width; and on 2 and 4 nodes, flat (every edge inter-node) and
+    hierarchical (intra edges at full width, inter at the wire's), as JAX's
+    (more in tests/test_torch_multihost.py)."""
     from repro.core.mapreduce import reduce_edge_bytes as jreb
     from repro_torch.core.mapreduce import reduce_edge_bytes
 
     for n_elems, full, wire_b, shards in ((20, 4, 4, 1), (20, 4, 2, 4), (64, 4, 1, 8)):
         assert reduce_edge_bytes(n_elems, full, wire_b, shards) == jreb(
             n_elems, full, wire_b, shards, 1, False)
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        reduce_edge_bytes(20, 4, 1, 8, n_nodes=2, hier=True)
+        for nodes in (2, 4):
+            for hier in (False, True):
+                assert reduce_edge_bytes(n_elems, full, wire_b, 8, nodes, hier) == jreb(
+                    n_elems, full, wire_b, 8, nodes, hier)

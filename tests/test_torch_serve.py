@@ -42,6 +42,7 @@ from repro_torch.core import BlazeSession
 from repro_torch.core import faults
 from repro_torch.core.algorithms import pagerank
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import make_node_data_mesh
 from repro_torch.serve import (
     BlazeClient,
     BlazeServer,
@@ -305,6 +306,17 @@ def test_stats_endpoint_shape(server):
     assert len(snap["resident"]) == snap["resident_programs"]
     assert snap["pool_reserved_bytes"] == sum(
         r["pool_reserved_bytes"] for r in snap["resident"]) == 0
+    # A server over a (2x4) mesh reports its topology, and its queries run
+    # there (PageRank's sums hierarchical).
+    mesh = make_node_data_mesh(2, n_shards=8, device="cpu")
+    with BlazeServer(mesh=mesh, max_batch=4) as srv:
+        _register(srv)
+        srv.submit_and_wait("alice", "pagerank", {"iters": 2})
+        snap = BlazeClient(srv.url).stats()
+        assert snap["mesh_shards"] == 8 and snap["mesh_nodes"] == 2
+        (prep,) = srv._programs.values()
+        assert prep.program.plan.n_nodes == 2
+        assert any(n.hier for n in prep.program.plan.mapreduce_nodes())
 
 
 # -- the six queries against the reference's run_direct -------------------------

@@ -4,9 +4,8 @@ the core package's exports, against the reference.
 ``load_file`` on a temporary text file (blank lines, mixed case, a cut
 width) gives the reference's rows and vocabulary bit for bit; a per-op
 wordcount over those rows gives the reference's counts exactly (both
-engines, both targets); and every name of ``repro.core.__all__`` but
-``data_mesh`` (which waits for the multi-host slice) imports from
-``repro_torch.core``.
+engines, both targets); and every name of ``repro.core.__all__``
+imports from ``repro_torch.core``.
 """
 import importlib
 
@@ -81,7 +80,7 @@ def test_wordcount_over_loaded_rows_matches_reference(text_file, engine, target)
 
 def test_core_exports_every_reference_name():
     tcore = importlib.import_module("repro_torch.core")
-    want = [n for n in jcore.__all__ if n != "data_mesh"]
+    want = list(jcore.__all__)
     assert sorted(tcore.__all__) == sorted(want)
     for name in want:
         assert getattr(tcore, name) is not None, name

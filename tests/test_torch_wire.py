@@ -259,8 +259,11 @@ def test_compressed_psum_and_feedback_telescope(wire):
     sums = 10 * 4 * 2.0 ** -8 * float(x.abs().sum(0).max()) if wire == "bf16" else 0.0
     np.testing.assert_allclose((total + residual.double().sum(0)).numpy(),
                                10.0 * exact.numpy(), rtol=1e-4, atol=1e-4 + sums)
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        compressed_psum(x, wire=wire, intra_axis="node")
+    # The hierarchical form (2 node rows of 2 shards): each node's shards at
+    # full precision, then the wire over the node partials, bit for bit.
+    nodes = x.reshape(2, 2, 300).sum(1)
+    assert torch.equal(compressed_psum(x, wire=wire, n_nodes=2),
+                       compressed_psum(nodes, wire=wire))
 
 
 def test_wire_bytes_counts_width_and_scales():
