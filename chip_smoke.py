@@ -66,6 +66,19 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    prepared queries in process and through ``BlazeClient``, then the
    reference's three serving fault cases on a server of their own.
 
+Between the LM serving paths and the data-mining phases runs the train
+phase: LM training through ``repro_torch.runtime.train_loop.train``.  First
+the kernels' gradients at one layer's full-width training shapes (K4 at
+qwen3-0.6b's, K5 at zamba2-7b's, K6 at rwkv6-1.6b's, a micro-batch of 2
+sequences of 4096 tokens) and K4's forward at qwen3's training shape as a
+row of the kernel phase; then qwen3-0.6b at full width and depth (random
+weights from seed 0): 8 steps of 4 sequences of 4096 Zipf tokens
+(``TokenPipeline``) in 2 micro-batches, remat on, ``AdamW`` with
+``warmup_cosine(3e-4, 1, 8)``, a checkpoint at the end, K4 on every
+attention call (forward and the remat recompute; the backward recomputes
+``attention_ref``); one more step under ``torch.profiler``; and a crash at
+step 6 with a checkpoint every 4 steps, resumed from step 4.
+
 K4 (``flash_attention``) is held against ``attention_ref``, which
 materialises the f32 logits.  Both compute each logit as an f32 dot product
 of length D, within ``γ = (D + 2)·u·scale·‖q_i‖·max_j ‖k_j‖`` of the exact
@@ -162,6 +175,30 @@ tokens must be the plain path's argmax wherever its top-2 logits lie more
 than twice that apart.  A fault of a kernel or of the decode path (a state
 carried wrong, a conv tail or a shift row off by a step) moves the logits
 by far more.
+
+The train phase holds each kernel's forward at its training shape to the
+bounds above against the plain version, and its gradients, from one
+upstream gradient, to the plain route's (the plain version under
+autograd): the kernel route's backward recomputes that same plain version
+on the same saved inputs, so the two are the same operations in the same
+order, equal bit for bit unless a library call picks another order of its
+f32 sums at run time; each gradient must lie within ``2^-20`` of its
+largest magnitude, and whether it was bit-equal is printed.  The output of
+the kernel route must carry the autograd helper's ``grad_fn``, and the
+check must launch the kernel once.  The training run must launch K4 28
+layers × 2 micro-batches × 2 (forward, remat recompute) × 8 steps = 896
+times, all in the bf16 prefill form; its losses must be finite and the
+last below the first; its first loss must lie within ``TRAIN_LOSS_RTOL``
+(2e-3) relative of the same step's loss on the plain path (``attn_impl=
+"ref"``, the same parameters and micro-batches): the serving path's logits
+differ from the plain path's by up to 0.058 at single positions (above),
+and the loss averages 16,384 of them.  The restart must report one
+restart, step 8 and 10 steps run (6, then 4 from the step-4 checkpoint).
+It prints the losses, the median step (steps 2–8) and tokens a second,
+``train_mfu`` (model FLOPs ``6·N·tokens`` plus causal attention, no remat
+recompute, over 989 TFLOP/s), the peak memory, each save's bytes and
+seconds, the free disk before the restart, and the profiled step's busy
+share and top kernels.
 
 Tolerances: integer results, min/max and hash-table layouts are exact.  A
 float sum is accumulated in f32 by atomics, in an order the kernel does not
@@ -409,6 +446,8 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -441,6 +480,11 @@ FORMED = ("flash_attention", "segment_reduce", "ssd_scan", "rwkv6_scan")  # coun
 # graph pool beside the other five resident programs) and kNN's query points.
 SERVE_PI_SAMPLES = 1 << 28
 KNN_QUERIES = ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [-2.0, 0.5, 1.0], [2.0, -1.0, 0.0])
+# The train phase: qwen3-0.6b, 8 steps of 4 sequences of train_4k's 4096
+# tokens in 2 micro-batches, and its first loss against the plain path's
+# (module docstring).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4096, 2, 8
+TRAIN_LOSS_RTOL = 2e-3
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
 
@@ -1840,7 +1884,7 @@ class Smoke:
         print(json.dumps({"path_results": results}), flush=True)
         kernels = {"wordcount": "hash_aggregate", "kmeans fig6": "kmeans_assign",
                    "lm qwen3-0.6b": "flash_attention", "lm zamba2-7b": "ssd_scan",
-                   "lm rwkv6-1.6b": "rwkv6_scan"}
+                   "lm rwkv6-1.6b": "rwkv6_scan", "train qwen3-0.6b": "flash_attention"}
         for name, launch in self.path_launches.items():
             kernel = kernels.get(name, "segment_reduce")
             if launch[kernel] == 0:
@@ -4184,6 +4228,328 @@ class Smoke:
         d2 = ((c[None] - x[:, None, :]) ** 2).sum(-1).min(1).values
         return c.cpu().numpy(), float(d2.double().sum())
 
+    # -- train phase ----------------------------------------------------------
+
+    def grad_check(self, key, wrapper, kernel_route, plain_route, inputs, forward_ok,
+                   flops, nbytes, library=None):
+        """One kernel's gradient at a training shape: the kernel route's output
+        (``kernel_route``, through ``kernels.ops``) must carry the autograd
+        helper's ``grad_fn`` and agree with the plain route's (``plain_route``,
+        the plain version under autograd) within the forward's bound
+        (``forward_ok`` raises otherwise); from one upstream gradient, its
+        gradients must equal the plain route's within ``2^-20`` of each
+        gradient's largest magnitude (module docstring).  Records the launches
+        the check made and the forward-plus-backward times of both routes and
+        of ``library`` (the one PyTorch call computing the same function), with
+        the bound of ``flops`` and ``nbytes`` (fwd + bwd) on the card."""
+        torch = self.torch
+        wants = [t for t in inputs if t is not None and t.requires_grad]
+        before = wrapper.launches
+        got = kernel_route(*inputs)
+        y = got[0] if isinstance(got, tuple) else got
+        if "_KernelGrad" not in type(y.grad_fn).__name__:
+            raise AssertionError(f"{key}: the kernel route's output has grad_fn "
+                                 f"{y.grad_fn!r}, not the autograd helper's")
+        plain = plain_route(*inputs)
+        yp = plain[0] if isinstance(plain, tuple) else plain
+        fwd_err = forward_ok(y.detach(), yp.detach())
+        g = torch.randn(yp.shape, generator=torch.Generator(device=self.dev).manual_seed(5),
+                        device=self.dev).to(yp.dtype)
+        got_grads = torch.autograd.grad(y, wants, g)
+        want_grads = torch.autograd.grad(yp, wants, g)
+        launches = wrapper.launches - before
+        if launches != 1:
+            raise AssertionError(f"{key}: the kernel route launched {launches} times")
+        errs, bit_equal = [], True
+        for a, b in zip(got_grads, want_grads):
+            err = float((a.float() - b.float()).abs().max())
+            if not bool(torch.isfinite(a).all()) or err > 2.0 ** -20 * float(
+                    b.float().abs().max()):
+                raise AssertionError(f"{key}: gradients off the plain route's by {err}")
+            errs.append(err)
+            bit_equal = bit_equal and torch.equal(a, b)
+        del got, plain, y, yp, got_grads, want_grads
+
+        def fwd_bwd(route):
+            def run():
+                out = route(*inputs)
+                torch.autograd.grad(out[0] if isinstance(out, tuple) else out, wants, g)
+            return run
+
+        before = wrapper.launches
+        ms = self.time_ms(fwd_bwd(kernel_route))
+        timed_launches = wrapper.launches - before
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / BF16_OPS_PER_S * 1e3
+        self.record(key, kernel=wrapper.__name__, shape=[list(t.shape) for t in inputs
+                                                         if t is not None],
+                    forward_max_abs_err=fwd_err, grad_max_abs_err=errs,
+                    grad_bit_equal=bit_equal, launches_in_check=launches + timed_launches,
+                    ms=ms, plain_ms=self.time_ms(fwd_bwd(plain_route)),
+                    library_ms=self.time_ms(fwd_bwd(library)) if library else None,
+                    bound_ms=max(bound_bytes, bound_ops),
+                    bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                    flops=flops, bytes=nbytes)
+        torch.cuda.empty_cache()
+
+    def train_grad_checks(self):
+        """The three kernels' gradients at one layer's full-width training
+        shapes (``grad_check``), a micro-batch of 2 sequences of
+        ``TRAIN_SEQ`` (4096) tokens: K4 at qwen3-0.6b's (q ``[2, 16, 4096,
+        128]`` bf16 over k, v ``[2, 8, 4096, 128]``, causal, read through
+        ``[B, S, H, D]`` views as the model passes them), K5 at zamba2-7b's
+        (x ``[2, 4096, 112, 64]``, B and C ``[2, 4096, 2, 64]`` bf16 views of
+        one conv output, from the zero state) and K6 at rwkv6-1.6b's (r, k, v
+        ``[2, 4096, 32, 64]`` bf16); each forward is held to its bound
+        against the plain version, each gradient to the plain route's."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.ref import attention_ref
+        from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
+        from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+        gen = torch.Generator(device=self.dev).manual_seed(4)
+        bf16 = torch.bfloat16
+
+        def randn(*shape, dtype=torch.float32, grad=True):
+            t = torch.randn(shape, generator=gen, device=self.dev).to(dtype)
+            return t.requires_grad_(grad)
+
+        # K4: causal self-attention of one layer of one micro-batch
+        b, s, hq, hkv, d = 2, TRAIN_SEQ, 16, 8, 128
+        q = randn(b, s, hq, d, dtype=bf16).transpose(1, 2)
+        k = randn(b, s, hkv, d, dtype=bf16).transpose(1, 2)
+        v = randn(b, s, hkv, d, dtype=bf16).transpose(1, 2)
+        n_keys = torch.arange(1, s + 1, device=self.dev, dtype=torch.float64)
+
+        def attn_ok(got, want):
+            tol = attention_tolerance(q.detach(), k.detach(), v.detach(), want,
+                                      n_keys[None, None, :, None], causal=True, q_offset=0)
+            err = (got.float() - want.float()).abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"K4 train forward off by {float(err.max())}")
+            return float(err.max())
+
+        pairs = b * hq * s * (s + 1) // 2  # live (query, key) pairs
+        self.grad_check(
+            "flash_attention@qwen3-train grad", flash_attention,
+            lambda *t: ops.attention(*t, causal=True, impl="pallas"),
+            lambda *t: attention_ref(*t, causal=True), (q, k, v), attn_ok,
+            flops=3 * 4 * pairs * d,
+            nbytes=(4 * q.numel() + 4 * k.numel()) * 2,
+            library=lambda *t: F.scaled_dot_product_attention(*t, is_causal=True,
+                                                              enable_gqa=True))
+        del q, k, v
+        # K5: the SSD scan of one zamba2 Mamba-2 layer of one micro-batch
+        b, h, p, grp, n = 2, 112, 64, 2, 64
+        conv = randn(b, s, h * p + 2 * grp * n, dtype=bf16)
+        x = conv[..., :h * p].unflatten(-1, (h, p))
+        bm = conv[..., h * p:h * p + grp * n].unflatten(-1, (grp, n))
+        cm = conv[..., h * p + grp * n:].unflatten(-1, (grp, n))
+        dt = F.softplus(randn(b, s, h, grad=False)).requires_grad_()
+        a = (-torch.linspace(1.0, 16.0, h, device=self.dev)).requires_grad_()
+        (ybound, _), _ = ssd_bound(x.detach(), dt.detach(), a.detach(), bm.detach(),
+                                   cm.detach(), None, 128)
+
+        def ssd_ok(got, want):
+            err = (got.double() - want.double()).abs()
+            if not bool((err <= 2.0 ** -7 * want.double().abs() + 2.1 * ybound).all()):
+                raise AssertionError(f"K5 train forward off by {float(err.max())}")
+            return float(err.max())
+
+        self.grad_check(
+            "ssd_scan@zamba2-train grad", ssd_scan,
+            lambda *t: ops.ssd(*t, impl="pallas"),
+            lambda *t: ssd_scan_plain(*t), (x, dt, a, bm, cm), ssd_ok,
+            flops=3 * 4 * b * s * h * p * n,
+            nbytes=2 * (conv.numel() * 2 + dt.numel() * 4) + 2 * x.numel() * 2)
+        del conv, x, bm, cm, dt, a, ybound
+        # K6: the wkv scan of one rwkv6 layer of one micro-batch
+        b, h, kd = 2, 32, 64
+        r, kk, vv = (randn(b, s, h, kd, dtype=bf16) for _ in range(3))
+        w = torch.exp(-torch.exp(-6.0 + 0.6 * randn(b, s, h, kd, grad=False)))
+        w.requires_grad_()
+        u = (0.1 * randn(h, kd, grad=False)).requires_grad_()
+        (rbound, _), _, _ = rwkv6_bound(r.detach(), kk.detach(), vv.detach(), w.detach(),
+                                        u.detach(), torch.zeros((b, h, kd, kd),
+                                                                device=self.dev))
+
+        def rwkv6_ok(got, want):
+            err = (got.double() - want.double()).abs()
+            if not bool((err <= 2.0 ** -7 * want.double().abs() + 2.1 * rbound).all()):
+                raise AssertionError(f"K6 train forward off by {float(err.max())}")
+            return float(err.max())
+
+        self.grad_check(
+            "rwkv6_scan@rwkv6-train grad", rwkv6_scan,
+            lambda *t: ops.rwkv6(*t, impl="pallas"),
+            lambda *t: rwkv6_scan_plain(*t), (r, kk, vv, w, u), rwkv6_ok,
+            flops=3 * 4 * b * s * h * kd * kd,
+            nbytes=2 * (3 * r.numel() * 2 + w.numel() * 4) + 2 * vv.numel() * 2)
+        del r, kk, vv, w, u, rbound
+        torch.cuda.empty_cache()
+
+    def busy_share(self, fn):
+        """One call of ``fn`` under ``torch.profiler``: its wall time (host
+        clock, synchronised), the card's busy time (the CUDA kernel and copy
+        intervals, which one stream runs one at a time) and the eight kernels
+        that took the most of it.  None where the profiler records no device
+        activity."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            wall = time.perf_counter() - t0
+        by_name: dict[str, float] = {}
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                ms = evt.time_range.elapsed_us() / 1e3
+                by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+        if not by_name:
+            return None
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        return {"wall_ms": wall * 1e3, "busy_ms": busy, "busy_share": busy / (wall * 1e3),
+                "top_kernels_ms": {name[:80]: ms for name, ms in top}}
+
+    def train_phase(self):
+        """LM training on the card (module docstring): the kernels' gradient
+        checks, K4's forward at the training shape, then qwen3-0.6b at full
+        width and depth through ``repro_torch.runtime.train_loop.train`` (8
+        steps of 4 × 4096 tokens in 2 micro-batches, remat, AdamW with
+        ``warmup_cosine(3e-4, 1, 8)``, a checkpoint at the end), and a crash
+        at step 6 resumed from the step-4 checkpoint."""
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        from repro_torch.configs.base import get_arch
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.models import model as M
+        from repro_torch.optim.adamw import AdamW, warmup_cosine
+        from repro_torch.runtime.train_loop import make_train_step, train
+
+        t_phase = time.perf_counter()
+        self.train_grad_checks()
+        gen = torch.Generator(device=self.dev).manual_seed(6)
+        mb = TRAIN_BATCH // TRAIN_ACCUM
+        q = torch.randn((mb, TRAIN_SEQ, 16, 128), generator=gen, device=self.dev).to(
+            torch.bfloat16).transpose(1, 2)
+        k, v = (torch.randn((mb, TRAIN_SEQ, 8, 128), generator=gen, device=self.dev).to(
+            torch.bfloat16).transpose(1, 2) for _ in range(2))
+        self.kernel_attention("flash_attention@qwen3-train", q, k, v, q_offset=0)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+        cfg = get_arch("qwen3-0.6b")
+        batch, seq, accum, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS
+        pipe = TokenPipeline(cfg, batch=batch, seq_len=seq)
+        params = M.init(torch.Generator(device=self.dev).manual_seed(0), cfg)
+        # The first step's loss on the plain path (attention_ref) from the
+        # same parameters and batch, micro-batch by micro-batch as the step.
+        first = pipe.device_batch(0, self.dev)
+        mb = batch // accum
+        with torch.no_grad():
+            ref_loss = sum(float(M.loss_fn(params, cfg, first["inputs"][i * mb:(i + 1) * mb],
+                                           first["labels"][i * mb:(i + 1) * mb],
+                                           attn_impl="ref"))
+                           for i in range(accum)) / accum
+        del first
+        torch.cuda.empty_cache()
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+        results = {"card": card, "arch": cfg.name, "params": M.param_count(params),
+                   "batch": batch, "seq": seq, "grad_accum": accum, "steps": steps}
+        tmp = tempfile.mkdtemp(prefix="blaze_train_")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            self.sync()
+            self.zero_launch_counts()
+            t0 = time.perf_counter()
+            res = train(cfg, steps=steps, batch=batch, seq_len=seq, pipeline=pipe,
+                        ckpt_dir=os.path.join(tmp, "run"), ckpt_every=steps,
+                        optimizer=AdamW(lr=warmup_cosine(3e-4, 1, steps)),
+                        grad_accum=accum, params=params, device=self.dev)
+            self.sync()
+            wall = time.perf_counter() - t0
+            launch = self.read_launch_counts()
+            self.path_launches["train qwen3-0.6b"] = launch
+            peak = torch.cuda.max_memory_allocated()
+            n_layers = len(M.layer_kinds(cfg))
+            want = n_layers * accum * 2 * steps  # forward + remat recompute
+            if launch["flash_attention"] != want or launch["flash_attention forms"] != {
+                    "f32": 0, "bf16-prefill": want, "bf16-decode": 0}:
+                raise AssertionError(f"train: K4 launched {launch['flash_attention']} times "
+                                     f"({launch['flash_attention forms']}), not {want} "
+                                     "in the bf16 prefill form")
+            losses = res.losses
+            if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+                raise AssertionError(f"train: losses {losses} not finite and falling")
+            loss_err = abs(losses[0] - ref_loss)
+            if loss_err > TRAIN_LOSS_RTOL * abs(ref_loss):
+                raise AssertionError(f"train: first loss {losses[0]} off the plain path's "
+                                     f"{ref_loss} by more than {TRAIN_LOSS_RTOL} relative")
+            step_s = statistics.median(res.step_times[1:])
+            tokens = batch * seq
+            hd, nh = cfg.d_head, cfg.n_heads
+            attn_flops = 3 * 4 * batch * nh * (seq * (seq + 1) // 2) * hd * n_layers
+            model_flops = 6 * M.param_count(params) * tokens + attn_flops
+            results.update(
+                losses=losses, first_loss_plain_path=ref_loss, first_loss_err=loss_err,
+                first_loss_rtol=TRAIN_LOSS_RTOL, wall_s=wall, step_s=res.step_times,
+                median_step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                model_flops_per_step=model_flops,
+                train_mfu=model_flops / step_s / BF16_OPS_PER_S,
+                peak_memory_bytes=peak, checkpoints=res.checkpoints,
+                k4_launches=launch["flash_attention"], expected_k4_launches=want)
+            print(json.dumps({"train_run": {k: results[k] for k in (
+                "losses", "median_step_ms", "tokens_per_s", "train_mfu",
+                "peak_memory_bytes", "checkpoints")}}), flush=True)
+            # One more step of the same job under the profiler: the card's
+            # busy share and where its time goes.
+            opt = AdamW(lr=warmup_cosine(3e-4, 1, steps))
+            step_fn = make_train_step(cfg, opt, grad_accum=accum, device=self.dev)
+            state = opt.init(params)
+            batch1 = pipe.device_batch(1, self.dev)
+            results["profiled_step"] = self.busy_share(lambda: step_fn(params, state, batch1))
+            del state, step_fn, batch1, opt
+            shutil.rmtree(os.path.join(tmp, "run"))
+            torch.cuda.empty_cache()
+
+            # A crash at step 6, resumed from the step-4 checkpoint.
+            ckpt = res.checkpoints[-1]["bytes"]
+            free = shutil.disk_usage(tmp).free
+            results["disk_free_before_restart"] = free
+            if free < 2.5 * ckpt:
+                raise AssertionError(f"train restart: {free} bytes free in {tmp}, the two "
+                                     f"checkpoints of {ckpt} bytes need {2 * ckpt}")
+            t0 = time.perf_counter()
+            crash = train(cfg, steps=steps, batch=batch, seq_len=seq, pipeline=pipe,
+                          ckpt_dir=os.path.join(tmp, "crash"), ckpt_every=4,
+                          crash_at_step=6, optimizer=AdamW(lr=warmup_cosine(3e-4, 1, steps)),
+                          grad_accum=accum, device=self.dev)
+            results["restart"] = {
+                "wall_s": time.perf_counter() - t0, "restarts": crash.restarts,
+                "final_step": crash.final_step, "steps_run": crash.steps_run,
+                "checkpoints": crash.checkpoints,
+                "final_loss_vs_uninterrupted": crash.losses[-1] - losses[-1]}
+            if (crash.restarts, crash.final_step, crash.steps_run) != (1, 8, 10):
+                raise AssertionError(f"train restart: {results['restart']}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del params
+        torch.cuda.empty_cache()
+        results["train_s"] = time.perf_counter() - t_phase
+        return results
+
     # -- data ---------------------------------------------------------------
 
     def make_data(self):
@@ -4271,6 +4637,8 @@ class Smoke:
         for arch in LM_ARCHS:  # each model is freed before the next phase
             print(json.dumps({"lm_results": self.lm_path(arch)}), flush=True)
             torch.cuda.empty_cache()
+        self.phase = "train"
+        print(json.dumps({"train_results": self.train_phase()}), flush=True)
         data = self.make_data()
         for name in ("kernel", "path", "program", "tuning", "stream", "wire", "multinode"):
             self.phase = name
@@ -4312,6 +4680,7 @@ class Smoke:
                 "flash_attention@gemma2-local f32": "lm qwen3-0.6b",
                 "flash_attention@gemma2-local bf16": "lm qwen3-0.6b",
                 "flash_attention@gemma2-local-decode bf16": "lm qwen3-0.6b",
+                "flash_attention@qwen3-train": "train qwen3-0.6b",
                 "flash_attention@zamba2-prefill": "lm zamba2-7b",
                 "flash_attention@zamba2-decode": "lm zamba2-7b",
                 "ssd_scan@zamba2-prefill": "lm zamba2-7b",

@@ -6,7 +6,8 @@ The JAX package's containers hand over their arrays with ``np.asarray``
 ``.reducer_name``); these functions build the port's containers from them
 and turn the port's back into numpy, so a table built by one package can be
 merged into by the other.  :func:`lm_params_from_jax` does the same for an
-LM's parameters.  bf16 arrays travel as float32 (exact both ways).
+LM's parameters, :func:`opt_state_from_jax` for its AdamW state.  bf16
+arrays travel as float32 (exact both ways).
 """
 from __future__ import annotations
 
@@ -100,3 +101,18 @@ def lm_params_from_jax(params_np, cfg, device=None) -> dict:
     if "lm_head" in params_np:
         out["lm_head"] = tree(params_np["lm_head"])
     return out
+
+
+def opt_state_from_jax(state_np, cfg, device=None) -> dict:
+    """The port's AdamW state (``optim.adamw.AdamW``: ``{"m", "v", "step"}``)
+    from ``repro.optim.adamw.AdamW``'s, its leaves as numpy arrays.  The
+    moments are trees shaped like the parameters and convert as
+    :func:`lm_params_from_jax` converts those (stacked stage slots to one
+    dict per layer; the shared block once, every ``SHARED_ATTN`` layer
+    referring to it), in their own dtype; ``step`` becomes a 0-d int32
+    tensor."""
+    dev = resolve_device(device)
+    return {"m": lm_params_from_jax(state_np["m"], cfg, dev),
+            "v": lm_params_from_jax(state_np["v"], cfg, dev),
+            "step": torch.tensor(int(np.asarray(state_np["step"])), dtype=torch.int32,
+                                 device=dev)}

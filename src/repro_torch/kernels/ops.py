@@ -11,6 +11,14 @@
 * ``impl="auto"``    — the kernel on a CUDA tensor; on a CPU tensor ``ref``,
   or for ``ssd`` and ``rwkv6`` ``chunked``, as the reference resolves it.
 
+Where a call is to be differentiated (grad mode on and an input that
+requires grad), ``attention``, ``ssd`` and ``rwkv6`` run the kernel through
+``kernels.autograd.kernel_with_grad``: the forward is the kernel, the
+backward recomputes the plain version (``attention_ref``,
+``ssd_scan_plain``, ``rwkv6_scan_plain``) under autograd.  Such a call may
+not write a cache in place (``out_state``).  Otherwise the kernel runs
+alone, as on the serving path.
+
 There is no fallback: if the kernel fails, the call fails.  ``block_n``,
 ``block_q``, ``block_k`` and ``shard_hint`` keep the JAX signature and are
 dropped: the CUDA kernels pick their own tiles, and the port runs on one
@@ -21,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as R
+from repro_torch.kernels.autograd import kernel_with_grad, needs_grad
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _kmeans_kernel
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_kernel
@@ -43,6 +52,12 @@ def _resolve(impl: str, x: torch.Tensor, *, cpu: str = "ref",
     return impl
 
 
+def _no_cache_write(out_state: torch.Tensor | None, op: str) -> None:
+    if out_state is not None:
+        raise ValueError(f"ops.{op}: a differentiated call cannot write its state into "
+                         "out_state in place; pass no cache when training")
+
+
 def _into(out_state: torch.Tensor | None, y: torch.Tensor, state: torch.Tensor):
     if out_state is not None:
         state = out_state.copy_(state)
@@ -57,11 +72,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of ``q [B, Hq, Sq, D]`` over ``k, v [B, Hkv, Skv, D]``
     (see ``kernels.ref.attention_ref`` for the masking rules)."""
     del block_q, block_k, shard_hint
-    if _resolve(impl, q) == "pallas":
-        return _flash_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
-                             scale=scale, q_offset=q_offset)
-    return R.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
-                           q_offset=q_offset, scale=scale)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_offset=q_offset)
+    if _resolve(impl, q) != "pallas":
+        return R.attention_ref(q, k, v, **kw)
+    if needs_grad(q, k, v):
+        return kernel_with_grad(lambda *t: _flash_kernel(*t, **kw),
+                                lambda *t: R.attention_ref(*t, **kw), q, k, v)
+    return _flash_kernel(q, k, v, **kw)
 
 
 def segment_reduce(ids: torch.Tensor, vals: torch.Tensor, num_segments: int, *,
@@ -95,6 +113,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     updated in place)."""
     impl = _resolve(impl, x, cpu="chunked", impls=IMPLS)
     if impl == "pallas":
+        if needs_grad(x, dt, a, b, c, init_state):
+            _no_cache_write(out_state, "ssd")
+            return kernel_with_grad(
+                lambda *t: _ssd_kernel(*t[:5], init_state=t[5], chunk=chunk),
+                lambda *t: ssd_scan_plain(*t[:5], init_state=t[5], chunk=chunk),
+                x, dt, a, b, c, init_state)
         return _ssd_kernel(x, dt, a, b, c, init_state=init_state, out_state=out_state,
                            chunk=chunk)
     if impl == "ref":
@@ -114,6 +138,12 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     ``init_state``: a cache updated in place)."""
     impl = _resolve(impl, r, cpu="chunked", impls=IMPLS)
     if impl == "pallas":
+        if needs_grad(r, k, v, w, u, init_state):
+            _no_cache_write(out_state, "rwkv6")
+            return kernel_with_grad(
+                lambda *t: _rwkv6_kernel(*t[:5], init_state=t[5], chunk=chunk),
+                lambda *t: rwkv6_scan_plain(*t[:5], init_state=t[5], chunk=chunk),
+                r, k, v, w, u, init_state)
         return _rwkv6_kernel(r, k, v, w, u, init_state=init_state, out_state=out_state,
                              chunk=chunk)
     if impl == "ref":

@@ -12,15 +12,24 @@ Public entry points:
   init(gen, cfg)                                → params
   forward(params, cfg, tokens, ...)             → (hidden [B, S, d], caches, aux)
   logits_fn(params, cfg, hidden)                → f32 logits
+  loss_fn(params, cfg, inputs, labels, ...)     → mean cross-entropy, chunked over S
   prefill(...) / decode_step(...)               → the serving path with caches
   make_caches(cfg, batch, max_len, device)      → one cache per layer
-  param_count(params)
-The MoE block kinds raise ``NotImplementedError`` naming their slice;
-``loss_fn`` comes with the training slice.
+  param_count(params), distinct_leaves(tree), map_tree(fn, tree),
+  reference_leaves(params, cfg)
+The MoE block kinds raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import (
     ATTN,
@@ -42,6 +51,14 @@ _LATER_SLICES = {
     ATTN_LOCAL_MOE: "the MoE slice (mixtral-8x22b, grok-1)",
 }
 _ATTN_KINDS = (ATTN, ATTN_LOCAL, SHARED_ATTN)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCfg:
+    """Model-visible parallel info: the MoE dispatch grouping, carried for
+    the reference's signature until the MoE slice (no block reads it yet)."""
+
+    dispatch_groups: int = 1
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -143,17 +160,44 @@ def init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return params
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat_policy="dots"``: keep
+    the outputs of matrix products without batch dimensions (``aten.mm``:
+    every ``x @ W``), recompute the rest, as JAX's
+    ``dots_with_no_batch_dims_saveable``.  A batched product (``aten.bmm``:
+    the attention's ``[B, H, S, S]`` scores in the plain version) has batch
+    dimensions, so JAX's policy does not keep it and neither does this."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
             positions: torch.Tensor | None = None,
             caches: list | None = None, cache_len: int | None = None,
-            attn_impl: str = "auto", scan_impl: str = "auto"):
+            par: ParallelCfg = ParallelCfg(), attn_impl: str = "auto",
+            scan_impl: str = "auto", remat: bool = False,
+            remat_policy: str = "full", scan_layers: bool = True):
     """``(hidden [B, S, d], caches, aux)`` of tokens ``[B, S]`` (or embeds
     ``[B, S, d]`` where the config does not embed).  With ``caches``, the
     inputs continue a sequence of ``cache_len`` tokens already cached, and
     every cache is updated in place.  ``attn_impl`` goes to the attention
     kernels (``ops.attention``), ``scan_impl`` to the recurrences
     (``ops.ssd``, ``ops.rwkv6``).  ``aux`` is the MoE balance loss of the
-    JAX model: 0 for these blocks."""
+    JAX model: 0 for these blocks.
+
+    Training options, as the reference's: ``remat=True`` checkpoints each
+    stage (the ``len(cfg.stage_pattern)`` layers the reference's scan step
+    runs; the tail is not checkpointed) with
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so a
+    backward recomputes the stage from its input; ``remat_policy="dots"``
+    keeps the products' outputs (:func:`_save_dots`), ``"full"`` keeps
+    nothing.  ``scan_layers`` is accepted for the reference's signature:
+    the port always loops over its layers, so both values run the same
+    code.  ``par`` is carried for the MoE slice."""
+    del par, scan_layers
+    if remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy must be 'full' or 'dots', got {remat_policy!r}")
     if cfg.embed_inputs:
         h = params["embed"][inputs].to(cfg.cdtype)
     else:
@@ -162,30 +206,130 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     if positions is None:
         start = 0 if cache_len is None else int(cache_len)
         positions = (torch.arange(s, device=h.device) + start).expand(b, s)
-    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
-        h, _ = block_apply(p, cfg, kind, h, positions,
-                           cache=None if caches is None else caches[i],
-                           cache_len=cache_len, attn_impl=attn_impl,
-                           scan_impl=scan_impl)
+    kinds = layer_kinds(cfg)
+
+    def run_layers(h, lo, hi):
+        for i in range(lo, hi):
+            h, _ = block_apply(params["layers"][i], cfg, kinds[i], h, positions,
+                               cache=None if caches is None else caches[i],
+                               cache_len=cache_len, attn_impl=attn_impl,
+                               scan_impl=scan_impl)
+        return h
+
+    n_slots = len(cfg.stage_pattern)
+    staged = cfg.n_stages * n_slots
+    if remat and torch.is_grad_enabled():
+        context = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                   if remat_policy == "dots" else None)
+        for lo in range(0, staged, n_slots):
+            h = checkpoint(run_layers, h, lo, lo + n_slots, use_reentrant=False,
+                           **({"context_fn": context} if context else {}))
+    else:
+        h = run_layers(h, 0, staged)
+    h = run_layers(h, staged, len(kinds))
     h = rmsnorm(params["final_norm"], h)
     return h, caches, torch.zeros((), device=h.device)
 
 
-def logits_fn(params: dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """f32 logits ``hidden · W_head``.  The JAX model upcasts both operands
-    to f32; a bf16 product is exact in f32, so on the card the port asks
-    cuBLAS for an f32 result from the bf16 operands (``torch.mm`` with
+def _head_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]  # [d, V]
+
+
+def _narrow_on_card(h2: torch.Tensor, head: torch.Tensor) -> bool:
+    return h2.device.type == "cuda" and h2.dtype == head.dtype != torch.float32
+
+
+class _HeadProduct(torch.autograd.Function):
+    """``h2 [N, d] · head [d, V]`` in f32 from bf16 operands on the card, with
+    its gradient: the f32 gradient of the logits is rounded to the operands'
+    dtype for the two backward products (f32 sums), as mixed-precision
+    training does; the reference's f32 upcast would make all three
+    products f32 ones, ~15 times slower on the card."""
+
+    @staticmethod
+    def forward(ctx, h2, head):
+        ctx.save_for_backward(h2, head)
+        return torch.mm(h2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, head = ctx.saved_tensors
+        g = g.to(h2.dtype)
+        grad_h = torch.mm(g, head.T, out_dtype=torch.float32).to(h2.dtype)
+        grad_head = torch.mm(h2.T, g, out_dtype=torch.float32).to(head.dtype)
+        return grad_h, grad_head
+
+
+def _head_product(h2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``h2 [N, d] · head [d, V]``.  The JAX model upcasts both
+    operands to f32; a bf16 product is exact in f32, so on the card the port
+    asks cuBLAS for an f32 result from the bf16 operands (``torch.mm`` with
     ``out_dtype``) and never writes an f32 copy of the ``[V, d]`` head."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]  # [d, V]
-    h2 = hidden.reshape(-1, hidden.shape[-1])
-    if h2.device.type == "cuda" and h2.dtype == head.dtype != torch.float32:
-        logits = torch.mm(h2, head, out_dtype=torch.float32)
-    else:
-        logits = h2.float() @ head.float()
-    logits = logits.reshape(*hidden.shape[:-1], -1)
+    if not _narrow_on_card(h2, head):
+        return h2.float() @ head.float()
+    if torch.is_grad_enabled() and (h2.requires_grad or head.requires_grad):
+        return _HeadProduct.apply(h2, head)
+    return torch.mm(h2, head, out_dtype=torch.float32)
+
+
+def _softcap(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
     if cfg.final_softcap > 0:
-        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+        return cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+def logits_fn(params: dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``hidden · W_head`` (:func:`_head_product`), softcapped
+    where the config says."""
+    logits = _head_product(hidden.reshape(-1, hidden.shape[-1]), _head_matrix(params, cfg))
+    return _softcap(cfg, logits.reshape(*hidden.shape[:-1], -1))
+
+
+def _chunk_nll(cfg: ArchConfig, hc: torch.Tensor, lc: torch.Tensor,
+               head: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of one chunk: ``hc [B, c, d]``, labels
+    ``lc [B, c]`` (``< 0`` masked)."""
+    logits = _softcap(cfg, _head_product(hc.reshape(-1, hc.shape[-1]), head))
+    logits = logits.reshape(*lc.shape, -1)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc.clamp(min=0).long()[..., None])[..., 0]
+    return torch.where(lc >= 0, lse - gold, 0.0).sum()
+
+
+def loss_fn(params: dict, cfg: ArchConfig, inputs: torch.Tensor, labels: torch.Tensor,
+            *, par: ParallelCfg = ParallelCfg(), aux_coef: float = 0.01,
+            remat: bool = True, remat_policy: str = "full", loss_chunk: int = 512,
+            scan_layers: bool = True, attn_impl: str = "auto",
+            scan_impl: str = "auto") -> torch.Tensor:
+    """Mean softmax cross-entropy of ``labels [B, S]`` (``< 0`` masked) under
+    the model, plus ``aux_coef · aux``, as the reference's ``loss_fn``.
+
+    The cross-entropy runs over ``loss_chunk`` positions at a time (the last
+    chunk shorter where ``loss_chunk`` does not divide S, which adds nothing
+    to the sums the reference's padded chunk adds), so at most ``[B, chunk,
+    V]`` f32 logits are live: under grad mode each chunk is checkpointed and
+    its logits recomputed in the backward.  Off the card (or in f32) the
+    head is upcast to f32 once for every chunk, as the reference upcasts
+    it; on the card bf16 operands give f32 logits (:func:`_head_product`).
+    ``forward``'s options (``remat``, ``remat_policy``, ``scan_layers``,
+    ``attn_impl``, ``scan_impl``) pass through."""
+    hidden, _, aux = forward(params, cfg, inputs, par=par, remat=remat,
+                             remat_policy=remat_policy, scan_layers=scan_layers,
+                             attn_impl=attn_impl, scan_impl=scan_impl)
+    head = _head_matrix(params, cfg)
+    if not _narrow_on_card(hidden, head):
+        head = head.float()
+    s = hidden.shape[1]
+    c = min(loss_chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, c):
+        args = (cfg, hidden[:, lo:lo + c], labels[:, lo:lo + c], head)
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            total = total + _chunk_nll(*args)
+    count = (labels >= 0).sum().clamp(min=1)
+    return total / count + aux_coef * aux
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +371,60 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+def distinct_leaves(tree) -> list[torch.Tensor]:
+    """The tree's tensors in order, each once: zamba2's shared block, which
+    every ``SHARED_ATTN`` layer refers to, appears once, as in JAX's pytree
+    (where it is one entry).  Trees made by :func:`map_tree` from one tree
+    list their tensors in the same order."""
+    return list({id(x): x for x in _leaves(tree)}.values())
+
+
+def map_tree(fn, tree):
+    """``fn`` of every tensor of a tree of dicts, lists and tuples, keeping
+    its sharing: a dict or tensor that appears at several places (zamba2's
+    shared block) maps once, and its image appears at each of them."""
+    memo: dict[int, object] = {}
+
+    def go(x):
+        if id(x) in memo:
+            return memo[id(x)]
+        if isinstance(x, torch.Tensor):
+            out = fn(x)
+        elif isinstance(x, dict):
+            out = {k: go(v) for k, v in x.items()}
+        elif isinstance(x, (list, tuple)):
+            out = type(x)(go(v) for v in x)
+        else:
+            raise TypeError(f"map_tree: unexpected {type(x).__name__}")
+        memo[id(x)] = out
+        return out
+
+    return go(tree)
+
+
+def reference_leaves(params: dict, cfg: ArchConfig) -> list[list[torch.Tensor]]:
+    """The tree's distinct tensors grouped as the leaves of the reference's
+    pytree: the reference stacks a stage slot's parameters over its
+    ``n_stages`` stages, so each tensor of a (non-shared) stage slot forms
+    one group with the same tensor of that slot in every stage, in stage
+    order; every other tensor (the shared block's, the tail's, the
+    embedding, the norms and the head) is a group of its own.  A collective
+    that narrows a leaf with one scale (``dp_train``'s int8 wire) narrows a
+    group so."""
+    n_slots = len(cfg.stage_pattern)
+    groups, grouped = [], set()
+    for j, kind in enumerate(cfg.stage_pattern):
+        if kind == SHARED_ATTN:
+            continue
+        stages = [list(_leaves(params["layers"][st * n_slots + j]))
+                  for st in range(cfg.n_stages)]
+        for tensors in zip(*stages):
+            groups.append(list(tensors))
+            grouped.update(id(t) for t in tensors)
+    return groups + [[t] for t in distinct_leaves(params) if id(t) not in grouped]
+
+
 def param_count(params: dict) -> int:
     """Parameters, each tensor counted once: zamba2's shared block, which
     every ``SHARED_ATTN`` layer refers to, counts once, as in JAX's pytree."""
-    return sum(x.numel() for x in {id(x): x for x in _leaves(params)}.values())
+    return sum(x.numel() for x in distinct_leaves(params))

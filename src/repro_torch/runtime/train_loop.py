@@ -1,0 +1,264 @@
+"""Fault-tolerant training loop (the port of ``repro/runtime/train_loop.py``).
+
+* auto-resume from the latest complete checkpoint (atomic manager),
+* deterministic data (step-indexed) ⇒ restart-consistent streams,
+* gradient-accumulation microbatching with EAGER local accumulation (sum
+  locally in f32, reduce once: the Blaze eager-reduction plan for
+  gradients; ``accum_mode="per_microbatch"`` is the conventional baseline
+  that materialises the reduced gradient every microbatch, kept for the
+  contrast),
+* straggler monitor: per-step wall times, flags steps > ``k × median``,
+* failure injection (``crash_at_step``) for the restart tests.
+
+The port runs eager on one device (``device=None`` is the card; the CPU
+only when asked).  Where the reference jits its step and donates the
+parameters and optimiser state, the port updates its own copy of them in
+place; ``train(params=...)`` copies the caller's tensors first and leaves
+them as they were.  A checkpoint holds the parameters and the optimiser
+state with zamba2's shared block once (:func:`_unshared`), and a restore
+copies into the live tensors, so every ``SHARED_ATTN`` layer still refers
+to the one block.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.containers import resolve_device
+from repro_torch.models import model as M
+from repro_torch.optim.adamw import AdamW
+
+
+class SimulatedFailure(RuntimeError):
+    pass
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    threshold: float = 2.0
+    times: list = dataclasses.field(default_factory=list)
+    flagged: list = dataclasses.field(default_factory=list)
+
+    def record(self, step: int, dt: float):
+        self.times.append(dt)
+        if len(self.times) >= 8:
+            med = float(np.median(self.times[-64:]))
+            if dt > self.threshold * med:
+                self.flagged.append((step, dt, med))
+
+    def summary(self) -> dict:
+        if not self.times:
+            return {"steps": 0}
+        return {
+            "steps": len(self.times),
+            "median_s": float(np.median(self.times)),
+            "p99_s": float(np.percentile(self.times, 99)),
+            "stragglers": len(self.flagged),
+        }
+
+
+def value_and_grad(params, loss_of: Callable, *args):
+    """``(loss, grads)`` of ``loss_of(params, *args)``: ``grads`` a list over
+    ``M.distinct_leaves(params)`` (zamba2's shared block once, its gradient
+    summed over every use; zeros for a tensor the loss does not reach).
+    The parameters are set to require grad."""
+    leaves = M.distinct_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = loss_of(params, *args)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(t) if g is None else g
+                           for t, g in zip(leaves, grads)]
+
+
+def make_train_step(cfg: ArchConfig, optimizer: AdamW, *,
+                    par: M.ParallelCfg = M.ParallelCfg(), grad_accum: int = 1,
+                    accum_mode: str = "eager", remat: bool = True,
+                    device=None) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) → (params, opt_state,
+    loss)``; the parameters and state are updated in place and returned.
+    ``batch`` is ``{"inputs", "labels"}`` ``[B, S]``, moved to ``device``
+    (default the card).  With ``grad_accum = A > 1`` the batch is split into
+    ``A`` microbatches of ``B / A`` rows and their gradients summed in f32,
+    each scaled by ``1 / A`` (``"eager"``: into the running sum;
+    ``"per_microbatch"``: materialised first, as a reduce per microbatch
+    would), the loss likewise."""
+    if accum_mode not in ("eager", "per_microbatch"):
+        raise ValueError(f"accum_mode must be 'eager' or 'per_microbatch', got "
+                         f"{accum_mode!r}")
+    dev = resolve_device(device)
+
+    def loss_of(params, inputs, labels):
+        return M.loss_fn(params, cfg, inputs, labels, par=par, remat=remat)
+
+    def to_device(batch):
+        return batch["inputs"].to(dev), batch["labels"].to(dev)
+
+    if grad_accum == 1:
+
+        def train_step(params, opt_state, batch):
+            loss, grads = value_and_grad(params, loss_of, *to_device(batch))
+            params, opt_state = optimizer.update(grads, opt_state, params)
+            return params, opt_state, loss
+
+        return train_step
+
+    def train_step(params, opt_state, batch):
+        inputs, labels = to_device(batch)
+        b = inputs.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch {b} does not split into {grad_accum} microbatches")
+        mb = b // grad_accum
+        gsum = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                for t in M.distinct_leaves(params)]
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(grad_accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            loss, g = value_and_grad(params, loss_of, inputs[rows], labels[rows])
+            if accum_mode == "per_microbatch":
+                g = [x * (1.0 / grad_accum) for x in g]
+                gsum = [a + x for a, x in zip(gsum, g)]
+            else:  # eager: local sum only; one reduce at the end
+                gsum = [a + x * (1.0 / grad_accum) for a, x in zip(gsum, g)]
+            lsum = lsum + loss / grad_accum
+        params, opt_state = optimizer.update(gsum, opt_state, params)
+        return params, opt_state, lsum
+
+    return train_step
+
+
+@dataclasses.dataclass
+class TrainResult:
+    steps_run: int
+    final_step: int
+    losses: list
+    restarts: int
+    straggler: dict
+    # each step's wall seconds, in order (the straggler monitor's record)
+    step_times: list = dataclasses.field(default_factory=list)
+    # each save: {"step", "bytes" (arrays.npz on disk), "seconds"}
+    checkpoints: list = dataclasses.field(default_factory=list)
+
+
+def _unshared(tree):
+    """A view of ``tree`` holding each dict and tensor once: a later
+    occurrence of one already seen (zamba2's shared block in ``layers``) is
+    an empty dict, which flattens to no leaf.  Its tensors are the tree's
+    own."""
+    seen: set[int] = set()
+
+    def go(x):
+        if isinstance(x, (dict, torch.Tensor)):
+            if id(x) in seen:
+                return {}
+            seen.add(id(x))
+        if isinstance(x, dict):
+            return {k: go(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(go(v) for v in x)
+        return x
+
+    return go(tree)
+
+
+def _ckpt_tree(params, opt_state) -> dict:
+    return _unshared({"params": params, "opt": opt_state})
+
+
+def train(
+    cfg: ArchConfig,
+    *,
+    steps: int,
+    batch: int,
+    seq_len: int,
+    pipeline,
+    ckpt_dir: str,
+    optimizer: AdamW | None = None,
+    ckpt_every: int = 50,
+    seed: int = 0,
+    grad_accum: int = 1,
+    crash_at_step: int | None = None,
+    max_restarts: int = 2,
+    params=None,
+    jit: bool = True,
+    device=None,
+) -> TrainResult:
+    """Run (and if needed, resume) a training job to ``steps``.
+
+    ``pipeline.device_batch(step, device)`` gives step ``step``'s batch
+    (``batch`` rows of ``seq_len`` tokens).  Parameters are ``params``
+    (copied) or ``M.init`` from ``seed``.  A checkpoint is written at every
+    ``ckpt_every``-th step and the last; a start (and a restart after a
+    ``SimulatedFailure``, at most ``max_restarts``) resumes from the newest.
+    ``jit`` is accepted for the reference's signature and has no effect:
+    the port runs eager."""
+    del batch, seq_len, jit
+    dev = resolve_device(device)
+    optimizer = optimizer or AdamW(lr=3e-4)
+    mgr = CheckpointManager(ckpt_dir, keep=3)
+    monitor = StragglerMonitor()
+    losses: list[float] = []
+    saves: list[dict] = []
+    restarts = 0
+
+    step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum, device=dev)
+
+    def fresh_state():
+        if params is not None:
+            p = M.map_tree(lambda t: t.detach().to(dev, copy=True), params)
+        else:
+            p = M.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+        return p, optimizer.init(p)
+
+    while True:
+        state_p, state_o = fresh_state()
+        view = _ckpt_tree(state_p, state_o)
+        start, restored = mgr.restore_latest(view)
+        if restored is not None:
+            with torch.no_grad():
+                for dst, src in zip(pytree.tree_leaves(view), pytree.tree_leaves(restored)):
+                    dst.copy_(src)
+            start_step = start
+        else:
+            start_step = 0
+
+        try:
+            step = start_step
+            while step < steps:
+                t0 = time.perf_counter()
+                b = pipeline.device_batch(step, dev)
+                if crash_at_step is not None and step == crash_at_step and restarts == 0:
+                    restarts += 1
+                    raise SimulatedFailure(f"injected failure at step {step}")
+                state_p, state_o, loss = step_fn(state_p, state_o, b)
+                losses.append(float(loss))
+                step += 1
+                monitor.record(step, time.perf_counter() - t0)
+                if step % ckpt_every == 0 or step == steps:
+                    t_save = time.perf_counter()
+                    path = mgr.save(step, _ckpt_tree(state_p, state_o))
+                    saves.append({"step": step, "seconds": time.perf_counter() - t_save,
+                                  "bytes": os.path.getsize(os.path.join(path,
+                                                                        "arrays.npz"))})
+            mgr.wait()
+            return TrainResult(
+                steps_run=len(losses),
+                final_step=step,
+                losses=losses,
+                restarts=restarts,
+                straggler=monitor.summary(),
+                step_times=list(monitor.times),
+                checkpoints=saves,
+            )
+        except SimulatedFailure:
+            if restarts > max_restarts:
+                raise
+            continue  # auto-restart path: restore-from-latest and keep going

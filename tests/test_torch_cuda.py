@@ -1438,3 +1438,94 @@ def test_multinode_program_captures_degrades_and_recaptures(dev, ledger):
     _, _, want, want_hm = run(False)
     assert torch.equal(state["acc"], want["acc"])
     assert hm.to_dict() == want_hm.to_dict()
+
+
+# -- gradients through the kernels (the training slice) ----------------------
+
+
+def _grad_case(op, dev):
+    """Small inputs that require grad, the kernel route (``ops`` with
+    ``impl="pallas"``), the plain route and the kernel's wrapper."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RS
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype).requires_grad_()
+
+    if op == "attention":
+        q, k, v = randn(2, 64, 4, 16).transpose(1, 2), randn(2, 64, 2, 16), randn(2, 64, 2, 16)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        return ((q, k, v), lambda *t: ops.attention(*t, impl="pallas"),
+                lambda *t: attention_ref(*t), FA.flash_attention)
+    if op == "ssd":
+        x, bm, cm = randn(2, 64, 4, 16), randn(2, 64, 2, 16), randn(2, 64, 2, 16)
+        dt = torch.nn.functional.softplus(randn(2, 64, 4, dtype=torch.float32)).detach()
+        a = -torch.arange(1.0, 5.0, device=dev)
+        inputs = (x, dt.requires_grad_(), a.requires_grad_(), bm, cm)
+        return (inputs, lambda *t: ops.ssd(*t, impl="pallas"),
+                lambda *t: ssd_scan_plain(*t), SS.ssd_scan)
+    r, k, v = randn(2, 64, 4, 16), randn(2, 64, 4, 16), randn(2, 64, 4, 16)
+    w = torch.exp(-torch.exp(randn(2, 64, 4, 16, dtype=torch.float32).detach() - 2.0))
+    u = randn(4, 16, dtype=torch.float32)
+    return ((r, k, v, w.requires_grad_(), u), lambda *t: ops.rwkv6(*t, impl="pallas"),
+            lambda *t: rwkv6_scan_plain(*t), RS.rwkv6_scan)
+
+
+@pytest.mark.parametrize("op", ["attention", "ssd", "rwkv6"])
+def test_kernel_route_carries_the_plain_versions_gradient(dev, op):
+    """The kernel's output carries the autograd helper's ``grad_fn``, the
+    launch is counted, and the gradients are the plain route's: the backward
+    recomputes the plain version on the same inputs, so they agree within
+    ``2^-20`` of each gradient's largest magnitude (the order of a library
+    call's f32 sums aside, bit for bit)."""
+    inputs, kernel_route, plain_route, wrapper = _grad_case(op, dev)
+    before = wrapper.launches
+    out = kernel_route(*inputs)
+    y = out[0] if isinstance(out, tuple) else out
+    assert wrapper.launches == before + 1
+    assert "_KernelGrad" in type(y.grad_fn).__name__
+    plain = plain_route(*inputs)
+    yp = plain[0] if isinstance(plain, tuple) else plain
+    up = torch.randn(yp.shape, device=dev).to(yp.dtype)
+    wants = [t for t in inputs if t.requires_grad]
+    for a, b in zip(torch.autograd.grad(y, wants, up), torch.autograd.grad(yp, wants, up)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) <= 2.0 ** -20 * float(
+            b.float().abs().max())
+    with torch.no_grad():  # the serving path: the kernel alone, no graph
+        out = kernel_route(*inputs)
+    assert all(o.grad_fn is None for o in (out if isinstance(out, tuple) else (out,)))
+    assert wrapper.launches == before + 2
+
+
+@pytest.mark.parametrize("op", ["ssd", "rwkv6"])
+def test_differentiated_cache_write_raises_on_the_card(dev, op):
+    inputs, _, _, _ = _grad_case(op, dev)
+    fn = ops.ssd if op == "ssd" else ops.rwkv6
+    b, _, h = inputs[0].shape[:3]
+    state = torch.zeros((b, h, 16, 16), device=dev)  # [B, H, P, N] / [B, H, K, V]
+    with pytest.raises(ValueError, match="out_state"):
+        fn(*inputs, init_state=state, out_state=state, impl="pallas")
+
+
+def test_train_steps_on_the_card_run_k4_forward_and_remat(dev, tmp_path):
+    """Reduced qwen3-0.6b in bf16 through ``train``: K4 on every attention
+    call, twice a layer a micro-batch (forward, then the remat recompute),
+    finite losses that fall."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import train
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").reduced(), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    FA.flash_attention.launches = 0
+    res = train(cfg, steps=6, batch=4, seq_len=64, grad_accum=2,
+                pipeline=TokenPipeline(cfg, batch=4, seq_len=64),
+                ckpt_dir=str(tmp_path), optimizer=AdamW(lr=1e-2), device=dev)
+    assert FA.flash_attention.launches == 2 * 2 * 2 * 6
+    assert all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0]
