@@ -21,8 +21,10 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
 2. path phase — runs the LM serving path (``repro_torch.launch.serve_lm.
    generate`` at full width and depth on qwen3-0.6b, zamba2-7b and
    rwkv6-1.6b: batch 8, a 512-token prompt, 32 greedy steps, K4 on every
-   attention call, K5 on every Mamba-2 layer, K6 on every RWKV-6 layer),
-   each model freed before the next, then wordcount, PageRank,
+   attention call, K5 on every Mamba-2 layer, K6 on every RWKV-6 layer;
+   then mixtral-8x22b and grok-1-314b at full width, cut in depth, and
+   qwen2-vl-2b and musicgen-medium on embeddings: below), each model freed
+   before the next, then wordcount, PageRank,
    k-means, π, GMM and kNN through ``BlazeSession(device="cuda")`` with
    ``engine="pallas"``, and fig. 6's hand-fused k-means through
    ``repro_torch.kernels.ops.kmeans_assign``, at the paper's sizes (cut
@@ -95,7 +97,8 @@ the f32 ``p``: that moves the output by at most ``2^-9·Σ_j p_j|v_j| / l``,
 and ``2^-8·attention_ref(q, k, |v|)`` bounds it with a factor 2 to spare.
 At every shape the check must reject a zero output, the kernel's own output
 with the first live 64-key block dropped, and with the last live 64-key
-block dropped (a lost decode split).  The decode form is also held, within
+block dropped (a lost decode split; where that block holds fewer than 32
+live keys, as at a window's edge, the last 64 live keys).  The decode form is also held, within
 the same tolerance, against ``flash_decode_plain``, its arithmetic in plain
 PyTorch with the kernel's own splits.
 
@@ -175,6 +178,50 @@ tokens must be the plain path's argmax wherever its top-2 logits lie more
 than twice that apart.  A fault of a kernel or of the decode path (a state
 carried wrong, a conv tail or a shift row off by a step) moves the logits
 by far more.
+
+The MoE models run at full width, mixtral-8x22b cut to its first 8 of 56
+layers (2.50 B parameters a layer: 40.9 GB of bf16 weights with the
+embedding and head, where 56 layers would be 281 GB) and grok-1-314b to 4
+of 64 (4.92 B a layer: 42.6 GB): batch 8, 512-token prompts, 32 greedy
+steps through ``generate``, at the published ``capacity_factor`` 1.25.
+``RouteLog`` records every MoE call's routes (the smoke wraps
+``models.moe.moe_apply``, which the blocks call through the module).
+The plain path's attention differs from K4's bf16 forms by rounding, which
+moves router probabilities by ~1e-2 at most and flips a top-2 choice
+wherever a token's 2nd and 3rd probabilities lie that close: ~1,500 of
+mixtral's 32,768 prefill token-layers flip, and a flipped token's expert
+output changes entirely.  So routes are compared with ``compare_routes``:
+a flip must sit at a near-tie (both runs' gaps between the k-th and
+(k+1)-th probability within twice the layer's largest probability
+difference over the tokens the flips have not reached), a kept choice may
+differ only behind a flip earlier in its group, and logits are held only
+where no flip or knock-on lies at their position or before in any layer.
+End to end in bf16 that leaves no logit of the kernel path clean against
+the plain path (0 of 264 measured on an H100): the plain path runs the
+prefill alone, and its routes are held to the flip rule (all of layer 0's
+flips, where nothing is tainted, among them).  Decode against the
+teacher-forced forward at ``capacity_factor = E / k``, where nothing can
+drop, must leave at least an eighth of its logits clean (a quarter or more
+measured) within ``LM_LOGIT_TOL``.  The step-local check: each decode step
+of the kernel path against the plain path's step from a copy of the same
+caches, where a step's 64 token-layers flip a few times at most; its
+logits must agree within ``LM_LOGIT_TOL`` (0.25: 3 times the 0.082
+measured on an H100).
+And in f32 at 2 layers (``lm_moe_f32``: batch 2, 512-token prompts, 8
+steps; mixtral also batch 1, a 4608-token prompt) routes flip nowhere
+measured, and the kernel path must agree with the plain path and decode
+with the forward within ``LM_F32_TOL`` (1e-4: 3.3 times the 3.0e-5
+measured).  mixtral's window run (batch 1, a 4608-token prompt, 16 steps)
+must call K4 with every key of the 4625-row cache in the prefill (keys past
+the window masked) and ``window + 1 = 4097`` keys at offset 4096 in every
+step (``attn_apply``'s view of the cache), held as above.  qwen2-vl-2b and
+musicgen-medium run at full width and depth on random ``[8, 512, d]``
+prompts and 32 ``[8, 1, d]`` steps (``serve_lm.serve_embeddings``),
+against the plain path and the forward within ``LM_LOGIT_TOL`` (0.25 and
+0.35: 2.7 and 2.8 times the 0.093 and 0.126 measured); qwen2-vl also runs
+one forward at distinct ``(t, h, w)`` triples (a 16 × 16 image, then text)
+against the plain path's, whose logits must move further from the text
+positions' than that error.
 
 The train phase holds each kernel's forward at its training shape to the
 bounds above against the plain version, and its gradients, from one
@@ -468,10 +515,20 @@ K4_KERNELS = ("flash_kernel", "flash_prefill_kernel", "flash_decode_kernel",
 # LM path logits, per model: kernel path vs plain path and forward (docstring)
 K5_KERNELS = ("ssd_step_kernel", "ssd_chunk_kernel")  # K5's decode and prefill forms
 K6_KERNELS = ("rwkv6_step_kernel", "rwkv6_chunk_kernel")  # K6's decode and prefill forms
-LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5}
+LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5,
+                "mixtral-8x22b": 0.25, "grok-1-314b": 0.25, "qwen2-vl-2b": 0.25,
+                "musicgen-medium": 0.35}
 LM_LOGIT_RMS_TOL = {"zamba2-7b": 0.4, "rwkv6-1.6b": 0.1}  # RMS of the same differences
-LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4}  # f32: vs plain path and forward
+LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4,  # f32: vs plain path and forward
+              "mixtral-8x22b": 1e-4, "grok-1-314b": 1e-4}
 LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b")
+# The MoE models at full width, cut to their first MOE_LAYERS layers
+# (module docstring), their f32 check's layers, and mixtral's window run
+# (batch, prompt, steps); the models fed by a frontend's embeddings.
+MOE_LAYERS = {"mixtral-8x22b": 8, "grok-1-314b": 4}
+MOE_F32_LAYERS = 2
+WINDOW_RUN = (1, 4608, 16)
+EMBED_ARCHS = ("qwen2-vl-2b", "musicgen-medium")
 REPS = 10
 ROUNDS = 5  # K1 global form against index_add_, in turns
 STREAM_BLOCK_ROWS = 1 << 24  # k-means points a streamed block (6 blocks of 10^8)
@@ -510,6 +567,144 @@ def attention_tolerance(q, k, v, want, n_keys, **kw):
         tol = (tol + 2.0 ** -7 * want.float().abs()
                + 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(), **kw))
     return tol
+
+
+
+def decode_weight_bytes(params, cfg, batch):
+    """The weight bytes one decode step of ``batch`` rows reads: every
+    weight once, but of an untied embedding table only the ``batch`` rows it
+    gathers (none when a frontend feeds the embeddings)."""
+    from repro_torch.models import model as M
+
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    total = sum(nbytes(t) for t in M._leaves(params))
+    if not cfg.tie_embeddings:
+        table = params["embed"]
+        total -= nbytes(table) - (batch * nbytes(table[0]) if cfg.embed_inputs else 0)
+    return total
+
+
+class RouteLog:
+    """While active, every call of ``repro_torch.models.moe.moe_apply`` (the
+    MoE blocks call it through the module) also records its routing
+    (``moe.routes`` on the call's input, the same arithmetic): ``probs [B,
+    S, E]``, ``top_e`` and ``kept [B, S, k]`` per call, in call order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+
+        self.moe, self.orig = MOE, MOE.moe_apply
+        orig, calls = self.orig, self.calls
+
+        def recorded(params, cfg, x, *, dispatch_groups=1):
+            r = MOE.routes(params, cfg, x, dispatch_groups=dispatch_groups)
+            b, s = x.shape[:2]
+            calls.append({key: r[key].reshape(b, s, -1) for key in ("probs", "top_e", "kept")})
+            return orig(params, cfg, x, dispatch_groups=dispatch_groups)
+
+        MOE.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.orig
+
+    def head(self, n_calls):
+        """A log of the first ``n_calls`` calls alone (a prefill's)."""
+        log = RouteLog()
+        log.calls = self.calls[:n_calls]
+        return log
+
+    def trace(self, n_layers):
+        """Per MoE layer ``{"probs" [B, T, E], "top_e", "kept" [B, T, k]}``
+        over every position the calls saw (a prefill's, then each step's),
+        and each step's position count."""
+        import torch
+
+        lens = [c["top_e"].shape[1] for c in self.calls[::n_layers]]
+        layers = [{key: torch.cat([c[key] for c in self.calls[j::n_layers]], 1)
+                   for key in ("probs", "top_e", "kept")} for j in range(n_layers)]
+        return layers, lens
+
+
+def route_gap(probs, k):
+    """Each token's gap between its k-th and (k+1)-th router probability."""
+    import torch
+
+    p = torch.sort(probs, dim=-1, descending=True).values
+    return p[..., k - 1] - p[..., k]
+
+
+def compare_routes(a, b, lens, k, rows_per_group=None):
+    """Two runs' route traces (``RouteLog.trace``) over the same positions:
+    where their routes differ, which positions' logits they leave clean, and
+    whether every flip sits at a near-tie (module docstring).
+
+    A *flip* is a token whose set of top-``k`` experts differs.  A *knock-on*
+    is a token whose experts agree but whose set of kept experts differs: a
+    flip earlier in the same group's token order moved its rank within an
+    expert's capacity (``lens``: each call's positions, to find the calls;
+    ``None`` when no choice can drop: one call per layer, and a knock-on
+    is then unexplained; ``rows_per_group``: the rows of a group, all by
+    default, fewer where each row is a step of its own).  A token
+    is *tainted* at layer ``l`` when a flip or knock-on of its row lies at
+    a layer below ``l`` at its position or before (attention carries it
+    there).  ``delta[l]``: the largest router-probability difference of
+    layer ``l`` over its untainted tokens that did not flip, in every call.  A flip of an
+    untainted token is a near-tie flip when both runs' gaps between the
+    k-th and (k+1)-th probability are within ``2·delta[l]`` (for experts
+    ``i`` and ``j`` to swap, ``p_i − p_j`` changes sign, which moves it by at
+    most ``|Δp_i| + |Δp_j|``); any other fails the run.  ``clean [B, T]``:
+    no difference in any layer at that position or before: a logit there is
+    computed from the same routes in both runs."""
+    import torch
+
+    diffs, flips, knock_on, unexplained = [], [], 0, []
+    for j, (la, lb) in enumerate(zip(a, b)):
+        flip = (la["top_e"].sort(-1).values != lb["top_e"].sort(-1).values).any(-1)
+        kept_a = torch.where(la["kept"], la["top_e"], -1).sort(-1).values
+        kept_b = torch.where(lb["kept"], lb["top_e"], -1).sort(-1).values
+        kept = (kept_a != kept_b).any(-1) & ~flip
+        rows = rows_per_group or flip.shape[0]
+        t0 = 0
+        for c, n in enumerate(lens if lens is not None else [flip.shape[1]]):
+            for r0 in range(0, flip.shape[0], rows):
+                # the call's group: its tokens in row-major order
+                f = flip[r0:r0 + rows, t0:t0 + n].reshape(-1)
+                kk = kept[r0:r0 + rows, t0:t0 + n].reshape(-1)
+                if bool(kk.any()) and (lens is None or not bool(f.any())
+                                       or int(f.nonzero()[0]) > int(kk.nonzero()[0])):
+                    row, pos = divmod(int(kk.nonzero()[0]), n)
+                    unexplained.append({
+                        "layer": j, "call": c, "row": r0 + row, "pos": t0 + pos,
+                        "flips": int(f.sum()), "knock_ons": int(kk.sum())})
+            t0 += n
+        knock_on += int(kept.sum())
+        flips.append(flip)
+        diffs.append(flip | kept)
+    d = torch.stack(diffs)  # [L, B, T]
+    below = torch.cat([torch.zeros_like(d[:1]), d.int().cumsum(0)[:-1] > 0])
+    tainted = below.int().cummax(dim=2).values.bool()
+    deltas, checked, worst, bad = [], 0, 0.0, []
+    for j, (la, lb) in enumerate(zip(a, b)):
+        dp = (la["probs"] - lb["probs"]).abs().amax(-1)
+        ok = ~tainted[j] & ~d[j]
+        delta = float(dp[ok].max()) if bool(ok.any()) else 0.0
+        deltas.append(delta)
+        mine = flips[j] & ~tainted[j]
+        if bool(mine.any()):
+            gaps = torch.maximum(route_gap(la["probs"], k), route_gap(lb["probs"], k))[mine]
+            checked += int(mine.sum())
+            worst = max(worst, float(gaps.max()) / max(delta, 1e-30))
+            if bool((gaps > 2 * delta).any()):
+                bad.append({"layer": j, "gaps": gaps[gaps > 2 * delta][:5].tolist(),
+                            "delta": delta})
+    clean = ~d.any(0).int().cummax(dim=1).values.bool()
+    return {"flips": int(sum(int(f.sum()) for f in flips)), "checked_flips": checked,
+            "knock_on": knock_on, "worst_gap_over_delta": worst, "delta_max": max(deltas),
+            "not_near_tie": bad, "unexplained_knock_on": unexplained[:5], "clean": clean}
 
 
 def ssd_tc_tau(n):
@@ -1468,6 +1663,8 @@ class Smoke:
         self.sync()
         check(key + " first key block dropped", dropped, must_fail=True)
         hi = int(seen[-1]) // 64 * 64  # the last live 64-key block starts here
+        if int(seen[-1]) + 1 - hi < 32:  # a block of a few keys (a window's edge)
+            hi = int(seen[-1]) + 1 - 64  # drop the last 64 live keys instead
         dropped = flash_attention(q, k[:, :, :hi], v[:, :, :hi], q_offset=q_offset, **kw)
         self.sync()
         check(key + " last key block dropped", dropped, must_fail=True)
@@ -1475,7 +1672,10 @@ class Smoke:
         library_ms = library_device_ms = None
         if softcap == 0.0:  # SDPA has no softcap
             import torch.nn.functional as F
-            mask = None if q_offset == 0 and window is None else live
+            # causal alone (SDPA's fastest form) unless the offset or the
+            # window masks more: a window of at least Sq keys masks nothing
+            bites = window is not None and window < sq
+            mask = None if q_offset == 0 and not bites else live
 
             def sdpa():
                 return F.scaled_dot_product_attention(
@@ -1511,9 +1711,17 @@ class Smoke:
         128]`` bf16 against the ``[8, 545, 8, 128]`` KV cache, offset 0) and
         decode (one query at offset 543), both reading the cache in place;
         zamba2-7b's (q ``[8, 32, 512, 112]`` over ``[8, 545, 32, 112]``, then
-        one query at offset 543); and gemma2-9b's local layer (``[1, 16, 2048,
+        one query at offset 543); gemma2-9b's local layer (``[1, 16, 2048,
         256]``, Hkv 8, window 1024, softcap 50) in f32 and bf16, and its bf16
-        decode (one query at offset 2047 over the same keys)."""
+        decode (one query at offset 2047 over the same keys); mixtral-8x22b's
+        prefill and decode (q ``[8, 48, 512, 128]``, then one query at offset
+        543, over ``[8, 545, 8, 128]``, window 4096), its window run's prefill
+        (q ``[1, 48, 4608, 128]`` over the 4625-row cache) and last decode
+        step (one query at offset 4096 over the view of rows 527–4623);
+        grok-1-314b's (mixtral's shapes, no window); qwen2-vl-2b's (q ``[8,
+        12, 512, 128]`` over ``[8, 545, 2, 128]``, then one query at offset
+        543); musicgen-medium's (q ``[8, 24, 512, 64]`` over ``[8, 545, 24,
+        64]``, then one query at offset 543)."""
         torch = self.torch
         g = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -1548,6 +1756,58 @@ class Smoke:
                                   q_offset=0, window=1024, softcap=50.0)
         self.kernel_attention("flash_attention@gemma2-local-decode bf16", q[:, :, -1:],
                               k, v, q_offset=2047, window=1024, softcap=50.0)
+        del q, k, v
+        # mixtral-8x22b: 48 query heads over 8 kv heads of 128, window 4096
+        ck = randn(8, 545, 8, 128, dtype=bf16)
+        cv = randn(8, 545, 8, 128, dtype=bf16)
+        q = randn(8, 512, 48, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@mixtral-prefill", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=0, window=4096)
+        q = randn(8, 1, 48, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@mixtral-decode", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=543, window=4096)
+        # grok-1-314b: the same heads with no window
+        q = randn(8, 512, 48, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@grok-prefill", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=0)
+        q = randn(8, 1, 48, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@grok-decode", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=543)
+        # qwen2-vl-2b: 12 query heads over 2 kv heads of 128
+        ck = randn(8, 545, 2, 128, dtype=bf16)
+        cv = randn(8, 545, 2, 128, dtype=bf16)
+        q = randn(8, 512, 12, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@qwen2vl-prefill", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=0)
+        q = randn(8, 1, 12, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@qwen2vl-decode", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=543)
+        # its window run: a 4608-token prompt in a 4625-row cache, then the
+        # last step's view of the window + 1 rows it may see (start 527)
+        b, plen, steps = WINDOW_RUN
+        rows = plen + steps + 1
+        ck = randn(b, rows, 8, 128, dtype=bf16)
+        cv = randn(b, rows, 8, 128, dtype=bf16)
+        q = randn(b, plen, 48, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@mixtral-window-prefill", q,
+                              ck.transpose(1, 2), cv.transpose(1, 2), q_offset=0,
+                              window=4096)
+        start = plen + steps - 1 + 1 - 4097
+        q = randn(b, 1, 48, 128, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@mixtral-window-decode", q,
+                              ck[:, start:start + 4097].transpose(1, 2),
+                              cv[:, start:start + 4097].transpose(1, 2), q_offset=4096,
+                              window=4096)
+        # musicgen-medium: 24 MHA heads of 64
+        ck = randn(8, 545, 24, 64, dtype=bf16)
+        cv = randn(8, 545, 24, 64, dtype=bf16)
+        q = randn(8, 512, 24, 64, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@musicgen-prefill", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=0)
+        q = randn(8, 1, 24, 64, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@musicgen-decode", q, ck.transpose(1, 2),
+                              cv.transpose(1, 2), q_offset=543)
+        del ck, cv, q
         torch.cuda.empty_cache()
 
     # -- K5 and K6: the recurrent scans --------------------------------------
@@ -1884,7 +2144,9 @@ class Smoke:
         print(json.dumps({"path_results": results}), flush=True)
         kernels = {"wordcount": "hash_aggregate", "kmeans fig6": "kmeans_assign",
                    "lm qwen3-0.6b": "flash_attention", "lm zamba2-7b": "ssd_scan",
-                   "lm rwkv6-1.6b": "rwkv6_scan", "train qwen3-0.6b": "flash_attention"}
+                   "lm rwkv6-1.6b": "rwkv6_scan", "train qwen3-0.6b": "flash_attention",
+                   **{f"lm {arch}": "flash_attention" for arch in (*MOE_LAYERS, *EMBED_ARCHS)},
+                   "lm mixtral window": "flash_attention"}
         for name, launch in self.path_launches.items():
             kernel = kernels.get(name, "segment_reduce")
             if launch[kernel] == 0:
@@ -4044,13 +4306,8 @@ class Smoke:
             raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
 
         # The plain path, teacher-forced along the kernel path's tokens.
-        plain = dict(attn_impl="ref", scan_impl="chunked")
-        caches = M.make_caches(cfg, b, max_len, self.dev)
-        ref = [M.prefill(params, cfg, prompts, caches, **plain)[0]]
-        for i in range(steps):
-            ref.append(M.decode_step(params, cfg, toks[:, i:i + 1], caches, plen + i,
-                                     **plain)[0])
-        ref = torch.stack(ref, 1)
+        ref = self.teacher_forced(params, cfg, prompts, toks, max_len, attn_impl="ref",
+                                  scan_impl="chunked")
         ref_err = float((logits - ref).abs().max())
         # Greedy tokens: the plain path's argmax must be the kernel path's
         # token wherever its top-2 logits are more than 2·tol apart.
@@ -4090,6 +4347,7 @@ class Smoke:
                                  "from the plain path")
         del ref, fwd, seq
 
+        caches = M.make_caches(cfg, b, max_len, self.dev)
         prefill_ms = self.time_ms(lambda: M.prefill(params, cfg, prompts, caches))
         # One decode step: event time against the card's busy time (the
         # rest is the card waiting on the host's eager dispatch).
@@ -4105,11 +4363,11 @@ class Smoke:
         head_ms = self.time_ms(lambda: M.logits_fn(params, cfg, last))
         upcast_ms = self.time_ms(lambda: last.float() @ head.float())
         # A decode step reads every weight once (zamba2's shared block once
-        # per application), the cached K/V rows so far, and reads and writes
-        # every recurrent state (Mamba's conv tail and SSD state, RWKV's
-        # shift rows and wkv state).
+        # per application; ``decode_weight_bytes``), the cached K/V rows so
+        # far, and reads and writes every recurrent state (Mamba's conv tail
+        # and SSD state, RWKV's shift rows and wkv state).
         nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
-        weight_bytes = sum(nbytes(t) for t in M._leaves(params))
+        weight_bytes = decode_weight_bytes(params, cfg, b)
         if "shared_attn" in params:
             per_use = sum(nbytes(t) for t in M._leaves(params["shared_attn"]))
             weight_bytes = (weight_bytes - per_use
@@ -4168,13 +4426,8 @@ class Smoke:
         prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
         toks, _, logits = generate(cfg, params, prompts, plen + steps + 1, steps,
                                    return_logits=True)
-        plain = dict(attn_impl="ref", scan_impl="chunked")
-        caches = M.make_caches(cfg, b, plen + steps + 1, self.dev)
-        ref = [M.prefill(params, cfg, prompts, caches, **plain)[0]]
-        for i in range(steps):
-            ref.append(M.decode_step(params, cfg, toks[:, i:i + 1], caches, plen + i,
-                                     **plain)[0])
-        ref = torch.stack(ref, 1)
+        ref = self.teacher_forced(params, cfg, prompts, toks, plen + steps + 1,
+                                  attn_impl="ref", scan_impl="chunked")
         hidden, _, _ = M.forward(params, cfg, torch.cat([prompts, toks], 1))
         fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:plen + steps])
         top2 = torch.topk(ref[:, :steps], 2, dim=-1).values
@@ -4184,7 +4437,449 @@ class Smoke:
                "f32_decided_tokens": int(decided.sum()),
                "f32_decided_token_differences": int(
                    ((ref[:, :steps].argmax(-1) != toks) & decided).sum())}
-        del params, caches, hidden, ref, fwd
+        del params, hidden, ref, fwd
+        torch.cuda.empty_cache()
+        return res
+
+    # -- MoE and the embedding-input models ----------------------------------
+
+    def expect_k4(self, name, launch, n_attn, steps, prefills=1):
+        """K4 on every attention call and nothing else: ``n_attn`` calls a
+        prefill (the bf16 prefill form) and a step (the decode form)."""
+        want = {"flash_attention": n_attn * (prefills + steps), "ssd_scan": 0,
+                "rwkv6_scan": 0}
+        got = {k: launch[k] for k in want}
+        forms = {"f32": 0, "bf16-prefill": n_attn * prefills, "bf16-decode": n_attn * steps}
+        if got != want or launch["flash_attention forms"] != forms:
+            raise AssertionError(f"{name}: launches {got} forms "
+                                 f"{launch['flash_attention forms']}, not {want} {forms}")
+
+    def teacher_forced(self, params, cfg, first, rest, max_len, **kw):
+        """Prefill ``first`` (tokens ``[B, P]`` or embeds ``[B, P, d]``), then
+        one decode step on each ``rest[:, i:i + 1]``: the f32 logits ``[B,
+        n + 1, V]`` (the prefill's first)."""
+        from repro_torch.models import model as M
+
+        caches = M.make_caches(cfg, first.shape[0], max_len, self.dev)
+        out = [M.prefill(params, cfg, first, caches, **kw)[0]]
+        for i in range(rest.shape[1]):
+            out.append(M.decode_step(params, cfg, rest[:, i:i + 1], caches,
+                                     first.shape[1] + i, **kw)[0])
+        return self.torch.stack(out, 1)
+
+    @staticmethod
+    def masked_err(got, want, rows):
+        """max |got − want| over the ``[B, n]`` positions ``rows`` holds (None
+        where it holds none)."""
+        err = (got - want).abs().amax(-1)[rows]
+        return float(err.max()) if err.numel() else None
+
+    def routes_checked(self, name, runs, n_layers, k, plen, tol):
+        """Hold pairs of runs' logits ``[B, n + 1, V]`` (positions ``plen −
+        1`` on) where their routes leave them clean, within ``tol``, and at
+        least a share of them clean; every flip must be a near-tie flip
+        (``compare_routes``).  ``runs``: label -> (logits, RouteLog, logits,
+        RouteLog, lens, share), the logs None for a model without MoE layers
+        (every logit held), the logits None to hold the routes alone."""
+        out = {}
+        for label, (la, ra, lb, rb, lens, share) in runs.items():
+            if ra is not None:
+                cmp = compare_routes(ra.trace(n_layers)[0], rb.trace(n_layers)[0], lens, k)
+                clean = cmp.pop("clean")[:, plen - 1:]
+            else:
+                cmp, clean = {}, self.torch.ones(la.shape[:2], dtype=bool, device=self.dev)
+            if la is not None:
+                clean = clean[:, :la.shape[1]]
+                err = self.masked_err(la, lb, clean)
+                out[label] = {"logit_err": err, "clean_logits": int(clean.sum()),
+                              "of": clean.numel(), "min_clean_share": share}
+            out[label] = {**out.get(label, {}), **cmp}
+            print(json.dumps({"lm_check": name, "pair": label, "tol": tol, **out[label]}),
+                  flush=True)
+            if cmp.get("not_near_tie") or cmp.get("unexplained_knock_on"):
+                raise AssertionError(f"{name} {label}: a route flip away from a near-tie, "
+                                     "or a kept choice that differs with no flip before "
+                                     "it in its group")
+            if la is not None and (int(clean.sum()) < share * clean.numel()
+                                   or (err is not None and err > tol)):
+                raise AssertionError(f"{name} {label}: {int(clean.sum())} of {clean.numel()} "
+                                     f"logits clean (at least a share {share} needed), "
+                                     f"logits off by {err}, tolerance {tol}")
+        return out
+
+    def step_local(self, params, cfg, toks, first, caches_len, tol, n_layers):
+        """Each decode step of the kernel path against the plain path's step
+        from a copy of the same caches: the two share every earlier step,
+        so a step's routes differ only at that step's own near-ties.  The
+        steps' routes are compared together (``compare_routes``, each
+        (step, row) a row of its own, a step's rows one group); a (step,
+        row) whose routes differ is left out of the logits."""
+        torch = self.torch
+        from repro_torch.models import model as M
+        from repro_torch.models.attention import KVCache
+
+        b, plen = first.shape[0], first.shape[1]
+        caches = M.make_caches(cfg, b, caches_len, self.dev)
+        M.prefill(params, cfg, first, caches)
+        logits, routes = {"kernel": [], "plain": []}, {"kernel": [], "plain": []}
+        for i in range(toks.shape[1]):
+            copy = [KVCache(c.k.clone(), c.v.clone()) for c in caches]
+            for path, cache, kw in (("plain", copy, {"attn_impl": "ref"}),
+                                    ("kernel", caches, {})):
+                with RouteLog() as log:
+                    out, _ = M.decode_step(params, cfg, toks[:, i:i + 1], cache, plen + i,
+                                           **kw)
+                logits[path].append(out)
+                routes[path].append(log.trace(n_layers)[0])
+            del copy
+
+        def stacked(traces):
+            return [{key: torch.cat([t[j][key] for t in traces]) for key in traces[0][j]}
+                    for j in range(n_layers)]
+
+        cmp = compare_routes(stacked(routes["kernel"]), stacked(routes["plain"]), [1],
+                             cfg.top_k, rows_per_group=b)
+        rows = cmp.pop("clean")[:, 0].reshape(len(logits["kernel"]), b)
+        err = self.masked_err(torch.stack(logits["kernel"]), torch.stack(logits["plain"]),
+                              rows)
+        res = {"step_local_err": err, "step_local_clean": int(rows.sum()),
+               "step_local_of": rows.numel(),
+               **{f"step_local_{k}": v for k, v in cmp.items()}}
+        if cmp["not_near_tie"] or cmp["unexplained_knock_on"]:
+            raise AssertionError(f"step-local check: a route flip away from a near-tie, or "
+                                 f"an unexplained knock-on: {res}")
+        if err is None or err > tol:
+            raise AssertionError(f"step-local check: {res}, tolerance {tol}")
+        return res
+
+    def block_shares(self, params, cfg, step):
+        """The card's busy ms of one decode step's MoE blocks and attention
+        blocks, each replayed alone on the inputs ``step()`` gave them (the
+        attention rewrites the same cache rows)."""
+        from repro_torch.models import attention as A
+        from repro_torch.models import moe as MOE
+
+        calls = {"moe": [], "attn": []}
+        orig = {"moe": MOE.moe_apply, "attn": A.attn_apply}
+
+        def rec(kind):
+            def wrapped(*args, **kwargs):
+                calls[kind].append((args, kwargs))
+                return orig[kind](*args, **kwargs)
+            return wrapped
+
+        MOE.moe_apply, A.attn_apply = rec("moe"), rec("attn")
+        try:
+            step()
+        finally:
+            MOE.moe_apply, A.attn_apply = orig["moe"], orig["attn"]
+        self.sync()
+        out = {}
+        for kind, fn in orig.items():
+            if calls[kind]:
+                busy = self.device_busy_ms(
+                    lambda: [fn(*a, **kw) for a, kw in calls[kind]],
+                    names=K4_KERNELS if kind == "attn" else ())
+                out[f"{kind}_busy_ms"] = busy and busy["total"]
+        return out
+
+    def lm_timings(self, params, cfg, first, step_in, steps):
+        """Prefill ms, one decode step's event ms and the card's busy ms by
+        kernel (K4 apart), the MoE and attention blocks' busy ms, and the
+        step's byte bound: every weight read once (the dense ``[E, C, d]``
+        experts compute every expert each step) but an untied embedding
+        table, of which a step gathers ``B`` rows (none when a frontend feeds
+        the embeddings), and the cached K/V rows of the run's mean step
+        (``first``: the prompt, then ``steps`` steps)."""
+        from repro_torch.models import model as M
+
+        b, plen = first.shape[:2]
+        max_len = plen + steps + 1
+        caches = M.make_caches(cfg, b, max_len, self.dev)
+        res = {"prefill_ms": self.time_ms(lambda: M.prefill(params, cfg, first, caches))}
+
+        def step():
+            return M.decode_step(params, cfg, step_in, caches, max_len - 1)
+
+        res["decode_step_event_ms"] = self.time_ms(step)
+        res["decode_step_device_ms"] = self.device_busy_ms(step, names=K4_KERNELS)
+        res.update(self.block_shares(params, cfg, step))
+        nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+        kv = sum(nbytes(c.k) + nbytes(c.v) for c in caches)
+        kv_read = kv / max_len * sum(plen + i + 1 for i in range(steps)) / steps
+        weight = decode_weight_bytes(params, cfg, b)
+        res.update(kv_cache_bytes=kv, weight_read_bytes=weight,
+                   decode_bound_ms=(weight + kv_read) / HBM_BYTES_PER_S * 1e3)
+        return res
+
+    def moe_config(self, arch, layers, **kw):
+        """``arch`` cut to its first ``layers`` layers (every layer is one
+        stage of one MoE block), with ``kw`` replaced."""
+        import dataclasses
+        from repro_torch.configs.base import get_arch
+
+        return dataclasses.replace(get_arch(arch), n_layers=layers, n_stages=layers, **kw)
+
+    def param_counts(self, params, cfg):
+        """Total and active parameters of the cut model, and of the model at
+        its published depth (every layer alike, so its layers scale)."""
+        from repro_torch.configs.base import get_arch
+        from repro_torch.models import model as M
+
+        full_layers = get_arch(cfg.name).n_layers
+        total, active = M.param_count(params), M.active_param_count(params, cfg)
+        layer = {"layers": params["layers"][:1]}
+        per, per_active = M.param_count(layer), M.active_param_count(layer, cfg)
+        n = len(params["layers"])
+        return {"params": total, "active_params": active,
+                "params_full_depth": total + (full_layers - n) * per,
+                "active_params_full_depth": active + (full_layers - n) * per_active}
+
+    def moe_checks(self, name, params, cfg, prompts, toks, logits, routes, tol):
+        """A ``generate`` run's logits ``[B, n + 1, V]`` and routes (its
+        ``RouteLog``) against the plain path, and, at ``capacity_factor = E /
+        k`` where nothing can drop, decode teacher-forced along the same
+        tokens against the forward (``routes_checked``).  In f32 the plain
+        path runs teacher-forced along the run's tokens and at least half
+        the logits of each pair must be clean.  In bf16 near-ties flip all
+        through the prefill and leave no logit of the run clean, so the
+        plain path runs the prefill alone and its routes are held (every
+        flip of an untainted token, all of layer 0's among them, at a
+        near-tie); at least an eighth of decode's logits must be clean
+        against the forward; and the step-local check holds the steps'."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.models import model as M
+
+        n, (b, plen) = len(params["layers"]), prompts.shape
+        max_len = plen + toks.shape[1] + 1
+        f32 = cfg.cdtype == torch.float32
+        with RouteLog() as rp:
+            if f32:
+                plain = (logits, routes, self.teacher_forced(
+                    params, cfg, prompts, toks, max_len, attn_impl="ref"), rp,
+                    routes.trace(n)[1], 0.5)
+            else:
+                M.prefill(params, cfg, prompts, M.make_caches(cfg, b, plen, self.dev),
+                          attn_impl="ref")
+                plain = (None, routes.head(n), None, rp, [plen], 0.0)
+        nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        with RouteLog() as rd:
+            dec = self.teacher_forced(params, nodrop, prompts, toks[:, :-1], max_len)
+        with RouteLog() as rf:
+            hidden, _, _ = M.forward(params, nodrop, torch.cat([prompts, toks[:, :-1]], 1))
+        fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:])
+        del hidden
+        res = {"checks": self.routes_checked(name, {
+            "kernel_vs_plain" if f32 else "prefill_routes_vs_plain": plain,
+            "decode_vs_forward": (dec, rd, fwd, rf, None, 0.5 if f32 else 0.125)},
+            n, cfg.top_k, plen, tol)}
+        del plain, dec, fwd
+        if not f32:
+            local = self.step_local(params, cfg, toks, prompts, max_len, tol, n)
+            print(json.dumps({"lm_check": name, **local}), flush=True)
+            res.update(local)
+        return res
+
+    def lm_moe_path(self, arch):
+        """An MoE model (module docstring) at full width and ``MOE_LAYERS``
+        layers in bf16 (random weights from seed 0): ``generate`` for batch
+        8, 512-token prompts, 32 greedy steps, K4 on every attention call,
+        routes recorded on every MoE call, held by ``moe_checks``; then
+        timed without the recording; mixtral also takes the window run;
+        then the f32 check."""
+        torch = self.torch
+        from repro_torch.launch.serve_lm import generate
+        from repro_torch.models import model as M
+
+        n = MOE_LAYERS[arch]
+        cfg = self.moe_config(arch, n)
+        tol = LM_LOGIT_TOL[arch]
+        b, plen, steps = 8, 512, 32
+        max_len = plen + steps + 1
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        params = M.init(g, cfg)
+        prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
+        with RouteLog() as rk:
+            (toks, _, logits), _, launch = self.drive(
+                f"lm {arch}", lambda: generate(cfg, params, prompts, max_len, steps,
+                                               return_logits=True), b * steps)
+        self.path_launches[f"lm {arch}"] = launch
+        self.expect_k4(f"lm {arch}", launch, n, steps)
+        if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
+            raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
+        kept = torch.stack([t["kept"] for t in rk.trace(n)[0]])  # [L, B, T, k]
+        res = {"arch": cfg.name, "layers": n, **self.param_counts(params, cfg),
+               "batch": b, "prompt": plen, "steps": steps,
+               "dropped_share": {"prefill": float((~kept[:, :, :plen]).float().mean()),
+                                 "steps": float((~kept[:, :, plen:]).float().mean())},
+               **self.moe_checks(f"lm {arch}", params, cfg, prompts, toks, logits, rk, tol),
+               "logit_tol": tol, "logit_std": float(logits.std()),
+               "launches": launch["flash_attention"],
+               "k4_forms": launch["flash_attention forms"]}
+        _, decode_s = generate(cfg, params, prompts, max_len, steps)
+        res.update(decode_ms_per_step=decode_s / steps * 1e3, tok_per_s=b * steps / decode_s)
+        res.update(self.lm_timings(params, cfg, prompts, toks[:, -1:], steps))
+        if arch == "mixtral-8x22b":
+            res["window_run"] = self.lm_window_run(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        res["f32"] = self.lm_moe_f32(arch)
+        return res
+
+    def lm_window_run(self, params, cfg):
+        """mixtral's window run: batch 1, a 4608-token prompt (keys beyond the
+        window masked in the prefill), 16 greedy steps, each reading the
+        last ``window + 1`` cache rows through ``attn_apply``'s view: every
+        decode call of K4 must see ``window + 1`` keys at offset ``window``.
+        Held by ``moe_checks``."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.launch.serve_lm import generate
+        from repro_torch.models import model as M
+
+        b, plen, steps = WINDOW_RUN
+        n, w = len(params["layers"]), cfg.window
+        max_len = plen + steps + 1
+        g = torch.Generator(device=self.dev).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
+        seen, kernel = [], ops._flash_kernel
+
+        def shapes(q, k, v, **kw):
+            seen.append((q.shape[2], k.shape[2], kw["q_offset"], kw["window"]))
+            return kernel(q, k, v, **kw)
+
+        ops._flash_kernel = shapes
+        try:
+            with RouteLog() as rk:
+                (toks, decode_s, logits), _, launch = self.drive(
+                    "lm mixtral window", lambda: generate(cfg, params, prompts, max_len,
+                                                          steps, return_logits=True),
+                    b * steps)
+        finally:
+            ops._flash_kernel = kernel
+        self.path_launches["lm mixtral window"] = launch
+        self.expect_k4("lm mixtral window", launch, n, steps)
+        want = [(plen, max_len, 0, w)] * n + [(1, w + 1, w, w)] * (n * steps)
+        if seen != want:
+            raise AssertionError(f"window run: K4 calls saw (Sq, Skv, q_offset, window) "
+                                 f"{sorted(set(seen))}, not {sorted(set(want))}")
+        res = self.moe_checks("lm mixtral window", params, cfg, prompts, toks, logits, rk,
+                              LM_LOGIT_TOL[cfg.name])
+        caches = M.make_caches(cfg, b, max_len, self.dev)
+        res.update(
+            batch=b, prompt=plen, steps=steps, k4_calls=len(seen), decode_keys=w + 1,
+            decode_ms_per_step=decode_s / steps * 1e3, launches=launch["flash_attention"],
+            prefill_ms=self.time_ms(lambda: M.prefill(params, cfg, prompts, caches)),
+            decode_step_event_ms=self.time_ms(lambda: M.decode_step(
+                params, cfg, toks[:, -1:], caches, max_len - 1)))
+        del caches
+        torch.cuda.empty_cache()
+        return res
+
+    def lm_moe_f32(self, arch):
+        """``arch`` in f32 at ``MOE_F32_LAYERS`` layers (random weights from
+        seed 0; batch 2, a 512-token prompt, 8 greedy steps; for mixtral also
+        batch 1, a 4608-token prompt, 8 steps: the window view), held by
+        ``moe_checks`` (no step-local check) within ``LM_F32_TOL`` where the
+        routes leave the logits clean; f32 rounding leaves far fewer
+        near-ties than bf16's, and at least half the logits must be clean."""
+        torch = self.torch
+        from repro_torch.launch.serve_lm import generate
+        from repro_torch.models import model as M
+
+        cfg = self.moe_config(arch, MOE_F32_LAYERS, param_dtype="float32",
+                              compute_dtype="float32")
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        params = M.init(g, cfg)
+        out = {}
+        runs = [(2, 512, 8)] + ([(1, WINDOW_RUN[1], 8)] if cfg.window else [])
+        for b, plen, steps in runs:
+            prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
+            with RouteLog() as rk:
+                toks, _, logits = generate(cfg, params, prompts, plen + steps + 1, steps,
+                                           return_logits=True)
+            key = f"b{b}_p{plen}"
+            out[key] = self.moe_checks(f"lm {arch} f32 {key}", params, cfg, prompts, toks,
+                                       logits, rk, LM_F32_TOL[arch])
+        del params
+        torch.cuda.empty_cache()
+        return {"layers": MOE_F32_LAYERS, "tol": LM_F32_TOL[arch], **out}
+
+    def mrope_positions(self, b, s):
+        """``(t, h, w)`` triples ``[3, B, S]``: a 16 × 16 image's patches at
+        ``t = 0`` (row, column), then text whose three coordinates all
+        continue from 16; row ``i`` starts ``i`` later."""
+        torch = self.torch
+
+        i = torch.arange(s, device=self.dev)
+        img = i < 256
+        pos = torch.stack([torch.where(img, 0, i - 240), torch.where(img, i // 16, i - 240),
+                           torch.where(img, i % 16, i - 240)])
+        return (pos[:, None, :] + torch.arange(b, device=self.dev)[None, :, None]).long()
+
+    def lm_embed_path(self, arch):
+        """A model fed by a frontend's embeddings (qwen2-vl-2b, musicgen-
+        medium) at full width and depth in bf16 (random weights and
+        embeddings from seed 0): ``serve_embeddings`` of ``[8, 512, d]``
+        prompts, then 32 steps on ``[8, 1, d]`` embeddings, K4 on every
+        attention call; held against the plain path along the same
+        embeddings and against the teacher-forced forward.  qwen2-vl also
+        takes one forward with distinct ``(t, h, w)`` triples against the
+        plain path's."""
+        torch = self.torch
+        from repro_torch.configs.base import get_arch
+        from repro_torch.launch.serve_lm import serve_embeddings
+        from repro_torch.models import model as M
+
+        cfg = get_arch(arch)
+        tol = LM_LOGIT_TOL[arch]
+        b, plen, steps = 8, 512, 32
+        max_len = plen + steps + 1
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        params = M.init(g, cfg)
+        emb = torch.randn((b, plen + steps, cfg.d_model), generator=g,
+                          device=self.dev).to(cfg.cdtype)
+        first, rest = emb[:, :plen], emb[:, plen:]
+        (logits, decode_s), _, launch = self.drive(
+            f"lm {arch}", lambda: serve_embeddings(cfg, params, first, rest, max_len),
+            b * steps)
+        self.path_launches[f"lm {arch}"] = launch
+        self.expect_k4(f"lm {arch}", launch, cfg.n_layers, steps)
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (b, steps + 1, cfg.vocab):
+            raise AssertionError(f"lm {arch}: non-finite logits or a wrong shape")
+        ref = self.teacher_forced(params, cfg, first, rest, max_len, attn_impl="ref")
+        hidden, _, _ = M.forward(params, cfg, emb)
+        fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:])
+        del hidden
+        checks = self.routes_checked(f"lm {arch}", {
+            "kernel_vs_plain": (logits, None, ref, None, None, 1.0),
+            "decode_vs_forward": (logits, None, fwd, None, None, 1.0)}, 0, 0, plen, tol)
+        del ref, fwd
+        res = {"arch": cfg.name, **self.param_counts(params, cfg),
+               "batch": b, "prompt": plen, "steps": steps, "checks": checks,
+               "logit_tol": tol, "logit_std": float(logits.std()),
+               "launches": launch["flash_attention"],
+               "k4_forms": launch["flash_attention forms"]}
+        if cfg.mrope_sections is not None:
+            pos = self.mrope_positions(b, plen)
+            got = M.logits_fn(params, cfg, M.forward(params, cfg, first, positions=pos)[0][:, -32:])
+            want = M.logits_fn(params, cfg, M.forward(params, cfg, first, positions=pos,
+                                                      attn_impl="ref")[0][:, -32:])
+            text = M.logits_fn(params, cfg, M.forward(params, cfg, first)[0][:, -32:])
+            res["mrope_err"] = float((got - want).abs().max())
+            res["mrope_vs_text_positions"] = float((got - text).abs().max())
+            print(json.dumps({"lm_check": f"{arch} mrope", "logit_err": res["mrope_err"],
+                              "tol": tol, "vs_text_positions": res["mrope_vs_text_positions"]}),
+                  flush=True)
+            if res["mrope_err"] > tol or res["mrope_vs_text_positions"] <= res["mrope_err"]:
+                raise AssertionError(f"lm {arch}: M-RoPE forward off the plain path by "
+                                     f"{res['mrope_err']} (tolerance {tol}), or text "
+                                     "positions moved the logits less than that")
+            del got, want, text
+        res.update(decode_ms_per_step=decode_s / steps * 1e3, tok_per_s=b * steps / decode_s)
+        res.update(self.lm_timings(params, cfg, first, rest[:, -1:], steps))
+        del params
         torch.cuda.empty_cache()
         return res
 
@@ -4637,6 +5332,10 @@ class Smoke:
         for arch in LM_ARCHS:  # each model is freed before the next phase
             print(json.dumps({"lm_results": self.lm_path(arch)}), flush=True)
             torch.cuda.empty_cache()
+        for arch in MOE_LAYERS:
+            print(json.dumps({"lm_results": self.lm_moe_path(arch)}), flush=True)
+        for arch in EMBED_ARCHS:
+            print(json.dumps({"lm_results": self.lm_embed_path(arch)}), flush=True)
         self.phase = "train"
         print(json.dumps({"train_results": self.train_phase()}), flush=True)
         data = self.make_data()
@@ -4686,7 +5385,17 @@ class Smoke:
                 "ssd_scan@zamba2-prefill": "lm zamba2-7b",
                 "ssd_scan@zamba2-decode": "lm zamba2-7b",
                 "rwkv6_scan@rwkv6-prefill": "lm rwkv6-1.6b",
-                "rwkv6_scan@rwkv6-decode": "lm rwkv6-1.6b"}
+                "rwkv6_scan@rwkv6-decode": "lm rwkv6-1.6b",
+                "flash_attention@mixtral-prefill": "lm mixtral-8x22b",
+                "flash_attention@mixtral-decode": "lm mixtral-8x22b",
+                "flash_attention@mixtral-window-prefill": "lm mixtral window",
+                "flash_attention@mixtral-window-decode": "lm mixtral window",
+                "flash_attention@grok-prefill": "lm grok-1-314b",
+                "flash_attention@grok-decode": "lm grok-1-314b",
+                "flash_attention@qwen2vl-prefill": "lm qwen2-vl-2b",
+                "flash_attention@qwen2vl-decode": "lm qwen2-vl-2b",
+                "flash_attention@musicgen-prefill": "lm musicgen-medium",
+                "flash_attention@musicgen-decode": "lm musicgen-medium"}
         for key, path in runs.items():
             rec = self.summary[key]
             source, replaces = sources[rec["kernel"]]

@@ -5,8 +5,8 @@ Every architecture is an ``ArchConfig``: its repeating layer pattern is a
 list of block kinds (one *stage*), repeated ``n_stages`` times and followed
 by an optional tail.  ``reduced()`` derives the small same-family config the
 CPU tests run.  Only the dtype properties differ from the JAX file: they
-return ``torch`` dtypes.  The registry holds the configs the port can run;
-the others come with their blocks.
+return ``torch`` dtypes.  The registry holds the reference's ten
+architectures.
 """
 from __future__ import annotations
 
@@ -148,7 +148,7 @@ def get_arch(name: str) -> ArchConfig:
     if not _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port has: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -161,6 +161,10 @@ def list_archs() -> list[str]:
 def _load_all():
     from repro_torch.configs import (  # noqa: F401
         gemma2_9b,
+        grok_1_314b,
+        mixtral_8x22b,
+        musicgen_medium,
+        qwen2_vl_2b,
         qwen3_0_6b,
         rwkv6_1_6b,
         stablelm_3b,

@@ -75,12 +75,15 @@ def lm_params_from_jax(params_np, cfg, device=None) -> dict:
     has no stacked entry in JAX (its block is ``params["shared_attn"]``):
     every such layer of the port refers to the one converted dict.  Weights
     keep JAX's ``[d_in, d_out]`` layout: the port computes ``x @ W`` as JAX
-    does.
+    does.  An MoE layer's ``moe`` dict carries over as every other block's:
+    ``router [n_stages, d, E]`` f32, ``w_gate``/``w_up [n_stages, E, d,
+    ff]`` and ``w_down [n_stages, E, ff, d]`` become one layer's ``[d, E]``,
+    ``[E, d, ff]`` and ``[E, ff, d]``.
     """
     from repro_torch.configs.base import SHARED_ATTN
     from repro_torch.models.model import layer_kinds
 
-    layer_kinds(cfg)  # raises for a block kind the port has not got yet
+    layer_kinds(cfg)  # raises for an unknown block kind
     dev = resolve_device(device)
 
     def tree(x, stage=None):

@@ -1,5 +1,5 @@
-"""Attention block: GQA/MHA with RoPE, qk-norm, softcap, a sliding window
-and a KV cache (the port of ``repro/models/attention.py``).
+"""Attention block: GQA/MHA with RoPE or M-RoPE, qk-norm, softcap, a sliding
+window and a KV cache (the port of ``repro/models/attention.py``).
 
 The attention itself runs through ``kernels.ops.attention``: the
 hand-written flash-attention kernel on the card, ``attention_ref`` on the
@@ -16,7 +16,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (
+    apply_mrope,
+    apply_rope,
+    dense_init,
+    rmsnorm,
+    rmsnorm_init,
+)
 
 
 class KVCache(NamedTuple):
@@ -43,6 +49,9 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
                cache: KVCache | None = None, cache_len: int | None = None,
                attn_impl: str = "auto") -> tuple[torch.Tensor, KVCache | None]:
     """``x [B, S, d]`` at ``positions [B, S]`` → ``([B, S, d], cache)``.
+    Where the config has M-RoPE sections, ``positions [3, B, S]`` are
+    ``(t, h, w)`` triples; ``[B, S]`` positions take plain RoPE, which is
+    M-RoPE at equal coordinates (text).
 
     With a cache, the new K/V are written at rows ``[cache_len, cache_len +
     S)`` and the queries attend over the cache, at ``q_offset = cache_len``.
@@ -50,8 +59,6 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
     reference's ``dynamic_update_slice`` clamps the start instead, and so
     overwrites the last rows).
     """
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) comes with the qwen2-vl slice")
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = (x @ params["wq"]).reshape(b, s, hq, dh)
@@ -60,8 +67,12 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections is not None and positions.dim() == 3:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
         idx = int(cache_len)

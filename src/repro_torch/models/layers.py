@@ -52,6 +52,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, ...],
+                theta: float = 10_000.0) -> torch.Tensor:
+    """Qwen2-VL's multimodal rotary embedding of ``x [B, S, H, D]`` at
+    ``positions [3, B, S]`` (``(t, h, w)`` triples): the ``D/2`` rotary
+    pairs are split into ``sections`` (summing to ``D/2``), and the pairs of
+    section ``i`` rotate by coordinate ``i``; otherwise as :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to D/2 = {half}")
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    angles = torch.cat([positions[i].float()[..., None] * f
+                        for i, f in enumerate(freqs.split(list(sections)))], -1)  # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
     return {
         "w_gate": dense_init(gen, d, d_ff, dtype),

@@ -1,5 +1,5 @@
 """Model assembly: blocks → layers → LM (the port of ``repro/models/
-model.py`` for the dense attention, Mamba-2 and RWKV-6 architectures).
+model.py``: dense and sliding-window attention, MoE, Mamba-2 and RWKV-6).
 
 The JAX package stacks each stage's parameters and scans over them; the
 port keeps one parameter dict and one cache per layer and runs a Python
@@ -10,14 +10,15 @@ application keeps its own KV cache, as the reference's per-slot caches do.
 
 Public entry points:
   init(gen, cfg)                                → params
-  forward(params, cfg, tokens, ...)             → (hidden [B, S, d], caches, aux)
+  forward(params, cfg, tokens|embeds, ...)      → (hidden [B, S, d], caches, aux)
   logits_fn(params, cfg, hidden)                → f32 logits
   loss_fn(params, cfg, inputs, labels, ...)     → mean cross-entropy, chunked over S
   prefill(...) / decode_step(...)               → the serving path with caches
   make_caches(cfg, batch, max_len, device)      → one cache per layer
-  param_count(params), distinct_leaves(tree), map_tree(fn, tree),
-  reference_leaves(params, cfg)
-The MoE block kinds raise ``NotImplementedError`` naming their slice.
+  param_count(params), active_param_count(params, cfg),
+  distinct_leaves(tree), map_tree(fn, tree), reference_leaves(params, cfg)
+The MoE blocks call ``MOE.moe_apply`` through the module, so a caller may
+wrap it (to record routes).
 """
 from __future__ import annotations
 
@@ -42,32 +43,26 @@ from repro_torch.configs.base import (
     ArchConfig,
 )
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import embed_init, dense_init, mlp, mlp_init, rmsnorm, rmsnorm_init
 
-_LATER_SLICES = {
-    ATTN_MOE: "the MoE slice (mixtral-8x22b, grok-1)",
-    ATTN_LOCAL_MOE: "the MoE slice (mixtral-8x22b, grok-1)",
-}
-_ATTN_KINDS = (ATTN, ATTN_LOCAL, SHARED_ATTN)
+_MOE_KINDS = (ATTN_MOE, ATTN_LOCAL_MOE)
+_ATTN_KINDS = (ATTN, ATTN_LOCAL, SHARED_ATTN) + _MOE_KINDS
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCfg:
-    """Model-visible parallel info: the MoE dispatch grouping, carried for
-    the reference's signature until the MoE slice (no block reads it yet)."""
+    """Model-visible parallel info: the MoE dispatch grouping."""
 
     dispatch_groups: int = 1
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
-    """Every layer's block kind, in order; raises for a kind not ported yet."""
+    """Every layer's block kind, in order; raises for an unknown kind."""
     kinds = list(cfg.stage_pattern) * cfg.n_stages + list(cfg.tail_pattern)
     for kind in kinds:
-        if kind in _LATER_SLICES:
-            raise NotImplementedError(
-                f"block kind {kind!r} ({cfg.name}) comes with {_LATER_SLICES[kind]}")
         if kind not in _ATTN_KINDS + (MAMBA2, RWKV6):
             raise ValueError(f"unknown block kind {kind!r}")
     return kinds
@@ -82,6 +77,9 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
     def ln():
         return rmsnorm_init(cfg.d_model, cfg.pdtype, gen.device)
 
+    if kind in _MOE_KINDS:
+        return {"ln1": ln(), "attn": A.attn_init(gen, cfg), "ln2": ln(),
+                "moe": MOE.moe_init(gen, cfg)}
     if kind in _ATTN_KINDS:
         return {"ln1": ln(), "attn": A.attn_init(gen, cfg), "ln2": ln(),
                 "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype)}
@@ -94,23 +92,33 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
 
 def block_apply(params: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
                 positions: torch.Tensor, *, cache=None, cache_len: int | None = None,
-                attn_impl: str = "auto", scan_impl: str = "auto"):
-    """Pre-norm residual block; returns ``(h, cache)``, the cache (if any)
-    updated in place.  Attention kinds: attention, then the SwiGLU MLP
-    (``attn_impl``); Mamba-2: the SSM mixer; RWKV-6: time-mix, then
-    channel-mix (``scan_impl`` for both recurrences)."""
+                par: ParallelCfg = ParallelCfg(), attn_impl: str = "auto",
+                scan_impl: str = "auto"):
+    """Pre-norm residual block; returns ``(h, cache, aux)``, the cache (if
+    any) updated in place, ``aux`` the MoE balance loss (the float 0.0
+    for the other kinds, so a dense step launches nothing for it).
+    Attention kinds: attention (``attn_impl``; the ``*_local`` kinds over
+    the window), then the SwiGLU MLP or, for the MoE kinds, the expert
+    layer (``par.dispatch_groups``); Mamba-2: the SSM mixer; RWKV-6:
+    time-mix, then channel-mix (``scan_impl`` for both recurrences)."""
+    aux = 0.0
     if kind in _ATTN_KINDS:
         a_out, new_kv = A.attn_apply(
             params["attn"], cfg, rmsnorm(params["ln1"], h), positions,
-            local=kind == ATTN_LOCAL, cache=cache, cache_len=cache_len,
-            attn_impl=attn_impl,
+            local=kind in (ATTN_LOCAL, ATTN_LOCAL_MOE), cache=cache,
+            cache_len=cache_len, attn_impl=attn_impl,
         )
         h = h + a_out
-        return h + mlp(params["mlp"], rmsnorm(params["ln2"], h)), new_kv
+        if kind in _MOE_KINDS:
+            m_out, aux = MOE.moe_apply(params["moe"], cfg, rmsnorm(params["ln2"], h),
+                                       dispatch_groups=par.dispatch_groups)
+        else:
+            m_out = mlp(params["mlp"], rmsnorm(params["ln2"], h))
+        return h + m_out, new_kv, aux
     if kind == MAMBA2:
         m_out, cache = SSM.mamba_apply(params["mamba"], cfg, rmsnorm(params["ln1"], h),
                                        cache=cache, scan_impl=scan_impl)
-        return h + m_out, cache
+        return h + m_out, cache, aux
     if kind == RWKV6:
         tm_out, shift_tm, _ = RW.time_mix(params["rwkv"]["tm"], cfg,
                                           rmsnorm(params["ln1"], h), cache,
@@ -121,7 +129,7 @@ def block_apply(params: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
         if cache is not None:  # after channel-mix has read the old row
             cache.shift_tm.copy_(shift_tm)
             cache.shift_cm.copy_(shift_cm)
-        return h + cm_out, cache
+        return h + cm_out, cache, aux
     raise ValueError(kind)
 
 
@@ -181,10 +189,13 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     """``(hidden [B, S, d], caches, aux)`` of tokens ``[B, S]`` (or embeds
     ``[B, S, d]`` where the config does not embed).  With ``caches``, the
     inputs continue a sequence of ``cache_len`` tokens already cached, and
-    every cache is updated in place.  ``attn_impl`` goes to the attention
+    every cache is updated in place.  ``positions`` default to ``cache_len +
+    arange(S)`` for every row (an M-RoPE config: the same in all three
+    coordinates, ``[3, B, S]``).  ``attn_impl`` goes to the attention
     kernels (``ops.attention``), ``scan_impl`` to the recurrences
-    (``ops.ssd``, ``ops.rwkv6``).  ``aux`` is the MoE balance loss of the
-    JAX model: 0 for these blocks.
+    (``ops.ssd``, ``ops.rwkv6``), ``par.dispatch_groups`` to the MoE
+    blocks.  ``aux`` is the sum of every MoE block's balance loss (0
+    without MoE blocks).
 
     Training options, as the reference's: ``remat=True`` checkpoints each
     stage (the ``len(cfg.stage_pattern)`` layers the reference's scan step
@@ -194,41 +205,50 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     keeps the products' outputs (:func:`_save_dots`), ``"full"`` keeps
     nothing.  ``scan_layers`` is accepted for the reference's signature:
     the port always loops over its layers, so both values run the same
-    code.  ``par`` is carried for the MoE slice."""
-    del par, scan_layers
+    code."""
+    del scan_layers
     if remat_policy not in ("full", "dots"):
         raise ValueError(f"remat_policy must be 'full' or 'dots', got {remat_policy!r}")
     if cfg.embed_inputs:
         h = params["embed"][inputs].to(cfg.cdtype)
+    elif inputs.dim() != 3:
+        raise ValueError(f"{cfg.name} takes embeddings [B, S, d], not inputs of shape "
+                         f"{tuple(inputs.shape)}")
     else:
         h = inputs.to(cfg.cdtype)
     b, s = h.shape[0], h.shape[1]
     if positions is None:
         start = 0 if cache_len is None else int(cache_len)
         positions = (torch.arange(s, device=h.device) + start).expand(b, s)
+        if cfg.mrope_sections is not None:
+            positions = positions.expand(3, b, s)
     kinds = layer_kinds(cfg)
 
-    def run_layers(h, lo, hi):
+    def run_layers(h, aux, lo, hi):
         for i in range(lo, hi):
-            h, _ = block_apply(params["layers"][i], cfg, kinds[i], h, positions,
-                               cache=None if caches is None else caches[i],
-                               cache_len=cache_len, attn_impl=attn_impl,
-                               scan_impl=scan_impl)
-        return h
+            h, _, a = block_apply(params["layers"][i], cfg, kinds[i], h, positions,
+                                  cache=None if caches is None else caches[i],
+                                  cache_len=cache_len, par=par, attn_impl=attn_impl,
+                                  scan_impl=scan_impl)
+            aux = aux + a
+        return h, aux
 
     n_slots = len(cfg.stage_pattern)
     staged = cfg.n_stages * n_slots
+    aux = 0.0
     if remat and torch.is_grad_enabled():
         context = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
                    if remat_policy == "dots" else None)
         for lo in range(0, staged, n_slots):
-            h = checkpoint(run_layers, h, lo, lo + n_slots, use_reentrant=False,
-                           **({"context_fn": context} if context else {}))
+            h, aux = checkpoint(run_layers, h, aux, lo, lo + n_slots, use_reentrant=False,
+                                **({"context_fn": context} if context else {}))
     else:
-        h = run_layers(h, 0, staged)
-    h = run_layers(h, staged, len(kinds))
+        h, aux = run_layers(h, aux, 0, staged)
+    h, aux = run_layers(h, aux, staged, len(kinds))
     h = rmsnorm(params["final_norm"], h)
-    return h, caches, torch.zeros((), device=h.device)
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), device=h.device)
+    return h, caches, aux
 
 
 def _head_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -338,19 +358,23 @@ def loss_fn(params: dict, cfg: ArchConfig, inputs: torch.Tensor, labels: torch.T
 
 
 def prefill(params: dict, cfg: ArchConfig, inputs: torch.Tensor, caches: list, *,
-            attn_impl: str = "auto", scan_impl: str = "auto"):
-    """Fill the caches from a prompt; ``(last-token logits [B, V], caches)``."""
+            par: ParallelCfg = ParallelCfg(), attn_impl: str = "auto",
+            scan_impl: str = "auto"):
+    """Fill the caches from a prompt (tokens ``[B, P]``, or embeds ``[B, P,
+    d]`` where the config does not embed); ``(last-token logits [B, V],
+    caches)``."""
     hidden, caches, _ = forward(params, cfg, inputs, caches=caches, cache_len=0,
-                                attn_impl=attn_impl, scan_impl=scan_impl)
+                                par=par, attn_impl=attn_impl, scan_impl=scan_impl)
     return logits_fn(params, cfg, hidden[:, -1:])[:, 0], caches
 
 
 def decode_step(params: dict, cfg: ArchConfig, inputs: torch.Tensor, caches: list,
-                cache_len: int, *, attn_impl: str = "auto", scan_impl: str = "auto"):
-    """One token for every sequence: ``inputs [B, 1]`` at position
-    ``cache_len``; ``(logits [B, V], caches)``."""
+                cache_len: int, *, par: ParallelCfg = ParallelCfg(),
+                attn_impl: str = "auto", scan_impl: str = "auto"):
+    """One token for every sequence: ``inputs [B, 1]`` (or embeds ``[B, 1,
+    d]``) at position ``cache_len``; ``(logits [B, V], caches)``."""
     hidden, caches, _ = forward(params, cfg, inputs, caches=caches,
-                                cache_len=cache_len, attn_impl=attn_impl,
+                                cache_len=cache_len, par=par, attn_impl=attn_impl,
                                 scan_impl=scan_impl)
     return logits_fn(params, cfg, hidden[:, -1:])[:, 0], caches
 
@@ -428,3 +452,13 @@ def param_count(params: dict) -> int:
     """Parameters, each tensor counted once: zamba2's shared block, which
     every ``SHARED_ATTN`` layer refers to, counts once, as in JAX's pytree."""
     return sum(x.numel() for x in distinct_leaves(params))
+
+
+def active_param_count(params: dict, cfg: ArchConfig) -> int:
+    """Parameters a token uses (the ``N`` of ``6·N·D``): :func:`param_count`
+    with each MoE layer's expert weights counted at ``top_k / E``, as the
+    reference counts them (integer division per tensor)."""
+    experts = {id(layer["moe"][name]) for layer in params["layers"] if "moe" in layer
+               for name in ("w_gate", "w_up", "w_down")}
+    return sum(x.numel() * cfg.top_k // max(cfg.n_experts, 1) if id(x) in experts
+               else x.numel() for x in distinct_leaves(params))

@@ -1,7 +1,9 @@
 """The port's LM training path against the JAX package's: ``loss_fn`` with
 remat, its gradients, ``remat_policy`` and ``scan_layers``, on the six
-ported architectures at ``reduced()`` size, with the same weights (JAX's
-``M.init`` carried across by ``convert.lm_params_from_jax``).
+token-fed dense and recurrent architectures and mixtral-8x22b (MoE: the loss carries
+``aux_coef · aux``, the balance loss's gradient too) at ``reduced()``
+size, with the same weights (JAX's ``M.init`` carried across by
+``convert.lm_params_from_jax``), and one AdamW step of mixtral.
 
 Tolerances, stated per check:
 
@@ -32,12 +34,16 @@ import torch
 
 from repro.configs.base import get_arch as jget_arch
 from repro.models import model as JM
+from repro.optim import adamw as JO
+from repro.runtime import train_loop as JT
 from repro_torch.configs.base import SHARED_ATTN, get_arch
-from repro_torch.convert import lm_params_from_jax
+from repro_torch.convert import lm_params_from_jax, opt_state_from_jax
 from repro_torch.models import model as M
+from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime import train_loop as T
 
-ARCHS = ["gemma2-9b", "qwen3-0.6b", "rwkv6-1.6b", "stablelm-3b", "starcoder2-15b",
-         "zamba2-7b"]
+ARCHS = ["gemma2-9b", "mixtral-8x22b", "qwen3-0.6b", "rwkv6-1.6b", "stablelm-3b",
+         "starcoder2-15b", "zamba2-7b"]
 CPU = torch.device("cpu")
 B, S, CHUNK = 2, 24, 7  # CHUNK < S and does not divide it
 
@@ -182,3 +188,41 @@ def test_zamba2_shared_block_is_one_set_of_leaves():
     mapped = M.map_tree(torch.zeros_like, params)
     assert all(mapped["layers"][i] is mapped["shared_attn"] for i in shared)
     assert [t.shape for t in M.distinct_leaves(mapped)] == [t.shape for t in leaves]
+
+
+def test_moe_adamw_step_matches_reference():
+    """One training step of reduced mixtral (``make_train_step``: the loss
+    with its aux term, the gradients, one AdamW update) from the reference's
+    initial optimiser state carried across by ``opt_state_from_jax``.  As
+    ``tests/test_torch_train_loop.py``'s step: ``weight_decay = 0`` (the
+    reference decays its stacked 1-D leaves) and ``eps = 1e-4``, so a
+    gradient's rounding ``δ`` moves a parameter by at most ``lr·δ/1e-4``:
+    the parameters within ``1e-3·lr``; the moments ``(1 − b1)·g`` and
+    ``(1 − b2)·g²`` within the gradients' bound above (twice it for the
+    square)."""
+    cfg_j, cfg_t, params_np = _setup("mixtral-8x22b")
+    x, labels = _batch(cfg_t, seed=4)
+    batch = {"inputs": x, "labels": labels}
+    lr = 1e-3
+    opt_j = JO.AdamW(lr=lr, weight_decay=0.0, eps=1e-4)
+    pj = jax.tree.map(jnp.asarray, params_np)
+    state_j = opt_j.init(pj)
+    pj, state_j1, loss_j = jax.jit(JT.make_train_step(cfg_j, opt_j))(
+        pj, state_j, jax.tree.map(jnp.asarray, batch))
+    params = lm_params_from_jax(params_np, cfg_t, CPU)
+    state = opt_state_from_jax(jax.tree.map(np.asarray, state_j), cfg_t, CPU)
+    assert all("moe" in layer and set(layer["moe"]) == {"router", "w_gate", "w_up", "w_down"}
+               for layer in state["m"]["layers"])
+    opt_t = AdamW(lr=lr, weight_decay=0.0, eps=1e-4)
+    params, state, loss = T.make_train_step(cfg_t, opt_t, device="cpu")(
+        params, state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-5)
+    want = lm_params_from_jax(jax.tree.map(np.asarray, pj), cfg_t, CPU)
+    for got, w in zip(M.distinct_leaves(params), M.distinct_leaves(want)):
+        np.testing.assert_allclose(got.detach().numpy(), w.numpy(), rtol=0, atol=1e-3 * lr)
+    want = opt_state_from_jax(jax.tree.map(np.asarray, state_j1), cfg_t, CPU)
+    assert int(state["step"]) == int(want["step"]) == 1
+    for key, factor in (("m", 1), ("v", 2)):
+        for got, w in zip(M.distinct_leaves(state[key]), M.distinct_leaves(want[key])):
+            np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0,
+                                       atol=factor * 2e-4 * float(w.abs().max()) + 1e-12)

@@ -292,6 +292,19 @@ def test_launch_train_prints_the_reference_keys(tmp_path):
     assert res["straggler"]["steps"] == 3
 
 
+def test_launch_train_takes_an_moe_arch(tmp_path):
+    """Reduced mixtral-8x22b (MoE, sliding window) through ``launch.train``:
+    its loss carries the balance term and falls in 8 steps."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_train.main(["--arch", "mixtral-8x22b", "--steps", "8", "--batch", "2",
+                           "--seq", "16", "--lr", "1e-3", "--device", "cpu",
+                           "--ckpt-dir", str(tmp_path)])
+    res = json.loads(out.getvalue())
+    assert res["arch"] == "mixtral-8x22b-reduced" and res["steps"] == 8
+    assert np.isfinite(res["loss_first"]) and res["loss_last"] < res["loss_first"]
+
+
 def test_train_defaults_to_the_card():
     cfg = get_arch("qwen3-0.6b").reduced()
     if torch.cuda.is_available():
