@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ChunkedDistVector, DistVector
-from repro_torch.core.containers import Mesh
+from repro_torch.core.containers import Mesh, head
 from repro_torch.core.session import BlazeSession, resolve
 
 
@@ -173,7 +173,8 @@ def kmeans(
         if isinstance(pts_v, ChunkedDistVector):
             pool = pts_v.block_host(0)[: min(pts_v.block_true_rows(0), 4096)]
         else:
-            pool = pts_v.data[: min(len(pts_v), 4096)].cpu().numpy()
+            # the global first rows, the same on every rank of a process mesh
+            pool = head(pts_v, 4096)
         init_centers = pool[rng.choice(len(pool), k, replace=False)]
     centers = torch.as_tensor(np.asarray(init_centers, np.float32), device=mesh.device)
     compiles0 = sess.stats.compiles

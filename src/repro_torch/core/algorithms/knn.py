@@ -71,7 +71,7 @@ def knn(
         pts_v = sess.distribute(points.astype(np.float32), mesh=mesh)
     q = torch.as_tensor(np.asarray(query, np.float32), device=mesh.device)
     if mode == "program":
-        per = pts_v.data.shape[0] // mesh.n_shards
+        per = pts_v.data.shape[0] // mesh.n_local  # rows a shard
         kk = min(k, per)
         m = min(k, kk * mesh.n_shards)
         dim = pts_v.data.shape[1]

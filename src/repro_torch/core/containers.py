@@ -59,6 +59,7 @@ __all__ = [
     "distribute",
     "foreach",
     "hash32",
+    "head",
     "hashmap_insert",
     "make_dist_hashmap",
     "make_table",
@@ -95,6 +96,13 @@ def resolve_device(device=None) -> torch.device:
 # of ``n_data`` shards, shard ``s = node * n_data + d`` (the reference's
 # node-major flattening).  A container's layout depends only on the shard
 # count, so one built on a (1x8) mesh runs unchanged on a (2x4) one.
+#
+# Across processes the mesh carries a ``torch.distributed`` group: each
+# process is one node row and holds its ``n_local`` shards (rows ``rank *
+# n_local ...``) of every container; ``n_shards`` stays the global count.
+# Containers made on such a mesh keep it (``DistVector.mesh``,
+# ``DistHashMap.mesh``), so ``collect``, ``topk`` and a hash map's
+# materialisation gather the ranks' rows.
 # ---------------------------------------------------------------------------
 
 DATA_AXIS = "data"
@@ -105,20 +113,57 @@ NODE_AXIS = "node"
 class Mesh:
     """``n_nodes`` node rows of ``n_data`` shards each, stacked on one
     device.  Hashable, so it keys caches; a 1-node mesh is the 1-D
-    ``("data",)`` mesh."""
+    ``("data",)`` mesh.
+
+    ``group`` (a ``torch.distributed`` process group; None: the whole mesh
+    lives in this process) makes each of its ``n_ranks`` processes one node
+    row: this one, ``rank``, holds ``n_local`` of the ``n_shards`` shards.
+    A group's backend must reach the device: ``gloo`` has no CUDA
+    all-gather or all-to-all, and NCCL no CPU one."""
 
     n_nodes: int
     n_data: int
     device: torch.device
+    group: Any = None
+    rank: int = 0
+    n_ranks: int = 1
 
     def __post_init__(self):
         if self.n_nodes < 1 or self.n_data < 1:
             raise ValueError(f"a mesh needs >= 1 node and >= 1 shard a node, got "
                              f"({self.n_nodes}, {self.n_data})")
+        if self.group is None:
+            if (self.rank, self.n_ranks) != (0, 1):
+                raise ValueError("a mesh without a process group has one rank")
+            return
+        if self.n_nodes != self.n_ranks or not 0 <= self.rank < self.n_ranks:
+            raise ValueError(f"a process mesh is one node row a process: {self.n_nodes} "
+                             f"node rows, rank {self.rank} of {self.n_ranks}")
+        if isinstance(self.group, torch.distributed.ProcessGroup):
+            backend = torch.distributed.get_backend(self.group)
+            if self.device.type == "cpu" and backend == "nccl":
+                raise ValueError("an 'nccl' process group carries CUDA tensors only: "
+                                 "bring the group up with backend='gloo' for the CPU")
+            if self.device.type == "cuda" and backend != "nccl":
+                raise ValueError(
+                    f"a {backend!r} process group cannot carry the collectives of "
+                    "CUDA tensors (gloo has no CUDA all-gather or all-to-all, and "
+                    "staging through the host would hide the device): bring the "
+                    "group up with backend='nccl'")
 
     @property
     def n_shards(self) -> int:
         return self.n_nodes * self.n_data
+
+    @property
+    def n_local(self) -> int:
+        """The shards this process holds (all of them without a group)."""
+        return self.n_shards // self.n_ranks
+
+    @property
+    def process(self) -> bool:
+        """Whether the mesh spans processes (carries a group)."""
+        return self.group is not None
 
 
 def data_mesh(n_shards: int | None = None, device=None) -> Mesh:
@@ -250,14 +295,27 @@ def hashmap_insert(table: HashTable, keys: torch.Tensor, vals: torch.Tensor,
     return HashTable(tkeys, tvals[:cap], overflow)
 
 
+def _gathered(mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x``'s rows of every rank of a process mesh, in shard order (``x``
+    itself on any other mesh)."""
+    if mesh is None or not mesh.process:
+        return x
+    from repro_torch.core.collectives import gather_rows
+
+    return gather_rows(mesh, x)
+
+
 @dataclasses.dataclass
 class DistHashMap:
     """Distributed hash map: ``table`` holds one ``HashTable`` per shard,
     stacked on dim 0 (``keys [S, C]``, ``vals [S, C, ...]``,
-    ``overflow [S]``)."""
+    ``overflow [S]``).  On a process mesh (``mesh``) the table is this
+    rank's ``n_local`` rows, and the host-side views below gather every
+    rank's (a collective: every rank calls them together)."""
 
     table: HashTable
     reducer_name: str
+    mesh: Any = None
 
     @property
     def capacity_per_shard(self) -> int:
@@ -265,13 +323,15 @@ class DistHashMap:
 
     @property
     def n_shards(self) -> int:
+        """The shards of the table this process holds."""
         return self.table.keys.shape[0]
 
     def items(self) -> tuple[np.ndarray, np.ndarray]:
         """Live entries as host arrays ``(keys [n], vals [n, ...])``, in
         table order."""
-        keys = self.table.keys.reshape(-1).cpu().numpy()
-        vals = self.table.vals.reshape((-1,) + tuple(self.table.vals.shape[2:]))
+        keys = _gathered(self.mesh, self.table.keys).reshape(-1).cpu().numpy()
+        vals = _gathered(self.mesh, self.table.vals)
+        vals = vals.reshape((-1,) + tuple(self.table.vals.shape[2:]))
         live = np.flatnonzero(keys != EMPTY_KEY)
         return keys[live], vals.cpu().numpy()[live]
 
@@ -281,17 +341,22 @@ class DistHashMap:
         return dict(zip(keys.tolist(), vals))
 
     def size(self) -> int:
-        return int((self.table.keys != EMPTY_KEY).sum())
+        return int((_gathered(self.mesh, self.table.keys) != EMPTY_KEY).sum())
 
     def total_overflow(self) -> int:
-        return int(self.table.overflow.sum())
+        return int(_gathered(self.mesh, self.table.overflow).sum())
 
 
 def make_dist_hashmap(capacity_per_shard: int, val_shape: tuple = (),
                       val_dtype: torch.dtype = torch.float32,
                       reducer: str | Reducer = "sum", *, n_shards: int = 1,
-                      device=None) -> DistHashMap:
+                      device=None, mesh: Mesh | None = None) -> DistHashMap:
+    """An empty map of ``n_shards`` tables on ``device``; with ``mesh`` its
+    shards and device, and on a process mesh this rank's ``n_local``
+    tables."""
     red = get_reducer(reducer)
+    if mesh is not None:
+        n_shards, device = mesh.n_local, mesh.device
     dev = resolve_device(device)
     shape = (n_shards, capacity_per_shard)
     table = HashTable(
@@ -300,7 +365,8 @@ def make_dist_hashmap(capacity_per_shard: int, val_shape: tuple = (),
                         dtype=val_dtype, device=dev),
         overflow=torch.zeros((n_shards,), dtype=torch.int32, device=dev),
     )
-    return DistHashMap(table, reducer_name=red.name)
+    return DistHashMap(table, reducer_name=red.name,
+                       mesh=mesh if mesh is not None and mesh.process else None)
 
 
 # ---------------------------------------------------------------------------
@@ -333,30 +399,53 @@ class DistRange:
 @dataclasses.dataclass
 class DistVector:
     """``data [n_shards * per, ...]``, shard ``s`` owning rows
-    ``[s * per, (s + 1) * per)``; ``n`` is the true (pre-pad) length."""
+    ``[s * per, (s + 1) * per)``; ``n`` is the true (pre-pad) length.  On a
+    process mesh (``mesh``) ``data`` is this rank's ``n_local * per`` rows,
+    global rows ``rank * n_local * per ...``."""
 
     data: torch.Tensor
     n: int
+    mesh: Any = None
 
     def __len__(self) -> int:
         return self.n
 
 
-def distribute(x, n_shards: int = 1, device=None) -> DistVector:
+def distribute(x, n_shards: int = 1, device=None, *, mesh: Mesh | None = None) -> DistVector:
     """Paper's ``distribute``: host array → DistVector (pads to a multiple
-    of ``n_shards`` with zeros)."""
+    of ``n_shards`` with zeros).  With ``mesh`` its shards and device; on a
+    process mesh every rank passes the whole host array, as every JAX
+    process does, and keeps its own shards' rows."""
+    if mesh is not None:
+        n_shards, device = mesh.n_shards, mesh.device
     x = np.asarray(x)
     n = x.shape[0]
     pad = (-n) % n_shards
     if pad:
         x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)], axis=0)
+    if mesh is not None and mesh.process:
+        rows = x.shape[0] // mesh.n_ranks
+        x = x[mesh.rank * rows:(mesh.rank + 1) * rows]
+        data = torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device))
+        return DistVector(data, n, mesh)
     data = torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device))
     return DistVector(data, n)
 
 
 def collect(v: DistVector) -> np.ndarray:
-    """Paper's ``collect``: DistVector → host array (drops padding)."""
-    return v.data[: v.n].cpu().numpy()
+    """Paper's ``collect``: DistVector → host array (drops padding); on a
+    process mesh every rank's rows, gathered."""
+    return _gathered(v.mesh, v.data)[: v.n].cpu().numpy()
+
+
+def head(v: DistVector, m: int) -> np.ndarray:
+    """The first ``min(m, len(v))`` rows of ``v`` as a host array, the same
+    on every rank (a process mesh gathers each rank's first rows, so the
+    whole vector never moves)."""
+    m = min(m, v.n)
+    if v.mesh is None or not v.mesh.process:
+        return v.data[:m].cpu().numpy()
+    return _gathered(v.mesh, v.data[:min(m, v.data.shape[0])])[:m].cpu().numpy()
 
 
 def foreach(v: DistVector, fn: Callable, env=None) -> DistVector:
@@ -367,11 +456,11 @@ def foreach(v: DistVector, fn: Callable, env=None) -> DistVector:
         out = vmap(fn)(v.data)
     else:
         out = vmap(lambda x: fn(x, env))(v.data)
-    return DistVector(out, v.n)
+    return DistVector(out, v.n, v.mesh)
 
 
 def topk(v: DistVector, k: int, score_fn: Callable | None = None, env=None, *,
-         n_shards: int = 1) -> np.ndarray:
+         n_shards: int = 1, mesh: Mesh | None = None) -> np.ndarray:
     """Paper's ``DistVector.topk``: the ``k`` rows of highest score, best
     first, as a host array.
 
@@ -380,10 +469,16 @@ def topk(v: DistVector, k: int, score_fn: Callable | None = None, env=None, *,
     ``score_fn``), gives padding rows ``-inf`` and keeps its top
     ``min(k, per)`` with ``torch.topk``; only those ``k·n_shards``
     candidates move to the host, where a stable sort of ``-score`` picks the
-    final ``k``.
+    final ``k``.  On a process mesh (``mesh``, or the vector's) each rank
+    selects from its ``n_local`` shards, and the candidates and their scores
+    are all-gathered, so the same host sort runs on every rank.
     """
     data = v.data
-    per = data.shape[0] // n_shards
+    mesh = mesh if mesh is not None else v.mesh
+    mesh = mesh if mesh is not None and mesh.process else None
+    require_rank_rows(mesh, v, "topk's vector")
+    n_rows = n_shards if mesh is None else mesh.n_local
+    per = data.shape[0] // n_rows
     kk = min(k, per)
     if score_fn is None:
         scores = data.float()
@@ -391,13 +486,14 @@ def topk(v: DistVector, k: int, score_fn: Callable | None = None, env=None, *,
         scores = vmap(score_fn)(data)
     else:
         scores = vmap(lambda x: score_fn(x, env))(data)
-    valid = torch.arange(data.shape[0], device=data.device) < v.n
-    scores = torch.where(valid, scores, float("-inf")).view(n_shards, per)
+    first = 0 if mesh is None else mesh.rank * data.shape[0]  # global row indices
+    valid = torch.arange(first, first + data.shape[0], device=data.device) < v.n
+    scores = torch.where(valid, scores, float("-inf")).view(n_rows, per)
     s, idx = torch.topk(scores, kk, dim=1)
-    rows = data.view((n_shards, per) + tuple(data.shape[1:]))
-    cand = rows[torch.arange(n_shards, device=data.device)[:, None], idx]
-    s = s.cpu().numpy().reshape(-1)
-    cand = cand.cpu().numpy().reshape((-1,) + tuple(data.shape[1:]))
+    rows = data.view((n_rows, per) + tuple(data.shape[1:]))
+    cand = rows[torch.arange(n_rows, device=data.device)[:, None], idx]
+    s = _gathered(mesh, s).cpu().numpy().reshape(-1)
+    cand = _gathered(mesh, cand).cpu().numpy().reshape((-1,) + tuple(data.shape[1:]))
     return cand[np.argsort(-s, kind="stable")[:k]]
 
 
@@ -655,11 +751,48 @@ class ChunkedDistVector:
         return self.provider.stats()
 
 
+def require_rank_rows(mesh: Mesh | None, container, what: str) -> None:
+    """Raise unless ``container`` (a ``DistVector`` or ``DistHashMap``)
+    holds this rank's rows of ``mesh``.  On a mesh of several processes a
+    container made without it (``DistVector(x, n)``, ``distribute(x, 8)``)
+    holds the global rows, and every rank would take them for its own
+    shards: the result would count the data ``P`` times, silently."""
+    if mesh is None or mesh.n_ranks == 1:
+        return
+    own = getattr(container, "mesh", None)
+    if isinstance(container, DistHashMap):
+        rows, want = container.table.keys.shape[0], mesh.n_local
+    else:
+        rows = container.data.shape[0]
+        want = mesh.n_local * -(-container.n // mesh.n_shards)
+    if (own is None or own.group is not mesh.group or own.n_shards != mesh.n_shards
+            or rows != want):
+        raise ValueError(
+            f"{what} holds {rows} rows, not this rank's {want} of the {mesh.n_ranks}-process "
+            "mesh: make it on the mesh (distribute(mesh=), make_dist_hashmap(mesh=), or "
+            "the session's) so that each rank keeps its own shards")
+
+
+def refuse_streams_across_processes(mesh: Mesh | None) -> None:
+    """Raise on a mesh of several processes: a chunked source's blocks are
+    not split between ranks yet, and a stream run on one rank's blocks
+    would be a silently local job."""
+    if mesh is not None and mesh.n_ranks > 1:
+        raise NotImplementedError(
+            f"chunked (out-of-core) sources on a mesh of {mesh.n_ranks} processes: "
+            "streams and checkpoints across processes are ROADMAP.md, Queue 1 item 6c")
+
+
 def chunked(x: np.ndarray, block_rows: int, n_shards: int = 1, device=None, *,
             compress: bool = False, spill_dir: str | None = None,
-            max_resident: int | None = None) -> ChunkedDistVector:
+            max_resident: int | None = None, mesh: Mesh | None = None) -> ChunkedDistVector:
     """The paper's ``distribute`` for datasets that do not fit on the device:
-    a host array as blocks streamed one at a time (:class:`ChunkedDistVector`)."""
+    a host array as blocks streamed one at a time (:class:`ChunkedDistVector`).
+    With ``mesh`` its shards and device; a mesh of several processes raises
+    (:func:`refuse_streams_across_processes`)."""
+    if mesh is not None:
+        refuse_streams_across_processes(mesh)
+        n_shards, device = mesh.n_shards, mesh.device
     return ChunkedDistVector.from_array(x, block_rows, n_shards, device,
                                         compress=compress, spill_dir=spill_dir,
                                         max_resident=max_resident)

@@ -36,6 +36,11 @@ JAX does.
 
 Shards are stacked on dim 0 of one device (see ``containers``), and a shard
 stage is written over all of them at once with ``LocalCollectives``.  On a
+mesh whose node rows are processes a stage runs over this rank's ``n_local``
+shards with ``ProcessCollectives``: shapes come from ``coll.n_local``, shard
+ownership and bucket sizes from the global ``coll.n_shards``, and the
+per-shard statistics are gathered, so ``MapReduceStats`` is the mesh's on
+every rank.  On a
 multi-node mesh a dense reduce the plan marks ``hier`` takes the two-hop
 form (``core.collectives``), its stats say so (``collective``) and split
 the bytes by link (``reduce_edge_bytes``); hash targets are never
@@ -65,7 +70,7 @@ from torch.func import vmap
 from repro_torch.core import containers as C
 from repro_torch.core import cost
 from repro_torch.core import faults
-from repro_torch.core.collectives import LocalCollectives
+from repro_torch.core.collectives import LocalCollectives, ProcessCollectives, gather_rows
 from repro_torch.core.plan import abstract_sig, hier_collective_desc
 from repro_torch.core.reducers import Reducer
 from repro_torch.core.serialization import narrowest_int_dtype
@@ -154,16 +159,38 @@ class CachedStage:
 
 
 def make_collectives(mesh: C.Mesh, fire: bool = False) -> LocalCollectives:
-    """The mesh's collectives (topology-aware on a multi-node mesh)."""
+    """The mesh's collectives (topology-aware on a multi-node mesh; across
+    processes when the mesh carries a group)."""
+    if mesh.process:
+        return ProcessCollectives(mesh, fire=fire)
     return LocalCollectives(mesh.n_shards, mesh.device, fire=fire, n_nodes=mesh.n_nodes)
 
 
 def mesh_key(mesh: C.Mesh) -> tuple:
     """A mesh's part of a stage-cache key: the shard count and device, as a
-    1-D session always had, and the node rows only when there are several,
-    so every 1-node key is what it was before meshes existed."""
+    1-D session always had, the node rows only when there are several, and
+    ``rank/P`` only on a process mesh, so every in-process key is what it
+    was before meshes existed."""
     return (mesh.n_shards, str(mesh.device)) + (
-        (f"nodes={mesh.n_nodes}",) if mesh.n_nodes > 1 else ())
+        (f"nodes={mesh.n_nodes}",) if mesh.n_nodes > 1 else ()) + (
+        (f"rank={mesh.rank}/{mesh.n_ranks}",) if mesh.process else ())
+
+
+def _gather_stats(mesh: C.Mesh, *stats: torch.Tensor) -> tuple:
+    """Each integer statistic of this process's shards (``[n_local]``, or a
+    scalar total) as the mesh's: ``[S]`` in shard order, or the ranks' sum.
+    One all-gather for all of them on a process mesh; as they are on any
+    other."""
+    if not mesh.process:
+        return stats
+    flat = [t.reshape(-1).to(torch.int64) for t in stats]
+    got = gather_rows(mesh, torch.cat(flat)[None])  # [P, sum of sizes]
+    out, off = [], 0
+    for t, f in zip(stats, flat):
+        part = got[:, off:off + f.numel()]
+        out.append((part.reshape(-1) if t.dim() else part.sum()).to(t.dtype))
+        off += f.numel()
+    return tuple(out)
 
 
 def _scalar(x):
@@ -225,7 +252,7 @@ def _run_mapper_structured(kind, source, mapper, coll, local, env):
     mask [S, n, w])``; static keys: per emit call, the Python int key or
     ``None``.
     """
-    n_shards = coll.n_shards
+    n_shards, n_local = coll.n_shards, coll.n_local
     extra = (env,) if env is not None else ()
     meta: dict = {}
 
@@ -241,7 +268,10 @@ def _run_mapper_structured(kind, source, mapper, coll, local, env):
         entries = vmap(trace)(values.reshape(-1))
     elif kind == "vector":
         data, n_true = local
-        idx = torch.arange(data.shape[0], dtype=torch.int32, device=data.device)
+        # global indices: this process's shards start at ``first_shard``
+        start = coll.first_shard * (data.shape[0] // n_local)
+        idx = torch.arange(start, start + data.shape[0], dtype=torch.int32,
+                           device=data.device)
         elem_mask = idx < n_true
         entries = vmap(trace)(idx, data)
     elif kind == "chunked":
@@ -261,14 +291,14 @@ def _run_mapper_structured(kind, source, mapper, coll, local, env):
     else:
         raise TypeError(f"unsupported source kind {kind}")
 
-    per = elem_mask.shape[0] // n_shards
+    per = elem_mask.shape[0] // n_local
     out = []
     for k, v, m in entries:
         m = m & elem_mask[:, None]
         out.append((
-            k.reshape(n_shards, per, -1),
-            v.reshape((n_shards, per) + tuple(v.shape[1:])),
-            m.reshape(n_shards, per, -1),
+            k.reshape(n_local, per, -1),
+            v.reshape((n_local, per) + tuple(v.shape[1:])),
+            m.reshape(n_local, per, -1),
         ))
     return out, meta["static"]
 
@@ -348,6 +378,15 @@ def map_reduce(source, mapper: Callable, reducer, target, **kwargs):
                                             **kwargs)
 
 
+def _require_rank_rows(mesh: C.Mesh, kind, source, target=None) -> None:
+    """A vector or hash-map source, and a hash target, must hold this
+    rank's rows of a process mesh (``containers.require_rank_rows``)."""
+    if kind in ("vector", "hashmap"):
+        C.require_rank_rows(mesh, source, f"the {kind} source")
+    if target is not None:
+        C.require_rank_rows(mesh, target, "the hash target")
+
+
 def _source_operands(kind, source) -> tuple:
     if kind == "range":
         return ()
@@ -412,14 +451,15 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
     kernel_meta: dict = {}
 
     def stage(env, local, coll, residual=None):
-        n_shards, dev = coll.n_shards, coll.device
+        # this process's shards: the partials are [n_local, K, ...]
+        n_local, dev = coll.n_local, coll.device
         entries, static_keys = _run_mapper_structured(
             kind, source, mapper, coll, local, env
         )
         live = (
-            sum(m.reshape(n_shards, -1).sum(1) for _, _, m in entries).to(torch.int32)
+            sum(m.reshape(n_local, -1).sum(1) for _, _, m in entries).to(torch.int32)
             if with_stats or engine == "naive"
-            else torch.zeros(n_shards, dtype=torch.int32, device=dev)
+            else torch.zeros(n_local, dtype=torch.int32, device=dev)
         )
         kernel_pairs = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -429,7 +469,7 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
             # kernel cannot beat a fused scalar reduction).
             val_shape = tuple(entries[0][1].shape[3:])
             ident = red.identity(target_dtype)
-            partial = torch.full((n_shards, K) + val_shape, _scalar(ident),
+            partial = torch.full((n_local, K) + val_shape, _scalar(ident),
                                  dtype=target_dtype, device=dev)
             dynamic = []
             for (keys, vals, mask), sk in zip(entries, static_keys):
@@ -441,25 +481,25 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
                 else:
                     dynamic.append((keys, vals, mask))
             if dynamic:
-                dkeys, dvals, dmask = _flatten_entries(dynamic, n_shards)
+                dkeys, dvals, dmask = _flatten_entries(dynamic, n_local)
                 in_range = dmask & (dkeys >= 0) & (dkeys < K)
                 if engine == "pallas" and red.pallas_segment is not None:
                     # Invalid lanes get id -1, which the kernel drops without
                     # reading their values.
                     ids = torch.where(in_range, dkeys, -1)
-                    flat = dvals.reshape(n_shards, dvals.shape[1], -1)
+                    flat = dvals.reshape(n_local, dvals.shape[1], -1)
                     seg = torch.stack([
                         red.pallas_segment(ids[s], flat[s].contiguous(), K, **launch)
-                        for s in range(n_shards)
-                    ]).reshape((n_shards, K) + tuple(dvals.shape[2:]))
+                        for s in range(n_local)
+                    ]).reshape((n_local, K) + tuple(dvals.shape[2:]))
                     kernel_meta["block_n"] = THREADS
-                    kernel_meta["lanes"] = flat.shape[1] * n_shards
+                    kernel_meta["lanes"] = flat.shape[1] * coll.n_shards
                     kernel_pairs = in_range.sum().to(torch.int32)
                 else:
                     ids = torch.where(in_range, dkeys, K)
                     seg = torch.stack([
                         red.segment(dvals[s], ids[s], K + 1)[:K]
-                        for s in range(n_shards)
+                        for s in range(n_local)
                     ])
                 partial = red.combine(partial, seg.to(target_dtype))
             if not collect:
@@ -472,7 +512,7 @@ def dense_shard_stage(kind, source, mapper, red: Reducer, target, engine: str,
         else:
             # Conventional plan: every raw pair goes to every shard, and the
             # reduction happens only there.
-            keys, vals, valid = _flatten_entries(entries, n_shards)
+            keys, vals, valid = _flatten_entries(entries, n_local)
             gk = coll.all_gather_tiled(keys)
             gv = coll.all_gather_tiled(vals.to(target_dtype))
             gm = coll.all_gather_tiled(valid)
@@ -495,6 +535,13 @@ def reduce_edge_bytes(n_elems: int, full_bytes: int, wire_val_bytes: int,
       inter-node price at the wire's width;
     * hierarchical: ``n_shards - n_nodes`` edges inside the nodes at full
       width, ``n_nodes - 1`` across them at the wire's width.
+
+    This is the reference's model of the combine edge, kept as it is for
+    every mesh.  Across processes the port's reduce gathers, then folds
+    (``core.collectives.ProcessCollectives``): each rank receives every node
+    partial, ``n_nodes`` times the partial's bytes on the inter-node hop
+    (flat: every shard partial, ``n_shards`` times), against the model's
+    ``n_nodes - 1`` edges for the whole reduce.
     """
     if n_nodes > 1 and hier:
         return (n_elems * full_bytes * (n_shards - n_nodes),
@@ -536,6 +583,7 @@ def _map_reduce_dense(kind, source, mapper, red: Reducer, target, mesh: C.Mesh,
     cache = cache if cache is not None else {}
     if engine not in ("eager", "pallas", "naive"):
         raise ValueError(f"unknown engine {engine!r}")
+    _require_rank_rows(mesh, kind, source)
     n_shards, nodes = mesh.n_shards, mesh.n_nodes
     hier = bool(hier) and nodes > 1 and engine in ("eager", "pallas")
     cache_key = (
@@ -558,6 +606,8 @@ def _map_reduce_dense(kind, source, mapper, red: Reducer, target, mesh: C.Mesh,
         faults.fault_point("kernel.segment")
     total, live, kernel_pairs, _ = entry.run(mesh, env, _local_view(kind, source))
     merged = red.combine(target, total.to(target.dtype))
+    if with_stats or engine == "naive":
+        live, kernel_pairs = _gather_stats(mesh, live, kernel_pairs)
 
     full_bytes = target.element_size()
     val_bytes = {"bf16": 2, "int8": 1}.get(wire, full_bytes)
@@ -637,15 +687,17 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
         return tuple(torch.stack(col) for col in zip(*outs))
 
     def stage(env, table, local, coll):
-        n_shards, dev = coll.n_shards, coll.device
+        # shapes are this process's ``n_local`` shards; ownership and the
+        # bucket sizes the mesh's ``n_dest`` shards
+        n_local, n_dest, dev = coll.n_local, coll.n_shards, coll.device
         entries, _ = _run_mapper_structured(kind, source, mapper, coll, local, env)
-        keys, vals, valid = _flatten_entries(entries, n_shards)
+        keys, vals, valid = _flatten_entries(entries, n_local)
         vals = vals.to(val_dtype)
         n_emit = keys.shape[1]
         val_shape = tuple(vals.shape[2:])
         live_emitted = valid.sum(1).to(torch.int32)
-        kernel_pairs = torch.zeros(n_shards, dtype=torch.int32, device=dev)
-        pre_drop = torch.zeros(n_shards, dtype=torch.int32, device=dev)
+        kernel_pairs = torch.zeros(n_local, dtype=torch.int32, device=dev)
+        pre_drop = torch.zeros(n_local, dtype=torch.int32, device=dev)
 
         if use_kernel:
             # Kernel local combine: raw pairs → a fresh table whose live rows
@@ -660,12 +712,12 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
                 lambda k, v: red.pallas_hash(k, v.contiguous(), cap,
                                              max_probes=probes, **hot),
                 torch.where(valid, keys, HK.EMPTY_KEY),
-                vals.reshape(n_shards, n_emit, -1),
+                vals.reshape(n_local, n_emit, -1),
             )
             valid = keys != HK.EMPTY_KEY
-            vals = tvals.reshape((n_shards, cap) + val_shape).to(val_dtype)
+            vals = tvals.reshape((n_local, cap) + val_shape).to(val_dtype)
             kernel_pairs = live_emitted
-            kernel_meta.update(block_n=THREADS, lanes=n_emit * n_shards,
+            kernel_meta.update(block_n=THREADS, lanes=n_emit * n_dest,
                                table_cap=cap, probe_depth=probes)
         elif engine == "eager":
             keys, vals, valid = per_shard(
@@ -674,11 +726,11 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
         live_shipped = valid.sum(1).to(torch.int32)
 
         n_stream = keys.shape[1]
-        bucket_cap = max(1, int(math.ceil(slack * n_emit / n_shards)))
+        bucket_cap = max(1, int(math.ceil(slack * n_emit / n_dest)))
         bucket_cap = min(bucket_cap, n_stream)
         ident = red.identity(vals.dtype)
         bkeys, bvals, dropped = per_shard(
-            lambda k, v, m: bucket_by_dest(k, v, m, n_shards, bucket_cap, ident),
+            lambda k, v, m: bucket_by_dest(k, v, m, n_dest, bucket_cap, ident),
             keys, vals, valid,
         )
         # Narrowed keys on the wire: the smallest int dtype covering
@@ -687,12 +739,12 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
         if wire_dtype.itemsize < 4:
             sentinel = torch.iinfo(wire_dtype).min
             nk = torch.where(bkeys == C.EMPTY_KEY, sentinel, bkeys).to(wire_dtype)
-            rkeys = coll.all_to_all_tiled(nk).to(torch.int32).reshape(n_shards, -1)
+            rkeys = coll.all_to_all_tiled(nk).to(torch.int32).reshape(n_local, -1)
             rkeys = torch.where(rkeys == sentinel, C.EMPTY_KEY, rkeys)
         else:
-            rkeys = coll.all_to_all_tiled(bkeys).reshape(n_shards, -1)
+            rkeys = coll.all_to_all_tiled(bkeys).reshape(n_local, -1)
         rvals = coll.all_to_all_tiled(bvals)
-        rvals = rvals.reshape((n_shards, -1) + tuple(rvals.shape[3:]))
+        rvals = rvals.reshape((n_local, -1) + tuple(rvals.shape[3:]))
         rvalid = rkeys != C.EMPTY_KEY
         cap_t = table.capacity
         overflow = table.overflow + dropped + pre_drop
@@ -706,7 +758,7 @@ def hash_shard_stage(kind, source, mapper, red: Reducer, val_dtype, engine: str,
                     max_probes=merge_probes, **hot,
                 ),
                 torch.where(rvalid, rkeys, HK.EMPTY_KEY),
-                rvals.to(val_dtype).reshape(n_shards, rkeys.shape[1], -1),
+                rvals.to(val_dtype).reshape(n_local, rkeys.shape[1], -1),
                 table.keys, table.vals, overflow,
             )
             table = C.HashTable(
@@ -735,6 +787,7 @@ def _map_reduce_hash(kind, source, mapper, red: Reducer, target, mesh: C.Mesh,
     merge.  Never hierarchical: the all_to_all is point to point."""
     if engine not in ("eager", "pallas", "naive"):
         raise ValueError(f"unknown engine {engine!r}")
+    _require_rank_rows(mesh, kind, source, target)
     cache = cache if cache is not None else {}
     cache_key = (
         "hash", mapper, red.name, red, engine, slack, *mesh_key(mesh),
@@ -757,7 +810,9 @@ def _map_reduce_hash(kind, source, mapper, red: Reducer, target, mesh: C.Mesh,
         faults.fault_point("kernel.hash")
     table, emitted, shipped, kernel_pairs = entry.run(
         mesh, env, target.table, _local_view(kind, source))
-    out = C.DistHashMap(table, reducer_name=red.name)
+    out = C.DistHashMap(table, reducer_name=red.name, mesh=target.mesh)
+    emitted, shipped, kernel_pairs, overflow = _gather_stats(
+        mesh, emitted, shipped, kernel_pairs, table.overflow)
     val_bytes = target.table.vals.element_size()
     key_bytes = _wire_key_dtype(key_range).itemsize
     payload = shipped.sum() * (key_bytes + val_bytes)
@@ -771,7 +826,7 @@ def _map_reduce_hash(kind, source, mapper, red: Reducer, target, mesh: C.Mesh,
         shuffle_payload_bytes=payload,
         intra_bytes=intra,
         inter_bytes=inter,
-        overflow=table.overflow,
+        overflow=overflow,
         compiles=int(compiled_now),
         cache_hits=int(not compiled_now),
         kernel_block_n=kernel_meta.get("block_n"),

@@ -121,7 +121,11 @@ def source_desc(kind: str, source) -> str:
         return f"range[{source.start}:{source.stop}:{source.step}]"
     if kind == "vector":
         d = source.data
-        return f"vector {dtype_name(d.dtype)}[{_shape(d)}] n={source.n}"
+        shape = tuple(d.shape)
+        mesh = getattr(source, "mesh", None)
+        if mesh is not None and mesh.process:  # the mesh's rows, not this rank's
+            shape = (shape[0] * mesh.n_ranks,) + shape[1:]
+        return f"vector {dtype_name(d.dtype)}[{'x'.join(map(str, shape))}] n={source.n}"
     if kind == "chunked":
         tail = "x".join(map(str, source.shape_tail))
         shape = f"{source.block_rows}{'x' + tail if tail else ''}"
@@ -243,7 +247,10 @@ class GlueNode:
 @dataclasses.dataclass
 class Plan:
     """An optimised logical plan: what ``session.explain`` renders and what a
-    ``Program`` runs."""
+    ``Program`` runs.  ``collectives_per_iter`` counts collective calls, the
+    reference's model, whatever a call moves: across processes a reduce
+    all-gathers its partials (``core.collectives.ProcessCollectives``), two
+    gathers for the int8 wire's lattice and scales."""
 
     nodes: list
     sources: list[SourceInfo]

@@ -91,6 +91,16 @@ own thread still may not make an unsafe call, and a host sync in the step
 raises (the sync-debug mode).  ``run_stream`` dispatches each block
 supervised; ``save_checkpoint`` retries a transient ``checkpoint.write``
 fault.
+
+Across processes (a mesh that carries a ``torch.distributed`` group): every
+rank runs the same program on its ``n_local`` shards; the carry's residuals
+are this rank's rows ``[n_local, ...]``, its hash tables this rank's tables.
+On the card the collectives are NCCL operations captured inside the graph: the
+warm-up iteration runs them first, which brings the communicator up before
+the capture, and their output buffers come from the graph's pool like any
+other.  A capture NCCL refuses raises as any failed capture does, naming
+the op; nothing falls back to eager.  Tuning takes rank 0's winner (the
+ranks' wall times differ).
 """
 from __future__ import annotations
 
@@ -108,7 +118,7 @@ from repro_torch.core import containers as C
 from repro_torch.core import faults
 from repro_torch.core import mapreduce as _mr
 from repro_torch.core import plan as plan_mod
-from repro_torch.core.collectives import LocalCollectives
+from repro_torch.core.collectives import LocalCollectives, agree
 from repro_torch.core.plan import (
     DEFAULT_PASSES,
     ContainerOpNode,
@@ -367,6 +377,8 @@ class _CountingCollectives:
     def __init__(self, inner: LocalCollectives):
         self._inner = inner
         self.n_shards = inner.n_shards
+        self.n_local = inner.n_local
+        self.first_shard = inner.first_shard
         self.device = inner.device
         self.count = 0
 
@@ -410,6 +422,8 @@ class ProgramContext:
                  streams: dict | None = None, degraded: set | None = None,
                  fire: bool = False, n_nodes: int = 1, hierarchical: bool = True):
         self._n_shards = mesh.n_shards
+        self._n_local = mesh.n_local  # this process's shards (all, in process)
+        self._mesh = mesh
         self._device = mesh.device
         self._n_nodes = n_nodes
         self._hierarchical = hierarchical
@@ -469,10 +483,12 @@ class ProgramContext:
             return ("hashmap", None, (source.table.keys, source.table.vals),
                     f"local[{prod}]", None)
         kind = _mr.source_kind(source)
+        _mr._require_rank_rows(self._mesh, kind, source)
         key = _source_key(kind, source)
         if self._mode == "discover":
             self._sources.setdefault(key, source)
         if kind == "chunked":
+            C.refuse_streams_across_processes(self._mesh)
             # The resident block, through the program's static buffer and
             # base scalar (their addresses are what a captured graph reads).
             if not isinstance(source, C.ChunkedDistVector):
@@ -493,6 +509,7 @@ class ProgramContext:
             prod = self._local_producers.get(id(v.data), "?")
             return v.data, v.n, f"local[{prod}]", None
         if isinstance(v, C.DistVector):
+            C.require_rank_rows(self._mesh, v, f"{what}'s vector")
             key = _source_key("vector", v)
             if self._mode == "discover":
                 self._sources.setdefault(key, v)
@@ -606,7 +623,7 @@ class ProgramContext:
             # reducer: the shard reduction (each hop of a hierarchical one
             # too) is elementwise.
             _, red, wire, hier = self._partials[members[0]]
-            flats = [self._partials[i][0].reshape(self._n_shards, -1) for i in members]
+            flats = [self._partials[i][0].reshape(self._n_local, -1) for i in members]
             total_cat = self._coll.reduce(torch.cat(flats, dim=1), red, wire, hier=hier)
             off = 0
             for i, f in zip(members, flats):
@@ -644,7 +661,8 @@ class ProgramContext:
 
     @property
     def shard_index(self) -> torch.Tensor:
-        """Every shard's index, ``[S]``."""
+        """Every shard's index, ``[S]`` (this process's, ``[n_local]``, on
+        a process mesh)."""
         return self._coll.axis_index()
 
     def map_reduce(self, source, mapper: Callable, reducer, target, *,
@@ -717,7 +735,7 @@ class ProgramContext:
         residual = None
         if feedback:
             if self._mode == "discover":
-                node.residual_spec = ((self._n_shards,) + tuple(target.shape),
+                node.residual_spec = ((self._n_local,) + tuple(target.shape),
                                       torch.float32)
                 residual = torch.zeros(node.residual_spec[0], device=self._device)
             else:
@@ -753,6 +771,7 @@ class ProgramContext:
                                          red.pallas_hash is not None)
         else:
             _, node = self._next_node(MapReduceNode)
+        C.require_rank_rows(self._mesh, target, "the hash target")
         tkey = ("hashtarget",) + _source_key("hashmap", target)[1:]
         if tkey not in self._hash_tables:
             if self._mode != "discover":
@@ -795,10 +814,11 @@ class ProgramContext:
     def topk(self, v, k: int, score_fn: Callable | None = None, env: Any = None,
              engine: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Container-level top-k inside a program: each shard's
-        ``torch.topk``, one all_gather of the ``k·n_shards`` candidates, a
-        global re-select; returns ``(rows [m, ...], scores [m])``, ``m =
-        min(k, kk·n_shards)``.  The plan records a :class:`ContainerOpNode`,
-        an ``engine=`` request shown as ignored."""
+        ``torch.topk``, one all_gather of the ``k·n_shards`` candidates
+        (across the ranks of a process mesh, each selecting from its
+        ``n_local`` shards), a global re-select; returns ``(rows [m, ...],
+        scores [m])``, ``m = min(k, kk·n_shards)``.  The plan records a
+        :class:`ContainerOpNode`, an ``engine=`` request shown as ignored."""
         env = _force_tree(env)
         data, n, src_desc, source_key = self._resolve_vector_source(v, "ctx.topk")
         if self._mode == "discover":
@@ -813,7 +833,7 @@ class ProgramContext:
             self.last_op = f"[{node.idx}] {node.stable_desc()}"
         else:
             self._next_node(ContainerOpNode)
-        s_count = self._n_shards
+        s_count = self._n_local
         per = data.shape[0] // s_count
         kk = min(k, per)
         if score_fn is None:
@@ -822,7 +842,8 @@ class ProgramContext:
             scores = vmap(score_fn)(data)
         else:
             scores = vmap(lambda x: score_fn(x, env))(data)
-        valid = torch.arange(data.shape[0], device=data.device) < n
+        first = self._coll.first_shard * per  # global row indices
+        valid = torch.arange(first, first + data.shape[0], device=data.device) < n
         scores = torch.where(valid, scores, float("-inf")).view(s_count, per)
         s, i = torch.topk(scores, kk, dim=1)
         rows = data.view((s_count, per) + tuple(data.shape[1:]))
@@ -960,7 +981,15 @@ class Program:
     batching and pruning.  ``mesh`` (the session's by default) is the
     topology it runs on; on a multi-node mesh ``hierarchical=False`` plans
     it as a flat one (the A/B baseline: flat collectives, the 1-D plan).
+
+    ``keep_graph = True``, set before the first dispatch, keeps each
+    captured graph's ``cudaGraph_t`` (``torch.cuda.CUDAGraph(keep_graph=
+    True)``: instantiated at its first replay), so a tool can read its nodes
+    through ``graph.raw_cuda_graph()``.
     """
+
+    #: Keep the captured graphs readable (see the class docstring).
+    keep_graph = False
 
     def __init__(self, session, step_fn: Callable, *, mesh: C.Mesh | None = None,
                  passes: tuple | None = None, tune: bool = False,
@@ -1082,7 +1111,8 @@ class Program:
         if not cand_lists:
             return
         state = pytree.tree_unflatten(leaves, spec)
-        best_wall, best_set = None, None
+        best_wall, best_set, best_j = None, None, -1
+        variants = {}
         for j in range(max(len(c) for _, c in cand_lists)):
             ov = {tk: cands[min(j, len(cands) - 1)] for tk, cands in cand_lists}
             variant = Program(session, self._step_fn, mesh=self._mesh, passes=self._passes,
@@ -1107,8 +1137,12 @@ class Program:
             self.tune_walls.append((ov, wall, launches))
             session._record_measurement(",".join(ov), "; ".join(c.describe() for c in ov.values()),
                                         wall)
+            variants[j] = (ov, wall)
             if best_wall is None or wall < best_wall:
-                best_wall, best_set = wall, ov
+                best_wall, best_set, best_j = wall, ov, j
+        # The ranks' walls differ: every rank takes rank 0's winner.
+        best_j = agree(self._mesh, best_j)
+        best_set, best_wall = variants.get(best_j, (None, None))
         for tk, cfg in (best_set or {}).items():
             tuning.put(tk, dataclasses.replace(cfg, source="measured", wall_s=best_wall))
 
@@ -1174,7 +1208,9 @@ class Program:
 
     def _capture(self, sig, spec, carry: _Carry, u: int) -> _Graph:
         """Capture ``u`` iterations as one CUDA graph, after one warm-up
-        iteration on a side stream on clones of the state and carry.
+        iteration on a side stream on clones of the state and carry (on a
+        process mesh the warm-up's collectives also bring NCCL's
+        communicator up, which a capture cannot do).
 
         The graph shares the program's pool while any of its graphs lives;
         once ``degrade`` has dropped them all, the capture starts a new one
@@ -1201,7 +1237,7 @@ class Program:
                  for k, t in carry.tables.items()}, 1)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graph else torch.cuda.CUDAGraph()
         before = launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -1390,7 +1426,7 @@ class Program:
         t = tables[tkey]
         return C.DistHashMap(C.HashTable(t.keys.clone(), t.vals.clone(),
                                          t.overflow.clone()),
-                             reducer_name=target.reducer_name)
+                             reducer_name=target.reducer_name, mesh=target.mesh)
 
     # -- streams (out of core) ------------------------------------------------
 

@@ -37,6 +37,14 @@ only hop a wire narrows); ``map_reduce(..., hierarchical=False)`` and
 baseline.  On a 1-node mesh the flag changes nothing.  ``mesh=`` on a call
 overrides the session's mesh for that call, as in the reference.
 
+Across processes (a mesh from ``make_node_data_mesh`` with a process group
+up, one node row a process): every rank makes the same calls on the same
+arguments, as every JAX process does, and ends with the same result.  Each
+host decision is taken from a value every rank holds alike: the overflow
+that escalation reads is the mesh's, tuning's winner is rank 0's, and a
+kernel fault degrades on every rank or fails the dispatch.  Chunked sources
+raise there (ROADMAP.md, Queue 1 item 6c).
+
 Its entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA, ``BlazeSession()`` raises.  The free ``map_reduce`` routes
 through a lazily created process-wide default session.
@@ -53,6 +61,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import containers as C
+from repro_torch.core.collectives import agree as _agree
+from repro_torch.core.collectives import all_ranks_equal
 from repro_torch.core import cost as cost_mod
 from repro_torch.core import faults
 from repro_torch.core import mapreduce as _mr
@@ -219,6 +229,8 @@ class BlazeSession:
         red = get_reducer(reducer)
         mesh = mesh or self.mesh
         kind = _mr.source_kind(source)
+        if kind == "chunked":
+            C.refuse_streams_across_processes(mesh)
         hash_target = isinstance(target, C.DistHashMap)
         if not hash_target:
             target = torch.as_tensor(target, device=mesh.device)
@@ -248,8 +260,9 @@ class BlazeSession:
                     tuned=node.tuned,
                 )
 
-            out, stats = self._dispatch_supervised(lambda: dispatch_hash(target), node)
-            out, stats = self._maybe_escalate(out, stats, target, red, node, dispatch_hash)
+            out, stats = self._dispatch_supervised(lambda: dispatch_hash(target), node, mesh)
+            out, stats = self._maybe_escalate(out, stats, target, red, node, dispatch_hash,
+                                              mesh)
         else:
             out, stats = self._dispatch_supervised(
                 lambda: _mr._map_reduce_dense(
@@ -257,7 +270,7 @@ class BlazeSession:
                     return_stats, cache=self._exec_cache, node=node, tuned=node.tuned,
                     hier=node.hier,
                 ),
-                node,
+                node, mesh,
             )
         self.stats.calls += 1
         self.stats.compiles += stats.compiles
@@ -318,7 +331,8 @@ class BlazeSession:
 
     # -- supervised dispatch (fault recovery) ---------------------------------
 
-    def supervised(self, attempt: Callable, *, program=None, degrade=None):
+    def supervised(self, attempt: Callable, *, program=None, degrade=None,
+                   mesh: C.Mesh | None = None):
         """Run one dispatch ``attempt()`` under the session's retry policy.
 
         * ``faults.FatalFault``: recorded and raised at once;
@@ -338,13 +352,30 @@ class BlazeSession:
           context for any retry).
 
         Every injected fault is recorded under exactly one disposition, so
-        ``faults.snapshot()["balanced"]`` holds across any schedule.
+        ``faults.snapshot()["balanced"]`` holds across any schedule.  On a
+        process mesh (``mesh``, the program's, or the session's) every rank
+        arms the same schedule, so every rank takes the same fault; the
+        number of nodes a degradation changed is compared across the ranks,
+        and a dispatch whose ranks would degrade differently raises rather
+        than run diverged programs.
         """
         policy = self.retry
         if policy is None:
             return attempt()
         if program is not None:
             degrade = program.degrade
+            mesh = program._mesh
+        mesh = mesh or self.mesh
+
+        def degraded() -> bool:
+            n = degrade()
+            if not all_ranks_equal(mesh, n):
+                raise RuntimeError(
+                    f"rank {mesh.rank} degraded {n} kernel nodes after an injected "
+                    "kernel fault and another rank did not: the ranks' fault "
+                    "schedules differ")
+            return n > 0
+
         t0 = time.monotonic()
         delay = policy.backoff_s
         tries = 0
@@ -355,7 +386,7 @@ class BlazeSession:
                 faults.record("fatal", e)
                 raise
             except faults.TransientFault as e:
-                if e.point.startswith("kernel.") and degrade is not None and degrade() > 0:
+                if e.point.startswith("kernel.") and degrade is not None and degraded():
                     faults.record("degraded", e)
                     self.stats.degraded_nodes += 1
                     continue
@@ -385,19 +416,20 @@ class BlazeSession:
         plan_mod.degrade_node(node)
         return 1
 
-    def _dispatch_supervised(self, dispatch: Callable, node):
+    def _dispatch_supervised(self, dispatch: Callable, node, mesh: C.Mesh | None = None):
         """:meth:`supervised` for one per-op node: a kernel fault degrades
         just this node, and the returned ``MapReduceStats`` carries the
         recovery (``degraded_engine``, ``retries``)."""
         retries0 = self.stats.retries
-        out, stats = self.supervised(dispatch, degrade=lambda: self._degrade_op_node(node))
+        out, stats = self.supervised(dispatch, degrade=lambda: self._degrade_op_node(node),
+                                     mesh=mesh)
         retries = self.stats.retries - retries0
         if retries or node.degraded_from is not None:
             stats = dataclasses.replace(stats, retries=retries,
                                         degraded_engine=node.degraded_from)
         return out, stats
 
-    def _maybe_escalate(self, out, stats, target, red, node, dispatch):
+    def _maybe_escalate(self, out, stats, target, red, node, dispatch, mesh):
         """Hash-overflow recovery (``escalate_overflow=True``): when the op
         dropped pairs (the overflow grew), regrow the original target to the
         next capacity of the grid (``cost.next_capacity``) and run the same
@@ -406,13 +438,15 @@ class BlazeSession:
         capacity, so the re-run is exact.  At most ``max_escalations``
         rounds, counted in ``MapReduceStats.escalations`` and
         ``stats.escalations``.  The overflow lives on the device: each check
-        is one host sync, counted in ``stats.host_syncs``."""
+        is one host sync, counted in ``stats.host_syncs``; on a process
+        mesh it is the mesh's overflow, gathered, so every rank regrows
+        alike."""
         if self.retry is None or not self.escalate_overflow:
             return out, stats
 
         def grew(new, old) -> bool:
             self.stats.host_syncs += 1
-            return bool(new.table.overflow.sum() > old.table.overflow.sum())
+            return new.total_overflow() > old.total_overflow()
 
         escal = 0
         cur = target
@@ -420,9 +454,9 @@ class BlazeSession:
             cap = cost_mod.next_capacity(cur.capacity_per_shard)
             if cap is None:
                 break
-            cur = self._grow_hash_target(cur, cap, red)
+            cur = self._grow_hash_target(cur, cap, red, mesh)
             escal += 1
-            out, st = self._dispatch_supervised(lambda tgt=cur: dispatch(tgt), node)
+            out, st = self._dispatch_supervised(lambda tgt=cur: dispatch(tgt), node, mesh)
             stats = dataclasses.replace(
                 st, escalations=escal, compiles=stats.compiles + st.compiles,
                 cache_hits=stats.cache_hits + st.cache_hits,
@@ -432,13 +466,16 @@ class BlazeSession:
         self.stats.escalations += escal
         return out, stats
 
-    def _grow_hash_target(self, target: C.DistHashMap, new_cap: int, red) -> C.DistHashMap:
+    def _grow_hash_target(self, target: C.DistHashMap, new_cap: int, red,
+                          mesh: C.Mesh | None = None) -> C.DistHashMap:
         """``target`` rebuilt with ``new_cap`` slots a shard, every live entry
         inserted again on its own shard (``shard_of_key`` does not depend on
         capacity), each shard's overflow counter carried over so the
-        caller sees only new drops."""
+        caller sees only new drops (this process's shards on a process
+        mesh)."""
         t = target.table
-        grown = self.make_dist_hashmap(new_cap, tuple(t.vals.shape[2:]), t.vals.dtype, red)
+        grown = self.make_dist_hashmap(new_cap, tuple(t.vals.shape[2:]), t.vals.dtype, red,
+                                       mesh=mesh)
         g = grown.table
         keys, vals, ovf = [], [], []
         for s in range(target.n_shards):
@@ -449,7 +486,8 @@ class BlazeSession:
             vals.append(ins.vals)
             ovf.append(ins.overflow + t.overflow[s])
         return C.DistHashMap(C.HashTable(torch.stack(keys), torch.stack(vals),
-                                         torch.stack(ovf)), reducer_name=red.name)
+                                         torch.stack(ovf)), reducer_name=red.name,
+                             mesh=grown.mesh)
 
     # -- measured autotuning (tune=True) -------------------------------------
 
@@ -485,10 +523,13 @@ class BlazeSession:
         candidate that takes an injected fault is skipped and the fault
         recorded ``absorbed`` (tuning is an optimisation, nothing retries
         it); a real error raises.  Every timing is appended to ``tune_log``.
+        On a process mesh every rank takes rank 0's winner (the ranks' wall
+        times differ).
         """
         hash_target = isinstance(target, C.DistHashMap)
-        best_cfg, best_wall = None, float("inf")
-        for cfg in self._candidates_for(red, target, key_range):
+        best_cfg, best_wall, best_j = None, float("inf"), -1
+        walls = {}
+        for j, cfg in enumerate(self._candidates_for(red, target, key_range)):
             tuned = cfg if cfg.engine == "pallas" else None
 
             def run():
@@ -515,8 +556,10 @@ class BlazeSession:
             self.stats.compiles += st.compiles + st2.compiles
             self.stats.cache_hits += st.cache_hits + st2.cache_hits
             self._record_measurement(node.tune_key, cfg.describe(), wall)
+            walls[j] = (cfg, wall)
             if wall < best_wall:
-                best_cfg, best_wall = cfg, wall
+                best_cfg, best_wall, best_j = cfg, wall, j
+        best_cfg, best_wall = walls.get(_agree(mesh, best_j), (None, None))
         if best_cfg is not None:
             self.tuning.put(node.tune_key,
                             dataclasses.replace(best_cfg, source="measured", wall_s=best_wall))
@@ -566,36 +609,35 @@ class BlazeSession:
              env: Any = None, mesh: C.Mesh | None = None) -> np.ndarray:
         """Session-scoped ``topk`` over the mesh's shards: selects on the
         device, then materialises the ``k·n_shards`` candidates on the host,
-        a blocking sync counted in ``stats.host_syncs``."""
+        a blocking sync counted in ``stats.host_syncs`` (gathered from every
+        rank of a process mesh)."""
         self.stats.host_syncs += 1
-        return C.topk(v, k, score_fn=score_fn, env=env,
-                      n_shards=(mesh or self.mesh).n_shards)
+        mesh = mesh or self.mesh
+        return C.topk(v, k, score_fn=score_fn, env=env, n_shards=mesh.n_shards, mesh=mesh)
 
     def distribute(self, x, mesh: C.Mesh | None = None) -> C.DistVector:
         """``distribute`` onto the mesh's device and shards (the session's
-        by default)."""
-        mesh = mesh or self.mesh
-        return C.distribute(x, mesh.n_shards, mesh.device)
+        by default); on a process mesh every rank passes the whole array
+        and keeps its own shards' rows."""
+        return C.distribute(x, mesh=mesh or self.mesh)
 
     def chunked(self, x, block_rows: int, mesh: C.Mesh | None = None,
                 **kwargs) -> C.ChunkedDistVector:
         """``distribute`` for datasets that do not fit on the device: a host
         array as out-of-core blocks for the mesh's device and shards
         (``compress=``, ``spill_dir=``, ``max_resident=`` shape the byte
-        provider)."""
-        mesh = mesh or self.mesh
-        return C.chunked(x, block_rows, mesh.n_shards, mesh.device, **kwargs)
+        provider).  A mesh of several processes raises (ROADMAP.md, Queue 1
+        item 6c)."""
+        return C.chunked(x, block_rows, mesh=mesh or self.mesh, **kwargs)
 
     def make_dist_hashmap(self, capacity_per_shard: int, val_shape: tuple = (),
                           val_dtype: torch.dtype = torch.float32,
                           reducer: str | Reducer = "sum",
                           mesh: C.Mesh | None = None) -> C.DistHashMap:
-        """``make_dist_hashmap`` on the mesh's device and shards."""
-        mesh = mesh or self.mesh
-        return C.make_dist_hashmap(
-            capacity_per_shard, val_shape, val_dtype, reducer,
-            n_shards=mesh.n_shards, device=mesh.device,
-        )
+        """``make_dist_hashmap`` on the mesh's device and shards (this
+        process's shards on a process mesh)."""
+        return C.make_dist_hashmap(capacity_per_shard, val_shape, val_dtype, reducer,
+                                   mesh=mesh or self.mesh)
 
     # -- fused iteration programs (see repro_torch.core.program) -------------
 

@@ -21,6 +21,12 @@ over each node's ``n_data`` shards at full precision (the reference's
 the narrowed wire (its ``axis``, the node axis): the int8 scale is the
 largest magnitude over the node partials, the reference's ``pmax`` over
 the node axis.  One quantisation addend a node instead of one a shard.
+
+**Across processes.**  ``gather=`` (``core.collectives.ProcessCollectives``)
+means ``x`` holds this rank's rows only: the narrowed payload of those rows
+is gathered (bf16 values; the int8 lattice, after one gather of the ranks'
+largest magnitudes for the shared scale) and every rank folds all of them in
+shard order, the bits of the in-process sum over the gathered rows.
 """
 from __future__ import annotations
 
@@ -35,10 +41,14 @@ def intra_node_sum(x: torch.Tensor, n_nodes: int) -> torch.Tensor:
         1, dtype=x.dtype)
 
 
-def _int8_scale(x: torch.Tensor) -> torch.Tensor:
+def _int8_scale(x: torch.Tensor, gather=None) -> torch.Tensor:
     """The scale every shard shares: the largest magnitude over all shards
-    (``pmax``) over 127, at least 1e-30."""
-    return torch.clamp(x.abs().amax() / 127.0, min=1e-30)
+    (``pmax``; with ``gather``, the largest of the ranks' largest) over
+    127, at least 1e-30."""
+    amax = x.abs().amax()
+    if gather is not None:
+        amax = gather(amax.reshape(1)).amax()
+    return torch.clamp(amax / 127.0, min=1e-30)
 
 
 def _int8_lattice(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -46,24 +56,30 @@ def _int8_lattice(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compressed_psum(x: torch.Tensor, *, wire: str = "none",
-                    n_nodes: int = 1) -> torch.Tensor:
+                    n_nodes: int = 1, gather=None) -> torch.Tensor:
     """Sum ``x [S, ...]`` over its shard dimension with the payload narrowed
     per ``wire``; with ``n_nodes > 1``, hierarchically: each node's shards
-    at full precision first, then the narrowed sum of the node partials."""
+    at full precision first, then the narrowed sum of the node partials.
+    ``gather`` (across processes): ``x`` is this rank's rows, and the sum
+    runs over every rank's."""
     if n_nodes > 1:
         x = intra_node_sum(x, n_nodes)
+    g = gather if gather is not None else (lambda t: t)
     if wire == "none":
-        return x.sum(0, dtype=x.dtype)
+        return g(x).sum(0, dtype=x.dtype)
     if wire == "bf16":
-        xb = x.to(torch.bfloat16)
+        xb = g(x.to(torch.bfloat16))
         out = xb[0]
         for s in range(1, xb.shape[0]):
             out = out + xb[s]
         return out.to(x.dtype)
     if wire == "int8":
         x32 = x.to(torch.float32)
-        scale = _int8_scale(x32)
-        s = _int8_lattice(x32, scale).to(torch.int32).sum(0, dtype=torch.int32)
+        scale = _int8_scale(x32, gather)
+        lattice = _int8_lattice(x32, scale)
+        if gather is not None:  # the int8 lattice is what crosses
+            lattice = gather(lattice.to(torch.int8))
+        s = lattice.to(torch.int32).sum(0, dtype=torch.int32)
         return (s.to(torch.float32) * scale).to(x.dtype)
     raise ValueError(f"unknown wire {wire!r}")
 

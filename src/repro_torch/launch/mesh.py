@@ -1,24 +1,43 @@
 """Multi-node bring-up and the MapReduce engine's ("node", "data") mesh.
 
 The counterpart of ``repro/launch/mesh.py`` (its multi-host half; the
-production LM meshes come with LM training).  Nothing here touches a device
-or a process group when imported.
+production LM meshes come with ``distributed/sharding.py``, ROADMAP.md Queue
+1 item 6b).  Nothing here touches a device or a process group when
+imported.
 
 * ``init_distributed(...)`` — ``torch.distributed.init_process_group``,
-  gated: a no-op that returns ``False`` on one process.
+  gated: a no-op that returns ``False`` on one process.  The backend
+  defaults to ``"nccl"`` for the card and ``"gloo"`` for the CPU.
 * ``process_count()`` / ``process_index()`` — the process group's size and
   rank (1 and 0 without one).
 * ``make_node_data_mesh(n_nodes, n_shards=, device=)`` — the engine's 2-D
-  mesh: the stacked shards of one device split into ``n_nodes`` node rows
-  of ``n_shards / n_nodes``, shard ``s = node * n_data + d``.  The
-  hierarchical collectives reduce over each row at full precision first and
-  cross the node hop second (``core/collectives.py``).
+  mesh: ``n_shards`` shards in ``n_nodes`` node rows of ``n_shards /
+  n_nodes``, shard ``s = node * n_data + d``.  The hierarchical collectives
+  reduce over each row at full precision first and cross the node hop
+  second (``core/collectives.py``).
 
-The port runs every multi-node topology in one process, as the reference
-runs its simulated one: one program over the stacked shards.  Collectives
-across processes (NCCL across cards, inside captured graphs) are not built,
-so with more than one process ``make_node_data_mesh`` raises rather than
-simulate a topology the caller did not ask for.
+Without a process group every row lives in this process, stacked on one
+device, as the reference simulates its topology on one host.  With a group
+up (``init_distributed``, or the caller's own ``init_process_group``, even
+of one process) each process is one node row, as each JAX process is under
+``jax.distributed``: it holds its ``n_shards / P`` shards, the intra-node
+hop stays in the process, and the inter-node hop crosses processes through
+``torch.distributed`` (``core.collectives.ProcessCollectives``).  Every
+process then runs the same driver call on the same arguments and ends with
+the same result.
+
+Starting ``P`` processes on real cards (one card each)::
+
+    torchrun --nproc-per-node 4 job.py          # or any launcher that sets
+                                                # RANK/WORLD_SIZE/MASTER_ADDR
+    # job.py, on every rank:
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    init_distributed("env://", num_processes=int(os.environ["WORLD_SIZE"]),
+                     process_id=int(os.environ["RANK"]))
+    sess = BlazeSession(mesh=make_node_data_mesh(n_shards=8))
+
+On the CPU, ``launch.simulate.spawn_local`` starts ``P`` local processes
+over ``gloo``.
 """
 from __future__ import annotations
 
@@ -46,19 +65,25 @@ def process_index() -> int:
 
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None, process_id: int | None = None,
-                     *, backend: str = "gloo", **kwargs) -> bool:
+                     *, backend: str | None = None, device=None, **kwargs) -> bool:
     """Bring up the process group; returns whether one came up.
 
     Call once on every process of a multi-process launch::
 
         init_distributed("tcp://host0:1234", num_processes=8, process_id=rank)
 
-    On one process (no coordinator, ``num_processes`` absent or 1) it is a
-    no-op that returns ``False``, and ``make_node_data_mesh(n)`` splits the
-    local shards into ``n`` node rows instead.
+    ``backend=None`` is ``"nccl"`` when ``device`` (default: the card) is
+    CUDA and ``"gloo"`` on the CPU.  ``kwargs`` go to
+    ``init_process_group`` (``store=`` in place of an address, ``timeout=``).
+    On one process (no coordinator, no store, ``num_processes`` absent or 1)
+    it is a no-op that returns ``False``, and ``make_node_data_mesh(n)``
+    splits the local shards into ``n`` node rows instead.
     """
-    if coordinator_address is None and num_processes in (None, 1):
+    if coordinator_address is None and "store" not in kwargs and num_processes in (None, 1):
         return False
+    if backend is None:
+        backend = "nccl" if torch.device("cuda" if device is None else device).type == "cuda" \
+            else "gloo"
     torch.distributed.init_process_group(
         backend, init_method=coordinator_address, world_size=num_processes,
         rank=process_id, **kwargs)
@@ -67,21 +92,26 @@ def init_distributed(coordinator_address: str | None = None,
 
 def make_node_data_mesh(n_nodes: int | None = None, *, n_shards: int = 8,
                         device=None) -> C.Mesh:
-    """A 2-D ``("node", "data")`` mesh over ``n_shards`` shards stacked on
+    """A 2-D ``("node", "data")`` mesh over ``n_shards`` shards on
     ``device`` (the card unless the caller names another).
 
-    ``n_nodes`` defaults to ``process_count()``, one node row a process as
-    in the reference.  ``ValueError`` when the shards do not split evenly;
-    ``NotImplementedError`` when more than one process is up: collectives
-    across processes are ROADMAP.md's Queue 1 item 6b.
+    Without a process group the shards are stacked on the device in
+    ``n_nodes`` rows (default 1).  With a group of ``P`` processes up the
+    mesh has ``P`` node rows, one a process: this one holds row ``rank``
+    (``Mesh.n_local`` shards), ``n_nodes`` defaults to ``P`` and must equal
+    it.  ``ValueError`` when the shards do not split evenly, when
+    ``n_nodes`` is not ``P``, or when the group's backend cannot reach the
+    device (``gloo`` with CUDA tensors).
     """
     procs = process_count()
-    if procs > 1:
-        raise NotImplementedError(
-            f"{procs} processes are up, but the port's collectives run inside one "
-            "process only; collectives across processes over torch.distributed "
-            "are ROADMAP.md, Queue 1 item 6b")
-    nodes = 1 if n_nodes is None else int(n_nodes)
+    nodes = (procs if _group_up() else 1) if n_nodes is None else int(n_nodes)
     if nodes < 1 or n_shards < 1 or n_shards % nodes:
         raise ValueError(f"cannot split {n_shards} shards into {nodes} node rows")
-    return C.Mesh(nodes, n_shards // nodes, C.resolve_device(device))
+    dev = C.resolve_device(device)
+    if not _group_up():
+        return C.Mesh(nodes, n_shards // nodes, dev)
+    if nodes != procs:
+        raise ValueError(f"{procs} processes are up, one node row a process, but "
+                         f"n_nodes={nodes} was asked for")
+    return C.Mesh(nodes, n_shards // nodes, dev, group=torch.distributed.group.WORLD,
+                  rank=process_index(), n_ranks=procs)

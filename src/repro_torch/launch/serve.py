@@ -18,7 +18,8 @@ interrupted, on the card by default or on the CPU with ``--device cpu``::
 ``--nodes N --shards S`` serves on a ``("node", "data")`` mesh of ``S``
 shards stacked on the device in ``N`` node rows (``launch.mesh.
 make_node_data_mesh``); ``/stats`` reports it as ``mesh_nodes`` and
-``mesh_shards``.
+``mesh_shards``.  A server runs in one process: on a mesh of several
+processes it raises (ROADMAP.md, Queue 1 item 6d).
 
 ``--arch`` invocations are forwarded to ``repro_torch.launch.serve_lm`` (the
 LM decode launcher), as the reference forwards them to its own.

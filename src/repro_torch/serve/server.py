@@ -92,7 +92,9 @@ class BlazeServer:
     Without ``session`` the server makes ``BlazeSession(device, n_shards,
     mesh=mesh)``, on the card unless ``device="cpu"``; ``mesh`` (the
     session's by default) is the topology every query runs on, and
-    ``/stats`` reports it (``mesh_shards``, ``mesh_nodes``).
+    ``/stats`` reports it (``mesh_shards``, ``mesh_nodes``).  A mesh of
+    several processes raises ``NotImplementedError``: a server whose ranks
+    follow rank 0's batches is ROADMAP.md, Queue 1 item 6d.
     """
 
     def __init__(
@@ -114,6 +116,10 @@ class BlazeServer:
         self.session = (session if session is not None
                         else BlazeSession(device, n_shards, mesh=mesh))
         self.mesh = mesh if mesh is not None else self.session.mesh
+        if self.mesh.n_ranks > 1:
+            raise NotImplementedError(
+                f"a server on a mesh of {self.mesh.n_ranks} processes: ranks that "
+                "follow rank 0's batches are ROADMAP.md, Queue 1 item 6d")
         self.device = self.mesh.device
         self.stats = ServerStats()
         self.max_batch = max_batch

@@ -1442,6 +1442,44 @@ def test_multinode_program_captures_degrades_and_recaptures(dev, ledger):
     assert hm.to_dict() == want_hm.to_dict()
 
 
+def test_nccl_program_of_one_rank_captures_and_matches_in_process(dev, tmp_path):
+    """An NCCL group of world size 1 in this process: the (1x8) mesh that
+    carries it runs a program with a K2 node (its all-to-all) and a K1 node
+    (its all-gathered reduce); the program captures the collectives inside
+    its graph under sync-debug "error", replays, and equals the in-process
+    (1x8) program: the dense sums bit for bit (integer-valued rows), the
+    hash table as a dict."""
+    import torch.distributed as dist
+
+    from repro_torch.core import containers as C
+    from repro_torch.launch.mesh import make_node_data_mesh
+
+    x = np.arange(1 << 16, dtype=np.float32) % 509
+
+    def run(mesh):
+        sess = BlazeSession(mesh=mesh)
+        hm = sess.make_dist_hashmap(256, (), torch.float32, "sum")
+        prog = sess.program(_k1_k2_step(sess, sess.distribute(x), hm, dev))
+        state = prog({"acc": torch.zeros(8, device=dev)}, 1)
+        state = prog(state, 2)
+        return prog, state, prog.hash_result(hm).to_dict()
+
+    _, want, want_hm = run(C.data_mesh(8, dev))
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            world_size=1, rank=0)
+    try:
+        mesh = make_node_data_mesh(n_shards=8, device=dev)
+        assert mesh.process and (mesh.n_nodes, mesh.n_local, mesh.n_ranks) == (1, 8, 1)
+        prog, got, hm = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert (prog.stats.captures, prog.stats.replays) == (2, 2)
+    assert prog.stats.replay_launches.get("segment_reduce", 0) > 0
+    assert prog.stats.replay_launches.get("hash_aggregate", 0) > 0
+    assert torch.equal(got["acc"], want["acc"])
+    assert {k: float(v) for k, v in hm.items()} == {k: float(v) for k, v in want_hm.items()}
+
+
 # -- gradients through the kernels (the training slice) ----------------------
 
 

@@ -305,15 +305,20 @@ def test_auto_engine_and_stage_cache():
 
 
 def test_later_slices_raise_not_implemented(monkeypatch):
-    # tune=True and the in-process (node, data) mesh are ported
-    # (tests/test_torch_tuning.py, tests/test_torch_multihost.py); a mesh
-    # across processes waits for cross-process collectives, and raises
-    # rather than simulate one.
-    from repro_torch.launch import mesh as mesh_mod
+    # tune=True, the in-process (node, data) mesh and the mesh across
+    # processes are ported (tests/test_torch_tuning.py,
+    # tests/test_torch_multihost.py, tests/test_torch_multiprocess.py);
+    # streams across processes wait for a later slice, and raise rather
+    # than run one rank's blocks alone.
+    from repro_torch.core import containers as C
 
-    monkeypatch.setattr(mesh_mod, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        mesh_mod.make_node_data_mesh(2, n_shards=8, device="cpu")
+    two = C.Mesh(2, 4, torch.device("cpu"), group=object(), rank=1, n_ranks=2)
+    sess = BlazeSession(mesh=two)
+    with pytest.raises(NotImplementedError, match="item 6c"):
+        sess.chunked(np.arange(64, dtype=np.float32), 16)
+    one = C.chunked(np.arange(64, dtype=np.float32), 16, 8, "cpu")
+    with pytest.raises(NotImplementedError, match="item 6c"):
+        sess.map_reduce(one, _tmapper, "sum", torch.zeros(4))
 
 
 def test_free_map_reduce_uses_the_default_session():

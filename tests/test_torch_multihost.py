@@ -400,10 +400,42 @@ def test_make_node_data_mesh_shapes_8dev(jax8, monkeypatch):
     assert str(err.value) == "cannot split 8 shards into 3 node rows"
     assert "3 node" in jax8["split_error"]
     assert jax8["initialized"] is False
-    # more than one process: raise, never simulate
+    # more than one process: one node row a process, so n_nodes must be P
+    monkeypatch.setattr(mesh_mod, "_group_up", lambda: True)
     monkeypatch.setattr(mesh_mod, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="across processes"):
-        _mesh(2)
+    with pytest.raises(ValueError, match="one node row a process"):
+        _mesh(4)
+    monkeypatch.undo()
+    _assert_process_mesh_refusals()
+
+
+def _assert_process_mesh_refusals():
+    """A gloo group cannot carry CUDA tensors; streams and the server on a
+    mesh of several processes raise, naming their ROADMAP items."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import containers as C
+    from repro_torch.launch.serve import build_server
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "s"), 1),
+                                world_size=1, rank=0)
+        try:
+            with pytest.raises(ValueError, match="gloo.*cannot carry"):
+                C.Mesh(1, 8, torch.device("cuda"), group=dist.group.WORLD)
+            assert make_node_data_mesh(device="cpu").process
+        finally:
+            dist.destroy_process_group()
+    # two ranks, as rank 0 sees them (no collective runs before the refusal)
+    two = C.Mesh(2, 4, torch.device("cpu"), group=object(), rank=0, n_ranks=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
+        BlazeSession(mesh=two).chunked(DATA["ints"], 16)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
+        C.chunked(DATA["ints"], 16, mesh=two)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6d"):
+        build_server(mesh=two)
 
 
 # -- hierarchical against flat on (2, 4) and (4, 2) ---------------------------
