@@ -81,7 +81,27 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    beside its twin's, captured on an in-process (1x8) mesh with the group
    up (NCCL's copies inside it, through libcuda's graph calls), and the
    walls are printed beside (1x8)'s.  The group is torn down in a
-   ``finally``.
+   ``finally``;
+11. shard phase — the LM stack sharded over a ``DeviceMesh``
+   (``distributed/sharding.py``, ``launch/dryrun.py``), after the process
+   phase: (a) on a (1, 1) ``("data", "model")`` mesh over an NCCL group of
+   one brought up here, qwen3-0.6b at full width and depth: 2 sharded
+   train steps of 2 × 4096 tokens (``dryrun.make_train_step``) against
+   ``runtime.train_loop.make_train_step`` from the same state (losses and
+   parameters bit for bit, or, where not, the losses within
+   ``TRAIN_LOSS_RTOL`` with the largest parameter difference printed), then
+   a prefill of 8 × 512 tokens and 8 decode steps through the sharded steps,
+   whose greedy tokens must equal ``generate``'s, K4 counted on both;
+   (b) in a child process (``python3 chip_smoke.py --shard-rank0 OUT``),
+   rank 0 of the 16 × 16 production mesh over a fake group of 256 ranks
+   (``make_production_mesh(device="cuda")``; collectives move nothing, so
+   gathered buffers hold no values and no result is checked): for qwen3-0.6b
+   ``train_4k`` (K4 on its heads) and gemma2-9b ``decode_32k`` (the
+   ``"dh"`` layout, the plain attention), the dry run's record of the cell
+   on ``"cuda"``, then the cell's step once on rank 0's real local shards
+   (random, made shard by shard: ``dryrun.build_cell(make=...)``), its
+   peak device memory held to the dry run's (``SHARD_MEM_SLACK``, below),
+   then once more timed (rank 0's compute alone), K4 counted.
 
 Between the LM serving paths and the data-mining phases runs the train
 phase: LM training through ``repro_torch.runtime.train_loop.train``.  First
@@ -169,6 +189,28 @@ kernel's output with the carried state dropped: at the middle chunk
 boundary for a prefill (the second half from a zero state), from a zero
 state for a decode step; K5's must also reject the kernel's output with the
 heads of fast decay (``|a| >= 8``, about half of them) scaled by 1.05.
+
+The shard phase's memory bound.  The dry run's peak is the largest sum of
+live local storages' bytes (``launch.dryrun.DispatchCounter``), exactly the
+sizes the step requests; the card's ``requested_bytes.all.peak`` counts the same requests
+before the caching allocator rounds them, so the two differ only by what
+the card allocates or holds and the fake run does not: cuBLAS's and
+cuBLASLt's workspaces (32 MiB each, allocated through PyTorch's allocator,
+one pair a thread: a backward runs on the autograd engine's device thread),
+K4's decode-form workspace (none on these cells), and the output buffers of
+collectives that the real group holds until they are waited on (a fake
+tensor holds no buffer).  The requested peak must lie within ``[dry − 16
+MiB, dry + SHARD_MEM_SLACK + 2 × the cell's largest collective output]``
+(``SHARD_MEM_SLACK``: two threads' workspaces, 128 MiB; the 16 MiB below
+for tensors a fake implementation allocates where the kernel reuses a
+buffer).  The first bound, 96 MiB of workspaces alone, held the decode
+cell (+64 MiB measured) and failed the train cell (+320 MiB: its
+largest collective output is 128 MiB, a gathered activation), so it was
+widened after that run.  ``max_memory_allocated`` is
+printed beside it: each block rounds up to 512 bytes, and a large request
+may take a cached block up to 1 MiB larger (the allocator splits a block
+only when more than 1 MiB would remain), so it exceeds the requested peak
+by at most 1 MiB a live block.
 
 The LM path's f32 logits must agree with the plain path (``attn_impl=
 "ref"``, ``scan_impl="chunked"``, teacher-forced along the same tokens) and
@@ -569,6 +611,14 @@ KNN_QUERIES = ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [-2.0, 0.5, 1.0], [2.0, -1.0, 0
 # (module docstring).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4096, 2, 8
 TRAIN_LOSS_RTOL = 2e-3
+# The shard phase (module docstring, 11): (a) train steps (batch, tokens,
+# steps) and the serving run (batch, prompt, decode steps) at qwen3-0.6b's
+# full size; (b) the production-mesh cells rank 0 runs; the memory bound.
+SHARD_ARCH = "qwen3-0.6b"
+SHARD_TRAIN = (2, 4096, 2)
+SHARD_SERVE = (8, 512, 8)
+SHARD_CELLS = (("qwen3-0.6b", "train_4k"), ("gemma2-9b", "decode_32k"))
+SHARD_MEM_SLACK = 128 << 20
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
 
@@ -963,8 +1013,110 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--shard-rank0"]:  # the shard phase's child (b)
+        shard_rank0(sys.argv[2])
+        return 0
     Smoke(torch).run()
     return 0
+
+
+def shard_rank0(out_path: str, device: str = "cuda") -> None:
+    """The shard phase's part (b), in a process of its own (module
+    docstring, 11): for each of ``SHARD_CELLS``, the dry run's record on
+    ``device``, then rank 0 of the 16 × 16 mesh over a fake group of 256
+    ranks running the cell's step on real local shards; the records to
+    ``out_path`` as JSON."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+
+    dev = torch.device(device)
+    out, failures = {}, []
+    for arch, shape_name in SHARD_CELLS:
+        key = f"{arch} {shape_name}"
+        t0 = time.perf_counter()
+        rec = D.run_cell(arch, shape_name, multi_pod=False, out_dir=tempfile.mkdtemp(),
+                         force=True, device=device)
+        if not rec["ok"]:
+            failures.append(f"shard {key}: the dry run failed: {rec['error']}")
+            continue
+        dry_s = time.perf_counter() - t0
+        cfg, shape = D.get_arch(arch), D.SHAPES[shape_name]
+        gen = torch.Generator(device=dev).manual_seed(7)
+
+        def make(local, dtype):
+            if dtype.is_floating_point:  # values are not checked: kept small and finite
+                return (torch.rand(local, generator=gen, device=dev) * 0.02).to(dtype)
+            return torch.randint(0, cfg.vocab, local, generator=gen, device=dev,
+                                 dtype=dtype)
+
+        D.fake_group(256)
+        try:
+            mesh = make_production_mesh(device=device)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            cell = D.build_cell(cfg, shape, mesh, make=make)
+            flash_attention.launches = 0
+            dh = ops.attention.dh_plain_calls
+            cell.step(*cell.args)
+            launches, dh = flash_attention.launches, ops.attention.dh_plain_calls - dh
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                stats = torch.cuda.memory_stats()
+                requested = stats["requested_bytes.all.peak"]
+                allocated = torch.cuda.max_memory_allocated()
+            else:  # a rehearsal on the CPU measures no device
+                requested = allocated = rec["memory"]["peak_bytes_per_device"]
+            t1 = time.perf_counter()
+            cell.step(*cell.args)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            dist.destroy_process_group()
+        dry = rec["memory"]["peak_bytes_per_device"]
+        # the workspaces, and two collective outputs held until their wait
+        # (module docstring)
+        held = SHARD_MEM_SLACK + 2 * rec["collectives"]["largest_output_bytes"]
+        bound = [dry - (16 << 20), dry + held]
+        if not bound[0] <= requested <= bound[1]:
+            failures.append(f"shard {key}: the card's requested peak {requested} B is "
+                            f"outside {bound} of the dry run's {dry} B")
+        n_attn = sum(k in D.M._ATTN_KINDS for k in D.M.layer_kinds(cfg))
+        model = mesh.shape[-1]
+        dh_layout = shape.is_decode and cfg.n_kv_heads % model and cfg.d_head % model == 0
+        # train: each layer's forward and its remat recompute; "dh": no K4
+        want = ((0, n_attn) if dh_layout else
+                (2 * n_attn if shape.kind == "train" else n_attn, 0))
+        if (launches, dh) != want:
+            failures.append(f"shard {key}: K4 launched {launches} times and the plain "
+                            f"'dh' attention {dh}, not {want}")
+        out[key] = {"dry_peak_bytes": dry,
+                    "dry_memtracker_peak_bytes": rec["memory"]["memtracker_peak_bytes"],
+                    "card_requested_peak_bytes": requested,
+                    "card_allocated_peak_bytes": allocated,
+                    "card_minus_dry_bytes": requested - dry,
+                    "bound_bytes": bound,
+                    "step_ms": step_ms, "k4_launches": launches, "dh_plain_calls": dh,
+                    "dry_flops_per_device": rec["cost"]["flops_per_device"],
+                    "dry_collectives": rec["collectives"], "dry_run_s": rec["run_s"],
+                    "dry_total_s": dry_s, "serving": rec["serving"],
+                    "values_checked": False}
+        del cell
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    print(json.dumps({"shard_rank0": out}), flush=True)
+    if failures:
+        raise AssertionError("\n".join(failures))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
 
 
 #: CUgraphNodeType values (cuda.h) by name
@@ -1044,6 +1196,8 @@ class Smoke:
         self.mn_1x8: dict = {}
         # process phase: kernel -> {"wrappers", "graph_replays"}
         self.process_launches: dict[str, dict] = {}
+        # shard phase: "train" / "serve" -> launch counts, "rank0" -> cell -> K4
+        self.shard_launches: dict[str, dict] = {}
 
     # -- measurement helpers -------------------------------------------------
 
@@ -4616,6 +4770,153 @@ class Smoke:
         torch.cuda.empty_cache()
         print(json.dumps({"process_results": r}, default=str), flush=True)
 
+    def shard_phase(self):
+        """The LM stack sharded over a ``DeviceMesh`` (module docstring, 11):
+        (a) qwen3-0.6b at full width and depth on a (1, 1) mesh over an NCCL
+        group of one, trained and served through the sharded steps against
+        the unsharded ones; (b) rank 0 of the production mesh in a child
+        process (:func:`shard_rank0`)."""
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        import torch.distributed as dist
+        from repro_torch import convert
+        from repro_torch.configs.base import get_arch
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.serve_lm import generate
+        from repro_torch.models import model as M
+        from repro_torch.optim.adamw import AdamW
+        from repro_torch.runtime.train_loop import make_train_step
+
+        dev = self.dev
+        t_phase = time.perf_counter()
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+        cfg = get_arch(SHARD_ARCH)
+        n_attn = sum(k in M._ATTN_KINDS for k in M.layer_kinds(cfg))
+        batch, seq, steps = SHARD_TRAIN
+        pipe = TokenPipeline(cfg, batch=batch, seq_len=seq, seed=1)
+        r = {"card": card, "arch": cfg.name, "mesh": "1x1 data x model, NCCL group of one"}
+        store = tempfile.mkdtemp(prefix="blaze-store-")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.FileStore(os.path.join(store, "s"), 1),
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+            mi = SH.make_mesh_info(mesh)
+            opt = AdamW(lr=3e-4)
+
+            def to_mesh(tree):
+                return convert.distribute(tree, SH.batch_pspecs(cfg, tree, mi), mesh)
+
+            # -- (a) training: sharded against unsharded, the same state -------
+            params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+            state = opt.init(params)
+            pspecs = SH.param_pspecs(cfg, params, mi)
+            sp = convert.distribute(M.map_tree(lambda t: t.detach().clone(), params), pspecs, mesh)
+            ss = convert.distribute(M.map_tree(lambda t: t.clone(), state),
+                               SH.opt_pspecs(pspecs, state), mesh)
+            step = D.make_train_step(cfg, opt, par=M.ParallelCfg(dispatch_groups=mi.dp_size))
+            # the step updates sp and ss in place
+            losses, train_s, launch = self.drive(
+                "shard train qwen3-0.6b", lambda: [
+                    float(step(sp, ss, to_mesh(pipe.device_batch(i, dev)))[2].to_local())
+                    for i in range(steps)], batch * seq * steps)
+            plain_step = make_train_step(cfg, opt, device=dev)
+            self.sync()
+            t0 = time.perf_counter()
+            want = [float(plain_step(params, state, pipe.device_batch(i, dev))[2])
+                    for i in range(steps)]
+            self.sync()
+            plain_train_s = time.perf_counter() - t0
+            pairs = list(zip(M.distinct_leaves(sp), M.distinct_leaves(params)))
+            bit_equal = losses == want and all(torch.equal(a.to_local(), b) for a, b in pairs)
+            param_diff = max(float((a.to_local().detach().float() - b.float()).abs().max())
+                             for a, b in pairs)
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+            if not bit_equal and loss_err > TRAIN_LOSS_RTOL:
+                raise AssertionError(f"shard train: losses {losses} against {want}")
+            if launch["flash_attention"] != 2 * n_attn * steps:
+                raise AssertionError(f"shard train: K4 launched {launch['flash_attention']} "
+                                     f"times, not {2 * n_attn * steps}")
+            r["train"] = {
+                "tokens": batch * seq * steps, "losses": losses, "unsharded_losses": want,
+                "bit_equal": bit_equal, "max_loss_rel_err": loss_err,
+                "max_param_abs_diff": param_diff, "wall_s": train_s,
+                "unsharded_wall_s": plain_train_s,
+                "k4_launches": launch["flash_attention"],
+                "why_not_bit_equal": None if bit_equal else (
+                    "the sharded step reaches the same kernels through local_map and "
+                    "DTensor, whose ops may pick other f32 summation orders")}
+            self.shard_launches = {"train": launch}
+            del sp, ss, params, state, pairs
+            torch.cuda.empty_cache()
+
+            # -- (a) serving: prefill + decode through the sharded steps -------
+            sb, plen, gen = SHARD_SERVE
+            max_len = plen + gen + 1
+            params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+            prompts = torch.randint(0, cfg.vocab, (sb, plen), device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(2))
+            self.sync()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                want_toks, _ = generate(cfg, params, prompts, max_len, gen)
+            self.sync()
+            plain_serve_s = time.perf_counter() - t0
+            sp = convert.distribute(params, SH.param_pspecs(cfg, params, mi, serving=True), mesh)
+            prefill, decode = D.make_serve_steps(cfg, mi, sb,
+                                                 par=M.ParallelCfg(dispatch_groups=1))
+            caches = convert.distribute(M.make_caches(cfg, sb, max_len, dev),
+                                   SH.cache_pspecs(cfg, sb, max_len, mi, kind="prefill"),
+                                   mesh)
+
+            def serve():
+                logits, c = prefill(sp, to_mesh({"t": prompts})["t"], caches)
+                c = SH.reshard(c, SH.cache_pspecs(cfg, sb, max_len, mi))
+                toks = []
+                for i in range(gen):
+                    toks.append(logits.full_tensor().argmax(-1)[:, None])
+                    logits, c = decode(sp, to_mesh({"t": toks[-1]})["t"], c, plen + i)
+                return torch.cat(toks, 1)
+
+            toks, serve_s, launch = self.drive("shard serve qwen3-0.6b", serve, sb * gen)
+            if not torch.equal(toks, want_toks):
+                raise AssertionError(f"shard serve: {int((toks != want_toks).sum())} of "
+                                     f"{toks.numel()} tokens differ from generate's")
+            if launch["flash_attention"] != n_attn * (1 + gen):
+                raise AssertionError(f"shard serve: K4 launched {launch['flash_attention']} "
+                                     f"times, not {n_attn * (1 + gen)}")
+            r["serve"] = {"batch": sb, "prompt": plen, "steps": gen, "tokens_equal": True,
+                          "wall_s": serve_s, "generate_wall_s": plain_serve_s,
+                          "k4_launches": launch["flash_attention"]}
+            self.shard_launches["serve"] = launch
+            del sp, caches, params
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # -- (b) rank 0 of the production mesh, in a child process ------------
+        out = os.path.join(tempfile.mkdtemp(prefix="blaze-shard-"), "rank0.json")
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank0",
+                                out], capture_output=True, text=True, timeout=900)
+        if child.returncode != 0:
+            raise AssertionError(f"shard rank 0: the child failed ({child.returncode}):\n"
+                                 f"{child.stdout[-3000:]}\n{child.stderr[-4000:]}")
+        with open(out) as f:
+            r["rank0"] = json.load(f)
+        r["rank0_s"] = time.perf_counter() - t0
+        self.shard_launches["rank0"] = {k: v["k4_launches"] for k, v in r["rank0"].items()}
+        r["shard_s"] = time.perf_counter() - t_phase
+        print(json.dumps({"shard_results": r}), flush=True)
+
     def lm_path(self, arch):
         """The LM serving path: ``repro_torch.launch.serve_lm.generate`` on
         ``arch`` at full width and depth in bf16 (random weights from seed
@@ -5716,6 +6017,8 @@ class Smoke:
         self.serve_phase(data)
         self.phase = "process"
         self.process_phase(data)
+        self.phase = "shard"
+        self.shard_phase()
         fault_results["other_phases"] = self.check_supervision()
         print(json.dumps({"faults": fault_results}), flush=True)
         kernels = []
@@ -5799,6 +6102,13 @@ class Smoke:
                 # the process phase's (an NCCL group of one, the (1x8) mesh
                 # across processes): the wrappers' and the graph replays'
                 "process_launches": self.process_launches.get(rec["kernel"]),
+                # the shard phase's: (a) train and serve on the (1x1) mesh,
+                # (b) rank 0 of the production mesh (K4 only counted there)
+                "shard_launches": {
+                    "train": self.shard_launches["train"][rec["kernel"]],
+                    "serve": self.shard_launches["serve"][rec["kernel"]],
+                    "rank0": (self.shard_launches["rank0"]
+                              if rec["kernel"] == "flash_attention" else None)},
                 # the serve phase's: the wrappers' (discovery, warm-up,
                 # capture) and its graph replays', by form too
                 "serve_launches": {

@@ -136,6 +136,16 @@ SHAPES: dict[str, ShapeSpec] = {
     s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 }
 
+
+
+def cells(arch: ArchConfig) -> list[ShapeSpec]:
+    """The shape cells this arch runs (long_500k only if sub-quadratic)."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if arch.supports_long_context:
+        out.append(LONG_500K)
+    return out
+
+
 _REGISTRY: dict[str, ArchConfig] = {}
 
 

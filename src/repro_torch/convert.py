@@ -7,7 +7,9 @@ The JAX package's containers hand over their arrays with ``np.asarray``
 and turn the port's back into numpy, so a table built by one package can be
 merged into by the other.  :func:`lm_params_from_jax` does the same for an
 LM's parameters, :func:`opt_state_from_jax` for its AdamW state.  bf16
-arrays travel as float32 (exact both ways).
+arrays travel as float32 (exact both ways).  :func:`distribute` carries a
+tree of the port's tensors onto a ``DeviceMesh`` by its partition specs
+(``distributed.sharding``), :func:`gather` brings it back whole.
 """
 from __future__ import annotations
 
@@ -119,3 +121,29 @@ def opt_state_from_jax(state_np, cfg, device=None) -> dict:
             "v": lm_params_from_jax(state_np["v"], cfg, dev),
             "step": torch.tensor(int(np.asarray(state_np["step"])), dtype=torch.int32,
                                  device=dev)}
+
+
+def distribute(tree, specs, mesh):
+    """Every tensor of ``tree`` as a ``DTensor`` on ``mesh`` with its spec's
+    placements (``specs`` parallel to ``tree``: ``sharding.param_pspecs``,
+    ``opt_pspecs``, ``batch_pspecs``, ``cache_pspecs``), each rank keeping
+    its own slice of the full tensor it holds (no communication: every rank
+    must hold the same tree).  Sharing is kept (zamba2's shared block stays
+    one dict)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding as SH
+
+    names = tuple(mesh.mesh_dim_names)
+    return SH._map(lambda _p, t, s: distribute_tensor(t, mesh, SH.placements(s, names),
+                                                      src_data_rank=None), tree, specs)
+
+
+def gather(tree):
+    """Every ``DTensor`` of ``tree`` whole on every rank (``full_tensor``);
+    other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as SH
+
+    return SH._map(lambda _p, t: t.full_tensor() if isinstance(t, DTensor) else t, tree)

@@ -103,13 +103,18 @@ def prefetch_iter(produce: Callable, items: Iterable, depth: int = 2) -> Iterato
 class TokenPipeline:
     """Batches of Zipf tokens for an LM (``cfg.vocab``): ``host_batch(step)``
     is numpy, bit-equal to the reference's; ``device_batch(step, device)``
-    puts it on ``device`` as int32 tensors."""
+    puts it on ``device`` as int32 tensors.  With ``sharding`` (a
+    ``DeviceMesh`` with ``("data", "model")`` or ``("pod", "data",
+    "model")`` axes) it gives ``DTensor``s placed by
+    ``distributed.sharding.batch_pspecs``: rows over the dp axes, every rank
+    keeping its own rows of the batch it makes (the same on every rank)."""
 
-    def __init__(self, cfg, batch: int, seq_len: int, *, seed: int = 0):
+    def __init__(self, cfg, batch: int, seq_len: int, *, seed: int = 0, sharding=None):
         self.cfg = cfg
         self.batch = batch
         self.seq = seq_len
         self.seed = seed
+        self.sharding = sharding
 
     def host_batch(self, step: int) -> dict[str, np.ndarray]:
         rng = np.random.RandomState((self.seed * 1_000_003 + step) % (2**31 - 1))
@@ -118,8 +123,15 @@ class TokenPipeline:
         return {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
 
     def device_batch(self, step: int, device: torch.device) -> dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                for k, v in self.host_batch(step).items()}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for k, v in self.host_batch(step).items()}
+        if self.sharding is None:
+            return out
+        from repro_torch import convert
+        from repro_torch.distributed import sharding as SH
+
+        mi = SH.make_mesh_info(self.sharding)
+        return convert.distribute(out, SH.batch_pspecs(self.cfg, out, mi), self.sharding)
 
     def prefetch(self, start_step: int, n_steps: int, device: torch.device,
                  depth: int = 2) -> Iterator:

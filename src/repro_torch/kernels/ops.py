@@ -19,17 +19,43 @@ backward recomputes the plain version (``attention_ref``,
 not write a cache in place (``out_state``).  Otherwise the kernel runs
 alone, as on the serving path.
 
+K4, K5 and K6 are custom ops (``torch.ops.blaze.flash_attention``,
+``ssd_scan``, ``ssd_scan_into``, ``rwkv6_scan``, ``rwkv6_scan_into``): the
+real implementation is the kernel's wrapper, a fake one gives the output
+shapes (a fake or meta tensor has no ``data_ptr()``), a flop formula gives
+``torch.utils.flop_counter`` each call's operations, and each differentiates
+with the plain version's gradients (``autograd.register_plain_backward``).
+The ``_into`` forms write the final state into ``out_state`` in place.
+
+On ``DTensor`` inputs (a model sharded over a ``DeviceMesh``,
+``distributed/sharding.py``) each kernel runs under ``local_map`` on every
+rank's shards: batch over the dp axes where it divides, heads over model
+(the reference's ``shard_hint="heads"``; K5 and K6 always), the sequence
+whole; K4 with heads that do not divide the model axis splits its query
+rows over it instead (each rank's rows at their offset, the keys whole).
+Where the kv heads (K4) or the B/C groups (K5) do not split with the query
+heads, each rank takes the ones its own heads read.  ``shard_hint="dh"``
+(decode with ``d_head`` sharded over model, kv heads that do not divide
+it) runs the plain attention instead, each rank's logits a partial sum over
+its slice of ``d_head``, all-reduced as the reference's are; K4 has no form
+that sums partial logits, and ``attention.dh_plain_calls`` counts these
+calls.
+
 There is no fallback: if the kernel fails, the call fails.  ``block_n``,
-``block_q``, ``block_k`` and ``shard_hint`` keep the JAX signature and are
-dropped: the CUDA kernels pick their own tiles, and the port runs on one
-card.
+``block_q`` and ``block_k`` keep the JAX signature and are dropped: the CUDA
+kernels pick their own tiles.
 """
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.autograd import kernel_with_grad, needs_grad
+from repro_torch.kernels.autograd import kernel_with_grad, needs_grad, register_plain_backward
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _kmeans_kernel
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_kernel
@@ -64,22 +90,231 @@ def _into(out_state: torch.Tensor | None, y: torch.Tensor, state: torch.Tensor):
     return y, state
 
 
+# ---------------------------------------------------------------------------
+# K4-K6 as custom ops
+# ---------------------------------------------------------------------------
+
+
+def _flash_impl(q, k, v, causal, window, softcap, scale, q_offset):
+    return _flash_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                         scale=scale, q_offset=q_offset)
+
+
+_flash_op = torch.library.custom_op(
+    "blaze::flash_attention", _flash_impl, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int? window, float softcap, "
+           "float? scale, int? q_offset) -> Tensor")
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, softcap, scale, q_offset):
+    return torch.empty_like(q)
+
+
+def _live_pairs(sq: int, skv: int, off: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the masks keep, query ``i`` at ``off + i``."""
+    pos = torch.arange(sq, dtype=torch.int64) + off
+    hi = torch.clamp(pos + 1, max=skv) if causal else torch.full_like(pos, skv)
+    lo = torch.clamp(pos - window + 1, min=0) if window is not None else torch.zeros_like(pos)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+@register_flop_formula(torch.ops.blaze.flash_attention)
+def _flash_flops(q, k, v, causal, window, softcap, scale, q_offset, *args, **kwargs):
+    """Two products (``q·kᵀ`` and ``p·v``) over the live pairs."""
+    b, hq, sq, d = q
+    skv = k[2]
+    off = skv - sq if q_offset is None else q_offset
+    return 4 * b * hq * d * _live_pairs(sq, skv, off, causal, window)
+
+
+_SCAN = "(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, Tensor? init_state"
+
+
+def _ssd_impl(x, dt, a, b, c, init_state, chunk):
+    return _ssd_kernel(x, dt, a, b, c, init_state=init_state, chunk=chunk)
+
+
+def _ssd_into_impl(x, dt, a, b, c, init_state, out_state, chunk):
+    return _ssd_kernel(x, dt, a, b, c, init_state=init_state, out_state=out_state,
+                       chunk=chunk)[0]
+
+
+_ssd_op = torch.library.custom_op(
+    "blaze::ssd_scan", _ssd_impl, mutates_args=(),
+    schema=_SCAN + ", int chunk) -> (Tensor, Tensor)")
+_ssd_into_op = torch.library.custom_op(
+    "blaze::ssd_scan_into", _ssd_into_impl, mutates_args=("out_state",),
+    schema=_SCAN + ", Tensor(a!) out_state, int chunk) -> Tensor")
+
+
+@_ssd_op.register_fake
+def _(x, dt, a, b, c, init_state, chunk):
+    bsz, _, h, p = x.shape
+    return torch.empty_like(x, memory_format=torch.contiguous_format), x.new_empty(
+        (bsz, h, p, b.shape[-1]), dtype=torch.float32)
+
+
+@_ssd_into_op.register_fake
+def _(x, dt, a, b, c, init_state, out_state, chunk):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula([torch.ops.blaze.ssd_scan, torch.ops.blaze.ssd_scan_into])
+def _ssd_flops(x, dt, a, b, c, *args, **kwargs):
+    """The recurrence's state update and read-out: ``4·P·N`` a step and head."""
+    bsz, s, h, p = x
+    return 4 * bsz * s * h * p * b[-1]
+
+
+def _rwkv6_impl(r, k, v, w, u, init_state, chunk):
+    return _rwkv6_kernel(r, k, v, w, u, init_state=init_state, chunk=chunk)
+
+
+def _rwkv6_into_impl(r, k, v, w, u, init_state, out_state, chunk):
+    return _rwkv6_kernel(r, k, v, w, u, init_state=init_state, out_state=out_state,
+                         chunk=chunk)[0]
+
+
+_WKV = "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? init_state"
+_rwkv6_op = torch.library.custom_op(
+    "blaze::rwkv6_scan", _rwkv6_impl, mutates_args=(),
+    schema=_WKV + ", int chunk) -> (Tensor, Tensor)")
+_rwkv6_into_op = torch.library.custom_op(
+    "blaze::rwkv6_scan_into", _rwkv6_into_impl, mutates_args=("out_state",),
+    schema=_WKV + ", Tensor(a!) out_state, int chunk) -> Tensor")
+
+
+@_rwkv6_op.register_fake
+def _(r, k, v, w, u, init_state, chunk):
+    bsz, _, h, kd = r.shape
+    return torch.empty_like(v, memory_format=torch.contiguous_format), r.new_empty(
+        (bsz, h, kd, v.shape[-1]), dtype=torch.float32)
+
+
+@_rwkv6_into_op.register_fake
+def _(r, k, v, w, u, init_state, out_state, chunk):
+    return torch.empty_like(v, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula([torch.ops.blaze.rwkv6_scan, torch.ops.blaze.rwkv6_scan_into])
+def _rwkv6_flops(r, k, v, *args, **kwargs):
+    """The state update and read-out: ``4·K·V`` a step and head."""
+    bsz, s, h, kd = r
+    return 4 * bsz * s * h * kd * v[-1]
+
+
+register_plain_backward(
+    _flash_op, lambda causal, window, softcap, scale, q_offset: (
+        lambda q, k, v: R.attention_ref(q, k, v, causal=causal, window=window,
+                                        softcap=softcap, scale=scale, q_offset=q_offset)),
+    3)
+register_plain_backward(
+    _ssd_op, lambda chunk: (lambda *t: ssd_scan_plain(*t[:5], init_state=t[5],
+                                                      chunk=chunk)), 6)
+register_plain_backward(
+    _rwkv6_op, lambda chunk: (lambda *t: rwkv6_scan_plain(*t[:5], init_state=t[5],
+                                                          chunk=chunk)), 6)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None, softcap: float = 0.0,
               scale: float | None = None, q_offset: int | None = None,
               impl: str = "auto", block_q: int = 256, block_k: int = 512,
               shard_hint: str | None = None) -> torch.Tensor:
     """Attention of ``q [B, Hq, Sq, D]`` over ``k, v [B, Hkv, Skv, D]``
-    (see ``kernels.ref.attention_ref`` for the masking rules)."""
-    del block_q, block_k, shard_hint
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+    (see ``kernels.ref.attention_ref`` for the masking rules).  On
+    ``DTensor``s, ``shard_hint="dh"`` is the plain attention on the sharded
+    tensors; otherwise the kernel runs on each rank's heads (module doc)."""
+    del block_q, block_k
+    kw = dict(causal=causal, window=window, softcap=float(softcap), scale=scale,
               q_offset=q_offset)
+    if isinstance(q, DTensor):
+        if shard_hint == "dh":
+            attention.dh_plain_calls += 1
+            return _dh_attention(q, k, v, kw)
+        return _sharded_attention(q, k, v, kw, impl)
     if _resolve(impl, q) != "pallas":
         return R.attention_ref(q, k, v, **kw)
+    opts = tuple(kw.values())
     if needs_grad(q, k, v):
-        return kernel_with_grad(lambda *t: _flash_kernel(*t, **kw),
+        return kernel_with_grad(lambda *t: _flash_op(*t, *opts),
                                 lambda *t: R.attention_ref(*t, **kw), q, k, v)
-    return _flash_kernel(q, k, v, **kw)
+    return _flash_op(q, k, v, *opts)
+
+
+attention.dh_plain_calls = 0  # sharded calls in the "dh" layout (the plain route)
+
+
+def _dh_attention(q: DTensor, k: DTensor, v: DTensor, kw: dict) -> DTensor:
+    """``attention_ref`` with ``d_head`` sharded over model (batch over dp
+    where it divides): each rank's logits are a partial sum over its slice
+    of ``d_head``, all-reduced over model (the reference's "dh" layout:
+    ``[B, Hq, Sq, Skv]`` logits cross the wire, not the cache), then each
+    rank takes the softmax and its slice of the output."""
+    mesh = q.device_mesh
+    model = SH.axis_index(mesh, SH.MODEL)
+    q_pl = SH.fitted_placements(mesh, q.shape, (SH.DP, None, None, SH.MODEL))
+    kv_pl = SH.fitted_placements(mesh, k.shape, (SH.DP, None, None, SH.MODEL))
+    whole = tuple(Replicate() if i == model else p for i, p in enumerate(q_pl))
+    partial = tuple(Partial() if i == model else p for i, p in enumerate(q_pl))
+    scale = kw["scale"] if kw["scale"] is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = SH.run_local(lambda ql, kl: R.attention_logits(ql, kl, scale), partial,
+                          (q, k), (q_pl, kv_pl))
+    logits = logits.redistribute(mesh, whole)  # the partial sums, all-reduced
+    rest = {n: kw[n] for n in ("causal", "window", "softcap", "q_offset")}
+    return SH.run_local(lambda lg, vl: R.attention_from_logits(lg, vl, q.dtype, **rest),
+                        q_pl, (logits, v), (whole, kv_pl))
+
+
+def _model_rank(x: DTensor) -> int:
+    i = SH.axis_index(x.device_mesh, SH.MODEL)
+    return 0 if i is None else x.device_mesh.get_coordinate()[i]
+
+
+def _heads_for(x: torch.Tensor, n_local: int, first: int, n_total: int,
+               n_groups: int, dim: int) -> torch.Tensor:
+    """The groups (kv heads, B/C groups) that query heads ``first ..
+    first + n_local`` of ``n_total`` read, from all ``n_groups`` of them
+    along ``dim``: a slice where the local heads split evenly over whole
+    groups, else one group a head."""
+    rep = n_total // n_groups
+    lo, hi = first // rep, (first + n_local - 1) // rep + 1
+    if (n_local % rep == 0 and first % rep == 0) or (rep % n_local == 0 and hi - lo == 1):
+        return x.narrow(dim, lo, hi - lo)
+    idx = torch.arange(first, first + n_local, device=x.device) // rep
+    return x.index_select(dim, idx)
+
+
+def _sharded_attention(q: DTensor, k: DTensor, v: DTensor, kw: dict, impl: str):
+    """The attention on each rank's shards: batch over dp where it divides,
+    query heads over model where they divide (kv heads too where both do),
+    else the query rows over model where they divide (each rank's rows at
+    their own offset), the keys whole."""
+    mesh = q.device_mesh
+    hq, hkv, sq = q.shape[1], k.shape[1], q.shape[2]
+    q_pl = SH.fitted_placements(mesh, q.shape, (SH.DP, SH.MODEL, None, None))
+    q_split = SH.is_sharded_placements(q_pl, 1)
+    rows_split = False
+    if not q_split:  # heads that do not divide: split the query rows instead
+        q_pl = SH.fitted_placements(mesh, q.shape, (SH.DP, None, SH.MODEL, None))
+        rows_split = SH.is_sharded_placements(q_pl, 2)
+    kv_axes = (SH.DP, SH.MODEL if q_split else None, None, None)
+    kv_pl = SH.fitted_placements(mesh, k.shape, kv_axes)
+    kv_split = SH.is_sharded_placements(kv_pl, 1)
+    n_model = mesh.shape[SH.axis_index(mesh, SH.MODEL)] if q_split or rows_split else 1
+    first = _model_rank(q) * (hq // n_model) if q_split else 0
+    if rows_split:
+        off = k.shape[2] - sq if kw["q_offset"] is None else kw["q_offset"]
+        kw = dict(kw, q_offset=off + _model_rank(q) * (sq // n_model))
+
+    def local(ql, kl, vl):
+        if q_split and not kv_split:
+            kl = _heads_for(kl, ql.shape[1], first, hq, hkv, 1)
+            vl = _heads_for(vl, ql.shape[1], first, hq, hkv, 1)
+        return attention(ql, kl, vl, impl=impl, **kw)
+
+    return SH.run_local(local, q_pl, (q, k, v), (q_pl, kv_pl, kv_pl))
 
 
 def segment_reduce(ids: torch.Tensor, vals: torch.Tensor, num_segments: int, *,
@@ -111,16 +346,20 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     ``init_state`` (see ``kernels.ssd_scan.ssd_scan``).  With ``out_state``
     the final state is written there (it may be ``init_state``: a cache
     updated in place)."""
+    if isinstance(x, DTensor):
+        return _sharded_scan(ssd, (x, dt, a), (b, c), init_state, out_state,
+                             dict(chunk=chunk, impl=impl))
     impl = _resolve(impl, x, cpu="chunked", impls=IMPLS)
     if impl == "pallas":
         if needs_grad(x, dt, a, b, c, init_state):
             _no_cache_write(out_state, "ssd")
             return kernel_with_grad(
-                lambda *t: _ssd_kernel(*t[:5], init_state=t[5], chunk=chunk),
+                lambda *t: _ssd_op(*t, chunk),
                 lambda *t: ssd_scan_plain(*t[:5], init_state=t[5], chunk=chunk),
                 x, dt, a, b, c, init_state)
-        return _ssd_kernel(x, dt, a, b, c, init_state=init_state, out_state=out_state,
-                           chunk=chunk)
+        if out_state is not None:
+            return _ssd_into_op(x, dt, a, b, c, init_state, out_state, chunk), out_state
+        return _ssd_op(x, dt, a, b, c, init_state, chunk)
     if impl == "ref":
         return _into(out_state, *R.ssd_ref(x, dt, a, b, c, init_state=init_state))
     return ssd_scan_plain(x, dt, a, b, c, init_state=init_state, out_state=out_state,
@@ -136,17 +375,66 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     (see ``kernels.rwkv6_scan.rwkv6_scan``; ``ref`` has no decay floor).
     With ``out_state`` the final state is written there (it may be
     ``init_state``: a cache updated in place)."""
+    if isinstance(r, DTensor):
+        return _sharded_scan(rwkv6, (r, k, v, w, u), (), init_state, out_state,
+                             dict(chunk=chunk, impl=impl))
     impl = _resolve(impl, r, cpu="chunked", impls=IMPLS)
     if impl == "pallas":
         if needs_grad(r, k, v, w, u, init_state):
             _no_cache_write(out_state, "rwkv6")
             return kernel_with_grad(
-                lambda *t: _rwkv6_kernel(*t[:5], init_state=t[5], chunk=chunk),
+                lambda *t: _rwkv6_op(*t, chunk),
                 lambda *t: rwkv6_scan_plain(*t[:5], init_state=t[5], chunk=chunk),
                 r, k, v, w, u, init_state)
-        return _rwkv6_kernel(r, k, v, w, u, init_state=init_state, out_state=out_state,
-                             chunk=chunk)
+        if out_state is not None:
+            return _rwkv6_into_op(r, k, v, w, u, init_state, out_state, chunk), out_state
+        return _rwkv6_op(r, k, v, w, u, init_state, chunk)
     if impl == "ref":
         return _into(out_state, *R.rwkv6_ref(r, k, v, w, u, init_state=init_state))
     return rwkv6_scan_plain(r, k, v, w, u, init_state=init_state, out_state=out_state,
                             chunk=chunk)
+
+
+def _sharded_scan(op, heads, groups, init_state, out_state, kw):
+    """K5 (``op=ssd``: ``heads = (x, dt, a)``, ``groups = (b, c)``) or K6
+    (``op=rwkv6``: ``heads = (r, k, v, w, u)``) on each rank's shards: batch
+    over dp where it divides, heads over model where they divide (the
+    reference's note: the scans are parallel over heads), the sequence
+    whole.  The states take the same placements; ``out_state`` must already
+    have them, so the kernel writes the cache's own shards."""
+    x = heads[0]
+    mesh = x.device_mesh
+    h = x.shape[2]
+
+    def pl(t, head_dim):
+        axes = [None] * t.ndim
+        if head_dim != 0:
+            axes[0] = SH.DP
+        axes[head_dim] = SH.MODEL
+        return SH.fitted_placements(mesh, t.shape, axes)
+
+    head_pls = [pl(t, 0 if t.ndim == 1 or (op is rwkv6 and t.ndim == 2) else 2)
+                for t in heads]
+    split = SH.is_sharded_placements(head_pls[0], 2)
+    state_pl = SH.fitted_placements(
+        mesh, (x.shape[0], h, 1, 1), (SH.DP, SH.MODEL if split else None, None, None))
+    group_pls = [SH.fitted_placements(mesh, t.shape, (SH.DP, None, None, None))
+                 for t in groups]
+    if out_state is not None and tuple(out_state.placements) != state_pl:
+        raise ValueError(f"out_state is placed {out_state.placements}, the scan's "
+                         f"state {state_pl}: the kernel would write a copy")
+    n_model = mesh.shape[SH.axis_index(mesh, SH.MODEL)] if split else 1
+    first = _model_rank(x) * (h // n_model) if split else 0
+    n_heads, n_groups = len(heads), len(groups)
+
+    def local(*t):
+        hs = list(t[:n_heads])
+        gs = [_heads_for(g, hs[0].shape[2], first, h, g.shape[2], 2) if split else g
+              for g in t[n_heads:n_heads + n_groups]]
+        st_in, st_out = t[n_heads + n_groups:]
+        return op(*hs, *gs, init_state=st_in, out_state=st_out, **kw)
+
+    args = (*heads, *groups, init_state, out_state)
+    pls = (*head_pls, *group_pls, state_pl, state_pl)
+    y_pl = head_pls[2] if op is rwkv6 else head_pls[0]
+    return SH.run_local(local, (y_pl, state_pl), args, pls)

@@ -25,26 +25,39 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Masked logits are ``-inf``; a row with every key masked gives zeros.
     The output is in ``q``'s dtype.
     """
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    rep = hq // hkv
-    kk = k.repeat_interleave(rep, dim=1).float()
-    vv = v.repeat_interleave(rep, dim=1).float()
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return attention_from_logits(attention_logits(q, k, scale), v, q.dtype, causal=causal,
+                                 window=window, softcap=softcap, q_offset=q_offset)
+
+
+def attention_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """:func:`attention_ref`'s f32 logits ``[B, Hq, Sq, Skv]`` before the
+    softcap and the masks (a sum over ``D``: over a slice of ``D``, a
+    partial sum)."""
+    kk = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+
+
+def attention_from_logits(logits: torch.Tensor, v: torch.Tensor, dtype, *,
+                          causal: bool = True, window: int | None = None,
+                          softcap: float = 0.0, q_offset: int | None = None) -> torch.Tensor:
+    """The rest of :func:`attention_ref` from its logits: softcap, masks,
+    softmax and the product with ``v [B, Hkv, Skv, Dv]``, in ``dtype``."""
+    sq, skv = logits.shape[2], logits.shape[3]
+    vv = v.repeat_interleave(logits.shape[1] // v.shape[1], dim=1).float()
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     off = skv - sq if q_offset is None else q_offset
-    qpos = torch.arange(sq, device=q.device)[:, None] + off
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    qpos = torch.arange(sq, device=logits.device)[:, None] + off
+    kpos = torch.arange(skv, device=logits.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=logits.device)
     if causal:
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
     logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1).nan_to_num(nan=0.0)  # fully-masked rows
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(dtype)
 
 
 def segment_reduce_ref(ids: torch.Tensor, vals: torch.Tensor,

@@ -1,9 +1,8 @@
-"""Multi-node bring-up and the MapReduce engine's ("node", "data") mesh.
+"""Multi-node bring-up, the MapReduce engine's ("node", "data") mesh and
+the LM stack's production meshes.
 
-The counterpart of ``repro/launch/mesh.py`` (its multi-host half; the
-production LM meshes come with ``distributed/sharding.py``, ROADMAP.md Queue
-1 item 6b).  Nothing here touches a device or a process group when
-imported.
+The counterpart of ``repro/launch/mesh.py``.  Nothing here touches a device
+or a process group when imported.
 
 * ``init_distributed(...)`` — ``torch.distributed.init_process_group``,
   gated: a no-op that returns ``False`` on one process.  The backend
@@ -38,14 +37,30 @@ Starting ``P`` processes on real cards (one card each)::
 
 On the CPU, ``launch.simulate.spawn_local`` starts ``P`` local processes
 over ``gloo``.
+
+The LM stack shards over a ``torch.distributed`` ``DeviceMesh`` with axes
+``("data", "model")`` or ``("pod", "data", "model")``
+(``distributed/sharding.py``):
+
+* ``make_production_mesh(multi_pod=, device=)`` — the reference's 16×16
+  single pod (256 ranks) or 2×16×16 two pods (512 ranks), over the default
+  process group: a real cluster, or the fake group the dry run brings up
+  (``launch/dryrun.py``);
+* ``make_mesh(shape, names, device=)`` — any such mesh over the default
+  group (the tests' (2, 4) and (2, 2) meshes);
+* ``fsdp_axes(mesh)`` / ``dp_axes(mesh)`` — the parameter-sharding and
+  batch-sharding axes: data, plus pod when present.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.core import containers as C
 
-__all__ = ["init_distributed", "make_node_data_mesh", "process_count", "process_index"]
+__all__ = ["dp_axes", "fsdp_axes", "init_distributed", "make_mesh", "make_node_data_mesh",
+           "make_production_mesh", "process_count", "process_index"]
 
 
 def _group_up() -> bool:
@@ -115,3 +130,38 @@ def make_node_data_mesh(n_nodes: int | None = None, *, n_shards: int = 8,
                          f"n_nodes={nodes} was asked for")
     return C.Mesh(nodes, n_shards // nodes, dev, group=torch.distributed.group.WORLD,
                   rank=process_index(), n_ranks=procs)
+
+
+def make_mesh(shape: tuple[int, ...], names: tuple[str, ...], device=None):
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` over the default
+    process group (its world size must be the product of ``shape``), on
+    ``device``'s type: the card unless the caller names another."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not _group_up():
+        raise RuntimeError("make_mesh needs a process group: init_distributed, or "
+                           "init_process_group, first")
+    if process_count() != math.prod(shape):
+        raise ValueError(f"a {tuple(shape)} mesh needs {math.prod(shape)} ranks, "
+                         f"{process_count()} are up")
+    return init_device_mesh(C.resolve_device(device).type, tuple(shape),
+                            mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """16×16 ``("data", "model")`` (256 ranks) or 2×16×16 ``("pod", "data",
+    "model")`` (512 ranks) over the default process group."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, names, device=device)
+
+
+def fsdp_axes(mesh) -> tuple[str, ...]:
+    """Parameter-sharding (FSDP/ZeRO) axes: data, plus pod when present."""
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    return ("pod", "data") if "pod" in names else ("data",)
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """Batch-sharding axes (the same as the FSDP axes)."""
+    return fsdp_axes(mesh)

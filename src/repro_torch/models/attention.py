@@ -5,16 +5,26 @@ The attention itself runs through ``kernels.ops.attention``: the
 hand-written flash-attention kernel on the card, ``attention_ref`` on the
 CPU.  The cache keeps JAX's ``[B, S_max, Hkv, Dh]`` layout and is written in
 place (JAX returns an updated copy); the kernel reads it through a
-transposed view, so no step copies it.  The sharding constraints of the JAX
-block are gone: the port runs on one card.
+transposed view, so no step copies it.
+
+On ``DTensor`` inputs (a model sharded over a ``DeviceMesh``) the block
+keeps the reference's constraints (``distributed.sharding.constrain``): q,
+k and v over (dp, heads on model), or, for decode with kv heads that do not
+divide the model axis, over (dp, ``d_head`` on model), matching the caches
+``sharding.cache_pspecs`` gives.  The new rows are written into each rank's
+shard of the cache (a sequence-sharded cache takes the rows that fall in
+its range).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     apply_mrope,
@@ -61,9 +71,19 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
     """
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ params["wq"]).reshape(b, s, hq, dh)
-    k = (x @ params["wk"]).reshape(b, s, hkv, dh)
-    v = (x @ params["wv"]).reshape(b, s, hkv, dh)
+    q = SH.split_heads(x @ params["wq"], hq, dh)
+    k = SH.split_heads(x @ params["wk"], hkv, dh)
+    v = SH.split_heads(x @ params["wv"], hkv, dh)
+    # The layout must match the cache's (sharding.cache_pspecs): decode with
+    # kv heads that don't divide the model axis shards d_head (the logits'
+    # partial sums then cross the wire, not the cache); else heads.
+    msize = _model_size(x)
+    dh_layout = (cache is not None and s <= 8 and msize > 1 and hkv % msize != 0
+                 and dh % msize == 0)
+    shard_hint = "dh" if dh_layout else ("heads" if msize > 1 and hq % msize == 0 else None)
+    axes = (SH.DP, None, None, SH.MODEL) if dh_layout else (SH.DP, None, SH.MODEL, None)
+    if not dh_layout:
+        q, k, v = (constrain(t, *axes) for t in (q, k, v))
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -73,14 +93,16 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
     else:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if dh_layout:  # after the rotary pairs (i, i + D/2) have met
+        q, k, v = (constrain(t, *axes) for t in (q, k, v))
 
     if cache is not None:
         idx = int(cache_len)
         if idx + s > cache.k.shape[1]:
             raise ValueError(f"KV cache of {cache.k.shape[1]} rows: cannot write {s} "
                              f"rows at cache_len {idx}")
-        cache.k[:, idx:idx + s] = k.to(cache.k.dtype)
-        cache.v[:, idx:idx + s] = v.to(cache.v.dtype)
+        _write_rows(cache.k, k, idx)
+        _write_rows(cache.v, v, idx)
         k_all, v_all, q_offset = cache.k, cache.v, idx
         if local and cfg.window is not None and cache.k.shape[1] > cfg.window + s:
             # Only the last `window + s` rows can be in the window: a view of
@@ -96,9 +118,34 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
         q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
         causal=True, window=cfg.window if local else None,
         softcap=cfg.attn_softcap, q_offset=q_offset, impl=attn_impl,
+        shard_hint=shard_hint,
     )  # [B, Hq, S, Dh]
-    out = out.transpose(1, 2).reshape(b, s, hq * dh)
+    out = SH.merge_last(out.transpose(1, 2), 2)  # [B, S, Hq·Dh]
     return (out @ params["wo"]).to(x.dtype), cache
+
+
+def _model_size(x) -> int:
+    if not isinstance(x, DTensor):
+        return 1
+    i = SH.axis_index(x.device_mesh, SH.MODEL)
+    return 1 if i is None else x.device_mesh.shape[i]
+
+
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, idx: int) -> None:
+    """``buf[:, idx:idx + S] = new`` in place.  A ``DTensor`` cache is
+    written shard by shard: ``new`` takes the cache's placements with the
+    sequence whole, and each rank writes the rows that fall in its shard."""
+    if not isinstance(buf, DTensor):
+        buf[:, idx:idx + new.shape[1]] = new.to(buf.dtype)
+        return
+    target = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                   for p in buf.placements)
+    new = new.to(buf.dtype).redistribute(buf.device_mesh, target).to_local()
+    local = buf.to_local()
+    off = SH.shard_offset(buf, 1)
+    lo, hi = max(idx, off), min(idx + new.shape[1], off + local.shape[1])
+    if lo < hi:
+        local[:, lo - off:hi - off] = new[:, lo - idx:hi - idx]
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> KVCache:

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype) -> torch.Tensor:
     scale = (1.0 / d_in) ** 0.5
@@ -40,16 +42,25 @@ def _rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
 
 
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """``x [B, S, H, D]`` rotated pairwise by ``angles [B, S, D/2]``, in f32.
+    On a ``DTensor`` the angles (the same on every rank) join as a replicated
+    one, so the backward needs no plain tensor."""
+    cos = SH.replicated(torch.cos(angles)[:, :, None, :], x)
+    sin = SH.replicated(torch.sin(angles)[:, :, None, :], x)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10_000.0) -> torch.Tensor:
     """Rotary embedding of ``x [B, S, H, D]`` at ``positions [B, S]``, with
     split halves (dims ``i`` and ``i + D/2`` rotate together), in f32."""
     freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    if positions.stride(0) == 0:  # the same positions in every row: one row
+        positions = positions[:1]
     angles = positions.float()[..., None] * freqs  # [B, S, D/2]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return _rotate(x, angles)
 
 
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, ...],
@@ -62,12 +73,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, .
     if sum(sections) != half:
         raise ValueError(f"M-RoPE sections {sections} must sum to D/2 = {half}")
     freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    if positions.stride(1) == 0:  # the same positions in every row: one row
+        positions = positions[:, :1]
     angles = torch.cat([positions[i].float()[..., None] * f
                         for i, f in enumerate(freqs.split(list(sections)))], -1)  # [B, S, D/2]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return _rotate(x, angles)
 
 
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:

@@ -19,6 +19,16 @@ Public entry points:
   distinct_leaves(tree), map_tree(fn, tree), reference_leaves(params, cfg)
 The MoE blocks call ``MOE.moe_apply`` through the module, so a caller may
 wrap it (to record routes).
+
+Sharded: given parameters and inputs as ``DTensor``s on a ``DeviceMesh``
+(``distributed/sharding.py``), the same functions run sharded, with the
+reference's constraints (``sharding.constrain``, a no-op on plain tensors):
+the residual stream sequence-parallel over (dp, model) between blocks, norm
+outputs likewise, the embedding's vocab-parallel gather resharded at once,
+the head's logits vocab-parallel (the log-sum-exp reduced over model).
+Plain tensors (positions, masks) mix in as replicated ones
+(``sharding.mixing``); the kernels, the MoE dispatch and the cache writes
+run on each rank's shards.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import dataclasses
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -42,6 +53,8 @@ from repro_torch.configs.base import (
     SHARED_ATTN,
     ArchConfig,
 )
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
@@ -101,35 +114,46 @@ def block_apply(params: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
     the window), then the SwiGLU MLP or, for the MoE kinds, the expert
     layer (``par.dispatch_groups``); Mamba-2: the SSM mixer; RWKV-6:
     time-mix, then channel-mix (``scan_impl`` for both recurrences)."""
+    def norm_sp(ln, x):
+        # the norm's f32 internals stay sequence-sharded; the gather the
+        # block's products need then moves the compute dtype
+        return SH.relayout(constrain(rmsnorm(ln, x), SH.DP, SH.MODEL, None),
+                           SH.DP, None, None)
+
+    def out_sp(x):
+        # back to sequence-sharded before the residual add: a row-parallel
+        # product's partial sum then reduce-scatters
+        return constrain(x, SH.DP, SH.MODEL, None)
+
     aux = 0.0
     if kind in _ATTN_KINDS:
         a_out, new_kv = A.attn_apply(
-            params["attn"], cfg, rmsnorm(params["ln1"], h), positions,
+            params["attn"], cfg, norm_sp(params["ln1"], h), positions,
             local=kind in (ATTN_LOCAL, ATTN_LOCAL_MOE), cache=cache,
             cache_len=cache_len, attn_impl=attn_impl,
         )
-        h = h + a_out
+        h = h + out_sp(a_out)
         if kind in _MOE_KINDS:
-            m_out, aux = MOE.moe_apply(params["moe"], cfg, rmsnorm(params["ln2"], h),
+            m_out, aux = MOE.moe_apply(params["moe"], cfg, norm_sp(params["ln2"], h),
                                        dispatch_groups=par.dispatch_groups)
         else:
-            m_out = mlp(params["mlp"], rmsnorm(params["ln2"], h))
-        return h + m_out, new_kv, aux
+            m_out = mlp(params["mlp"], norm_sp(params["ln2"], h))
+        return h + out_sp(m_out), new_kv, aux
     if kind == MAMBA2:
-        m_out, cache = SSM.mamba_apply(params["mamba"], cfg, rmsnorm(params["ln1"], h),
+        m_out, cache = SSM.mamba_apply(params["mamba"], cfg, norm_sp(params["ln1"], h),
                                        cache=cache, scan_impl=scan_impl)
-        return h + m_out, cache, aux
+        return h + out_sp(m_out), cache, aux
     if kind == RWKV6:
         tm_out, shift_tm, _ = RW.time_mix(params["rwkv"]["tm"], cfg,
-                                          rmsnorm(params["ln1"], h), cache,
+                                          norm_sp(params["ln1"], h), cache,
                                           scan_impl=scan_impl)
-        h = h + tm_out
+        h = h + out_sp(tm_out)
         cm_out, shift_cm = RW.channel_mix(params["rwkv"]["cm"], cfg,
-                                          rmsnorm(params["ln2"], h), cache)
+                                          norm_sp(params["ln2"], h), cache)
         if cache is not None:  # after channel-mix has read the old row
-            cache.shift_tm.copy_(shift_tm)
-            cache.shift_cm.copy_(shift_cm)
-        return h + cm_out, cache, aux
+            SH.write_into(cache.shift_tm, shift_tm)
+            SH.write_into(cache.shift_cm, shift_cm)
+        return h + out_sp(cm_out), cache, aux
     raise ValueError(kind)
 
 
@@ -209,46 +233,79 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     del scan_layers
     if remat_policy not in ("full", "dots"):
         raise ValueError(f"remat_policy must be 'full' or 'dots', got {remat_policy!r}")
-    if cfg.embed_inputs:
-        h = params["embed"][inputs].to(cfg.cdtype)
-    elif inputs.dim() != 3:
-        raise ValueError(f"{cfg.name} takes embeddings [B, S, d], not inputs of shape "
-                         f"{tuple(inputs.shape)}")
-    else:
-        h = inputs.to(cfg.cdtype)
-    b, s = h.shape[0], h.shape[1]
-    if positions is None:
-        start = 0 if cache_len is None else int(cache_len)
-        positions = (torch.arange(s, device=h.device) + start).expand(b, s)
-        if cfg.mrope_sections is not None:
-            positions = positions.expand(3, b, s)
-    kinds = layer_kinds(cfg)
+    with SH.mixing(inputs):
+        if cfg.embed_inputs:
+            if isinstance(params["embed"], DTensor):
+                h = _sharded_embed(params["embed"], inputs).to(cfg.cdtype)
+            else:
+                h = params["embed"][inputs].to(cfg.cdtype)
+        elif inputs.dim() != 3:
+            raise ValueError(f"{cfg.name} takes embeddings [B, S, d], not inputs of shape "
+                             f"{tuple(inputs.shape)}")
+        else:
+            h = inputs.to(cfg.cdtype)
+        # the sequence-parallel residual stream: each stage's saved
+        # activation (the remat boundary) is sharded over (dp, model)
+        h = constrain(h, SH.DP, SH.MODEL, None)
+        b, s = h.shape[0], h.shape[1]
+        if positions is None:
+            start = 0 if cache_len is None else int(cache_len)
+            positions = (torch.arange(s, device=h.device) + start).expand(b, s)
+            if cfg.mrope_sections is not None:
+                positions = positions.expand(3, b, s)
+        kinds = layer_kinds(cfg)
 
-    def run_layers(h, aux, lo, hi):
-        for i in range(lo, hi):
-            h, _, a = block_apply(params["layers"][i], cfg, kinds[i], h, positions,
-                                  cache=None if caches is None else caches[i],
-                                  cache_len=cache_len, par=par, attn_impl=attn_impl,
-                                  scan_impl=scan_impl)
-            aux = aux + a
-        return h, aux
+        def run_layers(h, aux, lo, hi):
+            with SH.mixing(h):  # also where a backward recomputes the stage
+                for i in range(lo, hi):
+                    h, _, a = block_apply(params["layers"][i], cfg, kinds[i], h, positions,
+                                          cache=None if caches is None else caches[i],
+                                          cache_len=cache_len, par=par,
+                                          attn_impl=attn_impl, scan_impl=scan_impl)
+                    h = constrain(h, SH.DP, SH.MODEL, None)
+                    aux = aux + a
+            return h, aux
 
-    n_slots = len(cfg.stage_pattern)
-    staged = cfg.n_stages * n_slots
-    aux = 0.0
-    if remat and torch.is_grad_enabled():
-        context = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
-                   if remat_policy == "dots" else None)
-        for lo in range(0, staged, n_slots):
-            h, aux = checkpoint(run_layers, h, aux, lo, lo + n_slots, use_reentrant=False,
-                                **({"context_fn": context} if context else {}))
-    else:
-        h, aux = run_layers(h, aux, 0, staged)
-    h, aux = run_layers(h, aux, staged, len(kinds))
-    h = rmsnorm(params["final_norm"], h)
-    if not isinstance(aux, torch.Tensor):
-        aux = torch.zeros((), device=h.device)
+        n_slots = len(cfg.stage_pattern)
+        staged = cfg.n_stages * n_slots
+        aux = 0.0
+        if remat and torch.is_grad_enabled():
+            context = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                       if remat_policy == "dots" else None)
+            for lo in range(0, staged, n_slots):
+                h, aux = checkpoint(run_layers, h, aux, lo, lo + n_slots,
+                                    use_reentrant=False,
+                                    **({"context_fn": context} if context else {}))
+        else:
+            h, aux = run_layers(h, aux, 0, staged)
+        h, aux = run_layers(h, aux, staged, len(kinds))
+        h = rmsnorm(params["final_norm"], h)
+        if not isinstance(aux, torch.Tensor):
+            aux = torch.zeros((), device=h.device)
     return h, caches, aux
+
+
+def _sharded_embed(embed: DTensor, tokens: DTensor) -> DTensor:
+    """``embed[tokens]`` vocab-parallel: each rank gathers the rows of its
+    vocab shard (zeros for tokens outside it), a partial sum over model that
+    the caller reshards to (dp, sequence on model) at once."""
+    embed = SH.relayout(embed, SH.MODEL, None)
+    tokens = SH.relayout(tokens, SH.DP, None)
+    split = SH.is_sharded(embed, 0)
+    first = SH.shard_offset(embed, 0)
+    model = SH.axis_index(embed.device_mesh, SH.MODEL)
+    out = tuple(p if i != model or not split else Partial()
+                for i, p in enumerate(SH.fitted_placements(
+                    embed.device_mesh, (*tokens.shape, embed.shape[1]), (SH.DP, None, None))))
+
+    def local(table, ids):
+        if not split:
+            return table[ids]
+        ids = ids - first
+        inside = (ids >= 0) & (ids < table.shape[0])
+        return table[ids.clamp(0, table.shape[0] - 1)] * inside[..., None].to(table.dtype)
+
+    return SH.run_local(local, out, (embed, tokens), (embed.placements, tokens.placements))
 
 
 def _head_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -284,7 +341,15 @@ def _head_product(h2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """f32 logits ``h2 [N, d] · head [d, V]``.  The JAX model upcasts both
     operands to f32; a bf16 product is exact in f32, so on the card the port
     asks cuBLAS for an f32 result from the bf16 operands (``torch.mm`` with
-    ``out_dtype``) and never writes an f32 copy of the ``[V, d]`` head."""
+    ``out_dtype``) and never writes an f32 copy of the ``[V, d]`` head.
+    Sharded, the product is vocab-parallel: ``h2`` over dp, the head's
+    vocab over model, each rank multiplying its shards."""
+    if isinstance(h2, DTensor):
+        h2 = SH.relayout(h2, SH.DP, None)
+        head = SH.relayout(head, None, SH.MODEL)
+        out = SH.fitted_placements(h2.device_mesh, (h2.shape[0], head.shape[1]),
+                                   (SH.DP, SH.MODEL))
+        return SH.run_local(_head_product, out, (h2, head), (h2.placements, head.placements))
     if not _narrow_on_card(h2, head):
         return h2.float() @ head.float()
     if torch.is_grad_enabled() and (h2.requires_grad or head.requires_grad):
@@ -309,11 +374,55 @@ def _chunk_nll(cfg: ArchConfig, hc: torch.Tensor, lc: torch.Tensor,
                head: torch.Tensor) -> torch.Tensor:
     """Summed negative log-likelihood of one chunk: ``hc [B, c, d]``, labels
     ``lc [B, c]`` (``< 0`` masked)."""
-    logits = _softcap(cfg, _head_product(hc.reshape(-1, hc.shape[-1]), head))
-    logits = logits.reshape(*lc.shape, -1)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lc.clamp(min=0).long()[..., None])[..., 0]
-    return torch.where(lc >= 0, lse - gold, 0.0).sum()
+    if isinstance(hc, DTensor) and SH.is_sharded(head, 1):
+        return _sharded_chunk_nll(cfg, hc, lc, head)
+    with SH.mixing(hc):
+        logits = _softcap(cfg, _head_product(hc.reshape(-1, hc.shape[-1]), head))
+        logits = logits.reshape(*lc.shape, -1)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc.clamp(min=0).long()[..., None])[..., 0]
+        return torch.where(lc >= 0, lse - gold, 0.0).sum()
+
+
+def _sharded_chunk_nll(cfg: ArchConfig, hc: DTensor, lc: DTensor,
+                       head: DTensor) -> DTensor:
+    """:func:`_chunk_nll` with the vocab over model: each rank's logits
+    ``[B/dp, c, V/model]`` stay local, and only ``[B, c]`` rows cross the
+    wire: the row maximum (a max over model), then each rank's sum of
+    exponentials and its share of the gold logit (sums over model)."""
+    hc = SH.relayout(hc, SH.DP, None, None)
+    lc = SH.relayout(lc, SH.DP, None)
+    model = SH.axis_index(hc.device_mesh, SH.MODEL)
+    first = SH.shard_offset(head, 1)
+    row = tuple(lc.placements)  # [B, c]: batch over dp, whole on model
+
+    def logits_of(h, w):
+        return _softcap(cfg, _head_product(h.reshape(-1, h.shape[-1]), w)).reshape(
+            *h.shape[:-1], -1)
+
+    def row_max(h, w):
+        return logits_of(h, w).amax(-1)
+
+    with torch.no_grad():
+        m = SH.run_local(row_max, tuple(Partial("max") if i == model else p
+                                        for i, p in enumerate(row)),
+                         (hc.detach(), head.detach()), (hc.placements, head.placements))
+        m = SH.relayout(m, SH.DP, None)
+
+    def shares(h, w, mx, lab):
+        lg = logits_of(h, w)
+        ids = lab.clamp(min=0).long() - first
+        inside = (ids >= 0) & (ids < lg.shape[-1])
+        gold = lg.gather(-1, ids.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return torch.exp(lg - mx[..., None]).sum(-1), torch.where(inside, gold, 0.0)
+
+    part = tuple(Partial() if i == model else p for i, p in enumerate(row))
+    sumexp, gold = SH.run_local(shares, (part, part), (hc, head, m, lc),
+                                (hc.placements, head.placements, m.placements,
+                                 lc.placements))
+    with SH.mixing(hc):
+        lse = m + torch.log(sumexp)
+        return torch.where(lc >= 0, lse - gold, 0.0).sum()
 
 
 def loss_fn(params: dict, cfg: ArchConfig, inputs: torch.Tensor, labels: torch.Tensor,
@@ -339,17 +448,20 @@ def loss_fn(params: dict, cfg: ArchConfig, inputs: torch.Tensor, labels: torch.T
     head = _head_matrix(params, cfg)
     if not _narrow_on_card(hidden, head):
         head = head.float()
+    hidden = SH.relayout(hidden, SH.DP, None, None)  # one gather, then local chunks
+    head = SH.relayout(head, None, SH.MODEL)  # one FSDP gather for every chunk
     s = hidden.shape[1]
     c = min(loss_chunk, s)
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for lo in range(0, s, c):
-        args = (cfg, hidden[:, lo:lo + c], labels[:, lo:lo + c], head)
-        if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
-        else:
-            total = total + _chunk_nll(*args)
-    count = (labels >= 0).sum().clamp(min=1)
-    return total / count + aux_coef * aux
+    with SH.mixing(hidden):
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for lo in range(0, s, c):
+            args = (cfg, hidden[:, lo:lo + c], labels[:, lo:lo + c], head)
+            if torch.is_grad_enabled():
+                total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
+            else:
+                total = total + _chunk_nll(*args)
+        count = (labels >= 0).sum().clamp(min=1)
+        return SH.relayout(total / count + aux_coef * aux)  # sharded: replicated
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ paper's low-rank adapters.  Decode carries an ``RWKVCache``: two token-shift
 rows and the ``[B, H, K, V]`` f32 wkv state.  The port writes all three in
 place (JAX returns updated copies): the wkv kernel writes its final state
 into the cache's own buffer, and ``models.model`` copies the shift rows over.
+Sharded (``DTensor`` inputs), the wkv runs with its heads over model
+(``ops.rwkv6``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
 
@@ -87,23 +90,23 @@ def time_mix(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: RWKVCache | None,
 
     # ddlerp: per-lane data-dependent interpolation between x and shift(x)
     base = x + delta * p["mix_base"][0][None, None]  # shared first-stage mix
-    lora = torch.tanh(base @ p["mix_w1"]).reshape(b, s, _MIX, _LORA)
+    lora = SH.split_heads(torch.tanh(base @ p["mix_w1"]), _MIX, _LORA)
     dyn = torch.einsum("bsml,mld->bsmd", lora, p["mix_w2"].to(x.dtype))
     mixed = x[:, :, None] + delta[:, :, None] * (p["mix_base"][None, None] + dyn)
     xr, xk, xv, xw, xg = mixed.unbind(2)
 
-    r = (xr @ p["wr"]).reshape(b, s, h, hk)
-    k = (xk @ p["wk"]).reshape(b, s, h, hk)
-    v = (xv @ p["wv"]).reshape(b, s, h, hk)
+    r = SH.split_heads(xr @ p["wr"], h, hk)
+    k = SH.split_heads(xk @ p["wk"], h, hk)
+    v = SH.split_heads(xv @ p["wv"], h, hk)
     g = xg @ p["wg"]
     # data-dependent decay w ∈ (0, 1): exp(−exp(w0 + lora(xw)))
     wlog = p["w0"][None, None] + torch.tanh(xw @ p["w_lora1"]) @ p["w_lora2"]
-    w = torch.exp(-torch.exp(wlog.float())).reshape(b, s, h, hk)
+    w = SH.split_heads(torch.exp(-torch.exp(wlog.float())), h, hk)
 
     state = cache.state if cache is not None else None
     y, state = ops.rwkv6(r, k, v, w, p["u"], init_state=state, out_state=state,
                          impl=scan_impl)
-    y = y.reshape(b, s, d)
+    y = SH.merge_last(y, 2)  # [B, S, d]
     y = rmsnorm(p["ln_x"], y) * F.silu(g)
     out = (y @ p["wo"]).to(x.dtype)
     return out, x[:, -1], state

@@ -6,7 +6,9 @@ in_proj → split (z gate | xBC | dt) → causal depthwise conv on xBC → SSD
 Decode carries a ``MambaCache``: the conv tail (the last ``conv_width − 1``
 xBC rows) and the SSD state ``[B, H, P, N]`` f32.  The port writes both in
 place (JAX returns an updated copy): the conv tail is copied over, and the
-SSD kernel writes its final state into the cache's own buffer.
+SSD kernel writes its final state into the cache's own buffer.  Sharded
+(``DTensor`` inputs), the SSD runs with its heads over model
+(``ops.ssd``) and each rank writes its shards of the cache.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
 
@@ -90,9 +93,9 @@ def mamba_apply(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
                                  cache.conv if cache is not None else None)
     # Views of the conv output: the kernel reads them through their strides.
     xs, bmat, cmat = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
-    xs = xs.unflatten(-1, (h, p))
-    bmat = bmat.unflatten(-1, (g, n))
-    cmat = cmat.unflatten(-1, (g, n))
+    xs = SH.split_heads(xs, h, p)
+    bmat = SH.split_heads(bmat, g, n)
+    cmat = SH.split_heads(cmat, g, n)
     dt = F.softplus(dt.float() + params["dt_bias"])  # [B, S, H]
     a = -torch.exp(params["a_log"])  # [H]
 
@@ -100,12 +103,12 @@ def mamba_apply(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
     y, _ = ops.ssd(xs, dt, a, bmat, cmat, init_state=state, out_state=state,
                    impl=scan_impl)  # [B, S, H, P]
     y = y + params["d_skip"][None, None, :, None] * xs
-    y = y.reshape(b, s, d_inner)
+    y = SH.merge_last(y, 2)  # [B, S, d_inner]
     y = rmsnorm(params["norm"], y) * F.silu(z)
     # The reference's f32 y times the bf16 weight is an f32 product.
     out = (y @ params["out_proj"].to(y.dtype)).to(x.dtype)
     if cache is not None:
-        cache.conv.copy_(new_tail)
+        SH.write_into(cache.conv, new_tail)
     return out, cache
 
 
