@@ -67,6 +67,27 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    (``edges``, ``lines``, ``points``, and ``gmm_points`` for GMM), the six
    prepared queries in process and through ``BlazeClient``, then the
    reference's three serving fault cases on a server of their own;
+9b. examples phase — the six port copies of ``examples/``
+   (``examples_torch/``), each ``main([])`` in this process on the card (its
+   default), the launch counts set to 0 just before and read just after,
+   held against ``run(device="cpu")`` of the same script at the same sizes:
+   quickstart's π hits, word counts, Σ v² and nearest points exactly, and
+   its scaled sum exactly (integers times powers of 2, every partial sum
+   below 2^24 of that power: f32 adds them without rounding in any order);
+   data_mining's PageRank within 1e-5, k-means' centres within 1e-4 and
+   inertia within rtol 1e-4, GMM's log-likelihood within rtol 1e-5 and
+   parameters within 1e-4, the iterations equal and kNN's rows exactly
+   (``tests/test_torch_algorithms.py``'s tolerances); streaming_aggregation's
+   counts and histogram exactly, K2 launched; serve_queries' 18 replies
+   within ``tests/test_torch_serve.py``'s tolerances, 6 compiles;
+   serve_lm's logits within ``EXAMPLE_LM_TOL`` wherever both runs had taken
+   the same tokens, a token differing only at a near-tie of the CPU's
+   (top-2 within twice that), K4 (its f32 form: the reduced configs are f32),
+   K5 and K6 on every call; train_lm's 300 steps on the card, its first
+   loss within rtol 1e-5 of the CPU's and its second within one AdamW
+   step's reach (``Smoke.first_step_reach``), K4's f32 form on every
+   forward and remat recompute; and K4 at train_lm's attention shape as a
+   row of the kernel phase;
 10. process phase — the topology across processes, after every other phase
    so that none sees a process group: an NCCL group of world size 1 in
    this process (``init_process_group("nccl", store=FileStore)``), the
@@ -80,8 +101,13 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    own tolerances), each program's captured graph is read node by node
    beside its twin's, captured on an in-process (1x8) mesh with the group
    up (NCCL's copies inside it, through libcuda's graph calls), and the
-   walls are printed beside (1x8)'s.  The group is torn down in a
-   ``finally``;
+   walls are printed beside (1x8)'s; a twin whose capture fails raises
+   naming the plan node and the eager NCCL work done just before it.  Then
+   ``dp_train`` across processes (``Smoke.dp_train_process``): qwen3-0.6b
+   at full width and depth, 2 local shards of a 4 x 1024-token batch, 2
+   steps under ``wire="none"`` and ``"int8"`` on the process mesh, bit for
+   bit the same steps on the in-process ``data_mesh(2)``.  The group is
+   torn down in a ``finally``;
 11. shard phase — the LM stack sharded over a ``DeviceMesh``
    (``distributed/sharding.py``, ``launch/dryrun.py``), after the process
    phase: (a) on a (1, 1) ``("data", "model")`` mesh over an NCCL group of
@@ -579,6 +605,10 @@ LM_LOGIT_RMS_TOL = {"zamba2-7b": 0.4, "rwkv6-1.6b": 0.1}  # RMS of the same diff
 LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4,  # f32: vs plain path and forward
               "mixtral-8x22b": 1e-4, "grok-1-314b": 1e-4}
 LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b")
+# The examples phase's serve_lm (reduced configs: f32) against its CPU run:
+# the f32 tolerances above, qwen3's that of the other attention-only models
+EXAMPLE_LM_TOL = {"qwen3-0.6b": LM_F32_TOL["mixtral-8x22b"],
+                  "zamba2-7b": LM_F32_TOL["zamba2-7b"], "rwkv6-1.6b": LM_F32_TOL["rwkv6-1.6b"]}
 # The MoE models at full width, cut to their first MOE_LAYERS layers
 # (module docstring), their f32 check's layers, and mixtral's window run
 # (batch, prompt, steps); the models fed by a frontend's embeddings.
@@ -619,6 +649,11 @@ SHARD_TRAIN = (2, 4096, 2)
 SHARD_SERVE = (8, 512, 8)
 SHARD_CELLS = (("qwen3-0.6b", "train_4k"), ("gemma2-9b", "decode_32k"))
 SHARD_MEM_SLACK = 128 << 20
+# The process phase's dp_train (module docstring, 10): qwen3-0.6b (SHARD_ARCH)
+# at full size, a global batch of 4 x 1024 tokens over 2 local shards, 2
+# steps a wire
+DP_TRAIN = (4, 1024, 2, 2)
+DP_WIRES = ("none", "int8")
 F32_U = 2.0 ** -24  # unit roundoff of float32
 
 
@@ -1198,6 +1233,9 @@ class Smoke:
         self.process_launches: dict[str, dict] = {}
         # shard phase: "train" / "serve" -> launch counts, "rank0" -> cell -> K4
         self.shard_launches: dict[str, dict] = {}
+        # examples phase: example -> launch counts of its main([]) on the card
+        self.example_launches: dict[str, dict] = {}
+        self.dp_train_launches: dict[str, int] = {}  # process phase: K4, per wire
 
     # -- measurement helpers -------------------------------------------------
 
@@ -4517,6 +4555,281 @@ class Smoke:
         torch.cuda.empty_cache()
         print(json.dumps({"multinode_results": results}, default=str), flush=True)
 
+    # -- examples phase ------------------------------------------------------
+
+    def example(self, name):
+        """``examples_torch/<name>.py`` as a module."""
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    def examples_phase(self):
+        """The six port copies of the examples (module docstring, 9b): each
+        ``main([])`` in this process, on the card (its default), with the
+        launch counts set to 0 just before and read just after, held against
+        ``run(device="cpu", ...)`` of the same script on the same sizes
+        (module docstring, the examples phase's checks), train_lm on its first
+        two steps only; K4's f32
+        form at train_lm's attention shape as a row of the kernel phase."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs.base import MAMBA2, RWKV6, get_arch
+        from repro_torch.models import model as M
+
+        t_phase = time.perf_counter()
+        argv = [] if self.dev.type == "cuda" else ["--device", str(self.dev)]
+        out = {}
+
+        def drive(name):
+            mod = self.example(name)
+            self.sync()
+            self.zero_launch_counts()
+            t0 = time.perf_counter()
+            res = mod.main(argv)
+            self.sync()
+            wall = time.perf_counter() - t0
+            launch = self.read_launch_counts()
+            self.example_launches[name] = launch
+            t0 = time.perf_counter()
+            cpu = (mod.run(device="cpu", steps=2, horizon=300) if name == "train_lm"
+                   else mod.run(device="cpu"))
+            out[name] = {"wall_s": wall, "cpu_wall_s": time.perf_counter() - t0,
+                         "launches": {k: v for k, v in launch.items() if (
+                             any(v.values()) if isinstance(v, dict) else v)}}
+            return mod, res, cpu, launch
+
+        def fail(name, what):
+            raise AssertionError(f"examples {name}: {what}")
+
+        # quickstart: integer results exactly; the scaled sum exactly too
+        # (module docstring)
+        _, res, cpu, _ = drive("quickstart")
+        for key in ("pi_hits", "word_counts", "squares", "total"):
+            if res[key] != cpu[key]:
+                fail("quickstart", f"{key} {res[key]} on the card, {cpu[key]} on the CPU")
+        if not np.array_equal(res["closest"], cpu["closest"]):
+            fail("quickstart", "the 5 nearest points differ")
+        out["quickstart"]["results"] = {"pi_hits": res["pi_hits"], "total": res["total"],
+                                        "compiles": res["session"]["compiles"]}
+
+        # data_mining: PageRank 1e-5, k-means 1e-4 / rtol 1e-4, GMM rtol 1e-5 /
+        # 1e-4, kNN's rows exactly, iterations equal
+        _, res, cpu, _ = drive("data_mining")
+        checks = {}
+        for key in ("pagerank", "pagerank_program", "kmeans", "gmm"):
+            if res[key].iterations != cpu[key].iterations:
+                fail("data_mining", f"{key}: {res[key].iterations} iterations on the card, "
+                                    f"{cpu[key].iterations} on the CPU")
+        checks["pagerank"] = float(np.abs(res["pagerank"].scores - cpu["pagerank"].scores)
+                                   .max())
+        checks["pagerank_program"] = float(np.abs(res["pagerank_program"].scores
+                                                  - cpu["pagerank_program"].scores).max())
+        checks["kmeans_centres"] = float(np.abs(res["kmeans"].centers
+                                                - cpu["kmeans"].centers).max())
+        checks["kmeans_inertia_rel"] = abs(res["kmeans"].inertia - cpu["kmeans"].inertia) / abs(
+            cpu["kmeans"].inertia)
+        checks["gmm_ll_rel"] = abs(res["gmm"].log_likelihood - cpu["gmm"].log_likelihood) / abs(
+            cpu["gmm"].log_likelihood)
+        checks["gmm_params"] = max(float(np.abs(getattr(res["gmm"], k) - getattr(cpu["gmm"], k))
+                                         .max()) for k in ("alpha", "mu", "sigma"))
+        lim = {"pagerank": 1e-5, "pagerank_program": 1e-5, "kmeans_centres": 1e-4,
+               "kmeans_inertia_rel": 1e-4, "gmm_ll_rel": 1e-5, "gmm_params": 1e-4}
+        for key, err in checks.items():
+            if not err <= lim[key]:
+                fail("data_mining", f"{key} off the CPU run by {err}, limit {lim[key]}")
+        if not np.array_equal(res["knn"].neighbors, cpu["knn"].neighbors):
+            fail("data_mining", "the 100 nearest neighbours differ")
+        out["data_mining"]["results"] = {**checks, "limits": lim, "knn": "bit_equal",
+                                         "iterations": {k: res[k].iterations for k in (
+                                             "pagerank", "pagerank_program", "kmeans", "gmm")}}
+
+        # streaming_aggregation: counts and histogram exactly; K2 launched
+        _, res, cpu, launch = drive("streaming_aggregation")
+        if res["counts"] != cpu["counts"] or not np.array_equal(res["hist"], cpu["hist"]):
+            fail("streaming_aggregation", "counts or histogram differ from the CPU run")
+        info = res["info"]
+        if self.dev.type == "cuda" and launch["hash_aggregate"] == 0:
+            fail("streaming_aggregation", "K2 was not launched")
+        out["streaming_aggregation"]["results"] = {
+            "distinct": res["distinct"], "overflow": res["overflow"],
+            "compiles": info.compiles, "dispatches": info.dispatches,
+            "host_syncs": info.host_syncs}
+
+        # serve_queries: tests/test_torch_serve.py's tolerances, every reply
+        _, res, cpu, _ = drive("serve_queries")
+        worst = {}
+        for key, (got, _meta) in res["results"].items():
+            want = cpu["results"][key][0]
+            q = key[1]
+            if q == "pi":
+                errs = {"pi": abs(got["pi"] - want["pi"])}
+                lim = {"pi": 0.0}
+            elif q == "wordcount":
+                same = (np.array_equal(got["keys"], want["keys"])
+                        and np.array_equal(got["counts"], want["counts"]))
+                errs, lim = {"differ": 0.0 if same else 1.0}, {"differ": 0.0}
+            elif q == "pagerank":
+                errs = {"scores": float(np.abs(np.asarray(got["scores"])
+                                               - np.asarray(want["scores"])).max()),
+                        "delta": abs(got["delta"] - want["delta"])}
+                lim = {"scores": 1e-5, "delta": 1e-5}
+            elif q == "kmeans":
+                errs = {"centres": float(np.abs(np.asarray(got["centers"])
+                                                - np.asarray(want["centers"])).max()),
+                        "inertia_rel": abs(got["inertia"] - want["inertia"])
+                        / abs(want["inertia"])}
+                lim = {"centres": 1e-4, "inertia_rel": 1e-4}
+            elif q == "gmm":
+                errs = {"params": max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k]))
+                                            .max()) for k in ("alpha", "mu", "sigma")),
+                        "ll_rel": abs(got["log_likelihood"] - want["log_likelihood"])
+                        / abs(want["log_likelihood"])}
+                lim = {"params": 1e-4, "ll_rel": 1e-5}
+            else:
+                rows = ({tuple(r) for r in np.asarray(got["neighbors"]).tolist()}
+                        == {tuple(r) for r in np.asarray(want["neighbors"]).tolist()})
+                d = np.sort(np.asarray(got["distances"]))
+                dw = np.sort(np.asarray(want["distances"]))
+                errs = {"rows": 0.0 if rows else 1.0,
+                        "dist_rel": float((np.abs(d - dw) / np.maximum(np.abs(dw), 1e-30))
+                                          .max())}
+                lim = {"rows": 0.0, "dist_rel": 1e-6}
+            for k, err in errs.items():
+                worst[f"{q} {k}"] = max(worst.get(f"{q} {k}", 0.0), err)
+                if not err <= lim[k]:
+                    fail("serve_queries", f"{key} {k} off the CPU run by {err}, "
+                                          f"limit {lim[k]}")
+        snap = res["stats"]
+        if snap["compiles"] != 6 or snap["completed"] != 18:
+            fail("serve_queries", f"{snap['completed']} queries, {snap['compiles']} compiles")
+        out["serve_queries"]["results"] = {
+            "worst": worst, "compiles": snap["compiles"], "cache_hits": snap["cache_hits"],
+            "batched_dispatches": snap["batched_dispatches"], "p50_ms": snap["p50_ms"],
+            "p99_ms": snap["p99_ms"], "throughput_qps": snap["throughput_qps"]}
+
+        # serve_lm: K4 on every attention call, K5 on every Mamba-2 layer, K6
+        # on every RWKV-6 layer, in the prefill and in every step; tokens and
+        # logits against the CPU run (EXAMPLE_LM_TOL)
+        mod, res, cpu, launch = drive("serve_lm")
+        steps = mod.GEN
+        want = {"flash_attention": 0, "ssd_scan": 0, "rwkv6_scan": 0}
+        forms = {"flash_attention": {"f32": 0, "bf16-prefill": 0, "bf16-decode": 0},
+                 "ssd_scan": {"decode": 0, "prefill": 0},
+                 "rwkv6_scan": {"decode": 0, "prefill": 0}}
+        lm = {}
+        for arch in mod.ARCHS:
+            kinds = M.layer_kinds(get_arch(arch).reduced())
+            n_ssm, n_rwkv = kinds.count(MAMBA2), kinds.count(RWKV6)
+            n_attn = len(kinds) - n_ssm - n_rwkv
+            want["flash_attention"] += n_attn * (1 + steps)
+            want["ssd_scan"] += n_ssm * (1 + steps)
+            want["rwkv6_scan"] += n_rwkv * (1 + steps)
+            forms["flash_attention"]["f32"] += n_attn * (1 + steps)  # reduced: f32
+            for kernel, n in (("ssd_scan", n_ssm), ("rwkv6_scan", n_rwkv)):
+                forms[kernel]["prefill"] += n
+                forms[kernel]["decode"] += n * steps
+            tol = EXAMPLE_LM_TOL[arch]
+            a, b = res[arch], cpu[arch]
+            if not torch.equal(a["prompts"], b["prompts"]):
+                fail("serve_lm", f"{arch}: the prompts differ")
+            ta, tb = a["tokens"], b["tokens"]
+            worst, compared, first_diff = 0.0, 0, []
+            for row in range(ta.shape[0]):
+                diff = (ta[row] != tb[row]).nonzero()
+                n_same = int(diff[0]) if len(diff) else ta.shape[1]
+                # logits 0..n_same are taken after the same tokens on both
+                la, lb = a["logits"][row, :n_same + 1], b["logits"][row, :n_same + 1]
+                worst = max(worst, float((la - lb).abs().max()))
+                compared += la.shape[0]
+                if n_same < ta.shape[1]:  # the CPU's own top-2 must be a near-tie
+                    top2 = torch.topk(lb[n_same], 2).values
+                    if float(top2[0] - top2[1]) > 2 * tol:
+                        fail("serve_lm", f"{arch} row {row}: token {n_same} differs from "
+                                         f"the CPU run's, which was decided")
+                    first_diff.append(n_same)
+            if worst > tol:
+                fail("serve_lm", f"{arch}: logits off the CPU run by {worst}, tolerance {tol}")
+            lm[arch] = {"logit_err": worst, "tol": tol, "logits_compared": compared,
+                        "first_token_differences": first_diff, "decode_s": a["seconds"],
+                        "tok_per_s": ta.numel() / a["seconds"]}
+        if self.dev.type == "cuda":
+            got = {k: launch[k] for k in want}
+            got_forms = {k: launch[f"{k} forms"] for k in forms}
+            if got != want or got_forms != forms:
+                fail("serve_lm", f"launches {got} {got_forms}, not {want} {forms}")
+        out["serve_lm"]["results"] = lm
+
+        # K4's f32 form at train_lm's attention shape (a micro-batch of 4
+        # sequences of 256 tokens, 8 query heads over 4 kv heads of 64)
+        mod = self.example("train_lm")
+        cfg = mod.config()
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        mb = 8 // 2  # the default batch over its 2 micro-batches
+        q = torch.randn(mb, cfg.n_heads, 256, cfg.d_head, generator=g, device=self.dev)
+        k = torch.randn(mb, cfg.n_kv_heads, 256, cfg.d_head, generator=g, device=self.dev)
+        v = torch.randn(mb, cfg.n_kv_heads, 256, cfg.d_head, generator=g, device=self.dev)
+        self.kernel_attention("flash_attention@train_lm f32", q, k, v, q_offset=0)
+        del q, k, v
+
+        # train_lm: 300 steps on the card; its first two losses against the
+        # CPU's (first_step_reach); K4's f32 form on every attention call of
+        # the forward and the remat recompute
+        mod, res, cpu, launch = drive("train_lm")
+        self.path_launches["example train_lm"] = launch
+        n_k4 = cfg.n_layers * 2 * 2 * 300  # (forward + recompute) x micro-batches x steps
+        if self.dev.type == "cuda" and (
+                launch["flash_attention"] != n_k4
+                or launch["flash_attention forms"]["f32"] != n_k4):
+            fail("train_lm", f"K4 launched {launch['flash_attention']} times "
+                             f"({launch['flash_attention forms']}), not {n_k4} in f32")
+        err0 = abs(res.losses[0] - cpu.losses[0])
+        if err0 > 1e-5 * abs(cpu.losses[0]):
+            fail("train_lm", f"first loss {res.losses[0]} on the card, {cpu.losses[0]} on "
+                             "the CPU")
+        bound = self.first_step_reach(mod, cfg)
+        err1 = abs(res.losses[1] - cpu.losses[1])
+        if err1 > bound + 1e-5 * abs(cpu.losses[1]):
+            fail("train_lm", f"second loss {res.losses[1]} on the card, {cpu.losses[1]} on "
+                             f"the CPU, bound {bound}")
+        out["train_lm"]["results"] = {
+            "losses_first_last": [res.losses[0], res.losses[-1]],
+            "cpu_losses": cpu.losses, "loss0_err": err0, "loss1_err": err1,
+            "loss1_bound": bound, "steps": res.final_step,
+            "median_step_ms": res.straggler["median_s"] * 1e3,
+            "p99_step_ms": res.straggler["p99_s"] * 1e3}
+
+        for name, r in out.items():
+            print(json.dumps({"example": name, **r}, default=str), flush=True)
+        self.examples_s = time.perf_counter() - t_phase
+        print(json.dumps({"examples_s": self.examples_s}), flush=True)
+        torch.cuda.empty_cache()
+
+    def first_step_reach(self, mod, cfg):
+        """How far one AdamW step can move train_lm's second loss between two
+        devices: each parameter moves by at most ``lr(1)`` on either, so they
+        differ by at most ``2·lr(1)`` an entry, and the loss by at most
+        ``2·lr(1)·‖∇L‖₁`` to first order; twice that for the second-order
+        term.  ``∇L`` at the seeded weights on step 1's batch."""
+        torch = self.torch
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.models import model as M
+        from repro_torch.optim.adamw import warmup_cosine
+        from repro_torch.runtime.train_loop import value_and_grad
+
+        params = M.map_tree(lambda t: t.to(self.dev),
+                            M.init(torch.Generator().manual_seed(0), cfg))
+        batch = TokenPipeline(cfg, batch=8, seq_len=256, seed=0).device_batch(1, self.dev)
+        _, grads = value_and_grad(params, lambda p, x, y: M.loss_fn(p, cfg, x, y),
+                                  batch["inputs"], batch["labels"])
+        g1 = sum(float(g.abs().sum()) for g in M.distinct_leaves(grads))
+        lr1 = float(warmup_cosine(3e-4, 300 // 10, 300)(torch.tensor(1)))
+        del params, grads
+        return 2 * (2 * lr1 * g1)
+
     def process_phase(self, data):
         """The topology across processes on one card (module docstring, 10):
         an NCCL group of world size 1 brought up here, the (1x8) mesh that
@@ -4608,10 +4921,14 @@ class Smoke:
             gather_rows(mesh, torch.zeros(1, device=dev))
             self.sync()
             r["communicator_s"] = time.perf_counter() - t0
+            # the NCCL work of this phase so far, in order (a failed twin
+            # capture names the last)
+            nccl_work = ["gather_rows: the communicator's bring-up"]
             sess = BlazeSession(mesh=mesh)
 
             def per_op(name, fn, units):
                 out, wall, launch = self.drive(f"process {name}", fn, units)
+                nccl_work.append(f"per op {name}")
                 r["walls"].setdefault(name, {})["per_op_s"] = wall
                 for k in kernels:
                     counts[k]["wrappers"] += launch[k]
@@ -4630,13 +4947,21 @@ class Smoke:
                 own)."""
                 twin = build(tsess)
                 twin.keep_graph = True
-                run(tsess, twin)()
+                try:
+                    run(tsess, twin)()
+                except Exception as e:  # ROADMAP Queue 3 item 17: name what to bisect
+                    raise AssertionError(
+                        f"process {name}: the in-process twin's capture failed at plan node "
+                        f"{getattr(e, 'plan_node', 'unknown')}; the eager NCCL work just "
+                        f"before it: {nccl_work[-1]} (of {len(nccl_work)} NCCL jobs this "
+                        f"phase: {nccl_work}): {e}") from e
                 theirs = last_graph_nodes(twin)[1][0]
                 del twin
                 prog = build(sess)
                 prog.keep_graph = True
                 key = f"process {name}"
                 out = self.program_job(key, prog, run(sess, prog), units)
+                nccl_work.append(f"program {name}: eager warm-up, capture, replays")
                 first, replay = self.program_runs[key]["walls"]
                 r["walls"].setdefault(name, {}).update(program_first_s=first,
                                                        program_replay_s=replay)
@@ -4754,6 +5079,11 @@ class Smoke:
             r["checks"]["fig6 program"] = {"centre_err": err, "centre_diff_1x8": float(
                 (out["c"] - ref["fig6 program"]).abs().max())}
             del sess, tsess
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            r["dp_train"] = self.dp_train_process()
+            r["dp_train_s"] = time.perf_counter() - t0
         finally:
             dist.destroy_process_group()
             shutil.rmtree(store, ignore_errors=True)
@@ -4769,6 +5099,91 @@ class Smoke:
         r["process_s"] = time.perf_counter() - t_phase
         torch.cuda.empty_cache()
         print(json.dumps({"process_results": r}, default=str), flush=True)
+
+    def dp_train_process(self):
+        """``dp_train`` across processes on the card (module docstring, 10):
+        qwen3-0.6b at full width and depth, ``DP_TRAIN``'s global batch from
+        ``TokenPipeline``, 2 local shards on the process mesh (the NCCL group
+        of one this phase brought up), against the same steps on the
+        in-process ``data_mesh(2)`` from the same seeded state, under each
+        wire of ``DP_WIRES``: losses, parameters, AdamW state and residuals
+        bit for bit.  Prints each run's step ms, K4 launches, the gradient's
+        wire bytes per device and the peak memory."""
+        torch = self.torch
+        from repro_torch.configs.base import get_arch
+        from repro_torch.core.containers import data_mesh
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.distributed.dp_train import (
+            grad_wire_bytes,
+            init_residuals,
+            make_dp_train_step,
+        )
+        from repro_torch.launch.mesh import make_node_data_mesh
+        from repro_torch.models import model as M
+        from repro_torch.optim.adamw import AdamW
+
+        cfg = get_arch(SHARD_ARCH)
+        b, seq, n_local, steps = DP_TRAIN
+        pipe = TokenPipeline(cfg, batch=b, seq_len=seq, seed=0)
+        meshes = {"process": make_node_data_mesh(None, n_shards=n_local, device=self.dev),
+                  "in_process": data_mesh(n_local, device=self.dev)}
+        if not meshes["process"].process or meshes["in_process"].process:
+            raise AssertionError(f"process dp_train: meshes {meshes}")
+
+        def train(mesh, wire):
+            params = M.init(torch.Generator(device=self.dev).manual_seed(0), cfg)
+            opt = AdamW(lr=3e-4)
+            ostate = opt.init(params)
+            resid = init_residuals(params, mesh)
+            step = make_dp_train_step(lambda p, x, y: M.loss_fn(p, cfg, x, y), opt, mesh,
+                                      wire=wire, cfg=cfg)
+            self.sync()
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            self.zero_launch_counts()
+            losses, ms = [], []
+            for i in range(steps):
+                batch = pipe.device_batch(i, self.dev)
+                t0 = time.perf_counter()
+                params, ostate, resid, loss = step(params, ostate, resid, batch)
+                self.sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss)
+            launch = self.read_launch_counts()
+            trees = {"params": M.distinct_leaves(params),
+                     "opt": [*M.distinct_leaves(ostate["m"]), *M.distinct_leaves(ostate["v"]),
+                             ostate["step"]],
+                     "resid": M.distinct_leaves(resid), "losses": losses}
+            stats = {"step_ms": ms, "losses": [float(x) for x in losses],
+                     "k4_launches": launch["flash_attention"],
+                     "k4_forms": {f: n for f, n in launch["flash_attention forms"].items() if n},
+                     "peak_bytes": torch.cuda.max_memory_allocated(self.dev)}
+            return trees, stats, params
+
+        out = {"arch": cfg.name, "batch": b, "seq": seq, "n_local": n_local, "steps": steps}
+        for wire in DP_WIRES:
+            got, st, params = train(meshes["process"], wire)
+            out[wire] = {"process": st,
+                         "grad_wire_bytes": grad_wire_bytes(params, wire, cfg)}
+            del params
+            want, st, _ = train(meshes["in_process"], wire)
+            out[wire]["in_process"] = st
+            differ = [k for k in got if len(got[k]) != len(want[k]) or not all(
+                torch.equal(x, y) for x, y in zip(got[k], want[k]))]
+            del got, want
+            torch.cuda.empty_cache()
+            if differ:
+                raise AssertionError(f"process dp_train {wire}: {differ} differ from the "
+                                     "in-process run's")
+            if self.dev.type == "cuda" and (
+                    out[wire]["process"]["k4_launches"] == 0
+                    or out[wire]["process"]["k4_launches"] != st["k4_launches"]):
+                raise AssertionError(f"process dp_train {wire}: K4 launches "
+                                     f"{out[wire]['process']['k4_launches']} against "
+                                     f"{st['k4_launches']} in process")
+            out[wire]["bit_equal"] = True
+        self.dp_train_launches = {w: out[w]["process"]["k4_launches"] for w in DP_WIRES}
+        print(json.dumps({"process_dp_train": out}), flush=True)
+        return out
 
     def shard_phase(self):
         """The LM stack sharded over a ``DeviceMesh`` (module docstring, 11):
@@ -6015,6 +6430,8 @@ class Smoke:
         fault_results = self.fault_phase(data)
         self.phase = "serve"
         self.serve_phase(data)
+        self.phase = "examples"
+        self.examples_phase()
         self.phase = "process"
         self.process_phase(data)
         self.phase = "shard"
@@ -6068,7 +6485,8 @@ class Smoke:
                 "flash_attention@qwen2vl-prefill": "lm qwen2-vl-2b",
                 "flash_attention@qwen2vl-decode": "lm qwen2-vl-2b",
                 "flash_attention@musicgen-prefill": "lm musicgen-medium",
-                "flash_attention@musicgen-decode": "lm musicgen-medium"}
+                "flash_attention@musicgen-decode": "lm musicgen-medium",
+                "flash_attention@train_lm f32": "example train_lm"}
         for key, path in runs.items():
             rec = self.summary[key]
             source, replaces = sources[rec["kernel"]]
@@ -6109,6 +6527,13 @@ class Smoke:
                     "serve": self.shard_launches["serve"][rec["kernel"]],
                     "rank0": (self.shard_launches["rank0"]
                               if rec["kernel"] == "flash_attention" else None)},
+                # the examples phase's: each example's main([]) on the card
+                # (the wrappers' counts; graph replays not counted)
+                "examples_launches": {name: n[rec["kernel"]] for name, n in
+                                      self.example_launches.items() if n[rec["kernel"]]},
+                # the process phase's dp_train (K4 only), per wire
+                "dp_train_launches": (self.dp_train_launches
+                                      if rec["kernel"] == "flash_attention" else None),
                 # the serve phase's: the wrappers' (discovery, warm-up,
                 # capture) and its graph replays', by form too
                 "serve_launches": {

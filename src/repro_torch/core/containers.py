@@ -459,6 +459,29 @@ def foreach(v: DistVector, fn: Callable, env=None) -> DistVector:
     return DistVector(out, v.n, v.mesh)
 
 
+def topk_first(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.topk(x, k)`` along the last dim with ties broken as
+    ``jax.lax.top_k`` breaks them: of equal values the lower index first,
+    both in which are kept and in their order (``torch.topk`` leaves both
+    unspecified).  The ``k``-th value's ties are taken lowest index first
+    (one more ``topk``, over their indices), then the ``k`` kept are sorted
+    by (value descending, index ascending).  No host sync."""
+    s, idx = torch.topk(x, k, dim=-1)
+    if k == 0:
+        return s, idx
+    n = x.shape[-1]
+    thr = s[..., -1:]
+    ar = torch.arange(n, device=x.device)
+    low = -torch.topk(torch.where(x == thr, -ar, -n), k, dim=-1).values  # ascending
+    m = (s == thr).sum(-1, keepdim=True)  # the k-th value's slots, the last m
+    t = torch.arange(k, device=x.device) - (k - m)
+    idx = torch.where(t >= 0, low.gather(-1, t.clamp(min=0)), idx)
+    by_index = idx.argsort(-1)
+    s, idx = s.gather(-1, by_index), idx.gather(-1, by_index)
+    order = torch.sort(s, dim=-1, descending=True, stable=True).indices
+    return s.gather(-1, order), idx.gather(-1, order)
+
+
 def topk(v: DistVector, k: int, score_fn: Callable | None = None, env=None, *,
          n_shards: int = 1, mesh: Mesh | None = None) -> np.ndarray:
     """Paper's ``DistVector.topk``: the ``k`` rows of highest score, best
@@ -467,7 +490,8 @@ def topk(v: DistVector, k: int, score_fn: Callable | None = None, env=None, *,
     Each of the ``n_shards`` shards scores its rows (``score_fn(x)`` or
     ``score_fn(x, env)`` under ``vmap``; the raw values without a
     ``score_fn``), gives padding rows ``-inf`` and keeps its top
-    ``min(k, per)`` with ``torch.topk``; only those ``k·n_shards``
+    ``min(k, per)`` (:func:`topk_first`: ties lower index first, as
+    ``lax.top_k``); only those ``k·n_shards``
     candidates move to the host, where a stable sort of ``-score`` picks the
     final ``k``.  On a process mesh (``mesh``, or the vector's) each rank
     selects from its ``n_local`` shards, and the candidates and their scores
@@ -489,7 +513,7 @@ def topk(v: DistVector, k: int, score_fn: Callable | None = None, env=None, *,
     first = 0 if mesh is None else mesh.rank * data.shape[0]  # global row indices
     valid = torch.arange(first, first + data.shape[0], device=data.device) < v.n
     scores = torch.where(valid, scores, float("-inf")).view(n_rows, per)
-    s, idx = torch.topk(scores, kk, dim=1)
+    s, idx = topk_first(scores, kk)
     rows = data.view((n_rows, per) + tuple(data.shape[1:]))
     cand = rows[torch.arange(n_rows, device=data.device)[:, None], idx]
     s = _gathered(mesh, s).cpu().numpy().reshape(-1)

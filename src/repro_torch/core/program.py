@@ -814,7 +814,8 @@ class ProgramContext:
     def topk(self, v, k: int, score_fn: Callable | None = None, env: Any = None,
              engine: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Container-level top-k inside a program: each shard's
-        ``torch.topk``, one all_gather of the ``k·n_shards`` candidates
+        ``containers.topk_first`` (ties lower index first, as
+        ``lax.top_k``), one all_gather of the ``k·n_shards`` candidates
         (across the ranks of a process mesh, each selecting from its
         ``n_local`` shards), a global re-select; returns ``(rows [m, ...],
         scores [m])``, ``m = min(k, kk·n_shards)``.  The plan records a
@@ -845,13 +846,13 @@ class ProgramContext:
         first = self._coll.first_shard * per  # global row indices
         valid = torch.arange(first, first + data.shape[0], device=data.device) < n
         scores = torch.where(valid, scores, float("-inf")).view(s_count, per)
-        s, i = torch.topk(scores, kk, dim=1)
+        s, i = C.topk_first(scores, kk)
         rows = data.view((s_count, per) + tuple(data.shape[1:]))
         cand = rows[torch.arange(s_count, device=data.device)[:, None], i]
         gs = self._coll.all_gather_tiled(s)
         gc = self._coll.all_gather_tiled(cand)
         m = min(k, gs.shape[0])
-        s2, i2 = torch.topk(gs, m)
+        s2, i2 = C.topk_first(gs, m)
         return gc[i2], s2
 
     # -- plan assembly (discover mode) ----------------------------------------
@@ -1217,7 +1218,8 @@ class Program:
         (PyTorch's allocator asserts on a capture into a pool whose graphs
         are all gone while a tensor allocated in it still lives).  An injected fault
         (the ``collective`` point) passes through as it is, for the
-        supervisor; any other error is raised naming the op.  Either way
+        supervisor; any other error is raised naming the op (also as the
+        error's ``plan_node``).  Either way
         nothing is left behind: no graph, no stale context, the sync-debug
         mode restored."""
         dev = self._device
@@ -1268,10 +1270,12 @@ class Program:
         except Exception as e:
             where = self._active.last_op if self._active is not None else "the step"
             self._active = None
-            raise RuntimeError(
+            err = RuntimeError(
                 f"CUDA graph capture of the program failed at or after plan node "
                 f"{where}: {e}"
-            ) from e
+            )
+            err.plan_node = where
+            raise err from e
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev) - base
         grown = max(0, torch.cuda.memory_reserved(dev) - reserved)

@@ -76,16 +76,22 @@ def compressed_psum(x: torch.Tensor, *, wire: str = "none",
     if wire == "int8":
         x32 = x.to(torch.float32)
         scale = _int8_scale(x32, gather)
-        lattice = _int8_lattice(x32, scale)
-        if gather is not None:  # the int8 lattice is what crosses
-            lattice = gather(lattice.to(torch.int8))
-        s = lattice.to(torch.int32).sum(0, dtype=torch.int32)
-        return (s.to(torch.float32) * scale).to(x.dtype)
+        return _int8_sum(_int8_lattice(x32, scale), scale, gather).to(x.dtype)
     raise ValueError(f"unknown wire {wire!r}")
 
 
+def _int8_sum(lattice: torch.Tensor, scale: torch.Tensor, gather=None) -> torch.Tensor:
+    """The f32 sum of every shard's lattice row (gathered from every rank
+    with ``gather``: the int8 lattice is what crosses) in int32, times the
+    shared scale."""
+    if gather is not None:
+        lattice = gather(lattice.to(torch.int8))
+    s = lattice.to(torch.int32).sum(0, dtype=torch.int32)
+    return s.to(torch.float32) * scale
+
+
 def psum_with_feedback(x: torch.Tensor, residual: torch.Tensor, *, wire: str,
-                       n_nodes: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+                       n_nodes: int = 1, gather=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(reduced, new_residual)``: error feedback around the lossy sum.
 
     ``residual`` is ``[S, ...]`` f32, one per shard.  With a shared scale
@@ -94,20 +100,27 @@ def psum_with_feedback(x: torch.Tensor, residual: torch.Tensor, *, wire: str,
     intra-node hop is folded at full precision before the quantisation, so
     the residual tracks the one lossy hop: one per node, added to the node
     partial, and every shard of a node carries the same rows (the
-    reference's residual is replicated within a node).
+    reference's residual is replicated within a node).  ``gather`` (across
+    processes, as in :func:`compressed_psum`): ``x`` and ``residual`` are
+    this rank's rows (``n_nodes`` its node rows), the sum runs over every
+    rank's in shard order, the int8 scale is the largest of the ranks'
+    maxima, and the new residual is this rank's rows.
     """
     if n_nodes > 1:
         per = x.shape[0] // n_nodes
         target = intra_node_sum(x, n_nodes).to(torch.float32) + residual[::per]
     else:
         target = x.to(torch.float32) + residual
-    reduced = compressed_psum(target, wire=wire)
     if wire == "int8":
-        scale = _int8_scale(target)
-        new_residual = target - _int8_lattice(target, scale) * scale
+        scale = _int8_scale(target, gather)
+        lattice = _int8_lattice(target, scale)
+        reduced = _int8_sum(lattice, scale, gather)
+        new_residual = target - lattice * scale
     elif wire == "bf16":
+        reduced = compressed_psum(target, wire=wire, gather=gather)
         new_residual = target - target.to(torch.bfloat16).to(torch.float32)
     else:
+        reduced = compressed_psum(target, wire=wire, gather=gather)
         new_residual = torch.zeros_like(target)
     if n_nodes > 1:
         new_residual = new_residual.repeat_interleave(per, dim=0)

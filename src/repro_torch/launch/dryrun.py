@@ -38,12 +38,13 @@ route's, not ``attention_ref``'s ``[B, H, S, S]`` buffer.
 Results stream to ``results/dryrun_torch/<cell>.json`` as they finish, so
 a crashed sweep resumes where it left off (``--force`` recomputes); the
 sweep goes on past a failed cell and exits 1 if any failed.  ``--device``
-names the mesh's device type (no memory is allocated on it): the card when
-one is present, else the CPU.
+names the mesh's device type (no memory is allocated on it): the card by
+default, which raises without one (``containers.resolve_device``); ``--device
+cpu`` runs it on the CPU.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod both]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod both] --device cpu
 """
 from __future__ import annotations
 
@@ -61,6 +62,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, cells, get_arch, list_archs
+from repro_torch.core.containers import resolve_device
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW
@@ -485,9 +487,10 @@ def main(argv=None):
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=RESULTS_DIR)
     ap.add_argument("--device", default=None,
-                    help="the mesh's device type (default: cuda with a card, else cpu)")
+                    help="the mesh's device type (default: cuda, which raises without "
+                         "a card; --device cpu runs the dry run on the CPU)")
     args = ap.parse_args(argv)
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device).type
 
     archs = list_archs() if (args.all or args.arch is None) else [args.arch]
     pods = {"single": [False], "multi": [True], "both": [False, True]}[args.multi_pod]

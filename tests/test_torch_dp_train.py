@@ -25,6 +25,18 @@ a parameter by at most ``lr·|m̂|/(√v̂ + eps) ≤ lr`` each step).  The seco
 step reads the residuals the first left: the reference keeps one a device
 (its "replicated" output holds a different buffer on each), the port one a
 shard, so the second step agrees only if each shard reads its own.
+With ``wire="bf16"`` both packages round each shard's gradient to bf16 and
+add the 8 partials in bf16, each in its own order (the port in shard order,
+rounding at every addition; XLA's CPU all-reduce in its own), so a sum may
+differ by a bf16 rounding in any entry, not only at rare boundaries, and a
+first Adam step scales a gradient difference by up to ``1/eps``: every
+entry is held within the steps' reach, ``2·lr``, and the loss as above.
+
+Across processes (``spawn_local``: 2 and 4 ``gloo`` processes, one node row
+each, 8 shards in all): every rank's losses, parameters and AdamW state
+equal the in-process ``data_mesh(8)`` run bit for bit under every wire,
+each rank's residual rows equal that run's rows of its shards, and the
+results are held to JAX's 8-device run with the bounds above.
 """
 import json
 import os
@@ -47,13 +59,15 @@ from repro_torch.distributed.dp_train import (
     init_residuals,
     make_dp_train_step,
 )
+from repro_torch.launch.simulate import spawn_local
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 LR = 2e-3
-WIRES = ("none", "int8")
+WIRES = ("none", "bf16", "int8")
+PROCS = (2, 4)  # processes, one node row each, of the 8 shards
 
 _REFERENCE = """
 import json, sys, numpy as np, jax, jax.numpy as jnp
@@ -72,7 +86,7 @@ def loss_fn(params, inputs, labels):
     return M.loss_fn(params, cfg, inputs, labels, remat=False)
 
 out, arrays = {}, {}
-for wire in ("none", "int8"):
+for wire in ("none", "bf16", "int8"):
     params = M.init(jax.random.PRNGKey(0), cfg)
     ostate = opt.init(params)
     resid = init_residuals(params)
@@ -172,9 +186,24 @@ def test_compressed_training_convergence_parity_8_shards():
     assert abs(comp[-1] - exact[-1]) / exact[-1] < 0.05, (exact[-1], comp[-1])
 
 
+def _hold_to_reference(reference, wire, i, loss, params, cfg):
+    """Step ``i``'s loss and parameters against the reference's (module
+    docstring's bounds)."""
+    losses_j, params_j = reference
+    np.testing.assert_allclose(float(loss), losses_j[wire][i], rtol=1e-5)
+    want = M.distinct_leaves(lm_params_from_jax(params_j[(wire, i)], cfg, CPU))
+    for got, w in zip(params, want):
+        err = (torch.as_tensor(got).detach() - w).abs()
+        if wire == "none":
+            assert float(err.max()) <= 1e-4 * LR
+        else:
+            assert float(err.max()) <= 2 * LR
+            if wire == "int8":
+                assert int((err > 1e-4 * LR).sum()) <= max(2, err.numel() // 100)
+
+
 @pytest.mark.parametrize("wire", WIRES)
 def test_first_two_steps_match_reference_8dev(reference, wire):
-    losses_j, params_j = reference
     cfg_j, cfg = jget_arch("qwen3-0.6b").reduced(), get_arch("qwen3-0.6b").reduced()
     mesh = data_mesh(8, device="cpu")
     opt = AdamW(lr=LR, weight_decay=0.0, eps=1e-3)
@@ -186,18 +215,91 @@ def test_first_two_steps_match_reference_8dev(reference, wire):
     rng = np.random.RandomState(0)
     for i in range(2):
         params, ostate, resid, loss = step(params, ostate, resid, _tokens(rng, cfg))
-        np.testing.assert_allclose(float(loss), losses_j[wire][i], rtol=1e-5)
-        want = M.distinct_leaves(lm_params_from_jax(params_j[(wire, i)], cfg, CPU))
-        for got, w in zip(M.distinct_leaves(params), want):
-            err = (got.detach() - w).abs()
-            if wire == "none":
-                assert float(err.max()) <= 1e-4 * LR
-            else:
-                assert float(err.max()) <= 2 * LR
-                assert int((err > 1e-4 * LR).sum()) <= max(2, err.numel() // 100)
-    if wire == "int8":  # the residuals carry one row a shard, and they differ
+        _hold_to_reference(reference, wire, i, loss, M.distinct_leaves(params), cfg)
+    if wire != "none":  # the residuals carry one row a shard, and they differ
         r = M.distinct_leaves(resid)[0]
         assert r.shape[0] == 8 and float((r - r[0]).abs().max()) > 0
+
+
+# -- across processes ------------------------------------------------------------
+
+
+def _dp_steps(mesh, wire, params0):
+    """Two steps of reduced qwen3 on ``mesh`` from a copy of ``params0``:
+    each step's loss and parameters, then the AdamW state and the
+    residuals, as numpy."""
+    cfg = get_arch("qwen3-0.6b").reduced()
+    params = M.map_tree(lambda t: t.detach().clone(), params0)
+    opt = AdamW(lr=LR, weight_decay=0.0, eps=1e-3)
+    ostate = opt.init(params)
+    resid = init_residuals(params, mesh)
+    step = make_dp_train_step(_loss_fn(cfg), opt, mesh, wire=wire, cfg=cfg)
+    rng = np.random.RandomState(0)
+    out = {"losses": [], "params": []}
+    for _ in range(2):
+        params, ostate, resid, loss = step(params, ostate, resid, _tokens(rng, cfg))
+        out["losses"].append(loss.detach().numpy().copy())
+        out["params"].append([t.detach().numpy().copy() for t in M.distinct_leaves(params)])
+    out["opt"] = [t.numpy().copy() for t in (*M.distinct_leaves(ostate["m"]),
+                                             *M.distinct_leaves(ostate["v"]), ostate["step"])]
+    out["resid"] = [t.numpy().copy() for t in M.distinct_leaves(resid)]
+    return out
+
+
+def _dp_rank(rank, params0):
+    """One rank: its node row of the 8 shards, every wire."""
+    from repro_torch.launch.mesh import make_node_data_mesh
+
+    mesh = make_node_data_mesh(n_shards=8, device="cpu")
+    assert mesh.process and mesh.rank == rank
+    return {wire: _dp_steps(mesh, wire, params0) for wire in WIRES}
+
+
+@pytest.fixture(scope="module")
+def dp_processes():
+    """The in-process 8-shard run and each topology's ranks, every wire,
+    from JAX's initial parameters."""
+    cfg_j, cfg = jget_arch("qwen3-0.6b").reduced(), get_arch("qwen3-0.6b").reduced()
+    params = lm_params_from_jax(jax.tree.map(np.asarray, JM.init(jax.random.PRNGKey(0),
+                                                                 cfg_j)), cfg, CPU)
+    local = {wire: _dp_steps(data_mesh(8, device="cpu"), wire, params)
+             for wire in WIRES}
+    ranks = {n: spawn_local(n, _dp_rank, params, timeout=300) for n in PROCS}
+    return local, ranks
+
+
+def _bit_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(np.atleast_1d(g).view(np.uint8),
+                                      np.atleast_1d(w).view(np.uint8))
+
+
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("n_procs", PROCS)
+def test_dp_train_across_processes_is_the_in_process_run(dp_processes, reference,
+                                                         n_procs, wire):
+    """Every rank: the in-process 8-shard run's losses, parameters and AdamW
+    state bit for bit, its own shards' residual rows, and JAX's results
+    within the module's bounds."""
+    local, ranks = dp_processes
+    want = local[wire]
+    per = 8 // n_procs
+    cfg = get_arch("qwen3-0.6b").reduced()
+    for rank, res in enumerate(ranks[n_procs]):
+        got = res[wire]
+        _bit_equal(got["losses"], want["losses"])
+        for i in range(2):
+            _bit_equal(got["params"][i], want["params"][i])
+        _bit_equal(got["opt"], want["opt"])
+        _bit_equal(got["resid"], [r[rank * per:(rank + 1) * per] for r in want["resid"]])
+    for i in range(2):
+        _hold_to_reference(reference, wire, i, ranks[n_procs][0][wire]["losses"][i],
+                           ranks[n_procs][0][wire]["params"][i], cfg)
+    if wire != "none":  # the shards' residual rows differ, across the ranks too
+        rows = np.concatenate([r[wire]["resid"][0] for r in ranks[n_procs]])
+        assert rows.shape[0] == 8 and float(np.abs(rows - rows[0]).max()) > 0
 
 
 def test_dp_train_refuses_a_multi_node_mesh():

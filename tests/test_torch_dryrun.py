@@ -117,3 +117,17 @@ def test_dryrun_cell_matches_the_reference_accounting(records, cell):
         assert rec["collectives"]["reduce-scatter"] > 0
         assert rec["moment_dtype"] == "float32" and not rec["serving"]
     assert rec["collectives"]["n_collective_ops"] > 0
+
+
+def test_dryrun_defaults_to_the_card_and_raises_without_one(tmp_path, monkeypatch):
+    """No silent fallback to the CPU: without ``--device`` the mesh's device
+    is the card, and without one the CLI raises before any cell runs."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "qwen3-0.6b", "--shape", "train_4k", "--multi-pod",
+                     "single", "--out", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
