@@ -103,6 +103,14 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    up (NCCL's copies inside it, through libcuda's graph calls), and the
    walls are printed beside (1x8)'s; a twin whose capture fails raises
    naming the plan node and the eager NCCL work done just before it.  Then
+   the stream phase's jobs at its sizes on that process mesh and on the
+   in-process (1x8) mesh (``Smoke.process_stream``): ``mode="stream"``
+   k-means and PageRank, the streamed word count, PageRank and word count
+   per op over the blocks, every word count exactly the per-op one and the
+   floats within the stream phase's bounds on both meshes, each job's epoch
+   on both, and a k-means stream and a streamed word count checkpointed at
+   epoch 2 on one mesh and resumed on the other, both ways, against the
+   uninterrupted run.  Then
    ``dp_train`` across processes (``Smoke.dp_train_process``): qwen3-0.6b
    at full width and depth, 2 local shards of a 4 x 1024-token batch, 2
    steps under ``wire="none"`` and ``"int8"`` on the process mesh, bit for
@@ -631,6 +639,9 @@ STREAM_BLOCK_ROWS = 1 << 24  # k-means points a streamed block (6 blocks of 10^8
 # doubled block's shift (1.16e-4).
 STREAM_SPREAD_RUNS = 5
 STREAM_SPREAD_FACTOR = 16
+# Timed epochs a job and mesh in the process phase's streams (after one that
+# captures the program's graph).
+PROCESS_STREAM_EPOCHS = 3
 FORMED = ("flash_attention", "segment_reduce", "ssd_scan", "rwkv6_scan")  # count by form
 # The serve phase: π's samples (the path phase's 2^30 would take a 35 GB
 # graph pool beside the other five resident programs) and kNN's query points.
@@ -1231,6 +1242,7 @@ class Smoke:
         self.mn_1x8: dict = {}
         # process phase: kernel -> {"wrappers", "graph_replays"}
         self.process_launches: dict[str, dict] = {}
+        self.process_stream_launches: dict[str, dict] = {}
         # shard phase: "train" / "serve" -> launch counts, "rank0" -> cell -> K4
         self.shard_launches: dict[str, dict] = {}
         # examples phase: example -> launch counts of its main([]) on the card
@@ -5078,6 +5090,9 @@ class Smoke:
                 raise AssertionError(f"process fig6: centre error {err}")
             r["checks"]["fig6 program"] = {"centre_err": err, "centre_diff_1x8": float(
                 (out["c"] - ref["fig6 program"]).abs().max())}
+            t0 = time.perf_counter()
+            r["stream"] = self.process_stream(data, sess, tsess)
+            r["stream_s"] = time.perf_counter() - t0
             del sess, tsess
             gc.collect()
             torch.cuda.empty_cache()
@@ -5099,6 +5114,209 @@ class Smoke:
         r["process_s"] = time.perf_counter() - t_phase
         torch.cuda.empty_cache()
         print(json.dumps({"process_results": r}, default=str), flush=True)
+
+    def process_stream(self, data, sess, isess) -> dict:
+        """The stream phase's jobs on the process mesh (module docstring,
+        10): its host arrays at their sizes (k-means' points in blocks of
+        ``STREAM_BLOCK_ROWS``, the R-MAT edges and the token lines in 8
+        blocks each) made chunked on the process mesh of ``sess`` (the
+        rank's rows of every block: with one rank, all of them) and on the
+        in-process (1x8) mesh of ``isess``.  On each mesh: ``mode="stream"``
+        k-means and PageRank and the streamed word count through the
+        drivers, the launch counts set to 0 just before; per op over the
+        blocks, PageRank (a dense target) and word count (a hash target).
+        Word counts must equal the per-op counts exactly on both meshes;
+        k-means' centres and inertia and PageRank's scores are held to the
+        stream phase's bounds on both (K1's shared and global forms fold
+        with atomics, so the meshes need not agree bit for bit; their
+        largest difference is printed).  Then each job's epoch, one capture
+        epoch and ``PROCESS_STREAM_EPOCHS`` timed ones a mesh, printed side
+        by side; and a k-means stream and a streamed word count
+        checkpointed at epoch 2 on one mesh and resumed on the other, both
+        ways, against the uninterrupted run (k-means' centres within 1e-4,
+        the counts exactly).  The kernels line's ``process_stream_launches``
+        holds K1's and K2's launches on the process mesh (the wrappers' and
+        the graph replays'); either one at 0 fails the run."""
+        torch = self.torch
+        import importlib
+        import shutil
+        import tempfile
+
+        import numpy as np
+        from repro_torch.core.algorithms import kmeans, pagerank, wordcount
+
+        alg = {m: importlib.import_module("repro_torch.core.algorithms." + m)
+               for m in ("kmeans", "pagerank", "wordcount")}
+        dev = self.dev
+        pts_np, c0 = data["points_np"], data["init_centers"]
+        init = c0.cpu().numpy()
+        dim = pts_np.shape[1]
+        edges_np, n_pages = data["edges_np"], data["n_pages"]
+        lines, vocab = data["lines_np"], data["vocab"]
+        km_ref, ref_c, ref_inertia = self.per_op["kmeans"]
+        pr_per_op, pr_ref, pr_tol = self.per_op["pagerank"]
+        meshes = {"process": sess, "1x8": isess}
+        out = {"epoch_median_s": {}, "checks": {}, "diff_process_vs_1x8": {}}
+        t0 = time.perf_counter()
+        chunks = {name: {"kmeans": s.chunked(pts_np, STREAM_BLOCK_ROWS),
+                         "pagerank": s.chunked(edges_np, -(-len(edges_np) // 8)),
+                         "wordcount": s.chunked(lines, -(-len(lines) // 8))}
+                  for name, s in meshes.items()}
+        out["chunk_s"] = time.perf_counter() - t0
+        for name, ch in chunks.items():
+            for job, c in ch.items():
+                if (c.n_blocks != (-(-len(pts_np) // STREAM_BLOCK_ROWS) if job == "kmeans"
+                                   else 8) or c.local_rows != c.block_rows
+                        or (c.mesh is sess.mesh) != (name == "process")
+                        or not c.stats()["pinned"]):
+                    raise AssertionError(f"process stream: {name} {job} blocks")
+
+        def km_err(tag, centers, inertia=None):
+            errs = (float(np.abs(centers - ref_c).max()),
+                    float(np.abs(centers - km_ref.centers).max()))
+            if max(errs) > 1e-4 or (inertia is not None and
+                                    abs(inertia - ref_inertia) > 1e-4 * ref_inertia):
+                raise AssertionError(f"process stream kmeans {tag}: centre errors {errs}, "
+                                     f"inertia {inertia} against {ref_inertia}")
+            return errs[1]
+
+        def pr_err(tag, scores):
+            got = torch.as_tensor(scores).to(dev).double()
+            d = (got - torch.from_numpy(pr_per_op).to(dev).double()).abs()
+            if not (bool(((got - pr_ref).abs() <= pr_tol).all()) and bool((d <= pr_tol).all())):
+                raise AssertionError(f"process stream pagerank {tag}: a page is over its "
+                                     "tolerance")
+            return float(d.max())
+
+        def wc_counts(tag, hm, times=1):
+            keys, vals = hm.items()
+            got = np.zeros(vocab, np.int64)
+            got[keys] = vals
+            if hm.total_overflow() or not np.array_equal(got, times * self.per_op["wordcount"]):
+                raise AssertionError(f"process stream wordcount {tag} differs from per-op")
+            return got
+
+        counts = {k: {"wrappers": 0, "graph_replays": 0}
+                  for k in ("segment_reduce", "hash_aggregate")}
+        res = {}
+        for name, s in meshes.items():
+            ch = chunks[name]
+
+            def jobs():
+                return (kmeans(ch["kmeans"], 5, init_centers=init, tol=0.0, max_iters=5,
+                               engine="pallas", mode="stream", session=s),
+                        pagerank(ch["pagerank"], n_pages, tol=0.0, max_iters=5,
+                                 engine="pallas", mode="stream", session=s),
+                        wordcount(ch["wordcount"], engine="pallas", vocab_size=vocab,
+                                  mode="program", session=s),
+                        pagerank(ch["pagerank"], n_pages, tol=0.0, max_iters=5,
+                                 engine="pallas", session=s),
+                        wordcount(ch["wordcount"], engine="pallas", vocab_size=vocab,
+                                  session=s))
+
+            s.stats.graph_launches = {}
+            (km, pr, wc, pr_op, wc_op), wall, launch = self.drive(
+                f"process stream {name}", jobs,
+                6 * len(pts_np) + 10 * len(edges_np) + 2 * int(lines.size))
+            if name == "process":
+                for k in counts:
+                    counts[k]["wrappers"] += launch[k]
+                    counts[k]["graph_replays"] += sum(
+                        n for key, n in s.stats.graph_launches.items()
+                        if key.split("/")[0] == k)
+            res[name] = (km.centers, km.inertia, pr.scores, wc_counts(f"{name} stream", wc.counts),
+                         pr_op.scores, wc_counts(f"{name} per op", wc_op))
+            out["checks"][name] = {
+                "kmeans_centre_diff": km_err(name, km.centers, km.inertia),
+                "pagerank_diff": pr_err(name, pr.scores),
+                "pagerank_per_op_diff": pr_err(f"{name} per op", pr_op.scores),
+                "wordcount": "equal per op", "wall_s": wall}
+            del km, pr, wc, pr_op, wc_op
+        for k, c in counts.items():
+            if c["wrappers"] + c["graph_replays"] == 0:
+                raise AssertionError(f"process stream: {k} did not run on the process mesh")
+        (pc, pi, ps, pw, pso, pwo), (ic, ii, is_, iw, iso, iwo) = res["process"], res["1x8"]
+        if not (np.array_equal(pw, iw) and np.array_equal(pwo, iwo)):
+            raise AssertionError("process stream: word counts differ from the (1x8) mesh's")
+        out["diff_process_vs_1x8"] = {
+            "kmeans_centres": float(np.abs(pc - ic).max()), "kmeans_inertia": abs(pi - ii),
+            "pagerank": float(np.abs(ps - is_).max()),
+            "pagerank_per_op": float(np.abs(pso - iso).max()), "wordcount": 0}
+
+        # -- each job's epoch on each mesh ------------------------------------
+        def make(job, s):
+            ch = chunks["process" if s is sess else "1x8"]
+            if job == "kmeans":
+                step, st0 = alg["kmeans"]._stream_step(ch["kmeans"], 5, dim, "pallas",
+                                                       "none", dev)
+                return s.program(step), st0(c0)
+            if job == "pagerank":
+                deg = torch.from_numpy(alg["pagerank"].block_degrees(ch["pagerank"],
+                                                                     n_pages)).to(dev)
+                step, st0 = alg["pagerank"]._stream_step(ch["pagerank"], deg, n_pages, 0.85,
+                                                         "pallas", "none", dev)
+                return s.program(step), st0(torch.full((n_pages,), 1.0 / n_pages, device=dev))
+            hm = s.make_dist_hashmap(max(64, 4 * vocab), (), torch.int32, "sum")
+            step, st = alg["wordcount"]._program_step(ch["wordcount"], hm, vocab, "pallas")
+            return s.program(step), st, hm
+
+        for job in ("kmeans", "pagerank", "wordcount"):
+            for name, s in meshes.items():
+                prog, state = make(job, s)[:2]
+                n_blocks = chunks[name][job].n_blocks
+                state, _ = self.stream_epochs(f"process {job}", s, prog, state, 1, True,
+                                              n_blocks)
+                _, times = self.stream_epochs(f"process {job}", s, prog, state,
+                                              PROCESS_STREAM_EPOCHS, True, n_blocks)
+                out["epoch_median_s"].setdefault(job, {})[name] = statistics.median(times)
+                del prog, state
+        out["epoch_process_vs_1x8"] = {
+            job: m["process"] / m["1x8"] for job, m in out["epoch_median_s"].items()}
+
+        # -- a checkpoint at epoch 2 on one mesh, resumed on the other ---------
+        def km_run(s, epochs, **kw):
+            prog, st = make("kmeans", s)
+            return s.run_stream(prog, st, max_epochs=epochs, **kw)
+
+        def wc_run(s, epochs, **kw):
+            prog, st, hm = make("wordcount", s)
+            _, info = s.run_stream(prog, st, max_epochs=epochs, **kw)
+            return wc_counts(f"after {epochs} epochs", prog.hash_result(hm), epochs), info
+
+        full, _ = km_run(isess, 5)
+        wfull, _ = wc_run(isess, 3)
+        resumes = {}
+        for writer, reader in (("process", "1x8"), ("1x8", "process")):
+            d = tempfile.mkdtemp(prefix="blaze-ckpt-")
+            try:
+                km_run(meshes[writer], 2, checkpoint=os.path.join(d, "km"),
+                       checkpoint_every=2)
+                got, info = km_run(meshes[reader], 5, checkpoint=os.path.join(d, "km"),
+                                   resume=True)
+                diff = float((got["centers"] - full["centers"]).abs().max())
+                if info.resumed_from != 2 or diff > 1e-4:
+                    raise AssertionError(f"process stream: k-means written on {writer}, "
+                                         f"resumed on {reader}: from {info.resumed_from}, "
+                                         f"{diff} off")
+                km_err(f"resumed on {reader}", got["centers"].cpu().numpy())
+                wc_run(meshes[writer], 2, checkpoint=os.path.join(d, "wc"),
+                       checkpoint_every=2)
+                wgot, winfo = wc_run(meshes[reader], 3, checkpoint=os.path.join(d, "wc"),
+                                     resume=True)
+                if winfo.resumed_from != 2 or not np.array_equal(wgot, wfull):
+                    raise AssertionError(f"process stream: word count written on {writer}, "
+                                         f"resumed on {reader}, differs")
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            resumes[f"{writer} -> {reader}"] = {"kmeans_centre_diff": diff,
+                                                "wordcount": "equal", "resumed_from": 2}
+        out["resume"] = resumes
+        out["launches"] = counts
+        self.process_stream_launches = counts
+        del chunks, full
+        torch.cuda.empty_cache()
+        print(json.dumps({"process_stream": out}, default=str), flush=True)
+        return out
 
     def dp_train_process(self):
         """``dp_train`` across processes on the card (module docstring, 10):
@@ -6520,6 +6738,9 @@ class Smoke:
                 # the process phase's (an NCCL group of one, the (1x8) mesh
                 # across processes): the wrappers' and the graph replays'
                 "process_launches": self.process_launches.get(rec["kernel"]),
+                # its streams on the process mesh (K1, K2): the wrappers' and
+                # the graph replays'
+                "process_stream_launches": self.process_stream_launches.get(rec["kernel"]),
                 # the shard phase's: (a) train and serve on the (1x1) mesh,
                 # (b) rank 0 of the production mesh (K4 only counted there)
                 "shard_launches": {

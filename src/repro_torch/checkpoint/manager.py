@@ -16,6 +16,25 @@ exists on disk (the old one until the new one is in place).  ``_recover``
 rolls an interrupted swap back (``.old-`` to final) on start-up and restore;
 ``restore_latest`` skips unfinished ``.tmp-`` and ``.old-`` directories and
 retries when an async save's ``_gc`` sweeps the step it picked.
+
+Across processes (``save``/``restore`` with ``mesh=``, a mesh that carries a
+``torch.distributed`` group, and ``per_rank=``, which marks the leaves each
+rank holds its own rows of: a program's carry) the reference's stated
+protocol, which it collapses to one process: each rank writes its rows of
+the per-rank leaves into the step's ``tmp-`` directory
+(``rank_<r>.npz``); rank 0 writes the replicated leaves (``arrays.npz``)
+and the manifest, which holds each leaf's logical shape and the rows of
+every rank's file; after a barrier that tells every rank whether every
+write succeeded, rank 0 commits with the same rename-aside swap and
+garbage-collects, and a second barrier returns the commit to every rank.
+A rank that fails before the commit fails the save on every rank and
+leaves the previous checkpoint as it was.  ``restore_latest`` restores
+the step rank 0 picks, on every rank.  A restore reads each leaf's
+logical rows, from whichever files hold them, and a rank of a process mesh
+keeps its own rows of the per-rank ones, so a checkpoint written by ``P``
+processes restores onto any process count, or onto one process.
+Asynchronous saves are refused on a process mesh: their barrier would run
+on the save thread beside the caller's collectives on the same group.
 """
 from __future__ import annotations
 
@@ -82,14 +101,29 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree, *, blocking: bool = True) -> str:
+    def save(self, step: int, tree, *, blocking: bool = True, mesh=None,
+             per_rank=None) -> str:
         """Write ``tree`` as checkpoint ``step``.  The leaves are copied to
         the host on the caller's thread; ``blocking=False`` writes the files
         on a thread (:meth:`wait` joins it).  The ``checkpoint.write`` fault
         point fires first, on the caller's thread, so an injected write
-        fault reaches whoever supervises the save."""
+        fault reaches whoever supervises the save.
+
+        On a process mesh (``mesh`` with a group; every rank calls this with
+        the same ``step``) ``per_rank``, a tree of bools shaped as ``tree``,
+        marks the leaves whose leading dimension is this rank's rows; the
+        others are replicated and rank 0's are written (module docstring).
+        ``blocking=False`` raises there."""
         faults.fault_point("checkpoint.write")
         leaves, spec = _flatten(tree)
+        if _across(mesh):
+            if not blocking:
+                raise ValueError(
+                    "blocking=False on a mesh of several processes: the commit's "
+                    "barrier would run on the save thread beside this thread's "
+                    "collectives on the same group; save with blocking=True")
+            return self._write_ranks(step, leaves, str(spec), mesh,
+                                     _rank_flags(per_rank, len(leaves)))
         if blocking:
             return self._write(step, leaves, str(spec))
         self.wait()
@@ -121,10 +155,14 @@ class CheckpointManager:
         }
         with open(os.path.join(tmp, _SENTINEL), "w") as f:
             json.dump(manifest, f)
-        # Rename-aside swap: (1) move the previous checkpoint aside, (2) move
-        # the new one in, (3) delete the old.  A crash after (1) leaves the
-        # old one complete under ``.old-<nonce>`` (rolled back by _recover);
-        # a crash after (2) leaves the new one committed.
+        self._commit(tmp, final)
+        return final
+
+    def _commit(self, tmp: str, final: str) -> None:
+        """Rename-aside swap: (1) move the previous checkpoint aside, (2)
+        move the new one in, (3) delete the old.  A crash after (1) leaves
+        the old one complete under ``.old-<nonce>`` (rolled back by
+        _recover); a crash after (2) leaves the new one committed."""
         old = None
         with self._io_lock:
             if os.path.exists(final):
@@ -134,6 +172,70 @@ class CheckpointManager:
             if old is not None:
                 shutil.rmtree(old, ignore_errors=True)
         self._gc()
+
+    def _write_ranks(self, step: int, leaves, spec_str: str, mesh, flags) -> str:
+        """The save across processes (module docstring): this rank's rows of
+        the per-rank leaves, rank 0's replicated leaves and the manifest, a
+        barrier, rank 0's commit, a barrier."""
+        from repro_torch.core.collectives import agree
+
+        final = self._path(step)
+        # one directory for every rank: rank 0's nonce
+        nonce = agree(mesh, int.from_bytes(os.urandom(4), "little"))
+        tmp = f"{final}.tmp-{nonce:08x}"
+        ranked = [i for i, f in enumerate(flags) if f]
+        error = None
+        try:
+            for i in ranked:
+                if leaves[i].ndim == 0:
+                    raise ValueError(f"per-rank leaf {i} has no leading dimension")
+            os.makedirs(tmp, exist_ok=True)
+            np.savez(os.path.join(tmp, _rank_file(mesh.rank)),
+                     **{f"leaf_{i}": leaves[i] for i in ranked})
+            if mesh.rank == 0:
+                np.savez(os.path.join(tmp, "arrays.npz"),
+                         **{f"leaf_{i}": x for i, x in enumerate(leaves) if not flags[i]})
+        except Exception as e:  # noqa: BLE001 - reported to every rank, re-raised below
+            error = e
+        # barrier 1: whether every rank wrote its rows, and how many
+        rows = _gather_ints(mesh, [error is None] + [leaves[i].shape[0] for i in ranked])
+        failed = [r for r in range(mesh.n_ranks) if not rows[r][0]]
+        if not failed and mesh.rank == 0:
+            try:
+                bounds = np.concatenate([np.zeros((1, len(ranked)), np.int64),
+                                         np.cumsum(rows[:, 1:], 0)])
+                shapes = [list(x.shape) for x in leaves]
+                for j, i in enumerate(ranked):
+                    shapes[i][0] = int(bounds[-1, j])
+                manifest = {
+                    "step": step,
+                    "n_leaves": len(leaves),
+                    "treespec": spec_str,
+                    "shapes": shapes,
+                    "dtypes": [str(x.dtype) for x in leaves],
+                    "ranks": {
+                        "files": [_rank_file(r) for r in range(mesh.n_ranks)],
+                        "rows": {str(i): [[int(bounds[r, j]), int(bounds[r + 1, j])]
+                                          for r in range(mesh.n_ranks)]
+                                 for j, i in enumerate(ranked)},
+                    },
+                }
+                with open(os.path.join(tmp, _SENTINEL), "w") as f:
+                    json.dump(manifest, f)
+                self._commit(tmp, final)
+            except Exception as e:  # noqa: BLE001 - reported to every rank
+                error = e
+        elif failed and mesh.rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+        # barrier 2: whether rank 0 committed
+        committed = bool(_gather_ints(mesh, [not failed and error is None])[0][0])
+        if error is not None:
+            raise error
+        if failed:
+            raise RuntimeError(f"checkpoint {step} was not committed: rank(s) {failed} of "
+                               f"{mesh.n_ranks} failed to write their rows")
+        if not committed:
+            raise RuntimeError(f"checkpoint {step} was not committed: rank 0's commit failed")
         return final
 
     def _recover(self):
@@ -184,23 +286,28 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like, shardings=None):
+    def restore(self, step: int, like, shardings=None, *, mesh=None, per_rank=None):
         """Checkpoint ``step`` onto the structure of ``like`` (elastic: any
         device or mesh).  Each leaf gets the dtype of ``like``'s leaf and
         goes to its placement: ``shardings`` is one placement for every
         leaf or a tree of them matching ``like``, a placement being a device
         (or its name) or a ``containers.Mesh`` (its device); ``None``, the
         default, keeps each leaf on the device of ``like``'s.  Raises
-        ``ValueError`` when the leaf counts differ."""
+        ``ValueError`` when the leaf counts differ.
+
+        A leaf is read as its logical array, whichever process count wrote
+        it; on a process mesh (``mesh``) a leaf that ``per_rank`` marks
+        keeps this rank's rows of it, ``rank * L / P ...`` of its ``L``."""
         path = self._path(step)
         with open(os.path.join(path, _SENTINEL)) as f:
             manifest = json.load(f)
-        with np.load(os.path.join(path, "arrays.npz")) as data:
-            leaves = [data[f"leaf_{i}"] for i in range(manifest["n_leaves"])]
         like_leaves, spec = pytree.tree_flatten(like)
-        if len(like_leaves) != len(leaves):
-            raise ValueError(f"checkpoint has {len(leaves)} leaves, target has "
+        n = manifest["n_leaves"]
+        if len(like_leaves) != n:
+            raise ValueError(f"checkpoint has {n} leaves, target has "
                              f"{len(like_leaves)}")
+        flags = _rank_flags(per_rank, n) if _across(mesh) else [False] * n
+        leaves = _read_leaves(path, manifest, flags, mesh)
         places = _placements(shardings, len(leaves))
         out = []
         for arr, lk, place in zip(leaves, like_leaves, places):
@@ -211,9 +318,23 @@ class CheckpointManager:
                 out.append(np.asarray(arr).astype(np.asarray(lk).dtype))
         return pytree.tree_unflatten(out, spec)
 
-    def restore_latest(self, like, shardings=None):
+    def restore_latest(self, like, shardings=None, *, mesh=None, per_rank=None):
         """``(step, tree)`` of the newest complete checkpoint, or ``(None,
-        None)`` when there is none."""
+        None)`` when there is none.  On a process mesh (``mesh``) rank 0
+        rolls interrupted swaps back and picks the step, and every rank
+        restores that one (:meth:`restore` with ``mesh`` and
+        ``per_rank``)."""
+        if _across(mesh):
+            from repro_torch.core.collectives import agree
+
+            step = None
+            if mesh.rank == 0:
+                self._recover()
+                step = self.latest_step()
+            step = agree(mesh, -1 if step is None else step)
+            if step < 0:
+                return None, None
+            return step, self.restore(step, like, shardings, mesh=mesh, per_rank=per_rank)
         self._recover()
         # Retry: an async save's _gc may sweep the step between our listing
         # and our read; the next listing sees the newer step.
@@ -232,6 +353,74 @@ class CheckpointManager:
                 continue
         raise RuntimeError(f"restore_latest: checkpoints in {self.dir} kept "
                            "disappearing mid-read")
+
+
+def _across(mesh) -> bool:
+    """Whether ``mesh`` spans processes (carries a group)."""
+    return mesh is not None and getattr(mesh, "group", None) is not None
+
+
+def _rank_file(rank: int) -> str:
+    return f"rank_{rank:05d}.npz"
+
+
+def _rank_flags(per_rank, n: int) -> list[bool]:
+    """One bool a leaf: ``per_rank`` (a tree of bools shaped as the
+    checkpoint's tree; None: every leaf replicated) flattened."""
+    if per_rank is None:
+        return [False] * n
+    flags = [bool(f) for f in pytree.tree_flatten(per_rank)[0]]
+    if len(flags) != n:
+        raise ValueError(f"per_rank has {len(flags)} flags for {n} leaves")
+    return flags
+
+
+def _gather_ints(mesh, values) -> np.ndarray:
+    """``values`` (ints) of every rank as ``[P, len(values)]`` int64, rank 0
+    first: one all-gather over ``mesh``'s group, so also a barrier."""
+    from repro_torch.core.collectives import gather_rows
+
+    t = torch.tensor([[int(v) for v in values]], dtype=torch.int64, device=mesh.device)
+    return gather_rows(mesh, t).cpu().numpy()
+
+
+def _read_leaves(path: str, manifest: dict, flags, mesh) -> list[np.ndarray]:
+    """The checkpoint's leaves as host arrays: each one logical, or, where
+    ``flags`` marks it, this rank's rows of it (rank ``r`` of ``P`` keeps
+    ``[r L / P, (r + 1) L / P)``); per-rank leaves are read from the rank
+    files that hold those rows, the others from ``arrays.npz``."""
+    ranks = manifest.get("ranks")
+    files: dict[str, Any] = {}
+
+    def npz(name):
+        if name not in files:
+            files[name] = np.load(os.path.join(path, name))
+        return files[name]
+
+    out = []
+    try:
+        for i in range(manifest["n_leaves"]):
+            shape = manifest["shapes"][i]
+            lo, hi = 0, shape[0] if shape else 0
+            if flags[i]:
+                if not shape or shape[0] % mesh.n_ranks:
+                    raise ValueError(f"leaf {i} of logical shape {shape} does not split "
+                                     f"into {mesh.n_ranks} ranks' rows")
+                per = shape[0] // mesh.n_ranks
+                lo, hi = mesh.rank * per, (mesh.rank + 1) * per
+            rows = None if ranks is None else ranks["rows"].get(str(i))
+            if rows is None:
+                arr = npz("arrays.npz")[f"leaf_{i}"]
+                out.append(arr[lo:hi] if flags[i] else arr)
+                continue
+            parts = [npz(name)[f"leaf_{i}"][max(lo, a) - a:min(hi, b) - a]
+                     for name, (a, b) in zip(ranks["files"], rows) if a < hi and b > lo]
+            out.append(np.concatenate(parts) if parts else np.zeros(
+                [0] + shape[1:], manifest["dtypes"][i]))
+    finally:
+        for f in files.values():
+            f.close()
+    return out
 
 
 # ---------------------------------------------------------------------------

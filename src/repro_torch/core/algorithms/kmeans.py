@@ -171,7 +171,8 @@ def kmeans(
     if init_centers is None:
         rng = np.random.RandomState(seed)
         if isinstance(pts_v, ChunkedDistVector):
-            pool = pts_v.block_host(0)[: min(pts_v.block_true_rows(0), 4096)]
+            # block 0's first rows, the same on every rank of a process mesh
+            pool = pts_v.head(4096)
         else:
             # the global first rows, the same on every rank of a process mesh
             pool = head(pts_v, 4096)

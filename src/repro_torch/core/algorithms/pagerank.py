@@ -145,11 +145,18 @@ def _stream_step(edges_c: ChunkedDistVector, deg, n_pages: int, damping: float,
 
 def block_degrees(edges_c: ChunkedDistVector, n_pages: int) -> np.ndarray:
     """Out-degrees counted on the host a block at a time (the edge list is
-    never resident); the last block's padding rows are left out."""
+    never resident); the last block's padding rows are left out.  On a
+    process mesh each rank counts its rows and the ranks' counts are summed
+    (a collective: every rank calls it; integers, so exact)."""
     deg = np.zeros((n_pages,), np.int64)
     for b in range(edges_c.n_blocks):
-        blk = edges_c.block_host(b)[: edges_c.block_true_rows(b)]
+        blk = edges_c.block_host(b)[: edges_c.local_true_rows(b)]
         deg += np.bincount(blk[:, 0], minlength=n_pages)
+    if edges_c.mesh is not None:
+        from repro_torch.core.collectives import gather_rows
+
+        got = gather_rows(edges_c.mesh, torch.from_numpy(deg)[None].to(edges_c.device))
+        deg = got.sum(0).cpu().numpy()
     return deg.astype(np.int32)
 
 

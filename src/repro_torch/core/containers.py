@@ -25,11 +25,13 @@ compressed, or spilled to disk past an LRU bound), streamed to the device one
 block at a time, each block seen as a ``BlockView``.  On a CUDA machine the
 raw blocks live in pinned (page-locked) memory, and compressed or spilled
 ones decode into pinned buffers: a copy from pageable memory blocks the host
-and cannot overlap the device's work.
+and cannot overlap the device's work.  On a mesh of several processes each
+rank holds its own shards' rows of every block.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
 from typing import Any, Callable
 
@@ -101,8 +103,9 @@ def resolve_device(device=None) -> torch.device:
 # process is one node row and holds its ``n_local`` shards (rows ``rank *
 # n_local ...``) of every container; ``n_shards`` stays the global count.
 # Containers made on such a mesh keep it (``DistVector.mesh``,
-# ``DistHashMap.mesh``), so ``collect``, ``topk`` and a hash map's
-# materialisation gather the ranks' rows.
+# ``DistHashMap.mesh``, ``ChunkedDistVector.mesh``), so ``collect``, ``topk``
+# and a hash map's materialisation gather the ranks' rows; a chunked vector
+# keeps each rank's rows of every block.
 # ---------------------------------------------------------------------------
 
 DATA_AXIS = "data"
@@ -671,39 +674,69 @@ class ChunkedDistVector:
     runs one stage per block, and ``program.run_stream`` one graph replay
     per block.  A host-side container: :meth:`block_view` makes the
     :class:`BlockView` that enters a stage.
+
+    Block ``b`` is rows ``[b * block_rows, (b + 1) * block_rows)`` of the
+    dataset, split into ``n_shards`` shards of ``block_rows / n_shards``
+    rows as a ``DistVector``'s rows are.  On a mesh of several processes
+    (``mesh``) each rank keeps, of every block, its own shards' rows: rank
+    ``r`` holds shards ``r * n_local ... (r + 1) * n_local - 1``, the
+    ``local_rows = block_rows / P`` rows that start at global row
+    :meth:`block_base` of the block.  So a rank holds ``1/P`` of the dataset
+    on its host, its device holds its rows of the resident blocks, and its
+    mapper sees the global indices the in-process mesh gives the same rows.
+    ``block_rows``, ``n_blocks`` and ``n`` stay the dataset's; the byte
+    provider (and its spill directory, one a rank) holds this rank's rows.
     """
 
     def __init__(self, provider: HostBlockStore, n: int, block_rows: int,
-                 n_shards: int = 1, device=None):
+                 n_shards: int = 1, device=None, *, mesh: Mesh | None = None):
         self.provider = provider
         self.n = n
         self.block_rows = block_rows
         self.n_shards = n_shards
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.process else None
         if block_rows % n_shards:
             raise ValueError(f"block_rows={block_rows} must be a multiple of "
                              f"{n_shards} shards")
+        if self.mesh is not None and (self.mesh.n_shards != n_shards
+                                      or provider.block_shape[0] != self.local_rows):
+            raise ValueError(f"a rank of the {self.mesh.n_ranks}-process mesh holds "
+                             f"{self.local_rows} rows a block of {n_shards} shards, "
+                             f"not {provider.block_shape[0]}")
 
     @classmethod
     def from_array(cls, x: np.ndarray, block_rows: int, n_shards: int = 1,
                    device=None, *, compress: bool = False,
                    spill_dir: str | None = None,
-                   max_resident: int | None = None) -> "ChunkedDistVector":
+                   max_resident: int | None = None,
+                   mesh: Mesh | None = None) -> "ChunkedDistVector":
         """Split a host array into blocks of ``block_rows`` (rounded up to a
         multiple of the shards), the last one padded with zeros; pinned on a
-        CUDA device."""
+        CUDA device.  On a mesh of several processes (``mesh``; its shards
+        and device) every rank passes the whole array and keeps its own
+        rows of each block, spilling under ``spill_dir/rank_<r>``."""
         if block_rows <= 0:
             raise ValueError(f"block_rows must be positive, got {block_rows}")
+        if mesh is not None:
+            n_shards, device = mesh.n_shards, mesh.device
+            mesh = mesh if mesh.process else None
         dev = resolve_device(device)
         x = np.asarray(x)
         n = x.shape[0]
         block_rows = max(n_shards, -(-block_rows // n_shards) * n_shards)
         n_blocks = max(1, -(-n // block_rows))
+        lo, hi = 0, block_rows
+        if mesh is not None:
+            local = block_rows // mesh.n_ranks
+            lo, hi = mesh.rank * local, (mesh.rank + 1) * local
+            if spill_dir is not None:
+                spill_dir = os.path.join(spill_dir, f"rank_{mesh.rank:05d}")
         blocks = []
         for b in range(n_blocks):
-            blk = x[b * block_rows:(b + 1) * block_rows]
-            if blk.shape[0] < block_rows:
-                pad = np.zeros((block_rows - blk.shape[0],) + x.shape[1:], x.dtype)
+            blk = x[b * block_rows + lo:b * block_rows + hi]
+            if blk.shape[0] < hi - lo:
+                pad = np.zeros((hi - lo - blk.shape[0],) + x.shape[1:], x.dtype)
                 blk = np.concatenate([blk, pad], axis=0)
             blocks.append(np.ascontiguousarray(blk))
         spill = None
@@ -713,7 +746,7 @@ class ChunkedDistVector:
             spill = BlockStore(spill_dir)
         provider = HostBlockStore(blocks, compress=compress, spill=spill,
                                   max_resident=max_resident, pin=dev.type == "cuda")
-        return cls(provider, n, block_rows, n_shards, dev)
+        return cls(provider, n, block_rows, n_shards, dev, mesh=mesh)
 
     # -- geometry ------------------------------------------------------------
 
@@ -730,15 +763,33 @@ class ChunkedDistVector:
         return _torch_dtype(self.provider.dtype)
 
     @property
+    def local_rows(self) -> int:
+        """The rows of a block this process holds (``block_rows`` without a
+        process mesh)."""
+        return self.block_rows // (self.mesh.n_ranks if self.mesh is not None else 1)
+
+    @property
     def block_nbytes(self) -> int:
-        return int(self.block_rows * int(np.prod(self.shape_tail, dtype=np.int64))
+        """The bytes of a block this process moves to its device."""
+        return int(self.local_rows * int(np.prod(self.shape_tail, dtype=np.int64))
                    * np.dtype(self.provider.dtype).itemsize)
 
     def __len__(self) -> int:
         return self.n
 
+    def block_base(self, b: int) -> int:
+        """The global index of the first row of block ``b`` this process
+        holds."""
+        rank = self.mesh.rank if self.mesh is not None else 0
+        return b * self.block_rows + rank * self.local_rows
+
     def block_true_rows(self, b: int) -> int:
+        """The dataset's rows in block ``b`` (its padding left out)."""
         return max(0, min(self.block_rows, self.n - b * self.block_rows))
+
+    def local_true_rows(self, b: int) -> int:
+        """This process's rows of block ``b`` that are the dataset's."""
+        return max(0, min(self.local_rows, self.n - self.block_base(b)))
 
     # -- access --------------------------------------------------------------
 
@@ -756,55 +807,72 @@ class ChunkedDistVector:
         host = self.block_tensor(b)
         if stream is None or self.device.type != "cuda":
             return BlockView(host.to(self.device),
-                             torch.full((), b * self.block_rows, dtype=torch.int32,
+                             torch.full((), self.block_base(b), dtype=torch.int32,
                                         device=self.device), self.n)
         with torch.cuda.stream(stream):
             data = host.to(self.device, non_blocking=True)
-            base = torch.full((), b * self.block_rows, dtype=torch.int32,
+            base = torch.full((), self.block_base(b), dtype=torch.int32,
                               device=self.device)
             ready = torch.cuda.Event()
             ready.record(stream)
         return BlockView(data, base, self.n, ready)
 
+    def _rows_of_ranks(self, rows: np.ndarray) -> np.ndarray:
+        """``rows [m, ...]`` of every rank, in rank order (a collective on a
+        process mesh; ``rows`` itself without one)."""
+        if self.mesh is None:
+            return rows
+        from repro_torch.core.collectives import gather_rows
+
+        got = gather_rows(self.mesh, torch.from_numpy(np.ascontiguousarray(rows))
+                          .to(self.device))
+        return got.cpu().numpy()
+
     def collect(self) -> np.ndarray:
-        """Host materialisation without the padding (small datasets, tests)."""
-        out = np.concatenate([self.block_host(b) for b in range(self.n_blocks)], axis=0)
-        return out[: self.n]
+        """Host materialisation without the padding (small datasets, tests);
+        on a process mesh every rank's rows, gathered (a collective)."""
+        local = np.stack([self.block_host(b) for b in range(self.n_blocks)])
+        out = self._rows_of_ranks(local)  # [P * n_blocks, local_rows, ...]
+        n_ranks = self.mesh.n_ranks if self.mesh is not None else 1
+        out = out.reshape((n_ranks, self.n_blocks) + local.shape[1:]).swapaxes(0, 1)
+        return out.reshape((-1,) + self.shape_tail)[: self.n]
+
+    def head(self, m: int) -> np.ndarray:
+        """The first ``min(m, block_true_rows(0))`` rows of the dataset
+        (rows of block 0), the same on every rank: a process mesh gathers
+        each rank's first rows of block 0 (a collective)."""
+        m = min(m, self.block_true_rows(0))
+        first = self.block_host(0)[: min(m, self.local_rows)]
+        return self._rows_of_ranks(first)[:m]
 
     def stats(self) -> dict:
         return self.provider.stats()
 
 
 def require_rank_rows(mesh: Mesh | None, container, what: str) -> None:
-    """Raise unless ``container`` (a ``DistVector`` or ``DistHashMap``)
-    holds this rank's rows of ``mesh``.  On a mesh of several processes a
-    container made without it (``DistVector(x, n)``, ``distribute(x, 8)``)
-    holds the global rows, and every rank would take them for its own
-    shards: the result would count the data ``P`` times, silently."""
+    """Raise unless ``container`` (a ``DistVector``, ``DistHashMap`` or
+    ``ChunkedDistVector``) holds this rank's rows of ``mesh``.  On a mesh
+    of several processes a container made without it (``DistVector(x, n)``,
+    ``distribute(x, 8)``, ``chunked(x, rows, 8)``) holds the global rows,
+    and every rank would take them for its own shards: the result would
+    count the data ``P`` times, silently."""
     if mesh is None or mesh.n_ranks == 1:
         return
     own = getattr(container, "mesh", None)
     if isinstance(container, DistHashMap):
         rows, want = container.table.keys.shape[0], mesh.n_local
+    elif isinstance(container, ChunkedDistVector):
+        rows = container.provider.block_shape[0]
+        want = container.block_rows // mesh.n_ranks
     else:
         rows = container.data.shape[0]
         want = mesh.n_local * -(-container.n // mesh.n_shards)
     if (own is None or own.group is not mesh.group or own.n_shards != mesh.n_shards
-            or rows != want):
+            or own.rank != mesh.rank or rows != want):
         raise ValueError(
             f"{what} holds {rows} rows, not this rank's {want} of the {mesh.n_ranks}-process "
-            "mesh: make it on the mesh (distribute(mesh=), make_dist_hashmap(mesh=), or "
-            "the session's) so that each rank keeps its own shards")
-
-
-def refuse_streams_across_processes(mesh: Mesh | None) -> None:
-    """Raise on a mesh of several processes: a chunked source's blocks are
-    not split between ranks yet, and a stream run on one rank's blocks
-    would be a silently local job."""
-    if mesh is not None and mesh.n_ranks > 1:
-        raise NotImplementedError(
-            f"chunked (out-of-core) sources on a mesh of {mesh.n_ranks} processes: "
-            "streams and checkpoints across processes are ROADMAP.md, Queue 1 item 6c")
+            "mesh: make it on the mesh (distribute(mesh=), make_dist_hashmap(mesh=), "
+            "chunked(mesh=), or the session's) so that each rank keeps its own shards")
 
 
 def chunked(x: np.ndarray, block_rows: int, n_shards: int = 1, device=None, *,
@@ -812,11 +880,8 @@ def chunked(x: np.ndarray, block_rows: int, n_shards: int = 1, device=None, *,
             max_resident: int | None = None, mesh: Mesh | None = None) -> ChunkedDistVector:
     """The paper's ``distribute`` for datasets that do not fit on the device:
     a host array as blocks streamed one at a time (:class:`ChunkedDistVector`).
-    With ``mesh`` its shards and device; a mesh of several processes raises
-    (:func:`refuse_streams_across_processes`)."""
-    if mesh is not None:
-        refuse_streams_across_processes(mesh)
-        n_shards, device = mesh.n_shards, mesh.device
+    With ``mesh`` its shards and device; on a mesh of several processes
+    every rank passes the whole array and keeps its own rows of each block."""
     return ChunkedDistVector.from_array(x, block_rows, n_shards, device,
                                         compress=compress, spill_dir=spill_dir,
-                                        max_resident=max_resident)
+                                        max_resident=max_resident, mesh=mesh)

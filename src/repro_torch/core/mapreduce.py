@@ -379,9 +379,11 @@ def map_reduce(source, mapper: Callable, reducer, target, **kwargs):
 
 
 def _require_rank_rows(mesh: C.Mesh, kind, source, target=None) -> None:
-    """A vector or hash-map source, and a hash target, must hold this
-    rank's rows of a process mesh (``containers.require_rank_rows``)."""
-    if kind in ("vector", "hashmap"):
+    """A vector, hash-map or chunked source, and a hash target, must hold
+    this rank's rows of a process mesh (``containers.require_rank_rows``;
+    a chunked source's ``BlockView`` is the block of one that was
+    checked)."""
+    if kind in ("vector", "hashmap") or isinstance(source, C.ChunkedDistVector):
         C.require_rank_rows(mesh, source, f"the {kind} source")
     if target is not None:
         C.require_rank_rows(mesh, target, "the hash target")

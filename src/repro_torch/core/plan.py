@@ -127,6 +127,7 @@ def source_desc(kind: str, source) -> str:
             shape = (shape[0] * mesh.n_ranks,) + shape[1:]
         return f"vector {dtype_name(d.dtype)}[{'x'.join(map(str, shape))}] n={source.n}"
     if kind == "chunked":
+        # the dataset's blocks, whichever rows of them this rank holds
         tail = "x".join(map(str, source.shape_tail))
         shape = f"{source.block_rows}{'x' + tail if tail else ''}"
         return (f"chunked {dtype_name(source.dtype)}[{shape}] n={source.n} "
@@ -355,10 +356,14 @@ class Plan:
         if stream:
             lines.append("stream schedule (out-of-core, one graph):")
             for s in stream:
+                mesh = getattr(s.source, "mesh", None)
+                rows = (f"{s.source.block_rows} rows each" if mesh is None else
+                        f"{s.source.block_rows} rows each, {s.source.local_rows} "
+                        f"on each of {mesh.n_ranks} ranks")
                 lines.append(
-                    f"  - {s.desc}: {s.source.n_blocks} block dispatches of "
-                    f"{s.source.block_rows} rows each; block k+1 copied host->device "
-                    "on a copy stream while block k replays")
+                    f"  - {s.desc}: {s.source.n_blocks} block dispatches of {rows}; "
+                    "block k+1 copied host->device on a copy stream while block k "
+                    "replays")
         if self.groups:
             lines.append("batched collective groups:")
             for g, idxs in sorted(self.groups.items()):

@@ -100,7 +100,10 @@ warm-up iteration runs them first, which brings the communicator up before
 the capture, and their output buffers come from the graph's pool like any
 other.  A capture NCCL refuses raises as any failed capture does, naming
 the op; nothing falls back to eager.  Tuning takes rank 0's winner (the
-ranks' wall times differ).
+ranks' wall times differ).  A chunked source's stream slot holds the
+rank's rows of a block, its ``base`` their first global index, and every
+rank replays every block; a checkpoint holds each rank's rows of the carry
+beside rank 0's state (``checkpoint_ranks``).
 """
 from __future__ import annotations
 
@@ -118,7 +121,7 @@ from repro_torch.core import containers as C
 from repro_torch.core import faults
 from repro_torch.core import mapreduce as _mr
 from repro_torch.core import plan as plan_mod
-from repro_torch.core.collectives import LocalCollectives, agree
+from repro_torch.core.collectives import LocalCollectives, agree, all_ranks_equal
 from repro_torch.core.plan import (
     DEFAULT_PASSES,
     ContainerOpNode,
@@ -238,7 +241,7 @@ class _StreamSlot:
 
     def __init__(self, source, device: torch.device):
         self.source = source
-        self.buf = torch.zeros((source.block_rows,) + source.shape_tail,
+        self.buf = torch.zeros((source.local_rows,) + source.shape_tail,
                                dtype=source.dtype, device=device)
         self.base = torch.zeros((), dtype=torch.int32, device=device)
         self.staging = self.copy = self.landed = self.drained = None
@@ -267,7 +270,7 @@ class _StreamSlot:
             self.drained.record(cur)
         else:
             self.buf.copy_(host)
-        self.base.fill_(b * self.source.block_rows)
+        self.base.fill_(self.source.block_base(b))
 
 
 def _force_tree(tree):
@@ -488,7 +491,6 @@ class ProgramContext:
         if self._mode == "discover":
             self._sources.setdefault(key, source)
         if kind == "chunked":
-            C.refuse_streams_across_processes(self._mesh)
             # The resident block, through the program's static buffer and
             # base scalar (their addresses are what a captured graph reads).
             if not isinstance(source, C.ChunkedDistVector):
@@ -1455,7 +1457,10 @@ class Program:
         host sync).  ``checkpoint=`` with ``checkpoint_every=K`` saves the
         state, the carry and the epoch every ``K`` epochs; ``resume=True``
         restores the latest and goes on from its epoch (a crash mid-epoch
-        replays that epoch).  Each block's dispatch runs supervised
+        replays that epoch).  On a process mesh every rank streams its rows
+        of every block through its graph (the ranks' block counts must
+        agree), and ``cond`` is decided by rank 0's reading, the same state
+        on every rank.  Each block's dispatch runs supervised
         (``session.supervised``): a retry replays the block already resident
         in the static buffer (block k+1 waits in the staging buffer), and a
         degrade captures again after the copy stream has drained.  Returns
@@ -1476,6 +1481,10 @@ class Program:
         if len(counts) != 1:
             raise ValueError(f"chunked sources disagree on block count: {sorted(counts)}")
         n_blocks = counts.pop()
+        if not all_ranks_equal(self._mesh, n_blocks):
+            raise ValueError(f"rank {self._mesh.rank}'s chunked sources have {n_blocks} "
+                             "blocks and another rank's do not: every rank streams every "
+                             "block (make the sources from the same array on every rank)")
         bytes_per_block = sum(slot.source.block_nbytes for slot in slots)
         dev = self._device
         card = self._on_card
@@ -1528,7 +1537,9 @@ class Program:
             if cond is not None:
                 self._session.stats.host_syncs += 1
                 syncs += 1
-                if bool(cond(state)):
+                # rank 0's decision on every rank (the state is replicated,
+                # so every rank's is the same)
+                if agree(self._mesh, bool(cond(state))):
                     converged = True
                     break
         return state, StreamInfo(
@@ -1546,20 +1557,37 @@ class Program:
         return {"state": _sorted_tree(state), "carry": self.export_carry(state),
                 "pos": torch.tensor(pos, dtype=torch.int64)}
 
+    @staticmethod
+    def checkpoint_ranks(payload: dict) -> dict:
+        """Which leaves of ``payload`` a rank of a process mesh holds its own
+        rows of: the carry's (the residuals ``[n_local, ...]``, the hash
+        tables); the state and the position are replicated, every rank
+        holding the same bits."""
+        return {"state": pytree.tree_map(lambda _: False, payload["state"]),
+                "carry": pytree.tree_map(lambda _: True, payload["carry"]),
+                "pos": False}
+
     def save_checkpoint(self, manager, state, pos: int) -> str:
         """Save the resume payload as checkpoint ``pos`` (host copies),
         supervised: a transient ``checkpoint.write`` fault is retried, at
-        most 3 tries in all; a fatal one propagates."""
+        most 3 tries in all; a fatal one propagates.  On a process mesh
+        every rank calls it: each writes its rows of the carry, rank 0 the
+        state and commits (``checkpoint.manager``)."""
         payload = self.checkpoint_payload(state, pos)
-        return faults.retry_in_place(lambda: manager.save(pos, payload))
+        return faults.retry_in_place(lambda: manager.save(
+            pos, payload, mesh=self._mesh, per_rank=self.checkpoint_ranks(payload)))
 
     def restore_checkpoint(self, manager, state):
         """Restore the latest checkpoint: returns ``(state, position)``, or
         ``(state, None)`` when there is none.  The carry is copied into this
         program's own buffers (the residuals, the hash tables and, on the
         card, the graphs' static input state), never rebound: a captured
-        graph keeps reading the addresses it was captured with."""
-        step, restored = manager.restore_latest(self.checkpoint_payload(state, 0))
+        graph keeps reading the addresses it was captured with.  On a
+        process mesh every rank restores the step rank 0 picks, and keeps
+        its rows of the carry, whatever process count wrote it."""
+        like = self.checkpoint_payload(state, 0)
+        step, restored = manager.restore_latest(like, mesh=self._mesh,
+                                                per_rank=self.checkpoint_ranks(like))
         if step is None:
             return state, None
         state = restored["state"]

@@ -105,17 +105,35 @@ _BUILTIN: dict[str, Reducer] = {r.name: r for r in (SUM, PROD, MIN, MAX)}
 
 def segmented_scan(vals: torch.Tensor, starts: torch.Tensor, combine):
     """Inclusive scan of ``vals`` along dim 0 with ``combine``, restarting
-    wherever ``starts`` is True: a log-step (Hillis–Steele) scan of the
-    associative segmented operator, so it works for any associative
-    ``combine`` without a loop over elements."""
-    v, f = vals, starts
-    n, d = vals.shape[0], 1
-    while d < n:
-        fb = f[d:].view((-1,) + (1,) * (v.dim() - 1))
-        v = torch.cat([v[:d], torch.where(fb, v[d:], combine(v[:-d], v[d:]))])
-        f = torch.cat([f[:d], f[d:] | f[:-d]])
-        d *= 2
-    return v
+    wherever ``starts`` is True: ``jax.lax.associative_scan``'s recursion
+    (combine the even/odd pairs, scan the pair results, fold each even
+    element onto the scan before it, interleave) over the segmented
+    operator ``where(b_start, b, combine(a, b))``, flags OR-ed.  So
+    ``combine`` applies in the reference's order and a float sum rounds as
+    the reference's does (a run of three is ``(a + b) + c``).  Shapes are
+    static and nothing syncs with the host, so a captured graph can hold
+    it; about ``2 n`` applications of ``combine`` in ``2 log2 n`` steps."""
+
+    def op(av, af, bv, bf):
+        fb = bf.view((-1,) + (1,) * (bv.dim() - 1))
+        return torch.where(fb, bv, combine(av, bv)), af | bf
+
+    def scan(v, f):
+        n = v.shape[0]
+        if n < 2:
+            return v, f
+        odd_v, odd_f = scan(*op(v[0:-1:2], f[0:-1:2], v[1::2], f[1::2]))
+        if n % 2 == 0:
+            ev, ef = op(odd_v[:-1], odd_f[:-1], v[2::2], f[2::2])
+        else:
+            ev, ef = op(odd_v, odd_f, v[2::2], f[2::2])
+        out_v, out_f = torch.empty_like(v), torch.empty_like(f)
+        out_v[:1], out_f[:1] = v[:1], f[:1]
+        out_v[2::2], out_f[2::2] = ev, ef
+        out_v[1::2], out_f[1::2] = odd_v, odd_f
+        return out_v, out_f
+
+    return scan(vals, starts)[0]
 
 
 def custom_reducer(

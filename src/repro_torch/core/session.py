@@ -42,8 +42,12 @@ up, one node row a process): every rank makes the same calls on the same
 arguments, as every JAX process does, and ends with the same result.  Each
 host decision is taken from a value every rank holds alike: the overflow
 that escalation reads is the mesh's, tuning's winner is rank 0's, and a
-kernel fault degrades on every rank or fails the dispatch.  Chunked sources
-raise there (ROADMAP.md, Queue 1 item 6c).
+kernel fault degrades on every rank or fails the dispatch.  A chunked
+source holds each rank's rows of every block (``chunked``); a stream runs
+every block on every rank, the block count agreed between the ranks, and
+``cond`` reads the state, which every rank holds alike.  Checkpoints write
+each rank's rows of the per-rank leaves beside rank 0's replicated ones
+(``checkpoint.manager``).
 
 Its entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA, ``BlazeSession()`` raises.  The free ``map_reduce`` routes
@@ -229,8 +233,7 @@ class BlazeSession:
         red = get_reducer(reducer)
         mesh = mesh or self.mesh
         kind = _mr.source_kind(source)
-        if kind == "chunked":
-            C.refuse_streams_across_processes(mesh)
+        _mr._require_rank_rows(mesh, kind, source)
         hash_target = isinstance(target, C.DistHashMap)
         if not hash_target:
             target = torch.as_tensor(target, device=mesh.device)
@@ -316,14 +319,14 @@ class BlazeSession:
                         "chunked", bv, mapper, red, out, mesh, node.engine,
                         shuffle_slack, env, key_range=key_range, cache=self._exec_cache,
                         node=node, tuned=node.tuned),
-                    node)
+                    node, mesh)
             else:
                 out, st = self._dispatch_supervised(
                     lambda bv=bv, out=out: _mr._map_reduce_dense(
                         "chunked", bv, mapper, red, out, mesh, node.engine,
                         wire, env, return_stats, cache=self._exec_cache, node=node,
                         tuned=node.tuned, hier=node.hier),
-                    node)
+                    node, mesh)
             for k in totals:
                 totals[k] = totals[k] + getattr(st, k)
             last = st
@@ -626,8 +629,9 @@ class BlazeSession:
         """``distribute`` for datasets that do not fit on the device: a host
         array as out-of-core blocks for the mesh's device and shards
         (``compress=``, ``spill_dir=``, ``max_resident=`` shape the byte
-        provider).  A mesh of several processes raises (ROADMAP.md, Queue 1
-        item 6c)."""
+        provider, per rank on a process mesh).  On a process mesh every
+        rank passes the whole array and keeps its own shards' rows of each
+        block (``containers.ChunkedDistVector``)."""
         return C.chunked(x, block_rows, mesh=mesh or self.mesh, **kwargs)
 
     def make_dist_hashmap(self, capacity_per_shard: int, val_shape: tuple = (),

@@ -5,7 +5,10 @@ items on a background thread, a bounded queue ahead of the consumer: the
 out-of-core loops (``BlazeSession.map_reduce`` over a chunked source,
 ``Program.run_stream``) decode block k+1 there while block k runs.  A
 ``produce`` that touches CUDA (pinned buffers, copies on a stream) must set
-its device itself: a new thread starts on device 0.
+its device itself: a new thread starts on device 0.  On a mesh of several
+processes each rank runs its own worker over its own rows of each block, on
+its own device; a read is no collective, so a read one rank retries leaves
+the other ranks as they are.
 
 ``TokenPipeline`` is the LM's token stream: batch ``i`` is a pure function
 of ``(seed, i)``, so a restarted host regenerates exactly the stream it

@@ -305,19 +305,27 @@ def test_auto_engine_and_stage_cache():
 
 
 def test_later_slices_raise_not_implemented(monkeypatch):
-    # tune=True, the in-process (node, data) mesh and the mesh across
-    # processes are ported (tests/test_torch_tuning.py,
-    # tests/test_torch_multihost.py, tests/test_torch_multiprocess.py);
-    # streams across processes wait for a later slice, and raise rather
-    # than run one rank's blocks alone.
+    # tune=True, the in-process (node, data) mesh, the mesh across processes
+    # and streams across processes are ported (tests/test_torch_tuning.py,
+    # tests/test_torch_multihost.py, tests/test_torch_multiprocess.py,
+    # tests/test_torch_multiprocess_stream.py).  On a mesh of two processes,
+    # as rank 1 sees it (no collective runs here): chunked(mesh=) keeps this
+    # rank's rows of every block, and a chunked vector made without the
+    # mesh (the global rows) is refused rather than counted twice.
     from repro_torch.core import containers as C
 
     two = C.Mesh(2, 4, torch.device("cpu"), group=object(), rank=1, n_ranks=2)
     sess = BlazeSession(mesh=two)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        sess.chunked(np.arange(64, dtype=np.float32), 16)
-    one = C.chunked(np.arange(64, dtype=np.float32), 16, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="item 6c"):
+    x = np.arange(64, dtype=np.float32)
+    cv = sess.chunked(x, 16)
+    assert (cv.n_blocks, cv.block_rows, cv.local_rows, cv.mesh) == (4, 16, 8, two)
+    for b in range(cv.n_blocks):
+        # shards 4..7 of the block: its second half
+        np.testing.assert_array_equal(cv.block_host(b), x[b * 16 + 8:(b + 1) * 16])
+        assert cv.block_base(b) == int(cv.block_view(b).base) == b * 16 + 8
+    C.require_rank_rows(two, cv, "cv")
+    one = C.chunked(x, 16, 8, "cpu")
+    with pytest.raises(ValueError, match="not this rank's"):
         sess.map_reduce(one, _tmapper, "sum", torch.zeros(4))
 
 

@@ -410,8 +410,9 @@ def test_make_node_data_mesh_shapes_8dev(jax8, monkeypatch):
 
 
 def _assert_process_mesh_refusals():
-    """A gloo group cannot carry CUDA tensors; streams and the server on a
-    mesh of several processes raise, naming their ROADMAP items."""
+    """A gloo group cannot carry CUDA tensors; on a mesh of several
+    processes a chunked vector keeps this rank's rows and one made without
+    the mesh is refused, and the server raises, naming its ROADMAP item."""
     import tempfile
 
     import torch.distributed as dist
@@ -430,10 +431,14 @@ def _assert_process_mesh_refusals():
             dist.destroy_process_group()
     # two ranks, as rank 0 sees them (no collective runs before the refusal)
     two = C.Mesh(2, 4, torch.device("cpu"), group=object(), rank=0, n_ranks=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
-        BlazeSession(mesh=two).chunked(DATA["ints"], 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
-        C.chunked(DATA["ints"], 16, mesh=two)
+    mine = BlazeSession(mesh=two).chunked(DATA["ints"], 16)
+    assert mine.local_rows == 8 and mine.block_base(1) == 16
+    np.testing.assert_array_equal(mine.block_host(1), DATA["ints"][16:24])
+    np.testing.assert_array_equal(C.chunked(DATA["ints"], 16, mesh=two).block_host(0),
+                                  DATA["ints"][:8])
+    with pytest.raises(ValueError, match="not this rank's"):
+        BlazeSession(mesh=two).map_reduce(C.chunked(DATA["ints"], 16, 8, "cpu"), _row,
+                                          "sum", torch.zeros(1, 4))
     with pytest.raises(NotImplementedError, match="Queue 1 item 6d"):
         build_server(mesh=two)
 

@@ -40,16 +40,17 @@ except ImportError as e:
             "the property suite must run, not skip, in CI"
         ) from e
     pytest.skip("hypothesis not installed", allow_module_level=True)
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
 from repro.core import containers as JC
 from repro.core import distribute as jdistribute
 from repro.core import topk as jtopk
 from repro.core.mapreduce import bucket_by_dest as jbucket_by_dest
+from repro.core.reducers import custom_reducer as jcustom_reducer
 from repro.core.reducers import get_reducer as jget_reducer
 from repro_torch.core import containers as TC
 from repro_torch.core.mapreduce import bucket_by_dest
-from repro_torch.core.reducers import get_reducer
+from repro_torch.core.reducers import custom_reducer, get_reducer, segmented_scan
 
 SMALL = settings(max_examples=40, deadline=None)
 # JAX's side, one compiled program a drawn shape rather than one per op
@@ -66,6 +67,7 @@ _COMBINE = {"sum": lambda a, b: a + b, "min": min, "max": max}
     st.sampled_from(["sum", "min", "max"]),
     st.sampled_from(["f32", "i32"]),
 )
+@example(keys=[0, 0, 1, 0], red_name="sum", dtype="f32")
 def test_unique_combine_equals_dict_semantics(keys, red_name, dtype):
     rng = np.random.RandomState(42)
     if dtype == "f32":
@@ -91,6 +93,64 @@ def test_unique_combine_equals_dict_semantics(keys, red_name, dtype):
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(ov.numpy(), np.asarray(jv))
+
+
+# -- the segmented scan in the reference's order -------------------------------
+
+_SCAN_LENGTHS = (1, 2, 3, 4, 7, 8, 33, 64, 127, 128, 199, 200)
+_TORCH_COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+_JAX_COMBINE = {"sum": jnp.add, "min": jnp.minimum, "max": jnp.maximum}
+_IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+
+
+def _jsegmented_scan(red_name):
+    """The segmented scan of the reference's ``unique_combine``:
+    ``jax.lax.associative_scan`` over ``(values, run starts)``."""
+    combine = _JAX_COMBINE[red_name]
+
+    def op(a, b):
+        av, af = a
+        bv, bf = b
+        bcast = bf.reshape(bf.shape + (1,) * (av.ndim - bf.ndim))
+        return jnp.where(bcast, bv, combine(av, bv)), af | bf
+
+    return jax.jit(lambda v, s: jax.lax.associative_scan(op, (v, s), axis=0)[0])
+
+
+@pytest.mark.parametrize("tail", [(), (3,)], ids=["1d", "n_by_3"])
+@pytest.mark.parametrize("red_name", ["sum", "min", "max"])
+@pytest.mark.parametrize("what", ["segmented_scan", "custom_segment"])
+def test_segmented_scan_is_jax_associative_scan_bit_for_bit(what, red_name, tail):
+    """``segmented_scan`` against ``jax.lax.associative_scan`` of the
+    segmented operator, and ``custom_reducer``'s segment against the
+    reference's, bit for bit on f32 values, odd and even lengths from 1 to
+    200.  The reference's custom segment broadcasts its run flags against
+    the values' last axis, so ``[n, 3]`` values are held against it column
+    by column (each column is its own 1-D segment, as it is in the port)."""
+    rng = np.random.RandomState(len(tail) * 10 + len(red_name))
+    jscan = _jsegmented_scan(red_name)
+    tred = custom_reducer(red_name, _TORCH_COMBINE[red_name],
+                          lambda dt, r=red_name: _IDENTITY[r])
+    jred = jcustom_reducer(red_name, _JAX_COMBINE[red_name],
+                           lambda dt, r=red_name: jnp.asarray(_IDENTITY[r], dt))
+    jsegment = jax.jit(jred.segment, static_argnums=(2,))
+    for n in _SCAN_LENGTHS:
+        vals = rng.randn(n, *tail).astype(np.float32)
+        if what == "segmented_scan":
+            starts = rng.rand(n) < 0.25
+            starts[0] = True
+            got = segmented_scan(torch.from_numpy(vals), torch.from_numpy(starts),
+                                 _TORCH_COMBINE[red_name]).numpy()
+            want = np.asarray(jscan(vals, starts))
+        else:
+            ids = rng.randint(0, max(1, n // 3), n).astype(np.int32)
+            k = int(ids.max()) + 1
+            got = tred.segment(torch.from_numpy(vals), torch.from_numpy(ids), k).numpy()
+            cols = vals.reshape(n, -1).T
+            want = np.stack([np.asarray(jsegment(c, ids, k)) for c in cols], -1)
+            want = want.reshape((k,) + tail)
+        assert got.dtype == want.dtype and got.shape == want.shape, n
+        assert got.tobytes() == want.tobytes(), f"n={n}"
 
 
 @SMALL
