@@ -126,6 +126,18 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    ``TRAIN_LOSS_RTOL`` with the largest parameter difference printed), then
    a prefill of 8 × 512 tokens and 8 decode steps through the sharded steps,
    whose greedy tokens must equal ``generate``'s, K4 counted on both;
+   then (``Smoke.shard_resume``) ``runtime.train_loop.train`` over the
+   ``DTensor`` tree on the same mesh: 3 steps of the same batches with a
+   checkpoint every 2 (each save written shard by shard, ~7 GB), once
+   uninterrupted and once crashed at step 2 and resumed, whose losses and
+   saved state must equal the uninterrupted run's bit for bit (the bytes
+   each save held are cloned on the card as it is written); the step-2
+   checkpoint restored onto the sharded tree and into a plain tree on the
+   card, both bit for bit what was saved; one sharded and one unsharded
+   step from those restores (bit for bit the uninterrupted run's last
+   step, and each other's, or, where not, within ``TRAIN_LOSS_RTOL``); each
+   save's bytes and seconds, each restore's seconds, K4 counted; at most
+   two checkpoints on disk, in a temporary directory removed after;
    (b) in a child process (``python3 chip_smoke.py --shard-rank0 OUT``),
    rank 0 of the 16 × 16 production mesh over a fake group of 256 ranks
    (``make_production_mesh(device="cuda")``; collectives move nothing, so
@@ -657,6 +669,9 @@ TRAIN_LOSS_RTOL = 2e-3
 # full size; (b) the production-mesh cells rank 0 runs; the memory bound.
 SHARD_ARCH = "qwen3-0.6b"
 SHARD_TRAIN = (2, 4096, 2)
+# The shard phase's resume (Smoke.shard_resume): steps, a checkpoint every
+# so many steps, the step the second run crashes at.
+SHARD_RESUME = (3, 2, 2)
 SHARD_SERVE = (8, 512, 8)
 SHARD_CELLS = (("qwen3-0.6b", "train_4k"), ("gemma2-9b", "decode_32k"))
 SHARD_MEM_SLACK = 128 << 20
@@ -1243,7 +1258,8 @@ class Smoke:
         # process phase: kernel -> {"wrappers", "graph_replays"}
         self.process_launches: dict[str, dict] = {}
         self.process_stream_launches: dict[str, dict] = {}
-        # shard phase: "train" / "serve" -> launch counts, "rank0" -> cell -> K4
+        # shard phase: "train" / "serve" -> launch counts, "resume" -> run ->
+        # launch counts, "rank0" -> cell -> K4
         self.shard_launches: dict[str, dict] = {}
         # examples phase: example -> launch counts of its main([]) on the card
         self.example_launches: dict[str, dict] = {}
@@ -5489,6 +5505,8 @@ class Smoke:
             self.shard_launches = {"train": launch}
             del sp, ss, params, state, pairs
             torch.cuda.empty_cache()
+            r["resume"] = self.shard_resume(cfg, mesh, mi, n_attn, card)
+            torch.cuda.empty_cache()
 
             # -- (a) serving: prefill + decode through the sharded steps -------
             sb, plen, gen = SHARD_SERVE
@@ -5549,6 +5567,181 @@ class Smoke:
         self.shard_launches["rank0"] = {k: v["k4_launches"] for k, v in r["rank0"].items()}
         r["shard_s"] = time.perf_counter() - t_phase
         print(json.dumps({"shard_results": r}), flush=True)
+
+    def shard_resume(self, cfg, mesh, mi, n_attn: int, card: str) -> dict:
+        """``train`` over the ``DTensor`` tree of qwen3-0.6b on the (1, 1)
+        mesh, saved, crashed, resumed and restored (module docstring, 11)."""
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        from torch.distributed.tensor import DTensor
+        from torch.utils import _pytree as pytree
+
+        from repro_torch import convert
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.models import model as M
+        from repro_torch.optim.adamw import AdamW
+        from repro_torch.runtime import train_loop as T
+
+        t_sub = time.perf_counter()
+        dev = self.dev
+        batch, seq, _ = SHARD_TRAIN
+        steps, every, crash_at = SHARD_RESUME
+        pipe = TokenPipeline(cfg, batch=batch, seq_len=seq, seed=1)
+        params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+        sp = convert.distribute(params, SH.param_pspecs(cfg, params, mi), mesh)
+        del params
+        # What each save held, cloned on the card as the save runs (on the
+        # (1, 1) mesh a leaf's local shard is the whole leaf).
+        saved: dict = {}
+        real_save = CheckpointManager.save
+
+        def save(mgr, step, tree, **kw):
+            saved[(os.path.basename(mgr.dir), step)] = [
+                (t.to_local() if isinstance(t, DTensor) else t).detach().clone()
+                for t in pytree.tree_leaves(tree)]
+            return real_save(mgr, step, tree, **kw)
+
+        def same(a, b) -> bool:
+            return len(a) == len(b) > 0 and all(torch.equal(x, y) for x, y in zip(a, b))
+
+        def local(tree) -> list:
+            return [t.to_local() if isinstance(t, DTensor) else t
+                    for t in pytree.tree_leaves(tree)]
+
+        tmp = tempfile.mkdtemp(prefix="blaze-shard-ckpt-")
+        out = {"card": card, "arch": cfg.name, "mesh": "1x1 data x model, NCCL group of one",
+               "batch": batch, "seq": seq, "steps": steps, "ckpt_every": every,
+               "crash_at_step": crash_at}
+        CheckpointManager.save = save
+        try:
+            kw = dict(steps=steps, batch=batch, seq_len=seq, pipeline=pipe, ckpt_every=every,
+                      params=sp)
+            whole, whole_s, launch_w = self.drive(
+                "shard resume: train uninterrupted",
+                lambda: T.train(cfg, ckpt_dir=os.path.join(tmp, "whole"),
+                                optimizer=AdamW(lr=3e-4), **kw), batch * seq * steps)
+            ckpt_bytes = whole.checkpoints[-1]["bytes"]
+            saved.pop(("whole", every))
+            shutil.rmtree(os.path.join(tmp, "whole"))  # at most two checkpoints on disk
+            free = shutil.disk_usage(tmp).free
+            if free < 2.5 * ckpt_bytes:
+                raise AssertionError(f"shard resume: {free} bytes free in {tmp}, two "
+                                     f"checkpoints of {ckpt_bytes} bytes need more")
+            crash, crash_s, launch_c = self.drive(
+                "shard resume: train crashed and resumed",
+                lambda: T.train(cfg, ckpt_dir=os.path.join(tmp, "crash"),
+                                crash_at_step=crash_at, optimizer=AdamW(lr=3e-4), **kw),
+                batch * seq * (steps + crash_at - every))
+        finally:
+            CheckpointManager.save = real_save
+        try:
+            if (crash.restarts, crash.final_step, crash.steps_run) != (
+                    1, steps, steps + crash_at - every):
+                raise AssertionError(f"shard resume: restarts {crash.restarts}, final step "
+                                     f"{crash.final_step}, steps run {crash.steps_run}")
+            want_losses = whole.losses[:crash_at] + whole.losses[every:]
+            if crash.losses != want_losses:
+                raise AssertionError(f"shard resume: losses {crash.losses} against the "
+                                     f"uninterrupted run's {want_losses}")
+            final = saved.pop(("whole", steps))
+            if not same(saved.pop(("crash", steps)), final):
+                raise AssertionError("shard resume: the resumed run's final state differs "
+                                     "from the uninterrupted run's")
+            for name, launch, n_steps in (("uninterrupted", launch_w, steps),
+                                          ("crashed", launch_c, crash.steps_run)):
+                if launch["flash_attention"] != 2 * n_attn * n_steps:
+                    raise AssertionError(f"shard resume ({name}): K4 launched "
+                                         f"{launch['flash_attention']} times, not "
+                                         f"{2 * n_attn * n_steps}")
+
+            # The step-2 checkpoint onto the sharded tree and into a plain one.
+            mgr = CheckpointManager(os.path.join(tmp, "crash"))
+            opt = AdamW(lr=3e-4)
+            state = opt.init(sp)  # the global shapes, plain
+            like_s = T._ckpt_tree(sp, convert.distribute(
+                state, SH.opt_pspecs(SH.param_pspecs(cfg, sp, mi), state), mesh))
+            like_p = T._ckpt_tree(M.map_tree(lambda t: t.to_local(), sp), state)
+            self.sync()
+            t0 = time.perf_counter()
+            got_s = mgr.restore(every, like_s)
+            self.sync()
+            restore_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got_p = mgr.restore(every, like_p)
+            self.sync()
+            restore_p = time.perf_counter() - t0
+            want = saved.pop(("crash", every))
+            placed = all(isinstance(a, DTensor) and a.placements == b.placements
+                         for a, b in zip(pytree.tree_leaves(got_s), pytree.tree_leaves(like_s)))
+            if not (placed and same(local(got_s), want)):
+                raise AssertionError("shard resume: the step-2 checkpoint restored onto the "
+                                     "sharded tree differs from what was saved")
+            if not same(local(got_p), want) or any(
+                    isinstance(t, DTensor) or t.device.type != dev.type
+                    for t in pytree.tree_leaves(got_p)):
+                raise AssertionError("shard resume: the step-2 checkpoint restored into a "
+                                     "plain tree on the card differs from what was saved")
+            del want, like_s, like_p, state
+
+            # One sharded and one unsharded step from those restores.
+            b = pipe.device_batch(every, dev)
+            sstep = T.make_sharded_train_step(cfg, opt,
+                                              par=M.ParallelCfg(dispatch_groups=mi.dp_size))
+            (_, _, sloss), sstep_s, launch_s = self.drive(
+                "shard resume: sharded step from the checkpoint",
+                lambda: sstep(got_s["params"], got_s["opt"], b), batch * seq)
+            pstep = T.make_train_step(cfg, AdamW(lr=3e-4), device=dev)
+            (_, _, ploss), pstep_s, launch_p = self.drive(
+                "shard resume: unsharded step from the checkpoint",
+                lambda: pstep(got_p["params"], got_p["opt"], b), batch * seq)
+            sloss, ploss = float(sloss.to_local()), float(ploss)
+            if not same(local(got_s), final):
+                raise AssertionError("shard resume: the sharded step from the step-2 "
+                                     "checkpoint differs from the uninterrupted run's")
+            step_bit_equal = sloss == ploss and same(local(got_s), local(got_p))
+            step_err = abs(sloss - ploss) / abs(ploss)
+            if not step_bit_equal and step_err > TRAIN_LOSS_RTOL:
+                raise AssertionError(f"shard resume: the unsharded step's loss {ploss} "
+                                     f"against the sharded step's {sloss}")
+            for name, launch in (("sharded", launch_s), ("unsharded", launch_p)):
+                if launch["flash_attention"] != 2 * n_attn:
+                    raise AssertionError(f"shard resume ({name} step): K4 launched "
+                                         f"{launch['flash_attention']} times, not "
+                                         f"{2 * n_attn}")
+            del got_s, got_p, final
+        finally:
+            saved.clear()
+            shutil.rmtree(tmp, ignore_errors=True)
+        saves = [c for c in whole.checkpoints + crash.checkpoints if c["kind"] == "save"]
+        out.update({
+            "losses": whole.losses, "crashed_losses": crash.losses, "bit_equal": True,
+            "restarts": crash.restarts, "steps_run": crash.steps_run,
+            "wall_s": {"uninterrupted": whole_s, "crashed": crash_s},
+            "step_s": {"uninterrupted": whole.step_times, "crashed": crash.step_times},
+            "saves": [{"step": c["step"], "bytes": c["bytes"], "seconds": c["seconds"],
+                       "gb_per_s": c["bytes"] / c["seconds"] / 1e9} for c in saves],
+            "restores": {"train": [c["seconds"] for c in crash.checkpoints
+                                   if c["kind"] == "restore"],
+                         "sharded_s": restore_s, "plain_s": restore_p},
+            "step_from_checkpoint": {
+                "sharded_loss": sloss, "unsharded_loss": ploss, "bit_equal": step_bit_equal,
+                "loss_rel_err": step_err, "sharded_s": sstep_s, "unsharded_s": pstep_s,
+                "why_not_bit_equal": None if step_bit_equal else (
+                    "the sharded step reaches the same kernels through local_map and "
+                    "DTensor, whose ops may pick other f32 summation orders")},
+            "k4_launches": {"uninterrupted": launch_w["flash_attention"],
+                            "crashed": launch_c["flash_attention"],
+                            "sharded_step": launch_s["flash_attention"],
+                            "unsharded_step": launch_p["flash_attention"]}})
+        self.shard_launches["resume"] = {"uninterrupted": launch_w, "crashed": launch_c,
+                                         "sharded_step": launch_s, "unsharded_step": launch_p}
+        out["resume_s"] = time.perf_counter() - t_sub
+        print(json.dumps({"shard_resume": out}), flush=True)
+        return out
 
     def lm_path(self, arch):
         """The LM serving path: ``repro_torch.launch.serve_lm.generate`` on
@@ -6741,11 +6934,14 @@ class Smoke:
                 # its streams on the process mesh (K1, K2): the wrappers' and
                 # the graph replays'
                 "process_stream_launches": self.process_stream_launches.get(rec["kernel"]),
-                # the shard phase's: (a) train and serve on the (1x1) mesh,
-                # (b) rank 0 of the production mesh (K4 only counted there)
+                # the shard phase's: (a) train, train's resume (Smoke.shard_resume)
+                # and serve on the (1x1) mesh, (b) rank 0 of the production
+                # mesh (K4 only counted there)
                 "shard_launches": {
                     "train": self.shard_launches["train"][rec["kernel"]],
                     "serve": self.shard_launches["serve"][rec["kernel"]],
+                    "resume": {k: v[rec["kernel"]]
+                               for k, v in self.shard_launches["resume"].items()},
                     "rank0": (self.shard_launches["rank0"]
                               if rec["kernel"] == "flash_attention" else None)},
                 # the examples phase's: each example's main([]) on the card

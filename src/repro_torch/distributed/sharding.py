@@ -345,6 +345,21 @@ def named(tree, mi: MeshInfo):
     return _map(lambda _p, s: placements(s, names), tree)
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """Where one tensor lives: a ``DeviceMesh`` and a :class:`P` over its
+    axis names (the counterpart of ``jax.sharding.NamedSharding``).  A
+    ``shardings`` tree of ``CheckpointManager.restore`` holds it as one
+    leaf."""
+
+    mesh: object
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, tuple(self.mesh.mesh_dim_names))
+
+
 def _mesh_axes(mesh):
     names = tuple(mesh.mesh_dim_names)
     return names, dict(zip(names, mesh.shape))

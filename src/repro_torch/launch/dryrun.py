@@ -66,7 +66,7 @@ from repro_torch.core.containers import resolve_device
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW
-from repro_torch.runtime.train_loop import value_and_grad
+from repro_torch.runtime.train_loop import make_sharded_train_step as make_train_step
 
 RESULTS_DIR = "results/dryrun_torch"
 #: Decode keeps parameters TP-only (replicated over data) when the TP shard
@@ -134,37 +134,6 @@ def serving_params(cfg: ArchConfig, shape: ShapeSpec, mi: SH.MeshInfo,
     rule)."""
     nbytes = sum(t.numel() * t.element_size() for t in M.distinct_leaves(shapes))
     return shape.kind == "decode" and nbytes / mi.model_size < SERVING_BYTES
-
-
-def _to_placements(grads, params):
-    """Each gradient moved to its parameter's placements (a partial sum
-    reduce-scatters), so the optimizer's update stays local."""
-    out = []
-    for g, p in zip(grads, M.distinct_leaves(params)):
-        if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
-            g = g.redistribute(p.device_mesh, p.placements)
-        out.append(g)
-    return out
-
-
-def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, par: M.ParallelCfg,
-                    attn_impl: str = "auto", scan_impl: str = "auto") -> Callable:
-    """``step(params, opt_state, batch) -> (params, opt_state, loss)`` on
-    ``DTensor``s: ``loss_fn`` with remat, gradients at their parameters'
-    placements, AdamW in place; ``loss`` replicated."""
-
-    def loss_of(params, inputs, labels):
-        return M.loss_fn(params, cfg, inputs, labels, par=par, remat=True,
-                         attn_impl=attn_impl, scan_impl=scan_impl)
-
-    def step(params, opt_state, batch):
-        with SH.mixing(batch["inputs"]):  # the backward mixes plain tensors too
-            loss, grads = value_and_grad(params, loss_of, batch["inputs"], batch["labels"])
-            params, opt_state = optimizer.update(_to_placements(grads, params), opt_state,
-                                                 params)
-        return params, opt_state, loss
-
-    return step
 
 
 def make_serve_steps(cfg: ArchConfig, mi: SH.MeshInfo, batch: int, *,

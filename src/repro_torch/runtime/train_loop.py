@@ -18,6 +18,16 @@ them as they were.  A checkpoint holds the parameters and the optimiser
 state with zamba2's shared block once (:func:`_unshared`), and a restore
 copies into the live tensors, so every ``SHARED_ATTN`` layer still refers
 to the one block.
+
+Parameters of any sharding, as the reference's ``train(params=)`` takes
+them: a tree of ``DTensor``s (``convert.distribute`` at
+``sharding.param_pspecs``) trains through :func:`make_sharded_train_step`
+on its ``DeviceMesh`` (every rank calls ``train``), each batch placed by
+``sharding.batch_pspecs``, the optimiser state made at ``opt_pspecs``'
+placements; its checkpoints are written shard by shard over the mesh and a
+restart restores onto the live tree's placements
+(``checkpoint/manager.py``), so a run resumes from a checkpoint that any
+mesh shape, or an unsharded run, wrote.
 """
 from __future__ import annotations
 
@@ -28,11 +38,14 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 
+from repro_torch import convert
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.containers import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW
 
@@ -135,6 +148,80 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, *,
     return train_step
 
 
+def _mesh_of(tree):
+    """The ``DeviceMesh`` of the tree's ``DTensor`` leaves (None when it has
+    none)."""
+    return next((t.device_mesh for t in pytree.tree_leaves(tree)
+                 if isinstance(t, DTensor)), None)
+
+
+def _to_placements(grads, params):
+    """Each gradient moved to its parameter's placements (a partial sum
+    reduce-scatters), so the optimizer's update stays local."""
+    out = []
+    for g, p in zip(grads, M.distinct_leaves(params)):
+        if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        out.append(g)
+    return out
+
+
+def make_sharded_train_step(cfg: ArchConfig, optimizer: AdamW, *,
+                            par: M.ParallelCfg = M.ParallelCfg(), grad_accum: int = 1,
+                            attn_impl: str = "auto", scan_impl: str = "auto") -> Callable:
+    """``step(params, opt_state, batch) -> (params, opt_state, loss)`` on
+    ``DTensor``s: ``loss_fn`` with remat, gradients at their parameters'
+    placements, AdamW in place; ``loss`` replicated.  A plain batch leaf is
+    placed on the parameters' mesh by ``sharding.batch_pspecs`` (a
+    ``DTensor`` one is taken as it is).  With ``grad_accum = A > 1`` the
+    batch is cut into ``A`` micro-batches of ``B / A`` rows before it is
+    placed, and their gradients, each scaled by ``1 / A``, summed in f32 at
+    the placements the backward gives them, then moved to the parameters'
+    once (:func:`make_train_step`'s ``"eager"`` plan)."""
+
+    def loss_of(params, inputs, labels):
+        return M.loss_fn(params, cfg, inputs, labels, par=par, remat=True,
+                         attn_impl=attn_impl, scan_impl=scan_impl)
+
+    def placed(mesh, inputs, labels):
+        batch = {"inputs": inputs, "labels": labels}
+        plain = {k: v for k, v in batch.items() if not isinstance(v, DTensor)}
+        mi = SH.make_mesh_info(mesh)
+        batch.update(convert.distribute(plain, SH.batch_pspecs(cfg, plain, mi), mesh))
+        return batch["inputs"], batch["labels"]
+
+    def step(params, opt_state, batch):
+        mesh = _mesh_of(params)
+        if grad_accum == 1:
+            inputs, labels = placed(mesh, batch["inputs"], batch["labels"])
+            with SH.mixing(inputs):  # the backward mixes plain tensors too
+                loss, grads = value_and_grad(params, loss_of, inputs, labels)
+                params, opt_state = optimizer.update(_to_placements(grads, params),
+                                                     opt_state, params)
+            return params, opt_state, loss
+        whole = [x.full_tensor() if isinstance(x, DTensor) else x
+                 for x in (batch["inputs"], batch["labels"])]
+        b = whole[0].shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch {b} does not split into {grad_accum} microbatches")
+        mb = b // grad_accum
+        gsum = lsum = None
+        for i in range(grad_accum):
+            inputs, labels = placed(mesh, *(x[i * mb:(i + 1) * mb] for x in whole))
+            with SH.mixing(inputs):
+                loss, g = value_and_grad(params, loss_of, inputs, labels)
+                g = [x * (1.0 / grad_accum) for x in g]
+                gsum = ([x.float() for x in g] if gsum is None
+                        else [a + x for a, x in zip(gsum, g)])
+                lsum = loss / grad_accum if lsum is None else lsum + loss / grad_accum
+        with SH.mixing(inputs):
+            params, opt_state = optimizer.update(_to_placements(gsum, params), opt_state,
+                                                 params)
+        return params, opt_state, lsum
+
+    return step
+
+
 @dataclasses.dataclass
 class TrainResult:
     steps_run: int
@@ -144,7 +231,8 @@ class TrainResult:
     straggler: dict
     # each step's wall seconds, in order (the straggler monitor's record)
     step_times: list = dataclasses.field(default_factory=list)
-    # each save: {"step", "bytes" (arrays.npz on disk), "seconds"}
+    # each save, {"step", "kind": "save", "bytes" (all its files), "seconds"},
+    # and each restore, {"step", "kind": "restore", "seconds"}, in order
     checkpoints: list = dataclasses.field(default_factory=list)
 
 
@@ -199,19 +287,39 @@ def train(
     ``ckpt_every``-th step and the last; a start (and a restart after a
     ``SimulatedFailure``, at most ``max_restarts``) resumes from the newest.
     ``jit`` is accepted for the reference's signature and has no effect:
-    the port runs eager."""
+    the port runs eager.
+
+    ``params`` of ``DTensor``s train sharded on their mesh (module
+    docstring), on its device type; a ``device`` of another type raises
+    ``ValueError``."""
     del batch, seq_len, jit
-    dev = resolve_device(device)
+    mesh = _mesh_of(params)
+    if mesh is not None and device is not None and (
+            resolve_device(device).type != mesh.device_type):
+        raise ValueError(f"device={device!r} contradicts the parameters' mesh on "
+                         f"{mesh.device_type!r}")
+    dev = resolve_device(device if mesh is None else mesh.device_type)
     optimizer = optimizer or AdamW(lr=3e-4)
     mgr = CheckpointManager(ckpt_dir, keep=3)
     monitor = StragglerMonitor()
     losses: list[float] = []
-    saves: list[dict] = []
+    records: list[dict] = []
     restarts = 0
 
-    step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum, device=dev)
+    if mesh is None:
+        step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum, device=dev)
+    else:
+        mi = SH.make_mesh_info(mesh)
+        step_fn = make_sharded_train_step(
+            cfg, optimizer, par=M.ParallelCfg(dispatch_groups=mi.dp_size),
+            grad_accum=grad_accum)
 
     def fresh_state():
+        if mesh is not None:
+            p = M.map_tree(lambda t: t.detach().clone(), params)
+            o = optimizer.init(p)
+            return p, convert.distribute(o, SH.opt_pspecs(SH.param_pspecs(cfg, p, mi), o),
+                                         mesh)
         if params is not None:
             p = M.map_tree(lambda t: t.detach().to(dev, copy=True), params)
         else:
@@ -221,11 +329,14 @@ def train(
     while True:
         state_p, state_o = fresh_state()
         view = _ckpt_tree(state_p, state_o)
+        t_restore = time.perf_counter()
         start, restored = mgr.restore_latest(view)
         if restored is not None:
             with torch.no_grad():
                 for dst, src in zip(pytree.tree_leaves(view), pytree.tree_leaves(restored)):
-                    dst.copy_(src)
+                    SH.write_into(dst, src)
+            records.append({"step": start, "kind": "restore",
+                            "seconds": time.perf_counter() - t_restore})
             start_step = start
         else:
             start_step = 0
@@ -239,15 +350,16 @@ def train(
                     restarts += 1
                     raise SimulatedFailure(f"injected failure at step {step}")
                 state_p, state_o, loss = step_fn(state_p, state_o, b)
-                losses.append(float(loss))
+                losses.append(float(loss.to_local() if isinstance(loss, DTensor) else loss))
                 step += 1
                 monitor.record(step, time.perf_counter() - t0)
                 if step % ckpt_every == 0 or step == steps:
                     t_save = time.perf_counter()
                     path = mgr.save(step, _ckpt_tree(state_p, state_o))
-                    saves.append({"step": step, "seconds": time.perf_counter() - t_save,
-                                  "bytes": os.path.getsize(os.path.join(path,
-                                                                        "arrays.npz"))})
+                    records.append({"step": step, "kind": "save",
+                                    "seconds": time.perf_counter() - t_save,
+                                    "bytes": sum(os.path.getsize(os.path.join(path, f))
+                                                 for f in os.listdir(path))})
             mgr.wait()
             return TrainResult(
                 steps_run=len(losses),
@@ -256,7 +368,7 @@ def train(
                 restarts=restarts,
                 straggler=monitor.summary(),
                 step_times=list(monitor.times),
-                checkpoints=saves,
+                checkpoints=records,
             )
         except SimulatedFailure:
             if restarts > max_restarts:
