@@ -17,7 +17,14 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    out the host's launch overhead that the event time of a decode-sized
    call includes, for
    K4 SDPA's device time beside its event time, and for K3 also a call's
-   time among 10 enqueued back to back, which needs no profiler);
+   time among 10 enqueued back to back, which needs no profiler); K4's
+   ``"dh"`` form (``Smoke.dh_phase``) at rank 0's local shapes of the
+   sharded decode path, ``d_head`` split by hand into the model axis's 16
+   slices, the slices' partial logits summed in f32 for the all-reduce,
+   ``dh_logits`` timed beside the library's f32 product (``torch.baddbmm``
+   with ``out_dtype=torch.float32``; its device time too); rows at shapes
+   that no path of the smoke runs carry a ``launches_note`` in the
+   kernels line;
 2. path phase — runs the LM serving path (``repro_torch.launch.serve_lm.
    generate`` at full width and depth on qwen3-0.6b, zamba2-7b and
    rwkv6-1.6b: batch 8, a 512-token prompt, 32 greedy steps, K4 on every
@@ -143,11 +150,13 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    (``make_production_mesh(device="cuda")``; collectives move nothing, so
    gathered buffers hold no values and no result is checked): for qwen3-0.6b
    ``train_4k`` (K4 on its heads) and gemma2-9b ``decode_32k`` (the
-   ``"dh"`` layout, the plain attention), the dry run's record of the cell
-   on ``"cuda"``, then the cell's step once on rank 0's real local shards
-   (random, made shard by shard: ``dryrun.build_cell(make=...)``), its
-   peak device memory held to the dry run's (``SHARD_MEM_SLACK``, below),
-   then once more timed (rank 0's compute alone), K4 counted.
+   ``"dh"`` layout: K4's ``"dh"`` form, ``dh_logits`` and ``dh_softmax_pv``
+   once a layer, no K4 launch and no plain call), the dry run's record of
+   the cell on ``"cuda"``, then the cell's step once on rank 0's real local
+   shards (random, made shard by shard: ``dryrun.build_cell(make=...)``),
+   its peak device memory held to the dry run's (``SHARD_MEM_SLACK``,
+   below), then once more timed (rank 0's compute alone), K4 and the
+   ``"dh"`` form counted.
 
 Between the LM serving paths and the data-mining phases runs the train
 phase: LM training through ``repro_torch.runtime.train_loop.train``.  First
@@ -182,6 +191,20 @@ block dropped (a lost decode split; where that block holds fewer than 32
 live keys, as at a window's edge, the last 64 live keys).  The decode form is also held, within
 the same tolerance, against ``flash_decode_plain``, its arithmetic in plain
 PyTorch with the kernel's own splits.
+
+K4's ``"dh"`` form is held to ``attention_ref`` on the whole tensors within
+the same tolerance: each slice's partial logits are f32 dot products of
+``D / 16`` terms and their sum one of ``D`` terms in another order (the
+same ``(D + 2)u`` bound), its weights stay in f32 (inside the bf16 term),
+and each slice of the output rounds to bf16 once.  It must reject a zero
+output, the sum with one slice's partial left out, and the output with the
+last live 64-key block dropped (the rule above).  Over 32768 keys of
+independent normal inputs the weights spread so thin that an output is
+within the tolerance's ``n·u·max|v|`` term of zero (a zero output passes
+but for a few elements) and losing one 64-key block moves them less; so
+the check's queries are scaled by 3 (peaked weights, as a trained model's)
+and the keys of that last block doubled (a recent block the rows attend
+to).
 
 K5 (``ssd_scan``) and K6 (``rwkv6_scan``) are held against their plain
 chunked versions and against the float64 step-by-step oracles (``ssd_ref``;
@@ -318,7 +341,8 @@ measured).  mixtral's window run (batch 1, a 4608-token prompt, 16 steps)
 must call K4 with every key of the 4625-row cache in the prefill (keys past
 the window masked) and ``window + 1 = 4097`` keys at offset 4096 in every
 step (``attn_apply``'s view of the cache), held as above.  qwen2-vl-2b and
-musicgen-medium run at full width and depth on random ``[8, 512, d]``
+musicgen-medium run at full width, cut to half their depth
+(``EMBED_LAYERS``: 14 of 28 and 24 of 48 layers), on random ``[8, 512, d]``
 prompts and 32 ``[8, 1, d]`` steps (``serve_lm.serve_embeddings``),
 against the plain path and the forward within ``LM_LOGIT_TOL`` (0.25 and
 0.35: 2.7 and 2.8 times the 0.093 and 0.126 measured); qwen2-vl also runs
@@ -616,6 +640,17 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 K4_KERNELS = ("flash_kernel", "flash_prefill_kernel", "flash_decode_kernel",
               "flash_combine_kernel")
 # LM path logits, per model: kernel path vs plain path and forward (docstring)
+# K4's "dh" form: the partial logits' kernel, the weights-times-v split
+# kernel and its combine kernel.
+DH_KERNELS = ("dh_logits_kernel", "dh_pv_split_kernel", "dh_pv_combine_kernel")
+# kernels-line rows at shapes that no path of the smoke runs (the "dh" form
+# at qwen3-0.6b's and musicgen-medium's decode_32k slices; the path runs
+# gemma2-9b's)
+CHECK_ONLY_SHAPES = tuple(f"{kernel}@{shape}" for kernel in ("dh_logits", "dh_softmax_pv")
+                          for shape in ("qwen3", "musicgen"))
+# The library's partial logits (torch.baddbmm in f32) against dh_logits': both
+# sum Dl exact products of bf16 values in f32, in other orders (~1e-6 here).
+DH_LIBRARY_TOL = 1e-4
 K5_KERNELS = ("ssd_step_kernel", "ssd_chunk_kernel")  # K5's decode and prefill forms
 K6_KERNELS = ("rwkv6_step_kernel", "rwkv6_chunk_kernel")  # K6's decode and prefill forms
 LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5,
@@ -631,11 +666,14 @@ EXAMPLE_LM_TOL = {"qwen3-0.6b": LM_F32_TOL["mixtral-8x22b"],
                   "zamba2-7b": LM_F32_TOL["zamba2-7b"], "rwkv6-1.6b": LM_F32_TOL["rwkv6-1.6b"]}
 # The MoE models at full width, cut to their first MOE_LAYERS layers
 # (module docstring), their f32 check's layers, and mixtral's window run
-# (batch, prompt, steps); the models fed by a frontend's embeddings.
+# (batch, prompt, steps); the models fed by a frontend's embeddings, at full
+# width, cut to half their depth (28 and 48 layers) to keep the smoke within
+# its time limit.
 MOE_LAYERS = {"mixtral-8x22b": 8, "grok-1-314b": 4}
 MOE_F32_LAYERS = 2
 WINDOW_RUN = (1, 4608, 16)
-EMBED_ARCHS = ("qwen2-vl-2b", "musicgen-medium")
+EMBED_LAYERS = {"qwen2-vl-2b": 14, "musicgen-medium": 24}
+EMBED_ARCHS = tuple(EMBED_LAYERS)
 REPS = 10
 ROUNDS = 5  # K1 global form against index_add_, in turns
 STREAM_BLOCK_ROWS = 1 << 24  # k-means points a streamed block (6 blocks of 10^8)
@@ -675,6 +713,8 @@ SHARD_RESUME = (3, 2, 2)
 SHARD_SERVE = (8, 512, 8)
 SHARD_CELLS = (("qwen3-0.6b", "train_4k"), ("gemma2-9b", "decode_32k"))
 SHARD_MEM_SLACK = 128 << 20
+# The kernels rank 0's cells count: K4 and its "dh" form's two.
+RANK0_COUNTED = ("flash_attention", "dh_logits", "dh_softmax_pv")
 # The process phase's dp_train (module docstring, 10): qwen3-0.6b (SHARD_ARCH)
 # at full size, a global batch of 4 x 1024 tokens over 2 local shards, 2
 # steps a wire
@@ -1081,6 +1121,25 @@ def main() -> int:
     return 0
 
 
+def shard_maker(cfg, dev):
+    """``make(local, dtype)`` for ``dryrun.build_cell``: rank 0's random
+    local shards on ``dev`` from one generator (seed 7), floats uniform in
+    [0, 0.02) (values are not checked: kept small and finite; filled in
+    place, so no f32 temporaries beside the shards count in the step's
+    peak), integers token ids of ``cfg``'s vocabulary."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def make(local, dtype):
+        if dtype.is_floating_point:
+            return torch.empty(local, dtype=dtype, device=dev).uniform_(0.0, 0.02,
+                                                                         generator=gen)
+        return torch.randint(0, cfg.vocab, local, generator=gen, device=dev, dtype=dtype)
+
+    return make
+
+
 def shard_rank0(out_path: str, device: str = "cuda") -> None:
     """The shard phase's part (b), in a process of its own (module
     docstring, 11): for each of ``SHARD_CELLS``, the dry run's record on
@@ -1091,7 +1150,7 @@ def shard_rank0(out_path: str, device: str = "cuda") -> None:
 
     import torch
     import torch.distributed as dist
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_production_mesh
@@ -1108,14 +1167,7 @@ def shard_rank0(out_path: str, device: str = "cuda") -> None:
             continue
         dry_s = time.perf_counter() - t0
         cfg, shape = D.get_arch(arch), D.SHAPES[shape_name]
-        gen = torch.Generator(device=dev).manual_seed(7)
-
-        def make(local, dtype):
-            if dtype.is_floating_point:  # values are not checked: kept small and finite
-                return (torch.rand(local, generator=gen, device=dev) * 0.02).to(dtype)
-            return torch.randint(0, cfg.vocab, local, generator=gen, device=dev,
-                                 dtype=dtype)
-
+        make = shard_maker(cfg, dev)
         D.fake_group(256)
         try:
             mesh = make_production_mesh(device=device)
@@ -1124,10 +1176,12 @@ def shard_rank0(out_path: str, device: str = "cuda") -> None:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             cell = D.build_cell(cfg, shape, mesh, make=make)
-            flash_attention.launches = 0
+            for name in RANK0_COUNTED:
+                getattr(FA, name).launches = 0
             dh = ops.attention.dh_plain_calls
             cell.step(*cell.args)
-            launches, dh = flash_attention.launches, ops.attention.dh_plain_calls - dh
+            launches = {name: getattr(FA, name).launches for name in RANK0_COUNTED}
+            dh = ops.attention.dh_plain_calls - dh
             if dev.type == "cuda":
                 torch.cuda.synchronize()
                 stats = torch.cuda.memory_stats()
@@ -1153,19 +1207,24 @@ def shard_rank0(out_path: str, device: str = "cuda") -> None:
         n_attn = sum(k in D.M._ATTN_KINDS for k in D.M.layer_kinds(cfg))
         model = mesh.shape[-1]
         dh_layout = shape.is_decode and cfg.n_kv_heads % model and cfg.d_head % model == 0
-        # train: each layer's forward and its remat recompute; "dh": no K4
-        want = ((0, n_attn) if dh_layout else
-                (2 * n_attn if shape.kind == "train" else n_attn, 0))
+        # train: each layer's forward and its remat recompute; "dh": no K4,
+        # each layer's call one launch of each "dh" wrapper on the card (the
+        # plain pair on the CPU)
+        k4 = 0 if dh_layout else 2 * n_attn if shape.kind == "train" else n_attn
+        dh_kernels = n_attn if dh_layout and dev.type == "cuda" else 0
+        want = ({"flash_attention": k4, "dh_logits": dh_kernels, "dh_softmax_pv": dh_kernels},
+                n_attn if dh_layout and not dh_kernels else 0)
         if (launches, dh) != want:
-            failures.append(f"shard {key}: K4 launched {launches} times and the plain "
-                            f"'dh' attention {dh}, not {want}")
+            failures.append(f"shard {key}: launched {launches} with {dh} plain 'dh' "
+                            f"attention calls, not {want}")
         out[key] = {"dry_peak_bytes": dry,
                     "dry_memtracker_peak_bytes": rec["memory"]["memtracker_peak_bytes"],
                     "card_requested_peak_bytes": requested,
                     "card_allocated_peak_bytes": allocated,
                     "card_minus_dry_bytes": requested - dry,
                     "bound_bytes": bound,
-                    "step_ms": step_ms, "k4_launches": launches, "dh_plain_calls": dh,
+                    "step_ms": step_ms, "launches": launches,
+                    "k4_launches": launches["flash_attention"], "dh_plain_calls": dh,
                     "dry_flops_per_device": rec["cost"]["flops_per_device"],
                     "dry_collectives": rec["collectives"], "dry_run_s": rec["run_s"],
                     "dry_total_s": dry_s, "serving": rec["serving"],
@@ -2105,6 +2164,171 @@ class Smoke:
         del ck, cv, q
         torch.cuda.empty_cache()
 
+    # -- K4's "dh" form -----------------------------------------------------
+
+    def kernel_dh(self, key, q, ck, cv, n_slices, *, start=0, window=None, softcap=0.0):
+        """K4's ``"dh"`` form at one shape of the sharded decode path (module
+        docstring): ``q [B, Hq, Sq, D]`` and a cache ``ck, cv [B, S, Hkv, D]``
+        whose rows ``[start, S)`` the step reads, query row ``i`` at ``S -
+        start - Sq + i``; ``d_head`` split by hand into ``n_slices`` ranks'
+        contiguous shards ``[B, S, Hkv, D / n_slices]``, each read through
+        its transposed view.  ``dh_logits`` on each shard, the partial logits
+        summed in f32 (the all-reduce), ``dh_softmax_pv`` on each, the slices
+        concatenated and held to ``attention_ref`` on the whole tensors within
+        ``attention_tolerance``; a zero output, the sum with one slice's
+        partial left out, and the last live 64-key block dropped (a lost
+        split) must all fail.  Records a row per kernel: kernel and device
+        times on one shard, bound, the plain function's time on one shard;
+        for ``dh_logits`` the library's time, one ``torch.baddbmm(...,
+        out_dtype=torch.float32, beta=0, alpha=scale)`` over contiguous
+        copies of the shard's q and k (made outside the timing; its result
+        held to the kernel's within ``DH_LIBRARY_TOL``); none computes
+        ``dh_softmax_pv``'s (a softcap over summed logits)."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels.ref import (
+            attention_from_logits,
+            attention_logits,
+            attention_ref,
+        )
+
+        b, hq, sq, d = q.shape
+        hkv, skv = ck.shape[2], ck.shape[1] - start
+        dl, scale = d // n_slices, 1.0 / d ** 0.5
+        off = skv - sq
+        kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
+        qpos = torch.arange(sq, device=self.dev)[:, None] + off
+        kpos = torch.arange(skv, device=self.dev)[None, :]
+        live = kpos <= qpos
+        if window is not None:
+            live &= kpos > qpos - window
+        seen = live.any(0).nonzero()[:, 0]
+        hi = int(seen[-1]) // 64 * 64  # the last live 64-key block starts here
+        if int(seen[-1]) + 1 - hi < 32:  # a block of a few keys (a window's edge)
+            hi = int(seen[-1]) + 1 - 64  # the last 64 live keys instead
+        # That block's keys doubled: rows attend to it as a decode step attends
+        # to a recent block, so losing it moves the output past the tolerance.
+        ck[:, start + hi:start + int(seen[-1]) + 1] *= 2
+        # each rank's cache shard [B, S, Hkv, Dl], read from row `start` as
+        # [B, Hkv, S - start, Dl] in place, as the model reads it
+        sl = [slice(i * dl, (i + 1) * dl) for i in range(n_slices)]
+        shards = [(q[..., s], ck[..., s].contiguous()[:, start:].transpose(1, 2),
+                   cv[..., s].contiguous()[:, start:].transpose(1, 2)) for s in sl]
+
+        def summed(drop=None):
+            total = None
+            for i, (qs, ks, _) in enumerate(shards):
+                if i != drop:
+                    part = FA.dh_logits(qs, ks, scale)
+                    total = part if total is None else total.add_(part)
+            return total
+
+        def outputs(logits, keys=None):
+            return torch.cat([FA.dh_softmax_pv(logits[..., :keys], vs[:, :, :keys], **kw)
+                              for _, _, vs in shards], -1)
+
+        logits = summed()
+        got = outputs(logits)
+        k_all, v_all = ck[:, start:].transpose(1, 2), cv[:, start:].transpose(1, 2)
+        want = attention_ref(q, k_all, v_all, **kw)
+        self.sync()
+        n_keys = live.sum(1)
+        tol = attention_tolerance(q, k_all, v_all, want,
+                                  n_keys[None, None, :, None].double(), **kw)
+
+        def check(what, out, must_fail=False):
+            err = (out.float() - want.float()).abs()
+            ok = bool((err <= tol).all()) and not bool(out.isnan().any())
+            if must_fail and ok:
+                raise AssertionError(f"{what}: a wrong result passed the check")
+            if not must_fail and not ok:
+                raise AssertionError(f"{what}: max abs error {float(err.max())} over "
+                                     f"tolerance (max {float(tol.max())})")
+            return float(err.max())
+
+        err = check(key, got)
+        check(key + " zeros", torch.zeros_like(got), must_fail=True)
+        check(key + " one slice's partial left out", outputs(summed(drop=n_slices - 1)),
+              must_fail=True)
+        check(key + " last key block dropped", outputs(logits, keys=hi), must_fail=True)
+        self.sync()
+        del want, tol, k_all, v_all
+
+        qs, ks, vs = shards[0]
+        es = q.element_size()
+        n_live = len(seen)
+        pairs = int(n_keys.sum())
+        # the library's partial logits: per (batch row, kv head) one product
+        # of its rep·Sq query rows [rep·Sq, Dl] by its keys [Dl, Skv], in f32
+        lib_q = qs.contiguous().view(b * hkv, hq // hkv * sq, dl)
+        lib_k = ks.contiguous().view(b * hkv, skv, dl).transpose(1, 2)
+        lib_out = torch.empty((b * hkv, hq // hkv * sq, skv), device=self.dev)
+
+        def library_logits():
+            return torch.baddbmm(lib_out, lib_q, lib_k, out_dtype=torch.float32, beta=0,
+                                 alpha=scale)
+
+        lib_err = float((library_logits().view(b, hq, sq, skv)
+                         - FA.dh_logits(qs, ks, scale)).abs().max())
+        if not lib_err <= DH_LIBRARY_TOL:
+            raise AssertionError(f"{key}: the library's partial logits differ from "
+                                 f"dh_logits' by {lib_err} (over {DH_LIBRARY_TOL})")
+        rows = {
+            "dh_logits": (
+                lambda: FA.dh_logits(qs, ks, scale),
+                lambda: attention_logits(qs, ks, scale), library_logits,
+                (b * hq * sq * dl + b * hkv * skv * dl) * es + b * hq * sq * skv * 4,
+                2 * b * hq * sq * skv * dl, 1),
+            "dh_softmax_pv": (
+                lambda: FA.dh_softmax_pv(logits, vs, **kw),
+                lambda: attention_from_logits(logits, vs, q.dtype, **kw), None,
+                b * hq * sq * n_live * 4 + (b * hkv * n_live + b * hq * sq) * dl * es,
+                2 * b * hq * pairs * dl, 2),
+        }
+        for kernel, (fn, plain, library, nbytes, flops, launches) in rows.items():
+            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops = flops / F32_OPS_PER_S * 1e3
+            busy = self.device_busy_ms(fn, names=DH_KERNELS, expect=launches)
+            self.record(
+                f"{kernel}@{key}", kernel=kernel, form="dh",
+                shape=[list(q.shape), [b, hkv, skv, d], str(q.dtype).split(".")[-1]],
+                slices=n_slices, d_slice=dl, q_offset=off, window=window, softcap=softcap,
+                max_abs_err=err, ms=self.time_ms(fn), device_ms=busy and busy["total"],
+                plain_ms=self.time_ms(plain),
+                library_ms=library and self.time_ms(library),
+                library_device_ms=library and (
+                    lib_busy := self.device_busy_ms(library, names=())) and lib_busy["total"],
+                **({"library_max_abs_diff": lib_err} if library else {}),
+                bound_ms=max(bound_bytes, bound_ops),
+                bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                peak_ops_per_s=F32_OPS_PER_S)
+
+    def dh_phase(self):
+        """K4's ``"dh"`` form at the sharded decode path's shapes on rank 0 of
+        the 16 × 16 mesh (module docstring), local batch 8, bf16, ``d_head``
+        split into the model axis's 16 slices: gemma2-9b's global layer (q
+        ``[8, 16, 1, 256]`` over a 32768-row cache of 8 kv heads, softcap 50)
+        and local layer (the last 4097 rows, window 4096, offset 4096),
+        qwen3-0.6b's (``[8, 16, 1, 128]``, 8 kv heads) and musicgen-medium's
+        (``[8, 24, 1, 64]``, 24 kv heads), each query scaled by 3 (peaked
+        weights, as a trained model's are)."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(3)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=self.dev).to(torch.bfloat16)
+
+        for key, hq, hkv, d, start, window, softcap in (
+                ("gemma2-global", 16, 8, 256, 0, None, 50.0),
+                ("gemma2-local", 16, 8, 256, 32768 - 4097, 4096, 50.0),
+                ("qwen3", 16, 8, 128, 0, None, 0.0),
+                ("musicgen", 24, 24, 64, 0, None, 0.0)):
+            ck, cv = randn(8, 32768, hkv, d), randn(8, 32768, hkv, d)
+            q = (randn(8, 1, hq, d) * 3).transpose(1, 2)
+            self.kernel_dh(key, q, ck, cv, 16, start=start, window=window, softcap=softcap)
+            del ck, cv, q
+            torch.cuda.empty_cache()
+
     # -- K5 and K6: the recurrent scans --------------------------------------
 
     def scan_check(self, key, got, plain, oracle, bound, bf16, wrong):
@@ -2300,8 +2524,9 @@ class Smoke:
     # -- path phase ---------------------------------------------------------
 
     def kernel_wrappers(self) -> dict:
-        """The six kernel wrappers by name (each counts its launches)."""
-        from repro_torch.kernels.flash_attention import flash_attention
+        """The kernel wrappers by name (each counts its launches): K1-K6 and
+        K4's "dh" form's two."""
+        from repro_torch.kernels.flash_attention import dh_logits, dh_softmax_pv, flash_attention
         from repro_torch.kernels.hash_combine import hash_aggregate
         from repro_torch.kernels.kmeans_assign import kmeans_assign
         from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -2310,6 +2535,7 @@ class Smoke:
 
         return {"segment_reduce": segment_reduce, "hash_aggregate": hash_aggregate,
                 "kmeans_assign": kmeans_assign, "flash_attention": flash_attention,
+                "dh_logits": dh_logits, "dh_softmax_pv": dh_softmax_pv,
                 "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
 
     def zero_launch_counts(self):
@@ -5564,7 +5790,9 @@ class Smoke:
         with open(out) as f:
             r["rank0"] = json.load(f)
         r["rank0_s"] = time.perf_counter() - t0
-        self.shard_launches["rank0"] = {k: v["k4_launches"] for k, v in r["rank0"].items()}
+        self.shard_launches["rank0"] = {k: v["launches"] for k, v in r["rank0"].items()}
+        self.path_launches["shard rank0 gemma2-9b decode_32k"] = \
+            r["rank0"]["gemma2-9b decode_32k"]["launches"]
         r["shard_s"] = time.perf_counter() - t_phase
         print(json.dumps({"shard_results": r}), flush=True)
 
@@ -6107,9 +6335,10 @@ class Smoke:
                    decode_bound_ms=(weight + kv_read) / HBM_BYTES_PER_S * 1e3)
         return res
 
-    def moe_config(self, arch, layers, **kw):
+    def cut_config(self, arch, layers, **kw):
         """``arch`` cut to its first ``layers`` layers (every layer is one
-        stage of one MoE block), with ``kw`` replaced."""
+        stage of one block: the MoE and embedding-fed models), with ``kw``
+        replaced."""
         import dataclasses
         from repro_torch.configs.base import get_arch
 
@@ -6188,7 +6417,7 @@ class Smoke:
         from repro_torch.models import model as M
 
         n = MOE_LAYERS[arch]
-        cfg = self.moe_config(arch, n)
+        cfg = self.cut_config(arch, n)
         tol = LM_LOGIT_TOL[arch]
         b, plen, steps = 8, 512, 32
         max_len = plen + steps + 1
@@ -6283,7 +6512,7 @@ class Smoke:
         from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
 
-        cfg = self.moe_config(arch, MOE_F32_LAYERS, param_dtype="float32",
+        cfg = self.cut_config(arch, MOE_F32_LAYERS, param_dtype="float32",
                               compute_dtype="float32")
         g = torch.Generator(device=self.dev).manual_seed(0)
         params = M.init(g, cfg)
@@ -6315,19 +6544,18 @@ class Smoke:
 
     def lm_embed_path(self, arch):
         """A model fed by a frontend's embeddings (qwen2-vl-2b, musicgen-
-        medium) at full width and depth in bf16 (random weights and
-        embeddings from seed 0): ``serve_embeddings`` of ``[8, 512, d]``
+        medium) at full width and ``EMBED_LAYERS`` layers in bf16 (random
+        weights and embeddings from seed 0): ``serve_embeddings`` of ``[8, 512, d]``
         prompts, then 32 steps on ``[8, 1, d]`` embeddings, K4 on every
         attention call; held against the plain path along the same
         embeddings and against the teacher-forced forward.  qwen2-vl also
         takes one forward with distinct ``(t, h, w)`` triples against the
         plain path's."""
         torch = self.torch
-        from repro_torch.configs.base import get_arch
         from repro_torch.launch.serve_lm import serve_embeddings
         from repro_torch.models import model as M
 
-        cfg = get_arch(arch)
+        cfg = self.cut_config(arch, EMBED_LAYERS[arch])
         tol = LM_LOGIT_TOL[arch]
         b, plen, steps = 8, 512, 32
         max_len = plen + steps + 1
@@ -6819,34 +7047,54 @@ class Smoke:
         self.track_sessions()
         t0 = time.perf_counter()
         _build.build(["segment_reduce", "hash_combine", "kmeans_assign",
-                      "flash_attention", "ssd_scan", "rwkv6_scan"])
+                      "flash_attention", "flash_attention_dh", "ssd_scan", "rwkv6_scan"])
         print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+
+        def done(part):  # where the run's seconds go, part by part
+            print(json.dumps({"done": part, "elapsed_s": time.perf_counter() - START}),
+                  flush=True)
+
         self.tensor_core_sass()
         self.attention_phase()
+        done("attention")
+        self.dh_phase()
+        done("dh")
         self.scan_phase()
+        done("scan")
         for arch in LM_ARCHS:  # each model is freed before the next phase
             print(json.dumps({"lm_results": self.lm_path(arch)}), flush=True)
             torch.cuda.empty_cache()
+            done(f"lm {arch}")
         for arch in MOE_LAYERS:
             print(json.dumps({"lm_results": self.lm_moe_path(arch)}), flush=True)
+            done(f"lm {arch}")
         for arch in EMBED_ARCHS:
             print(json.dumps({"lm_results": self.lm_embed_path(arch)}), flush=True)
+            done(f"lm {arch}")
         self.phase = "train"
         print(json.dumps({"train_results": self.train_phase()}), flush=True)
+        done("train")
         data = self.make_data()
+        done("data")
         for name in ("kernel", "path", "program", "tuning", "stream", "wire", "multinode"):
             self.phase = name
             getattr(self, f"{name}_phase")(data)
+            done(name)
         self.phase = "fault"
         fault_results = self.fault_phase(data)
+        done("fault")
         self.phase = "serve"
         self.serve_phase(data)
+        done("serve")
         self.phase = "examples"
         self.examples_phase()
+        done("examples")
         self.phase = "process"
         self.process_phase(data)
+        done("process")
         self.phase = "shard"
         self.shard_phase()
+        done("shard")
         fault_results["other_phases"] = self.check_supervision()
         print(json.dumps({"faults": fault_results}), flush=True)
         kernels = []
@@ -6859,6 +7107,10 @@ class Smoke:
                               "src/repro/kernels/kmeans_assign.py:54"),
             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:100"),
+            "dh_logits": ("src/repro_torch/kernels/csrc/flash_attention_dh.cu",
+                          "src/repro/kernels/flash_attention.py:135"),
+            "dh_softmax_pv": ("src/repro_torch/kernels/csrc/flash_attention_dh.cu",
+                              "src/repro/kernels/flash_attention.py:135"),
             "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                          "src/repro/kernels/ssd_scan.py:74"),
             "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -6897,7 +7149,11 @@ class Smoke:
                 "flash_attention@qwen2vl-decode": "lm qwen2-vl-2b",
                 "flash_attention@musicgen-prefill": "lm musicgen-medium",
                 "flash_attention@musicgen-decode": "lm musicgen-medium",
-                "flash_attention@train_lm f32": "example train_lm"}
+                "flash_attention@train_lm f32": "example train_lm",
+                # the "dh" form's main path: rank 0's gemma2-9b decode step
+                **{f"{kernel}@{shape}": "shard rank0 gemma2-9b decode_32k"
+                   for kernel in ("dh_logits", "dh_softmax_pv")
+                   for shape in ("gemma2-global", "gemma2-local", "qwen3", "musicgen")}}
         for key, path in runs.items():
             rec = self.summary[key]
             source, replaces = sources[rec["kernel"]]
@@ -6917,6 +7173,10 @@ class Smoke:
                 **({"path_forms": forms} if (forms := self.path_launches[path].get(
                     f"{rec['kernel']} forms")) else {}),
                 "candidates_checked": self.candidates_checked.get(key),
+                # a shape that no path of the smoke runs: `launches` is its
+                # kernel's count on the path named, at that path's shapes
+                **({"launches_note": f"{path} at its own shapes; this shape is a check only"}
+                   if key in CHECK_ONLY_SHAPES else {}),
                 # the program, tuning and stream phases' launches (graph
                 # replays), by form too
                 "program_launches": {k: n for k, n in self.program_launches.get(
@@ -6936,14 +7196,15 @@ class Smoke:
                 "process_stream_launches": self.process_stream_launches.get(rec["kernel"]),
                 # the shard phase's: (a) train, train's resume (Smoke.shard_resume)
                 # and serve on the (1x1) mesh, (b) rank 0 of the production
-                # mesh (K4 only counted there)
+                # mesh's cells (K4 and its "dh" form only counted there)
                 "shard_launches": {
                     "train": self.shard_launches["train"][rec["kernel"]],
                     "serve": self.shard_launches["serve"][rec["kernel"]],
                     "resume": {k: v[rec["kernel"]]
                                for k, v in self.shard_launches["resume"].items()},
-                    "rank0": (self.shard_launches["rank0"]
-                              if rec["kernel"] == "flash_attention" else None)},
+                    "rank0": ({cell: n[rec["kernel"]]
+                               for cell, n in self.shard_launches["rank0"].items()}
+                              if rec["kernel"] in RANK0_COUNTED else None)},
                 # the examples phase's: each example's main([]) on the card
                 # (the wrappers' counts; graph replays not counted)
                 "examples_launches": {name: n[rec["kernel"]] for name, n in

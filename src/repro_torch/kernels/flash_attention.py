@@ -27,6 +27,16 @@ head, times the positions):
 
 Each call counts one launch in ``flash_attention.launches`` and one in
 ``flash_attention.forms[form]``, whatever the form launches.
+
+The ``"dh"`` form (``csrc/flash_attention_dh.cu``) serves decode with
+``d_head`` sharded over the model axis (kv heads that do not divide it):
+:func:`dh_logits` gives a rank's f32 partial logits over its slice of
+``d_head``, and after their all-reduce (outside the kernels, in
+``kernels.ops``) :func:`dh_softmax_pv` the softmax and the product with its
+slice of ``v``; the plain versions are ``kernels.ref.attention_logits`` and
+``attention_from_logits``.  Each call counts one launch in
+``dh_logits.launches`` or ``dh_softmax_pv.launches`` (the latter's kernel
+splits over the keys and merges in a second kernel), never in ``FORMS``.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_from_logits, attention_logits, attention_ref
 
 MAX_D = 256
 DTYPES = (torch.float32, torch.bfloat16)
@@ -139,6 +149,17 @@ def _strides(name: str, x: torch.Tensor) -> tuple[int, int, int]:
     return strides
 
 
+def _launch(fn: ctypes._CFuncPtr, args: tuple, dev: int, what: str) -> None:
+    """``fn(*args, stream)`` on CUDA device ``dev``'s current stream (the
+    launch goes to the current device), raising if it was refused."""
+    if dev == torch.cuda.current_device():
+        err = fn(*args, _build.raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, _build.raw_stream(dev))
+    _build.check(err, what)
+
+
 @functools.cache
 def _kernel() -> ctypes._CFuncPtr:
     """The C entry point, built, loaded and typed once per process."""
@@ -204,13 +225,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             b, hq, hkv, sq, skv, d, int(causal), int(window is not None), window or 0, off,
             float(scale), float(softcap), FORMS.index(kind), splits, per,
             ws.data_ptr() if ws is not None else None)
-    dev = q.device.index
-    if dev == torch.cuda.current_device():  # the launch goes to the current device
-        err = _kernel()(*args, _build.raw_stream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = _kernel()(*args, _build.raw_stream(dev))
-    _build.check(err, "flash_attention")
+    _launch(_kernel(), args, q.device.index, "flash_attention")
     flash_attention.launches += 1
     flash_attention.forms[kind] += 1
     return out
@@ -218,3 +233,164 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0  # kernel launches since the caller last reset it
 flash_attention.forms = dict.fromkeys(FORMS, 0)  # the same, by form
+
+
+# ---------------------------------------------------------------------------
+# The "dh" form: d_head sharded over the model axis (csrc/flash_attention_dh.cu)
+# ---------------------------------------------------------------------------
+
+DH_MAX_D = 128  # the widest slice of d_head a rank may hold
+DH_CTAS_PER_SM = 4  # dh_softmax_pv's splits aim at this many CTAs an SM
+
+
+def dh_head_group(hkv: int, rows: int, dl: int, kernel: str) -> int:
+    """The kv heads a CTA of a "dh" kernel (``"logits"`` or
+    ``"softmax_pv"``) stages together, ``rows`` query rows each, as the
+    kernel's source chooses them (``blaze_dh_head_group``: a tile at most
+    ``DH_MAX_D`` floats wide, its shared memory within budget).  Raises
+    where a single kv head does not fit."""
+    hg = _dh_kernel("blaze_dh_head_group")(int(kernel == "softmax_pv"), hkv, rows, dl)
+    if hg < 1:
+        raise ValueError(f"dh_{kernel}: {rows} query rows a kv head at d_head slice {dl} "
+                         "exceed the kernel's shared memory")
+    return hg
+
+
+def dh_splits(batch: int, groups: int, n_tiles: int, sm_count: int) -> tuple[int, int]:
+    """``(splits, tiles per split)`` for :func:`dh_softmax_pv`: enough splits
+    that its ``batch·groups·splits`` CTAs give each SM ``DH_CTAS_PER_SM``,
+    each split at least one tile and none empty (``(1, 1)`` with no tile)."""
+    if n_tiles <= 0:
+        return 1, 1
+    splits = max(1, min(n_tiles, -(-DH_CTAS_PER_SM * sm_count // (batch * groups))))
+    per = -(-n_tiles // splits)
+    return -(-n_tiles // per), per
+
+
+def _dh_vec(x: torch.Tensor, hg: int) -> bool:
+    """Whether the "dh" kernels may read ``x [B, H, S, Dl]`` 16 bytes a load:
+    a key's ``Dl`` elements of consecutive heads contiguous (the cache's own
+    layout) and every group's run of them 16-byte aligned."""
+    (nb, nh, ns, dl), (sb, sh, ss, sd), es = x.shape, x.stride(), x.element_size()
+    if (dl > 1 and sd != 1) or (nh > 1 and sh != dl):
+        return False
+    if (min(hg, nh) * dl * es) % 16 or (nh * dl * es) % 16 or x.data_ptr() % 16:
+        return False
+    return all(st * es % 16 == 0 for st, n in ((sb, nb), (ss, ns)) if n > 1)
+
+
+def _dh_check(name: str, x: torch.Tensor, y: torch.Tensor, xname: str, yname: str) -> None:
+    """``x [B, Hq, Sq, *]`` against ``y [B, Hkv, S, Dl]``: 4-D, the same B,
+    Hq a multiple of Hkv, ``1 <= Dl <= DH_MAX_D``; ``y`` f32 or bf16."""
+    if x.dim() != 4 or y.dim() != 4 or x.shape[0] != y.shape[0] or y.shape[1] == 0 \
+            or x.shape[1] % y.shape[1]:
+        raise ValueError(f"{name}: need {xname} [B, Hq, Sq, ...] and {yname} [B, Hkv, S, "
+                         f"Dl] with Hq a multiple of Hkv, got {tuple(x.shape)}, "
+                         f"{tuple(y.shape)}")
+    if not 1 <= y.shape[3] <= DH_MAX_D:
+        raise ValueError(f"{name}: a d_head slice of {y.shape[3]}; the kernels take 1 to "
+                         f"{DH_MAX_D}")
+    if y.dtype not in DTYPES:
+        raise TypeError(f"{name}: need {yname} f32 or bf16, got {y.dtype}")
+
+
+def _dh_device(name: str, *xs: torch.Tensor) -> bool:
+    """True where every tensor lies on the CPU (the plain version runs);
+    False where all lie on one CUDA device; raises otherwise."""
+    if all(x.device.type == "cpu" for x in xs):
+        return True
+    if not (all(x.device == xs[0].device for x in xs) and xs[0].device.type == "cuda"):
+        raise ValueError(f"{name}: tensors on {[str(x.device) for x in xs]}: need all on "
+                         "one CUDA device (or all on the CPU)")
+    return False
+
+
+@functools.cache
+def _dh_kernel(symbol: str) -> ctypes._CFuncPtr:
+    """A C entry point of ``csrc/flash_attention_dh.cu``, built, loaded and
+    typed once per process."""
+    ll, i32, ptr, f32 = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    return _build.entry("flash_attention_dh", symbol, {
+        "blaze_dh_logits": [ptr] * 3 + [ll] * 8 + [i32] * 9 + [f32, ptr],
+        "blaze_dh_softmax_pv": [ptr] * 4 + [ll] * 8 + [i32] * 13 + [f32] + [i32] * 4 + [ptr],
+        "blaze_dh_head_group": [i32] * 4,
+    }[symbol])
+
+
+def dh_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """The f32 partial logits ``[B, Hq, Sq, Skv]`` of ``q [B, Hq, Sq, Dl]``
+    against ``k [B, Hkv, Skv, Dl]`` over this slice of ``d_head``: ``scale ·
+    Σ_d q·k`` (query head ``h`` reads kv head ``h // (Hq / Hkv)``), before the
+    all-reduce over the model axis (``kernels.ref.attention_logits``).
+
+    ``q`` and ``k`` are f32 or bf16 alike, read through their strides (a
+    cache's ``[B, S, Hkv, Dl]`` buffer seen as ``[B, Hkv, S, Dl]``, or a
+    window's view of it, with no copy).  On CPU tensors the plain version
+    runs; on a CUDA device the kernel ``dh_logits_kernel``."""
+    _dh_check("dh_logits", q, k, "q", "k")
+    if q.shape[3] != k.shape[3]:
+        raise ValueError(f"dh_logits: q {tuple(q.shape)} and k {tuple(k.shape)} hold "
+                         "different slices of d_head")
+    if k.dtype != q.dtype:
+        raise TypeError(f"dh_logits: need q and k both f32 or both bf16, got {q.dtype}, "
+                        f"{k.dtype}")
+    if _dh_device("dh_logits", q, k):
+        return attention_logits(q, k, scale)
+    b, hq, sq, dl = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    out = torch.empty((b, hq, sq, skv), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out  # a 0-block grid is a launch error
+    hg = dh_head_group(hkv, hq // hkv * sq, dl, "logits")
+    args = (q.data_ptr(), k.data_ptr(), out.data_ptr(), *q.stride(), *k.stride(),
+            b, hq, hkv, sq, skv, dl, hg, int(_dh_vec(k, hg)),
+            int(q.dtype == torch.bfloat16), float(scale))
+    _launch(_dh_kernel("blaze_dh_logits"), args, q.device.index, "dh_logits")
+    dh_logits.launches += 1
+    return out
+
+
+def dh_softmax_pv(logits: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                  window: int | None = None, softcap: float = 0.0,
+                  q_offset: int | None = None) -> torch.Tensor:
+    """``[B, Hq, Sq, Dl]`` in ``v``'s dtype: the softmax of the summed f32
+    ``logits [B, Hq, Sq, Skv]`` (softcap ``c·tanh(s/c)`` first, then the
+    causal rule and the window, query row ``i`` at ``q_offset + i``, default
+    ``Skv - Sq``) times this slice of ``v [B, Hkv, Skv, Dl]``
+    (``kernels.ref.attention_from_logits``); a row with no live key gives
+    zeros.  ``v`` is read through its strides.
+
+    On CPU tensors the plain version runs; on a CUDA device the kernel
+    ``dh_pv_split_kernel``, split over the live key tiles
+    (:func:`dh_splits`), then ``dh_pv_combine_kernel``."""
+    _dh_check("dh_softmax_pv", logits, v, "logits", "v")
+    if logits.dtype != torch.float32 or logits.shape[3] != v.shape[2]:
+        raise TypeError(f"dh_softmax_pv: need f32 logits [B, Hq, Sq, Skv] over v's Skv, "
+                        f"got {logits.dtype} {tuple(logits.shape)}, v {tuple(v.shape)}")
+    if window is not None and window < 0:
+        raise ValueError(f"dh_softmax_pv: window must be None or >= 0, got {window}")
+    b, hq, sq, skv = logits.shape
+    off = skv - sq if q_offset is None else int(q_offset)
+    if _dh_device("dh_softmax_pv", logits, v):
+        return attention_from_logits(logits, v, v.dtype, causal=causal, window=window,
+                                     softcap=softcap, q_offset=off)
+    hkv, dl = v.shape[1], v.shape[3]
+    out = torch.empty((b, hq, sq, dl), dtype=v.dtype, device=v.device)
+    if out.numel() == 0:
+        return out
+    hg = dh_head_group(hkv, hq // hkv * sq, dl, "softmax_pv")
+    t_lo, t_hi = key_tiles(sq, skv, off, causal, window)
+    splits, per = dh_splits(b, -(-hkv // hg), t_hi - t_lo, _build.sm_count(v.device.index))
+    ws = torch.empty(splits * b * hq * sq * (dl + 2), dtype=torch.float32, device=v.device)
+    args = (logits.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            *logits.stride(), *v.stride(), b, hq, hkv, sq, skv, dl, hg,
+            int(_dh_vec(v, hg)), int(v.dtype == torch.bfloat16), int(causal),
+            int(window is not None), window or 0, off, float(softcap),
+            t_lo, max(t_lo, t_hi), splits, per)
+    _launch(_dh_kernel("blaze_dh_softmax_pv"), args, v.device.index, "dh_softmax_pv")
+    dh_softmax_pv.launches += 1
+    return out
+
+
+dh_logits.launches = 0  # kernel launches since the caller last reset it
+dh_softmax_pv.launches = 0  # the same (each launches a split and a combine kernel)

@@ -20,7 +20,8 @@ not write a cache in place (``out_state``).  Otherwise the kernel runs
 alone, as on the serving path.
 
 K4, K5 and K6 are custom ops (``torch.ops.blaze.flash_attention``,
-``ssd_scan``, ``ssd_scan_into``, ``rwkv6_scan``, ``rwkv6_scan_into``): the
+``dh_logits``, ``dh_softmax_pv``, ``ssd_scan``, ``ssd_scan_into``,
+``rwkv6_scan``, ``rwkv6_scan_into``): the
 real implementation is the kernel's wrapper, a fake one gives the output
 shapes (a fake or meta tensor has no ``data_ptr()``), a flop formula gives
 ``torch.utils.flop_counter`` each call's operations, and each differentiates
@@ -36,10 +37,13 @@ rows over it instead (each rank's rows at their offset, the keys whole).
 Where the kv heads (K4) or the B/C groups (K5) do not split with the query
 heads, each rank takes the ones its own heads read.  ``shard_hint="dh"``
 (decode with ``d_head`` sharded over model, kv heads that do not divide
-it) runs the plain attention instead, each rank's logits a partial sum over
-its slice of ``d_head``, all-reduced as the reference's are; K4 has no form
-that sums partial logits, and ``attention.dh_plain_calls`` counts these
-calls.
+it) runs K4's ``"dh"`` form: on each rank's slice of ``d_head``,
+``dh_logits`` gives the partial logits, the model axis all-reduces them as
+the reference's are (a ``DTensor`` redistribute, outside the kernels), and
+``dh_softmax_pv`` takes the softmax and the rank's slice of the output.
+With ``impl="ref"`` or on CPU tensors the plain pair
+(``ref.attention_logits``, ``ref.attention_from_logits``) runs instead, and
+``attention.dh_plain_calls`` counts those calls.
 
 There is no fallback: if the kernel fails, the call fails.  ``block_n``,
 ``block_q`` and ``block_k`` keep the JAX signature and are dropped: the CUDA
@@ -56,6 +60,8 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.autograd import kernel_with_grad, needs_grad, register_plain_backward
+from repro_torch.kernels.flash_attention import dh_logits as _dh_logits_kernel
+from repro_torch.kernels.flash_attention import dh_softmax_pv as _dh_pv_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _kmeans_kernel
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_kernel
@@ -126,6 +132,40 @@ def _flash_flops(q, k, v, causal, window, softcap, scale, q_offset, *args, **kwa
     skv = k[2]
     off = skv - sq if q_offset is None else q_offset
     return 4 * b * hq * d * _live_pairs(sq, skv, off, causal, window)
+
+
+_dh_logits_op = torch.library.custom_op(
+    "blaze::dh_logits", _dh_logits_kernel, mutates_args=(),
+    schema="(Tensor q, Tensor k, float scale) -> Tensor")
+
+
+def _dh_pv_impl(logits, v, causal, window, softcap, q_offset):
+    return _dh_pv_kernel(logits, v, causal=causal, window=window, softcap=softcap,
+                         q_offset=q_offset)
+
+
+_dh_pv_op = torch.library.custom_op(
+    "blaze::dh_softmax_pv", _dh_pv_impl, mutates_args=(),
+    schema="(Tensor logits, Tensor v, bool causal, int? window, float softcap, "
+           "int? q_offset) -> Tensor")
+
+
+@_dh_logits_op.register_fake
+def _(q, k, scale):
+    return q.new_empty((*q.shape[:3], k.shape[2]), dtype=torch.float32)
+
+
+@_dh_pv_op.register_fake
+def _(logits, v, causal, window, softcap, q_offset):
+    return logits.new_empty((*logits.shape[:3], v.shape[3]), dtype=v.dtype)
+
+
+@register_flop_formula([torch.ops.blaze.dh_logits, torch.ops.blaze.dh_softmax_pv])
+def _dh_flops(x, y, *args, **kwargs):
+    """What ``flop_counter`` counts for the plain pair's einsums: ``2·B·Hq·
+    Sq·Skv·Dl`` each (``x``: q or the logits; ``y``: k or v)."""
+    b, hq, sq = x[:3]
+    return 2 * b * hq * sq * y[2] * y[3]
 
 
 _SCAN = "(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, Tensor? init_state"
@@ -210,6 +250,13 @@ register_plain_backward(
                                         softcap=softcap, scale=scale, q_offset=q_offset)),
     3)
 register_plain_backward(
+    _dh_logits_op, lambda scale: (lambda q, k: R.attention_logits(q, k, scale)), 2)
+register_plain_backward(
+    _dh_pv_op, lambda causal, window, softcap, q_offset: (
+        lambda lg, v: R.attention_from_logits(lg, v, v.dtype, causal=causal, window=window,
+                                              softcap=softcap, q_offset=q_offset)),
+    2)
+register_plain_backward(
     _ssd_op, lambda chunk: (lambda *t: ssd_scan_plain(*t[:5], init_state=t[5],
                                                       chunk=chunk)), 6)
 register_plain_backward(
@@ -224,15 +271,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               shard_hint: str | None = None) -> torch.Tensor:
     """Attention of ``q [B, Hq, Sq, D]`` over ``k, v [B, Hkv, Skv, D]``
     (see ``kernels.ref.attention_ref`` for the masking rules).  On
-    ``DTensor``s, ``shard_hint="dh"`` is the plain attention on the sharded
-    tensors; otherwise the kernel runs on each rank's heads (module doc)."""
+    ``DTensor``s, ``shard_hint="dh"`` runs K4's "dh" form on each rank's
+    slice of ``d_head``; otherwise the kernel runs on each rank's heads
+    (module doc)."""
     del block_q, block_k
     kw = dict(causal=causal, window=window, softcap=float(softcap), scale=scale,
               q_offset=q_offset)
     if isinstance(q, DTensor):
         if shard_hint == "dh":
-            attention.dh_plain_calls += 1
-            return _dh_attention(q, k, v, kw)
+            return _dh_attention(q, k, v, kw, impl)
         return _sharded_attention(q, k, v, kw, impl)
     if _resolve(impl, q) != "pallas":
         return R.attention_ref(q, k, v, **kw)
@@ -243,15 +290,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_op(q, k, v, *opts)
 
 
-attention.dh_plain_calls = 0  # sharded calls in the "dh" layout (the plain route)
+attention.dh_plain_calls = 0  # sharded "dh" calls that ran the plain pair
 
 
-def _dh_attention(q: DTensor, k: DTensor, v: DTensor, kw: dict) -> DTensor:
+def _dh_attention(q: DTensor, k: DTensor, v: DTensor, kw: dict, impl: str) -> DTensor:
     """``attention_ref`` with ``d_head`` sharded over model (batch over dp
     where it divides): each rank's logits are a partial sum over its slice
     of ``d_head``, all-reduced over model (the reference's "dh" layout:
     ``[B, Hq, Sq, Skv]`` logits cross the wire, not the cache), then each
-    rank takes the softmax and its slice of the output."""
+    rank takes the softmax and its slice of the output.  On a CUDA device
+    with ``impl`` "auto" or "pallas" the two sides are K4's "dh" kernels
+    (``blaze::dh_logits``, ``blaze::dh_softmax_pv``); with "ref" or on the
+    CPU the plain pair, counted in ``attention.dh_plain_calls``."""
     mesh = q.device_mesh
     model = SH.axis_index(mesh, SH.MODEL)
     q_pl = SH.fitted_placements(mesh, q.shape, (SH.DP, None, None, SH.MODEL))
@@ -259,12 +309,24 @@ def _dh_attention(q: DTensor, k: DTensor, v: DTensor, kw: dict) -> DTensor:
     whole = tuple(Replicate() if i == model else p for i, p in enumerate(q_pl))
     partial = tuple(Partial() if i == model else p for i, p in enumerate(q_pl))
     scale = kw["scale"] if kw["scale"] is not None else 1.0 / math.sqrt(q.shape[-1])
-    logits = SH.run_local(lambda ql, kl: R.attention_logits(ql, kl, scale), partial,
-                          (q, k), (q_pl, kv_pl))
-    logits = logits.redistribute(mesh, whole)  # the partial sums, all-reduced
     rest = {n: kw[n] for n in ("causal", "window", "softcap", "q_offset")}
-    return SH.run_local(lambda lg, vl: R.attention_from_logits(lg, vl, q.dtype, **rest),
-                        q_pl, (logits, v), (whole, kv_pl))
+    if _resolve(impl, q) == "pallas" and q.device.type == "cuda":
+        def logits_fn(ql, kl):
+            return _dh_logits_op(ql, kl, scale)
+
+        def pv_fn(lg, vl):
+            return _dh_pv_op(lg, vl, **rest)
+    else:
+        attention.dh_plain_calls += 1
+
+        def logits_fn(ql, kl):
+            return R.attention_logits(ql, kl, scale)
+
+        def pv_fn(lg, vl):
+            return R.attention_from_logits(lg, vl, q.dtype, **rest)
+    logits = SH.run_local(logits_fn, partial, (q, k), (q_pl, kv_pl))
+    logits = logits.redistribute(mesh, whole)  # the partial sums, all-reduced
+    return SH.run_local(pv_fn, q_pl, (logits, v), (whole, kv_pl))
 
 
 def _model_rank(x: DTensor) -> int:

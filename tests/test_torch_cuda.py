@@ -364,6 +364,151 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):
         flash_attention(q, q.cpu(), q)
 
 
+# K4's "dh" form: b, hq, hkv, sq, cache rows, view start, d_head slice,
+# layout, window, softcap, q_offset.  Layouts: "cache", a rank's [B, S, Hkv,
+# Dl] buffer seen as [B, Hkv, S, Dl] (16-byte loads); "heads", a contiguous
+# [B, Hkv, S, Dl]; "slice", Dl of a wider [B, S, Hkv, 4·Dl] cache (both read
+# an element a load).  gemma2-9b's, qwen3-0.6b's and musicgen-medium's
+# decode_32k slices, eight positions at rep 6, several head groups (Dl =
+# 32 at 8 kv heads), ragged key tiles, a window's view, rows with no key.
+DH_CASES = [
+    (2, 16, 8, 1, 700, 0, 16, "cache", None, 50.0, 699),
+    (2, 16, 8, 1, 700, 180, 16, "cache", 256, 50.0, 519),
+    (2, 16, 8, 1, 700, 0, 8, "cache", None, 0.0, 699),
+    (2, 24, 24, 1, 700, 0, 4, "cache", None, 0.0, 699),
+    (1, 12, 2, 8, 300, 0, 8, "heads", 100, 0.0, 292),
+    (1, 16, 8, 2, 333, 0, 32, "slice", None, 0.0, 331),
+    (1, 6, 1, 8, 200, 0, 3, "cache", None, 0.0, -3),
+    (3, 4, 2, 1, 65, 0, 1, "heads", None, 0.0, 64),
+]
+
+
+def _dh_tensor(g, case, dev, dtype):
+    b, hq, hkv, sq, rows, start, dl, layout = case[:8]
+    wide = 4 * dl if layout == "slice" else dl
+    if layout == "heads":
+        x = torch.randn((b, hkv, rows, dl), generator=g).to(dev, dtype)
+        return x[:, :, start:]
+    x = torch.randn((b, rows, hkv, wide), generator=g).to(dev, dtype)
+    return x[:, start:, :, dl:2 * dl].transpose(1, 2) if layout == "slice" else \
+        x[:, start:].transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DH_CASES)
+def test_dh_kernels_match_plain_versions(dev, case, dtype):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import attention_from_logits, attention_logits
+
+    b, hq, hkv, sq, rows, start, dl, layout, window, cap, off = case
+    g = torch.Generator().manual_seed(0)
+    q = (torch.randn((b, sq, hq, dl), generator=g) * 0.5).to(dev, dtype).transpose(1, 2)
+    k, v = _dh_tensor(g, case, dev, dtype), _dh_tensor(g, case, dev, dtype)
+    before = (FA.dh_logits.launches, FA.dh_softmax_pv.launches)
+    logits = FA.dh_logits(q, k, 0.3)
+    want = attention_logits(q, k, 0.3)
+    torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-5)
+    kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+    got = FA.dh_softmax_pv(want, v, **kw)
+    assert (FA.dh_logits.launches, FA.dh_softmax_pv.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    ref = attention_from_logits(want, v, dtype, **kw)
+    assert got.dtype == dtype and got.shape == ref.shape == (b, hq, sq, dl)
+    tol = 3e-5 + (2.0 ** -7 * ref.float().abs() if dtype == torch.bfloat16 else 0.0)
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+    if off < 0:  # rows before the first key see nothing: zeros
+        assert not bool(got[:, :, :-off].float().abs().any())
+
+
+def test_dh_split_pair_is_attention_on_the_card(dev):
+    from repro_torch.kernels import flash_attention as FA
+
+    g = torch.Generator().manual_seed(2)
+    q = (torch.randn((2, 16, 1, 64), generator=g) * 0.5).to(dev, torch.bfloat16)
+    cache = torch.randn((2, 600, 8, 64), generator=g).to(dev, torch.bfloat16)
+    k = v = cache.transpose(1, 2)
+    kw = dict(causal=True, window=300, softcap=50.0, q_offset=599)
+    parts = [(q[..., i:i + 16], cache[..., i:i + 16].contiguous().transpose(1, 2))
+             for i in range(0, 64, 16)]  # four ranks' slices
+    logits = sum(FA.dh_logits(qs, ks, 1 / 8) for qs, ks in parts)
+    got = torch.cat([FA.dh_softmax_pv(logits, ks, **kw) for _, ks in parts], -1)
+    want = attention_ref(q, k, v, **kw)
+    tol = (3e-5 + 2.0 ** -7 * want.float().abs()
+           + 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(), **kw))
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_dh_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k = torch.zeros((1, 4, 1, 8), device=dev), torch.zeros((1, 2, 5, 8), device=dev)
+    with pytest.raises(ValueError, match="CUDA device"):
+        FA.dh_logits(q, k.cpu(), 1.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        FA.dh_softmax_pv(torch.zeros((1, 2000, 8, 5), device=dev),
+                         torch.zeros((1, 1, 5, 32), device=dev))
+
+
+@pytest.mark.parametrize("hkv,rows,dl,kernel,want", [
+    (8, 2, 16, "logits", 8),        # gemma2-9b decode_32k: 16 / 8 heads, 256 -> 16
+    (8, 2, 16, "softmax_pv", 8),
+    (24, 1, 4, "softmax_pv", 24),   # musicgen-medium: 24 MHA heads, 64 -> 4
+    (8, 6, 8, "softmax_pv", 8),     # mixtral-8x22b: 48 / 8 heads, 128 -> 8
+    (4, 96, 8, "softmax_pv", 3),    # starcoder2-like rep 12 at 8 positions: shared memory
+    (2, 1, 128, "logits", 1),       # a whole 128-wide slice a head
+])
+def test_dh_head_groups_fit_the_shared_memory_budget(dev, hkv, rows, dl, kernel, want):
+    from repro_torch.kernels import flash_attention as FA
+
+    assert FA.dh_head_group(hkv, rows, dl, kernel) == want
+    with pytest.raises(ValueError, match="shared memory"):
+        FA.dh_head_group(1, 1000, 32, kernel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["auto", "pallas", "ref"])
+def test_sharded_dh_attention_on_the_card_launches_the_kernels(dev, tmp_path, impl, dtype):
+    """``ops.attention(shard_hint="dh")`` on CUDA ``DTensor``s (an NCCL
+    group of one, a (1, 1) mesh) whose locals are a cache's window view at
+    an offset, as the model reads it: "auto" and "pallas" launch
+    ``dh_logits`` and ``dh_softmax_pv`` once each and run no plain pair,
+    "ref" the plain pair alone; the output within the tolerance of
+    ``test_dh_kernels_match_plain_versions`` of ``attention_ref``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_mesh
+
+    g = torch.Generator().manual_seed(4)
+    q = (torch.randn((2, 1, 4, 32), generator=g) * 0.5).to(dev, dtype).transpose(1, 2)
+    k, v = (torch.randn((2, 40, 2, 32), generator=g).to(dev, dtype)[:, 21:].transpose(1, 2)
+            for _ in range(2))
+    kw = dict(causal=True, window=8, softcap=50.0, q_offset=17)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        pl = SH.fitted_placements(mesh, q.shape, (SH.DP, None, None, SH.MODEL))
+        dq, dk, dv = (DTensor.from_local(t, mesh, pl) for t in (q, k, v))
+        plain, before = ops.attention.dh_plain_calls, (FA.dh_logits.launches,
+                                                       FA.dh_softmax_pv.launches)
+        got = ops.attention(dq, dk, dv, impl=impl, shard_hint="dh", **kw).full_tensor()
+        kernels = impl != "ref"
+        assert ops.attention.dh_plain_calls == plain + (not kernels)
+        assert (FA.dh_logits.launches, FA.dh_softmax_pv.launches) == (
+            before[0] + kernels, before[1] + kernels)
+    finally:
+        dist.destroy_process_group()
+    want = attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape == (2, 4, 1, 32)
+    tol = 3e-5 + (2.0 ** -7 * want.float().abs() if dtype == torch.bfloat16 else 0.0)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
 def test_qwen3_full_width_decode_step_matches_the_plain_path(dev):
     import chip_smoke
 

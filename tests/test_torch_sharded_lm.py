@@ -23,8 +23,10 @@ across as numpy arrays, the steps those ``launch.dryrun`` builds:
   no model axis, so decode takes the ``"dh"`` layout: asserted through
   ``ops.attention.dh_plain_calls``), one with 3 query heads and one kv head
   (no head count divides: the prefill's query rows split over model, each
-  rank's at its offset; decode "dh"), reduced mixtral (MoE, dispatch groups
-  = the dp size on both sides), reduced zamba2 and reduced rwkv6.
+  rank's at its offset; decode "dh"), a reduced gemma2 with one kv head and
+  a window of 8 (decode "dh" with a softcap, its local layers reading the
+  window's view of the cache at an offset), reduced mixtral (MoE, dispatch
+  groups = the dp size on both sides), reduced zamba2 and reduced rwkv6.
 
 Tolerances (f32, the reduced configs' dtype): the sharded step sums the
 same products in other orders (partial sums over model, the vocab-parallel
@@ -239,6 +241,8 @@ SERVE = {
                                              n_kv_heads=1),
     "qwen3-h3": lambda: dataclasses.replace(get_arch("qwen3-0.6b").reduced(),
                                             n_heads=3, n_kv_heads=1),
+    "gemma2-kv1": lambda: dataclasses.replace(get_arch("gemma2-9b").reduced(), n_kv_heads=1,
+                                              window=8),
     "mixtral": lambda: get_arch("mixtral-8x22b").reduced(),
     "zamba2": lambda: get_arch("zamba2-7b").reduced(),
     "rwkv6": lambda: get_arch("rwkv6-1.6b").reduced(),
@@ -344,7 +348,7 @@ def test_sharded_prefill_and_decode_match_unsharded(served, name):
     for g, w in zip(got, want):
         assert float(np.abs(g - w).max()) <= 2e-4 * float(np.abs(w).max()) + 1e-5
         np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
-    if name in ("qwen3-kv1", "qwen3-h3"):
+    if name in ("qwen3-kv1", "qwen3-h3", "gemma2-kv1"):
         assert dh_calls == GEN * cfg.layers_total  # every decode step's attention
     else:
         assert dh_calls == 0
