@@ -22,7 +22,9 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    sharded decode path, ``d_head`` split by hand into the model axis's 16
    slices, the slices' partial logits summed in f32 for the all-reduce,
    ``dh_logits`` timed beside the library's f32 product (``torch.baddbmm``
-   with ``out_dtype=torch.float32``; its device time too); rows at shapes
+   with ``out_dtype=torch.float32``; its device time too), each call's form
+   counted (the ring form on the cache's layout, every call), one launch a
+   call of each kernel; rows at shapes
    that no path of the smoke runs carry a ``launches_note`` in the
    kernels line;
 2. path phase — runs the LM serving path (``repro_torch.launch.serve_lm.
@@ -156,7 +158,8 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    shards (random, made shard by shard: ``dryrun.build_cell(make=...)``),
    its peak device memory held to the dry run's (``SHARD_MEM_SLACK``,
    below), then once more timed (rank 0's compute alone), K4 and the
-   ``"dh"`` form counted.
+   ``"dh"`` form counted (the latter by form too: every call in the ring
+   form, the cache read in place through bulk copies).
 
 Between the LM serving paths and the data-mining phases runs the train
 phase: LM training through ``repro_torch.runtime.train_loop.train``.  First
@@ -204,7 +207,11 @@ within the tolerance's ``n·u·max|v|`` term of zero (a zero output passes
 but for a few elements) and losing one 64-key block moves them less; so
 the check's queries are scaled by 3 (peaked weights, as a trained model's)
 and the keys of that last block doubled (a recent block the rows attend
-to).
+to).  ``dh_softmax_pv`` is also held to ``dh_softmax_pv_tiled``, its
+arithmetic in plain PyTorch with the kernel's own splits, on the card: each
+is within that tolerance of the exact output (the tiled form's f32 sums and
+``exp``/``tanh`` obey the same bounds), so the two lie within twice it of
+each other.
 
 K5 (``ssd_scan``) and K6 (``rwkv6_scan``) are held against their plain
 chunked versions and against the float64 step-by-step oracles (``ssd_ref``;
@@ -640,9 +647,9 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 K4_KERNELS = ("flash_kernel", "flash_prefill_kernel", "flash_decode_kernel",
               "flash_combine_kernel")
 # LM path logits, per model: kernel path vs plain path and forward (docstring)
-# K4's "dh" form: the partial logits' kernel, the weights-times-v split
-# kernel and its combine kernel.
-DH_KERNELS = ("dh_logits_kernel", "dh_pv_split_kernel", "dh_pv_combine_kernel")
+# K4's "dh" form: the partial logits' kernel and the weights-times-v kernel
+# (its splits merged inside it).
+DH_KERNELS = ("dh_logits_kernel", "dh_softmax_pv_kernel")
 # kernels-line rows at shapes that no path of the smoke runs (the "dh" form
 # at qwen3-0.6b's and musicgen-medium's decode_32k slices; the path runs
 # gemma2-9b's)
@@ -1178,9 +1185,11 @@ def shard_rank0(out_path: str, device: str = "cuda") -> None:
             cell = D.build_cell(cfg, shape, mesh, make=make)
             for name in RANK0_COUNTED:
                 getattr(FA, name).launches = 0
+                getattr(FA, name).forms = dict.fromkeys(getattr(FA, name).forms, 0)
             dh = ops.attention.dh_plain_calls
             cell.step(*cell.args)
             launches = {name: getattr(FA, name).launches for name in RANK0_COUNTED}
+            dh_forms = {name: dict(getattr(FA, name).forms) for name in RANK0_COUNTED[1:]}
             dh = ops.attention.dh_plain_calls - dh
             if dev.type == "cuda":
                 torch.cuda.synchronize()
@@ -1217,6 +1226,10 @@ def shard_rank0(out_path: str, device: str = "cuda") -> None:
         if (launches, dh) != want:
             failures.append(f"shard {key}: launched {launches} with {dh} plain 'dh' "
                             f"attention calls, not {want}")
+        # the "dh" kernels read the cache in place: the ring form, every call
+        want_forms = {name: {"ring": dh_kernels, "element": 0} for name in dh_forms}
+        if dh_forms != want_forms:
+            failures.append(f"shard {key}: 'dh' forms {dh_forms}, not {want_forms}")
         out[key] = {"dry_peak_bytes": dry,
                     "dry_memtracker_peak_bytes": rec["memory"]["memtracker_peak_bytes"],
                     "card_requested_peak_bytes": requested,
@@ -1225,6 +1238,7 @@ def shard_rank0(out_path: str, device: str = "cuda") -> None:
                     "bound_bytes": bound,
                     "step_ms": step_ms, "launches": launches,
                     "k4_launches": launches["flash_attention"], "dh_plain_calls": dh,
+                    "dh_forms": dh_forms,
                     "dry_flops_per_device": rec["cost"]["flops_per_device"],
                     "dry_collectives": rec["collectives"], "dry_run_s": rec["run_s"],
                     "dry_total_s": dry_s, "serving": rec["serving"],
@@ -2177,7 +2191,11 @@ class Smoke:
         concatenated and held to ``attention_ref`` on the whole tensors within
         ``attention_tolerance``; a zero output, the sum with one slice's
         partial left out, and the last live 64-key block dropped (a lost
-        split) must all fail.  Records a row per kernel: kernel and device
+        split) must all fail; every call takes the ring form (one launch
+        each, counted by form), and ``dh_softmax_pv``'s output is held to
+        ``dh_softmax_pv_tiled`` within twice the tolerance (module
+        docstring).
+        Records a row per kernel: kernel and device
         times on one shard, bound, the plain function's time on one shard;
         for ``dh_logits`` the library's time, one ``torch.baddbmm(...,
         out_dtype=torch.float32, beta=0, alpha=scale)`` over contiguous
@@ -2227,8 +2245,18 @@ class Smoke:
             return torch.cat([FA.dh_softmax_pv(logits[..., :keys], vs[:, :, :keys], **kw)
                               for _, _, vs in shards], -1)
 
+        wrappers = {name: getattr(FA, name) for name in ("dh_logits", "dh_softmax_pv")}
+        before = {name: (fn.launches, dict(fn.forms)) for name, fn in wrappers.items()}
         logits = summed()
         got = outputs(logits)
+        forms = {}
+        for name, fn in wrappers.items():
+            forms[name] = {f: n - before[name][1][f] for f, n in fn.forms.items()}
+            ran = n_slices if self.dev.type == "cuda" else 0  # the CPU runs the plain pair
+            if (fn.launches - before[name][0], forms[name]) != (
+                    ran, {"ring": ran, "element": 0}):
+                raise AssertionError(f"{key}: {name} launched {fn.launches - before[name][0]} "
+                                     f"times by form {forms[name]}, not {n_slices} ring")
         k_all, v_all = ck[:, start:].transpose(1, 2), cv[:, start:].transpose(1, 2)
         want = attention_ref(q, k_all, v_all, **kw)
         self.sync()
@@ -2247,6 +2275,17 @@ class Smoke:
             return float(err.max())
 
         err = check(key, got)
+        # the kernel's arithmetic in plain PyTorch, its own splits: both
+        # within tol of the exact output, so within 2·tol of each other
+        from repro_torch.kernels._build import sm_count
+        sms = sm_count(self.dev.index or 0) if self.dev.type == "cuda" else 132
+        tiled = torch.cat([FA.dh_softmax_pv_tiled(logits, vs, sm_count=sms, **kw)
+                           for _, _, vs in shards], -1)
+        tiled_err = float((got.float() - tiled.float()).abs().max())
+        if not bool(((got.float() - tiled.float()).abs() <= 2 * tol).all()):
+            raise AssertionError(f"{key}: dh_softmax_pv differs from dh_softmax_pv_tiled by "
+                                 f"{tiled_err}, over twice the tolerance")
+        del tiled
         check(key + " zeros", torch.zeros_like(got), must_fail=True)
         check(key + " one slice's partial left out", outputs(summed(drop=n_slices - 1)),
               must_fail=True)
@@ -2283,7 +2322,7 @@ class Smoke:
                 lambda: FA.dh_softmax_pv(logits, vs, **kw),
                 lambda: attention_from_logits(logits, vs, q.dtype, **kw), None,
                 b * hq * sq * n_live * 4 + (b * hkv * n_live + b * hq * sq) * dl * es,
-                2 * b * hq * pairs * dl, 2),
+                2 * b * hq * pairs * dl, 1),
         }
         for kernel, (fn, plain, library, nbytes, flops, launches) in rows.items():
             bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2293,7 +2332,9 @@ class Smoke:
                 f"{kernel}@{key}", kernel=kernel, form="dh",
                 shape=[list(q.shape), [b, hkv, skv, d], str(q.dtype).split(".")[-1]],
                 slices=n_slices, d_slice=dl, q_offset=off, window=window, softcap=softcap,
-                max_abs_err=err, ms=self.time_ms(fn), device_ms=busy and busy["total"],
+                dh_forms=forms[kernel], max_abs_err=err,
+                **({"tiled_max_abs_diff": tiled_err} if kernel == "dh_softmax_pv" else {}),
+                ms=self.time_ms(fn), device_ms=busy and busy["total"],
                 plain_ms=self.time_ms(plain),
                 library_ms=library and self.time_ms(library),
                 library_device_ms=library and (

@@ -67,12 +67,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Copy `bytes` from global memory to this CTA's shared memory; the bytes
-// complete on `bar`.
+// complete on `bar`.  (bulk_copy_g2s_evict_first, below: the same with an
+// L2 evict-first hint, for data streamed once.)
 __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
                                               uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy_g2s_evict_first(void* dst, const void* src,
+                                                          uint32_t bytes, uint64_t* bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
       : "memory");
 }

@@ -34,15 +34,17 @@ The ``"dh"`` form (``csrc/flash_attention_dh.cu``) serves decode with
 ``d_head``, and after their all-reduce (outside the kernels, in
 ``kernels.ops``) :func:`dh_softmax_pv` the softmax and the product with its
 slice of ``v``; the plain versions are ``kernels.ref.attention_logits`` and
-``attention_from_logits``.  Each call counts one launch in
-``dh_logits.launches`` or ``dh_softmax_pv.launches`` (the latter's kernel
-splits over the keys and merges in a second kernel), never in ``FORMS``.
+``attention_from_logits``.  Each call is one launch, counted in
+``dh_logits.launches`` or ``dh_softmax_pv.launches`` and by form (``"ring"``:
+bulk copies of the cache's layout; ``"element"``: other layouts) in their
+``forms``, never in ``FORMS``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -240,43 +242,178 @@ flash_attention.forms = dict.fromkeys(FORMS, 0)  # the same, by form
 # ---------------------------------------------------------------------------
 
 DH_MAX_D = 128  # the widest slice of d_head a rank may hold
-DH_CTAS_PER_SM = 4  # dh_softmax_pv's splits aim at this many CTAs an SM
+DH_FORMS = ("ring", "element")  # the "dh" kernels' forms (csrc/flash_attention_dh.cu)
+DH_STAGES = 4  # the ring's stages, at most
+DH_SMEM_MAX = 232448 - 1024  # dynamic shared memory a CTA may take (227 KB a block)
+DH_SM_SMEM = 233472  # shared memory an SM (228 KB)
+DH_CTA_RESERVE = 1024 + 256  # the runtime's 1 KB a CTA and the kernels' static barriers
+# the resident CTAs an SM each kernel is built for (its __launch_bounds__
+# minimum): dh_logits' columns form at 8 or 4 elements a thread ("logits"),
+# its forms at 16 and the heads form ("logits_wide"), dh_softmax_pv
+DH_CTAS_PER_SM = {"logits": 3, "logits_wide": 2, "softmax_pv": 2}
+_DH_LDP = KEY_TILE + 4  # floats a row of the kernels' logits and output tiles
+_DH_LDR = 2 * KEY_TILE + 4  # floats a row of dh_softmax_pv's weights (a round of two tiles)
 
 
-def dh_head_group(hkv: int, rows: int, dl: int, kernel: str) -> int:
-    """The kv heads a CTA of a "dh" kernel (``"logits"`` or
-    ``"softmax_pv"``) stages together, ``rows`` query rows each, as the
-    kernel's source chooses them (``blaze_dh_head_group``: a tile at most
-    ``DH_MAX_D`` floats wide, its shared memory within budget).  Raises
-    where a single kv head does not fit."""
-    hg = _dh_kernel("blaze_dh_head_group")(int(kernel == "softmax_pv"), hkv, rows, dl)
-    if hg < 1:
-        raise ValueError(f"dh_{kernel}: {rows} query rows a kv head at d_head slice {dl} "
+class DhPlan(NamedTuple):
+    """How a "dh" kernel is launched at one shape (:func:`dh_plan`)."""
+
+    form: str  # "ring" (bulk copies) or "element" (a load an element)
+    hg: int  # kv heads a CTA stages together
+    groups: int  # head groups: ceil(Hkv / hg)
+    stages: int  # the ring's stages (1 in the element form)
+    smem: int  # dynamic shared memory a CTA, bytes
+    ctas_per_sm: int  # the CTAs an SM at that memory, up to DH_CTAS_PER_SM
+    ctas: int  # the grid's CTAs
+    splits: int  # dh_softmax_pv: CTAs a (batch row, head group); dh_logits: 1
+    per: int  # items (dh_logits) or live key tiles (dh_softmax_pv) a CTA
+    t_lo: int  # the key tiles the CTAs walk: [t_lo, t_hi)
+    t_hi: int
+
+
+def _a4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def dh_smem_bytes(kernel: str, hg: int, rpk: int, dl: int, es: int, stages: int) -> int:
+    """The dynamic shared memory of a CTA of ``dh_logits`` (``kernel`` =
+    ``"logits"``) or ``dh_softmax_pv`` (``"softmax_pv"``) staging ``hg`` kv
+    heads of ``rpk`` query rows each at slice width ``dl``, elements of
+    ``es`` bytes, in ``stages`` stages: the formula of the kernels' source
+    (``blaze_dh_smem_bytes``, held equal on the card)."""
+    rows, w = hg * rpk, hg * dl
+    if kernel == "logits":  # the ring, the staged queries, two output tiles
+        words = stages * 16 * w * es + _a4(hg * ((dl * rpk) | 1)) + 2 * rows * _DH_LDP
+    else:  # the ring (v and logits rows), two weight tiles, acc and the rows' state
+        words = (stages * (16 * w * es + _DH_LDP * rows) + 2 * rows * _DH_LDR
+                 + _a4(rows * dl) + _a4(2 * rows) + 8 * _a4(rows))
+    return 4 * words
+
+
+def dh_merge_splits(hg: int, rpk: int, dl: int, es: int, stages: int) -> int:
+    """The most splits whose partials (``m, l, acc[dl]`` a row, counted
+    as ``dl + 3`` words) ``dh_softmax_pv``'s last CTA stages in its ring
+    (the kernels' ``merge_splits``)."""
+    rows = hg * rpk
+    ring = stages * (16 * hg * dl * es + _DH_LDP * rows)
+    return max(1, (ring - 4) // (rows * (dl + 3)))
+
+
+def dh_ctas_target(kernel: str, dl: int, rpk: int) -> int:
+    """The resident CTAs an SM the kernel's form at slice width ``dl`` and
+    ``rpk`` query rows a kv head is built for (the columns form takes at
+    most 2 rows a head)."""
+    if kernel == "logits" and (_dh_elems(dl) in (16, 0) or rpk > 2):
+        return DH_CTAS_PER_SM["logits_wide"]
+    return DH_CTAS_PER_SM[kernel]
+
+
+def dh_ctas_fit(nbytes: int) -> int:
+    """The CTAs of ``nbytes`` of dynamic shared memory that fit an SM."""
+    return DH_SM_SMEM // (nbytes + DH_CTA_RESERVE) if nbytes <= DH_SMEM_MAX else 0
+
+
+def _dh_fit(kernel: str, hkv: int, rpk: int, dl: int, es: int,
+            ring: bool) -> tuple[int, int, int, int] | None:
+    """``(hg, stages, bytes, CTAs an SM)``: the most kv heads, up to
+    ``hkv`` and ``DH_MAX_D`` elements wide (in the ring form, 16-byte runs),
+    whose CTA fits; for them the most stages (2 to ``DH_STAGES`` in the ring
+    form) that keep ``DH_CTAS_PER_SM`` CTAs an SM, else the most that fit
+    one."""
+    depths = range(DH_STAGES, 1, -1) if ring else (1,)
+    want = dh_ctas_target(kernel, dl, rpk)
+    for hg in range(min(hkv, DH_MAX_D // dl), 0, -1):
+        if ring and hg * dl * es % 16:
+            continue
+        sizes = [(st, dh_smem_bytes(kernel, hg, rpk, dl, es, st)) for st in depths]
+        for need in (want, 1):
+            fits = [(st, nb) for st, nb in sizes if dh_ctas_fit(nb) >= need]
+            if fits:
+                st, nb = fits[0]
+                return hg, st, nb, min(want, dh_ctas_fit(nb))
+    return None
+
+
+@functools.lru_cache(maxsize=1024)
+def dh_plan(kernel: str, batch: int, hq: int, hkv: int, sq: int, dl: int, es: int,
+            ring: bool, sm_count: int, t_lo: int, t_hi: int) -> DhPlan:
+    """The launch of ``dh_logits`` (``kernel`` = ``"logits"``, key tiles
+    ``[0, t_hi)``, every one) or ``dh_softmax_pv`` (``"softmax_pv"``, the
+    live tiles ``[t_lo, t_hi)`` of :func:`key_tiles`) at this shape, ``es``
+    bytes an element, on a card of ``sm_count`` SMs; computed once a shape.
+
+    The head group and the ring's depth from :func:`_dh_fit` (the element
+    form where ``ring`` is False or no group fits as a ring); then a grid
+    that fills the SMs once at that many CTAs an SM: ``dh_logits``' CTAs
+    each walk ``per`` consecutive (batch row, head group, key tile) items,
+    ``dh_softmax_pv``'s ``splits`` CTAs a (batch row, head group) each
+    ``per`` consecutive live tiles, none empty, and no more splits than the
+    merge stages in the ring (:func:`dh_merge_splits`).  Raises where a
+    single kv head does not fit."""
+    rpk = hq // hkv * sq
+    fit = _dh_fit(kernel, hkv, rpk, dl, es, True) if ring else None
+    form = "ring" if fit else "element"
+    fit = fit or _dh_fit(kernel, hkv, rpk, dl, es, False)
+    if fit is None:
+        raise ValueError(f"dh_{kernel}: {rpk} query rows a kv head at d_head slice {dl} "
                          "exceed the kernel's shared memory")
-    return hg
+    hg, stages, smem, per_sm = fit
+    groups = -(-hkv // hg)
+    target = per_sm * sm_count
+    if kernel == "logits":
+        items = batch * groups * t_hi
+        ctas = min(items, target)
+        per = -(-items // ctas)
+        return DhPlan(form, hg, groups, stages, smem, per_sm, -(-items // per), 1, per, 0, t_hi)
+    n = t_hi - t_lo
+    cap = dh_merge_splits(hg, rpk, dl, es, stages)
+    splits = max(1, min(n, cap, -(-target // (batch * groups)))) if n > 0 else 1
+    per = -(-n // splits) if n > 0 else 1
+    splits = -(-n // per) if n > 0 else 1
+    return DhPlan(form, hg, groups, stages, smem, per_sm, splits * batch * groups, splits, per,
+                  t_lo, t_hi)
 
 
-def dh_splits(batch: int, groups: int, n_tiles: int, sm_count: int) -> tuple[int, int]:
-    """``(splits, tiles per split)`` for :func:`dh_softmax_pv`: enough splits
-    that its ``batch·groups·splits`` CTAs give each SM ``DH_CTAS_PER_SM``,
-    each split at least one tile and none empty (``(1, 1)`` with no tile)."""
-    if n_tiles <= 0:
-        return 1, 1
-    splits = max(1, min(n_tiles, -(-DH_CTAS_PER_SM * sm_count // (batch * groups))))
-    per = -(-n_tiles // splits)
-    return -(-n_tiles // per), per
-
-
-def _dh_vec(x: torch.Tensor, hg: int) -> bool:
-    """Whether the "dh" kernels may read ``x [B, H, S, Dl]`` 16 bytes a load:
-    a key's ``Dl`` elements of consecutive heads contiguous (the cache's own
-    layout) and every group's run of them 16-byte aligned."""
+def _dh_ring(x: torch.Tensor) -> bool:
+    """Whether bulk copies can take ``x [B, H, S, Dl]``'s key rows: a key's
+    ``Dl`` elements of consecutive heads contiguous (the cache's own layout)
+    and every run 16-byte aligned (a head group's run is checked by
+    :func:`dh_plan`)."""
     (nb, nh, ns, dl), (sb, sh, ss, sd), es = x.shape, x.stride(), x.element_size()
     if (dl > 1 and sd != 1) or (nh > 1 and sh != dl):
         return False
-    if (min(hg, nh) * dl * es) % 16 or (nh * dl * es) % 16 or x.data_ptr() % 16:
+    if (nh * dl * es) % 16 or x.data_ptr() % 16:
         return False
     return all(st * es % 16 == 0 for st, n in ((sb, nb), (ss, ns)) if n > 1)
+
+
+def _dh_elems(dl: int) -> int:
+    """The elements of a head's ``dl`` a thread of ``dh_logits``' columns
+    form takes a key: the most of 16, 8 and 4 that divide ``dl`` into a
+    power of two of columns; 0 (the heads form) where none does."""
+    return next((e for e in (16, 8, 4) if dl % e == 0 and (dl // e) & (dl // e - 1) == 0), 0)
+
+
+def _dh_strides(x: torch.Tensor) -> tuple[int, ...]:
+    """``x``'s strides in elements, 0 along a dimension of size 1 (the
+    kernels never step along one)."""
+    return tuple(st if n > 1 else 0 for n, st in zip(x.shape, x.stride()))
+
+
+_DH_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _dh_tickets(dev: int, n: int) -> torch.Tensor:
+    """``dh_softmax_pv``'s ``n`` split counters on CUDA device ``dev``: a
+    buffer per (device, stream), zeroed once when first asked for (each call
+    leaves its counters 0 again), so that two calls in flight at once on two
+    streams never share one."""
+    key = (dev, _build.raw_stream(dev))
+    buf = _DH_TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _DH_TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                             device=torch.device("cuda", dev))
+    return buf
 
 
 def _dh_check(name: str, x: torch.Tensor, y: torch.Tensor, xname: str, yname: str) -> None:
@@ -310,11 +447,14 @@ def _dh_kernel(symbol: str) -> ctypes._CFuncPtr:
     """A C entry point of ``csrc/flash_attention_dh.cu``, built, loaded and
     typed once per process."""
     ll, i32, ptr, f32 = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    return _build.entry("flash_attention_dh", symbol, {
-        "blaze_dh_logits": [ptr] * 3 + [ll] * 8 + [i32] * 9 + [f32, ptr],
-        "blaze_dh_softmax_pv": [ptr] * 4 + [ll] * 8 + [i32] * 13 + [f32] + [i32] * 4 + [ptr],
-        "blaze_dh_head_group": [i32] * 4,
+    fn = _build.entry("flash_attention_dh", symbol, {
+        "blaze_dh_logits": [ptr] * 3 + [ll] * 8 + [i32] * 11 + [ll, i32, f32, ptr],
+        "blaze_dh_softmax_pv": [ptr] * 5 + [ll] * 9 + [i32] * 14 + [f32] + [i32] * 4 + [ptr],
+        "blaze_dh_smem_bytes": [i32] * 6,
     }[symbol])
+    if symbol == "blaze_dh_smem_bytes":
+        fn.restype = ll
+    return fn
 
 
 def dh_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -326,7 +466,10 @@ def dh_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     ``q`` and ``k`` are f32 or bf16 alike, read through their strides (a
     cache's ``[B, S, Hkv, Dl]`` buffer seen as ``[B, Hkv, S, Dl]``, or a
     window's view of it, with no copy).  On CPU tensors the plain version
-    runs; on a CUDA device the kernel ``dh_logits_kernel``."""
+    runs; on a CUDA device the kernel ``dh_logits_kernel``, one launch, in
+    the ring form where bulk copies can take ``k`` (:func:`_dh_ring`), else
+    the element form; counted in ``dh_logits.launches`` and
+    ``dh_logits.forms``."""
     _dh_check("dh_logits", q, k, "q", "k")
     if q.shape[3] != k.shape[3]:
         raise ValueError(f"dh_logits: q {tuple(q.shape)} and k {tuple(k.shape)} hold "
@@ -341,13 +484,30 @@ def dh_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     out = torch.empty((b, hq, sq, skv), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out  # a 0-block grid is a launch error
-    hg = dh_head_group(hkv, hq // hkv * sq, dl, "logits")
-    args = (q.data_ptr(), k.data_ptr(), out.data_ptr(), *q.stride(), *k.stride(),
-            b, hq, hkv, sq, skv, dl, hg, int(_dh_vec(k, hg)),
-            int(q.dtype == torch.bfloat16), float(scale))
-    _launch(_dh_kernel("blaze_dh_logits"), args, q.device.index, "dh_logits")
+    dev, es = q.device.index, k.element_size()
+    plan = dh_plan("logits", b, hq, hkv, sq, dl, es, _dh_ring(k), _build.sm_count(dev), 0,
+                   -(-skv // KEY_TILE))
+    args = (q.data_ptr(), k.data_ptr(), out.data_ptr(), *_dh_strides(q), *_dh_strides(k),
+            b, hq, hkv, sq, skv, dl, plan.hg, int(plan.form == "ring"), plan.stages,
+            _dh_elems(dl), plan.ctas, plan.per, int(q.dtype == torch.bfloat16),
+            float(scale))
+    _launch(_dh_kernel("blaze_dh_logits"), args, dev, "dh_logits")
     dh_logits.launches += 1
+    dh_logits.forms[plan.form] += 1
     return out
+
+
+def _dh_pv_plan(logits: torch.Tensor, v: torch.Tensor, off: int, causal: bool,
+                window: int | None, sm_count: int) -> DhPlan:
+    """:func:`dh_plan` for ``dh_softmax_pv`` at these tensors: the ring form
+    where bulk copies can take ``v`` and the logits rows (contiguous along
+    the keys, 16-byte aligned data)."""
+    b, hq, sq, skv = logits.shape
+    t_lo, t_hi = key_tiles(sq, skv, off, causal, window)
+    ring = (_dh_ring(v) and (skv == 1 or logits.stride(3) == 1)
+            and logits.data_ptr() % 16 == 0)
+    return dh_plan("softmax_pv", b, hq, v.shape[1], sq, v.shape[3], v.element_size(), ring,
+                   sm_count, t_lo, max(t_lo, t_hi))
 
 
 def dh_softmax_pv(logits: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -361,8 +521,12 @@ def dh_softmax_pv(logits: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     zeros.  ``v`` is read through its strides.
 
     On CPU tensors the plain version runs; on a CUDA device the kernel
-    ``dh_pv_split_kernel``, split over the live key tiles
-    (:func:`dh_splits`), then ``dh_pv_combine_kernel``."""
+    ``dh_softmax_pv_kernel``, one launch: split over the live key tiles
+    (:func:`dh_plan`), the splits merged by the group's last CTA
+    (:func:`dh_softmax_pv_tiled` is the same arithmetic in plain PyTorch);
+    in the ring form where bulk copies can take ``v`` and the logits, else
+    the element form; counted in ``dh_softmax_pv.launches`` and
+    ``dh_softmax_pv.forms``."""
     _dh_check("dh_softmax_pv", logits, v, "logits", "v")
     if logits.dtype != torch.float32 or logits.shape[3] != v.shape[2]:
         raise TypeError(f"dh_softmax_pv: need f32 logits [B, Hq, Sq, Skv] over v's Skv, "
@@ -378,19 +542,83 @@ def dh_softmax_pv(logits: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     out = torch.empty((b, hq, sq, dl), dtype=v.dtype, device=v.device)
     if out.numel() == 0:
         return out
-    hg = dh_head_group(hkv, hq // hkv * sq, dl, "softmax_pv")
-    t_lo, t_hi = key_tiles(sq, skv, off, causal, window)
-    splits, per = dh_splits(b, -(-hkv // hg), t_hi - t_lo, _build.sm_count(v.device.index))
-    ws = torch.empty(splits * b * hq * sq * (dl + 2), dtype=torch.float32, device=v.device)
-    args = (logits.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            *logits.stride(), *v.stride(), b, hq, hkv, sq, skv, dl, hg,
-            int(_dh_vec(v, hg)), int(v.dtype == torch.bfloat16), int(causal),
-            int(window is not None), window or 0, off, float(softcap),
-            t_lo, max(t_lo, t_hi), splits, per)
-    _launch(_dh_kernel("blaze_dh_softmax_pv"), args, v.device.index, "dh_softmax_pv")
+    dev = v.device.index
+    plan = _dh_pv_plan(logits, v, off, causal, window, _build.sm_count(dev))
+    ws = tickets = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.ctas * plan.hg * (hq // hkv) * sq * (dl + 2),
+                         dtype=torch.float32, device=v.device)
+        tickets = _dh_tickets(dev, b * plan.groups)
+    extent = 1 + sum((n - 1) * st for n, st in zip(logits.shape, logits.stride()))
+    args = (logits.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            tickets.data_ptr() if tickets is not None else None,
+            *_dh_strides(logits), extent, *_dh_strides(v), b, hq, hkv, sq, skv, dl, plan.hg,
+            int(plan.form == "ring"), plan.stages, int(v.dtype == torch.bfloat16),
+            int(causal), int(window is not None), window or 0, off, float(softcap),
+            plan.t_lo, plan.t_hi, plan.splits, plan.per)
+    _launch(_dh_kernel("blaze_dh_softmax_pv"), args, dev, "dh_softmax_pv")
     dh_softmax_pv.launches += 1
+    dh_softmax_pv.forms[plan.form] += 1
     return out
 
 
+def dh_softmax_pv_tiled(logits: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, softcap: float = 0.0,
+                        q_offset: int | None = None, sm_count: int = 132) -> torch.Tensor:
+    """``dh_softmax_pv``'s arithmetic in plain PyTorch (f32), for the tests
+    and the smoke: the live key tiles cut into the plan's splits
+    (:func:`dh_plan` on a card of ``sm_count`` SMs), each split's tiles
+    taken in order by the online softmax (softcapped, masked logits at
+    -inf; running max from -1e30, sum and accumulators rescaled a tile at a
+    time), then the splits merged in split order: ``M = max m``, ``out = Σ
+    e^{m−M} acc / max(Σ e^{m−M} l, 1e-30)``, in ``v``'s dtype."""
+    b, hq, sq, skv = logits.shape
+    hkv, dl = v.shape[1], v.shape[3]
+    off = skv - sq if q_offset is None else int(q_offset)
+    plan = _dh_pv_plan(logits, v, off, causal, window, sm_count)
+    n_tiles = max(1, plan.t_hi)
+    s = logits.float()
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=s.device)[:, None] + off
+    key = torch.arange(skv, device=s.device)
+    live = torch.ones((sq, skv), dtype=torch.bool, device=s.device)
+    if causal:
+        live &= key[None, :] <= qpos
+    if window is not None:
+        live &= key[None, :] > qpos - window
+    pad = n_tiles * KEY_TILE - skv  # keys past the end: masked, v zero
+    s = torch.nn.functional.pad(s.masked_fill(~live, -math.inf), (0, pad), value=-math.inf)
+    s = s.view(b, hq, sq, n_tiles, KEY_TILE)
+    vv = torch.nn.functional.pad(v.float().repeat_interleave(hq // hkv, 1), (0, 0, 0, pad))
+    vv = vv.view(b, hq, n_tiles, KEY_TILE, dl)
+    splits = torch.arange(plan.splits, device=s.device)
+    m = s.new_full((plan.splits, b, hq, sq), NEG_INF)
+    l = torch.zeros_like(m)
+    acc = s.new_zeros((plan.splits, b, hq, sq, dl))
+    for i in range(plan.per):
+        t = plan.t_lo + splits * plan.per + i
+        ok = t < plan.t_hi  # a split's run may end before its per-th tile
+        tc = t.clamp(max=n_tiles - 1)
+        st = s[:, :, :, tc].permute(3, 0, 1, 2, 4)                       # [S, B, Hq, Sq, 64]
+        st = st.masked_fill(~ok[:, None, None, None, None], -math.inf)
+        vt = vv[:, :, tc].permute(2, 0, 1, 3, 4)                         # [S, B, Hq, 64, Dl]
+        m_new = torch.maximum(m, st.amax(-1))
+        p = torch.exp(st - m_new[..., None])
+        c = torch.exp(m - m_new)
+        l = l * c + p.sum(-1)
+        acc = acc * c[..., None] + torch.einsum("sbhqk,sbhkd->sbhqd", p, vt)
+        m = m_new
+    w = torch.exp(m - m.amax(0))
+    total, num = torch.zeros_like(l[0]), torch.zeros_like(acc[0])
+    for sp in range(plan.splits):  # in split order
+        total = total + w[sp] * l[sp]
+        num = num + w[sp][..., None] * acc[sp]
+    return (num / total.clamp_min(1e-30)[..., None]).to(v.dtype)
+
+
 dh_logits.launches = 0  # kernel launches since the caller last reset it
-dh_softmax_pv.launches = 0  # the same (each launches a split and a combine kernel)
+dh_logits.forms = dict.fromkeys(DH_FORMS, 0)  # the same, by form
+dh_softmax_pv.launches = 0  # the same (one launch a call, the merge inside it)
+dh_softmax_pv.forms = dict.fromkeys(DH_FORMS, 0)

@@ -455,15 +455,119 @@ def test_dh_kernels_refuse_what_they_do_not_take(dev):
     (8, 2, 16, "softmax_pv", 8),
     (24, 1, 4, "softmax_pv", 24),   # musicgen-medium: 24 MHA heads, 64 -> 4
     (8, 6, 8, "softmax_pv", 8),     # mixtral-8x22b: 48 / 8 heads, 128 -> 8
-    (4, 96, 8, "softmax_pv", 3),    # starcoder2-like rep 12 at 8 positions: shared memory
+    (4, 96, 8, "softmax_pv", 1),    # starcoder2-like rep 12 at 8 positions: shared memory
     (2, 1, 128, "logits", 1),       # a whole 128-wide slice a head
 ])
 def test_dh_head_groups_fit_the_shared_memory_budget(dev, hkv, rows, dl, kernel, want):
+    """The plan's head group (bf16, the ring form) at these shapes, and its
+    shared memory as the kernels' source counts it (``blaze_dh_smem_bytes``)
+    for every depth; a kv head of 1000 rows fits neither form."""
     from repro_torch.kernels import flash_attention as FA
 
-    assert FA.dh_head_group(hkv, rows, dl, kernel) == want
+    plan = FA.dh_plan(kernel, 1, hkv * rows, hkv, 1, dl, 2, True, sm_count(0), 0, 8)
+    assert (plan.hg, plan.form) == (want, "ring")
+    smem = FA._dh_kernel("blaze_dh_smem_bytes")
+    for es in (2, 4):
+        for stages in range(1, FA.DH_STAGES + 1):
+            assert smem(int(kernel == "softmax_pv"), plan.hg, rows, dl, es, stages) == \
+                FA.dh_smem_bytes(kernel, plan.hg, rows, dl, es, stages)
     with pytest.raises(ValueError, match="shared memory"):
-        FA.dh_head_group(1, 1000, 32, kernel)
+        FA.dh_plan(kernel, 1, 1000, 1, 1, 32, 2, True, sm_count(0), 0, 8)
+
+
+@pytest.mark.parametrize("case", DH_CASES)
+def test_dh_kernels_take_the_ring_form_on_the_cache_layout(dev, case):
+    """Bulk copies take the cache's layout where a key's heads are a 16-byte
+    run (every "cache" case but the 3-wide slice); the "heads" and "slice"
+    layouts take the element form.  Each call one launch, of its form."""
+    from repro_torch.kernels import flash_attention as FA
+
+    b, hq, hkv, sq, rows, start, dl, layout, window, cap, off = case
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn((b, sq, hq, dl), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    k = _dh_tensor(g, case, dev, torch.bfloat16)
+    want = "ring" if layout == "cache" and hkv * dl * 2 % 16 == 0 else "element"
+    for fn, args, kw in ((FA.dh_logits, (q, k, 0.3), {}),
+                         (FA.dh_softmax_pv, (torch.randn((b, hq, sq, k.shape[2]),
+                                                         device=dev), k),
+                          dict(causal=True, window=window, softcap=cap, q_offset=off))):
+        before, forms = fn.launches, dict(fn.forms)
+        fn(*args, **kw)
+        assert fn.launches == before + 1
+        assert {f: fn.forms[f] - forms[f] for f in forms} == {
+            f: int(f == want) for f in FA.DH_FORMS}
+
+
+def _dh_cache_pair(dev, b, seed=5):
+    """q, k, v and the f32 logits of a gemma2-9b decode_32k rank's slice
+    (16 query heads over 8 kv heads of 16, bf16) over 2048 cached keys."""
+    from repro_torch.kernels import flash_attention as FA
+
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.randn((b, 1, 16, 16), generator=g) * 3).to(dev, torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((b, 2048, 8, 16), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    return q, k, v, FA.dh_logits(q, k, 0.25)
+
+
+def test_dh_kernels_repeat_their_bits(dev):
+    """Two calls of each kernel give the same bits: the split merge runs in
+    split order whichever CTA of a group ends last (32 splits here)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v, logits = _dh_cache_pair(dev, 2)
+    kw = dict(causal=True, window=None, softcap=50.0, q_offset=2047)
+    assert FA._dh_pv_plan(logits, v, 2047, True, None, sm_count(0)).splits > 1
+    assert torch.equal(FA.dh_logits(q, k, 0.25), logits)
+    first = FA.dh_softmax_pv(logits, v, **kw)
+    for _ in range(3):
+        assert torch.equal(FA.dh_softmax_pv(logits, v, **kw), first)
+
+
+def test_dh_pair_replays_in_a_cuda_graph_bit_for_bit(dev):
+    """``dh_logits`` and ``dh_softmax_pv`` captured in one CUDA graph and
+    replayed twice equal the eager calls bit for bit; the outputs are wiped
+    before the second replay, so it shows the split counters reset
+    themselves (a counter left over would leave no CTA last, and nothing
+    written)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v, logits = _dh_cache_pair(dev, 2, seed=6)
+    kw = dict(causal=True, window=1024, softcap=50.0, q_offset=2047)
+    want = FA.dh_softmax_pv(logits, v, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up on the capturing stream
+        FA.dh_softmax_pv(FA.dh_logits(q, k, 0.25), v, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got_logits = FA.dh_logits(q, k, 0.25)
+        got = FA.dh_softmax_pv(got_logits, v, **kw)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got_logits, logits) and torch.equal(got, want)
+        got_logits.fill_(float("nan"))
+        got.fill_(float("nan"))
+
+
+def test_dh_softmax_pv_merges_many_groups_at_once(dev):
+    """Batch 64: 64 (batch row, head group) pairs × 5 splits, more CTAs than
+    one wave, so many groups' last CTAs merge at once; held to the plain
+    version within ``test_dh_kernels_match_plain_versions``' tolerance."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import attention_from_logits
+
+    q, k, v, logits = _dh_cache_pair(dev, 64, seed=7)
+    kw = dict(causal=True, window=None, softcap=50.0, q_offset=2047)
+    plan = FA._dh_pv_plan(logits, v, 2047, True, None, sm_count(0))
+    assert plan.ctas > plan.ctas_per_sm * sm_count(0) and plan.splits > 1
+    got = FA.dh_softmax_pv(logits, v, **kw)
+    ref = attention_from_logits(logits, v, torch.bfloat16, **kw)
+    tol = 3e-5 + 2.0 ** -7 * ref.float().abs()
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
