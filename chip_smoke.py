@@ -15,7 +15,9 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    warmed up, median of 10; for every kernel at its main path's shapes
    also the kernel's own device time from ``torch.profiler``, which leaves
    out the host's launch overhead that the event time of a decode-sized
-   call includes, for
+   call includes (for K4, where the profiler records too few of the
+   kernel's launches, one call's time among 10 replayed from one captured
+   CUDA graph instead, marked ``device_ms_by``), for
    K4 SDPA's device time beside its event time, and for K3 also a call's
    time among 10 enqueued back to back, which needs no profiler); K4's
    ``"dh"`` form (``Smoke.dh_phase``) at rank 0's local shapes of the
@@ -32,7 +34,10 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    rwkv6-1.6b: batch 8, a 512-token prompt, 32 greedy steps, K4 on every
    attention call, K5 on every Mamba-2 layer, K6 on every RWKV-6 layer;
    then mixtral-8x22b and grok-1-314b at full width, cut in depth, and
-   qwen2-vl-2b and musicgen-medium on embeddings: below), each model freed
+   qwen2-vl-2b and musicgen-medium on embeddings: below; every decode step
+   one replay of the captured step, ``serve_lm.DecodeGraph``, the
+   counterpart of the reference's ``jax.jit(decode_step)``, its K4/K5/K6
+   launches counted through the replays), each model freed
    before the next, then wordcount, PageRank,
    k-means, π, GMM and kNN through ``BlazeSession(device="cuda")`` with
    ``engine="pallas"``, and fig. 6's hand-fused k-means through
@@ -357,6 +362,37 @@ one forward at distinct ``(t, h, w)`` triples (a 16 × 16 image, then text)
 against the plain path's, whose logits must move further from the text
 positions' than that error.
 
+Every LM path above (and the examples phase's serve_lm) decodes through the
+captured step, with no NCCL group up (the shard phase's ``generate`` runs
+eager: its group is up).  Its launches and forms are counted where they
+happen (``lm_launches``): the wrappers count the prefill's calls and the
+step's warm-up and capture, and the decode graph's replays
+(``serve_lm.stats``) count the captured step's launches once a replay;
+each is held to its exact count, and the path's launches (the kernels
+line's ``launches``, ``launches_by`` its two parts) are their sum.  A
+replay's profile must show each K4/K5/K6 kernel the step captured as
+many times a replay.  Each path adds two checks: its
+logits against an eager run (``capture=False``) of the same model and
+inputs within the path's tolerance (``LM_LOGIT_TOL``, ``LM_F32_TOL`` in f32,
+``EXAMPLE_LM_TOL``), each row up to its first differing token, a token
+differing only at the eager run's near-tie (``held_to_eager``: K4's decode
+form sizes its split from the cache in the graph and from the offset
+eagerly, and mixtral's window run reads the whole cache there and the
+window's view eagerly, so bits may differ); and two replays of one step
+from the same snapshot of the caches must give the same bits
+(``graph_step``, which also times a replay: event ms and the card's busy
+ms beside the eager step's).  The MoE paths record routes on an eager run
+(a replay calls no Python) and hold the captured run to it; in mixtral's
+window run the captured step's K4 calls (warm-up and capture) must see the
+whole 4625-row cache with the offset on the device.  K4's decode form with
+that offset (``kernel_attention_at``) is held to ``attention_ref`` and to
+``flash_decode_plain`` on the same offset within ``attention_tolerance``
+at the qwen3, zamba2, mixtral window and gemma2 local decode shapes over
+the whole cache, at the path's last offset and at offsets whose live tiles
+are fewer than the static grid's splits (the kernel spreads the live tiles
+over the splits it has); at qwen3's heads over a 32768-row cache, an early
+offset's device ms is printed beside the host offset's.
+
 The train phase holds each kernel's forward at its training shape to the
 bounds above against the plain version, and its gradients, from one
 upstream gradient, to the plain route's (the plain version under
@@ -660,6 +696,12 @@ CHECK_ONLY_SHAPES = tuple(f"{kernel}@{shape}" for kernel in ("dh_logits", "dh_so
 DH_LIBRARY_TOL = 1e-4
 K5_KERNELS = ("ssd_step_kernel", "ssd_chunk_kernel")  # K5's decode and prefill forms
 K6_KERNELS = ("rwkv6_step_kernel", "rwkv6_chunk_kernel")  # K6's decode and prefill forms
+# The kernels one call of each form a decode step takes launches (by
+# core.program.launch_counts' names): a captured step's replay must show them.
+STEP_KERNELS = {"flash_attention/f32": ("flash_kernel",),
+                "flash_attention/bf16-decode": ("flash_decode_kernel", "flash_combine_kernel"),
+                "ssd_scan/decode": ("ssd_step_kernel",),
+                "rwkv6_scan/decode": ("rwkv6_step_kernel",)}
 LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5,
                 "mixtral-8x22b": 0.25, "grok-1-314b": 0.25, "qwen2-vl-2b": 0.25,
                 "musicgen-medium": 0.35}
@@ -1380,17 +1422,43 @@ class Smoke:
         end.synchronize()
         return start.elapsed_time(end) / REPS
 
+    def graph_replay_ms(self, fn) -> float:
+        """One call's time among REPS calls captured in one CUDA graph and
+        replayed between two CUDA events, after a warm-up call on a side
+        stream: the host's launch overhead drops out, as in the profiler's
+        device time, for a call whose launches the profiler did not record."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        self.sync()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(REPS):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
+        return start.elapsed_time(end) / REPS
+
     def device_busy_ms(self, fn, names=(), expect=None) -> dict | None:
         """Mean device time of one call, for each kernel named in ``names``
         and all others together (``torch.profiler``, kernel and copy
         intervals on the card, over REPS calls after one warm-up); the event
         time less their total is time the card waits on the host; ``events``
         counts the named kernels' launches the profiler recorded.  With
-        ``expect`` (the named launches one call makes), a profile that did
-        not record REPS times that many is partial: it keeps only its
-        ``events`` and ``expected`` counts and a ``total`` of None, so no
-        undercounted time is reported.  None where the profiler records no
-        device activity."""
+        ``expect`` (the named launches one call makes; or a dict of each
+        name's, every name not in it 0), a profile that did not record REPS
+        times that many is partial: it keeps only its ``events`` and
+        ``expected`` counts and a ``total`` of None, so no undercounted time
+        is reported.  None where the profiler records no device activity."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -1402,19 +1470,27 @@ class Smoke:
                 fn()
             self.sync()
         busy: dict[str, float] = {}
-        events = 0
+        by_name = dict.fromkeys(names, 0)
         for evt in prof.events():
             if evt.device_type != DeviceType.CUDA:
                 continue
             name = next((k for k in names if k in evt.name), "other")
-            events += name != "other"
+            if name != "other":
+                by_name[name] += 1
             busy[name] = busy.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / REPS
         if not busy:
             return None
-        if expect is not None and events != expect * REPS:
+        events = sum(by_name.values())
+        if isinstance(expect, dict):
+            events = {k: n for k, n in by_name.items() if n}
+            expect = {k: n for k, n in expect.items() if n}
+            want = {k: n * REPS for k, n in expect.items()}
+        else:
+            want = None if expect is None else expect * REPS
+        if expect is not None and events != want:
             print(json.dumps({"partial_profile": list(names), "events": events,
-                              "expected": expect * REPS}), flush=True)
-            return {"total": None, "events": events, "expected": expect * REPS}
+                              "expected": want}), flush=True)
+            return {"total": None, "events": events, "expected": want}
         busy["total"] = sum(busy.values())
         busy["events"] = events
         return busy
@@ -2058,21 +2134,132 @@ class Smoke:
         peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = flops / peak * 1e3
+
+        def call():
+            return flash_attention(q, k, v, q_offset=q_offset, **kw)
+
+        busy = self.device_busy_ms(call, names=K4_KERNELS,
+                                   expect=2 if form == "bf16-decode" else 1)
+        device_ms, device_ms_by = busy and busy["total"], "profiler"
+        if device_ms is None:  # the profiler recorded too few launches
+            device_ms, device_ms_by = self.graph_replay_ms(call), "graph replay"
         self.record(
             key, kernel="flash_attention", form=form, splits=splits,
             shape=[list(q.shape), list(k.shape), str(q.dtype).split(".")[-1]],
             q_offset=q_offset, window=window, softcap=softcap, max_abs_err=err,
-            max_tol=float(tol.max()),
-            ms=self.time_ms(lambda: flash_attention(q, k, v, q_offset=q_offset, **kw)),
-            device_ms=(busy := self.device_busy_ms(
-                lambda: flash_attention(q, k, v, q_offset=q_offset, **kw),
-                names=K4_KERNELS, expect=2 if form == "bf16-decode" else 1)) and busy["total"],
+            max_tol=float(tol.max()), ms=self.time_ms(call),
+            device_ms=device_ms, device_ms_by=device_ms_by,
             plain_ms=self.time_ms(lambda: attention_ref(q, k, v, q_offset=q_offset, **kw)),
             library_ms=library_ms, library_device_ms=library_device_ms,
             bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
             peak_ops_per_s=peak,
         )
+
+    def kernel_attention_at(self, key, q, k, v, offsets, *, window=None, softcap=0.0,
+                            timed=False):
+        """K4's decode form with the offset read from device memory (one
+        0-d int32 tensor, refilled for each offset) at a decode shape of the
+        captured path, over the whole cache: at each offset held against
+        ``attention_ref`` and ``flash_decode_plain`` (on the same device
+        offset, the static split) within ``attention_tolerance``, which a zero
+        output must fail; the grid is static and each offset's live tiles
+        spread over it, so where they are fewer than the splits the last
+        splits are empty.  With ``timed``, each offset's device ms beside
+        the host offset's (the split sized from the live tiles).  The first
+        offset (the path's last step) is recorded with its times and bound,
+        as ``kernel_attention`` records a row; with ``key`` None nothing is
+        recorded and the offsets' checks are returned."""
+        torch = self.torch
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels.ref import attention_ref
+
+        flash_attention = FA.flash_attention
+        kw = dict(causal=True, window=window, softcap=softcap)
+        b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        splits, _ = FA.decode_splits(b, hkv, FA.static_tiles(sq, skv, window),
+                                     _build.sm_count(q.device.index))
+        at = torch.zeros((), dtype=torch.int32, device=self.dev)
+        checks = []
+        for off in offsets:
+            at.fill_(off)
+            before = dict(flash_attention.forms)
+            got = flash_attention(q, k, v, q_offset=at, **kw)
+            if flash_attention.forms["bf16-decode"] != before["bf16-decode"] + 1:
+                raise AssertionError(f"{key}: the call did not take the decode form")
+            want = attention_ref(q, k, v, q_offset=off, **kw)
+            kpos = torch.arange(skv, device=self.dev)[None, :]
+            qpos = torch.arange(sq, device=self.dev)[:, None] + off
+            live = kpos <= qpos
+            if window is not None:
+                live &= kpos > qpos - window
+            n_keys = live.sum(1)
+            tol = attention_tolerance(q, k, v, want, n_keys[None, None, :, None].double(),
+                                      q_offset=off, **kw)
+            plain = FA.flash_decode_plain(q, k, v, splits=splits, q_offset=at, **kw)
+            self.sync()
+            errs = {}
+            for what, other in (("attention_ref", want), ("flash_decode_plain", plain)):
+                err = (got.float() - other.float()).abs()
+                errs[what] = float(err.max())
+                if not bool((err <= tol).all()) or bool(got.isnan().any()):
+                    raise AssertionError(f"{key} at offset {off}: max abs error {errs[what]} "
+                                         f"against {what} over tolerance")
+            if bool(((torch.zeros_like(got).float() - want.float()).abs() <= tol).all()):
+                raise AssertionError(f"{key} at offset {off}: a zero output passed the check")
+            t_lo, t_hi = FA.key_tiles(sq, skv, off, True, window)
+            live_per = max(1, -(-(t_hi - t_lo) // splits))  # the kernel's, from the offset
+            checks.append({"q_offset": off, "live_tiles": t_hi - t_lo,
+                           "splits": splits, "tiles_per_split": live_per,
+                           "empty_splits": sum(i * live_per >= t_hi - t_lo
+                                               for i in range(splits)),
+                           "max_abs_err": errs["attention_ref"],
+                           "vs_plain": errs["flash_decode_plain"]})
+            if timed:
+                for what, o in (("device_ms", at), ("host_offset_device_ms", off)):
+                    busy = self.device_busy_ms(
+                        lambda o=o: flash_attention(q, k, v, q_offset=o, **kw),
+                        names=K4_KERNELS, expect=2)
+                    checks[-1][what] = busy and busy["total"]
+        if key is None:
+            return checks
+        off = offsets[0]
+        at.fill_(off)
+        qpos = torch.arange(sq, device=self.dev)[:, None] + off
+        kpos = torch.arange(skv, device=self.dev)[None, :]
+        live = kpos <= qpos
+        if window is not None:
+            live &= kpos > qpos - window
+        library_ms = library_device_ms = None
+        if softcap == 0.0:
+            import torch.nn.functional as F
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=live, enable_gqa=True)
+
+            library_ms = self.time_ms(sdpa)
+            library_device_ms = (busy := self.device_busy_ms(sdpa, names=())) and busy["total"]
+        seen = int(live.any(0).sum())
+        nbytes = (2 * q.numel() + 2 * b * hkv * seen * d) * q.element_size()
+        flops = 4 * b * hq * int(live.sum()) * d
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / BF16_OPS_PER_S * 1e3
+        self.record(
+            key, kernel="flash_attention", form="bf16-decode", offset="device",
+            splits=splits, shape=[list(q.shape), list(k.shape), str(q.dtype).split(".")[-1]],
+            q_offset=off, window=window, softcap=softcap,
+            max_abs_err=max(c["max_abs_err"] for c in checks), offsets=checks,
+            ms=self.time_ms(lambda: flash_attention(q, k, v, q_offset=at, **kw)),
+            device_ms=(busy := self.device_busy_ms(
+                lambda: flash_attention(q, k, v, q_offset=at, **kw),
+                names=K4_KERNELS, expect=2)) and busy["total"],
+            plain_ms=self.time_ms(lambda: attention_ref(q, k, v, q_offset=off, **kw)),
+            library_ms=library_ms, library_device_ms=library_device_ms,
+            bound_ms=max(bound_bytes, bound_ops),
+            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+            peak_ops_per_s=BF16_OPS_PER_S)
 
     def attention_phase(self):
         """K4 at the LM path's shapes: qwen3-0.6b's prefill (q ``[8, 16, 512,
@@ -2089,7 +2276,11 @@ class Smoke:
         grok-1-314b's (mixtral's shapes, no window); qwen2-vl-2b's (q ``[8,
         12, 512, 128]`` over ``[8, 545, 2, 128]``, then one query at offset
         543); musicgen-medium's (q ``[8, 24, 512, 64]`` over ``[8, 545, 24,
-        64]``, then one query at offset 543)."""
+        64]``, then one query at offset 543).  The decode form with its offset
+        on the device (``kernel_attention_at``) at the captured path's qwen3,
+        zamba2, mixtral window run and gemma2 local decode shapes, over the
+        whole cache; and at qwen3's heads over a 32768-row cache (batch 8 and
+        1, offsets 4095 and 32767), its device ms beside the host offset's."""
         torch = self.torch
         g = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -2105,6 +2296,21 @@ class Smoke:
         q = randn(8, 1, 16, 128, dtype=bf16).transpose(1, 2)
         self.kernel_attention("flash_attention@qwen3-decode", q, ck.transpose(1, 2),
                               cv.transpose(1, 2), q_offset=543)
+        self.kernel_attention_at("flash_attention@qwen3-decode-at", q, ck.transpose(1, 2),
+                                 cv.transpose(1, 2), (543, 100, 0))
+        # qwen3's heads over a 32768-row cache, at an early offset (64 live
+        # tiles of the grid's 512) and the last: the device offset's time
+        # beside the host offset's, at batch 8 and 1
+        del ck, cv
+        for b in (8, 1):
+            ck = randn(b, 32768, 8, 128, dtype=bf16)
+            cv = randn(b, 32768, 8, 128, dtype=bf16)
+            q = randn(b, 1, 16, 128, dtype=bf16).transpose(1, 2)
+            self.record(f"flash_attention@qwen3-decode-at 32k cache b{b}",
+                        offsets=self.kernel_attention_at(
+                            None, q, ck.transpose(1, 2), cv.transpose(1, 2), (4095, 32767),
+                            timed=True))
+            del ck, cv, q
         # zamba2-7b's shared attention: 32 heads of 112 (MHA) over its cache
         ck = randn(8, 545, 32, 112, dtype=bf16)
         cv = randn(8, 545, 32, 112, dtype=bf16)
@@ -2114,6 +2320,8 @@ class Smoke:
         q = randn(8, 1, 32, 112, dtype=bf16).transpose(1, 2)
         self.kernel_attention("flash_attention@zamba2-decode", q, ck.transpose(1, 2),
                               cv.transpose(1, 2), q_offset=543)
+        self.kernel_attention_at("flash_attention@zamba2-decode-at", q, ck.transpose(1, 2),
+                                 cv.transpose(1, 2), (543, 64))
         del ck, cv, q
         for dtype in (torch.float32, bf16):
             q = randn(1, 16, 2048, 256, dtype=dtype)
@@ -2124,6 +2332,9 @@ class Smoke:
                                   q_offset=0, window=1024, softcap=50.0)
         self.kernel_attention("flash_attention@gemma2-local-decode bf16", q[:, :, -1:],
                               k, v, q_offset=2047, window=1024, softcap=50.0)
+        self.kernel_attention_at("flash_attention@gemma2-local-decode-at bf16",
+                                 q[:, :, -1:], k, v, (2047, 1100, 500), window=1024,
+                                 softcap=50.0)
         del q, k, v
         # mixtral-8x22b: 48 query heads over 8 kv heads of 128, window 4096
         ck = randn(8, 545, 8, 128, dtype=bf16)
@@ -2166,6 +2377,10 @@ class Smoke:
                               ck[:, start:start + 4097].transpose(1, 2),
                               cv[:, start:start + 4097].transpose(1, 2), q_offset=4096,
                               window=4096)
+        # the captured step's call: the whole cache, the offset on the device
+        self.kernel_attention_at("flash_attention@mixtral-window-decode-at", q,
+                                 ck.transpose(1, 2), cv.transpose(1, 2),
+                                 (plen + steps - 1, 4200, 1000), window=4096)
         # musicgen-medium: 24 MHA heads of 64
         ck = randn(8, 545, 24, 64, dtype=bf16)
         cv = randn(8, 545, 24, 64, dtype=bf16)
@@ -2581,21 +2796,32 @@ class Smoke:
 
     def zero_launch_counts(self):
         """Every wrapper's launch count to 0, K2's rounds and the counts by
-        form too."""
+        form too, and the LM decode graphs' captures and replays."""
+        from repro_torch.launch import serve_lm
+
         wrappers = self.kernel_wrappers()
         for fn_ in wrappers.values():
             fn_.launches = 0
         wrappers["hash_aggregate"].rounds.reset()
         for name in FORMED:
             wrappers[name].forms = dict.fromkeys(wrappers[name].forms, 0)
+        serve_lm.stats.reset()
 
     def read_launch_counts(self) -> dict:
-        """Every wrapper's launch count, K2's rounds and the counts by form."""
+        """Every wrapper's launch count, K2's rounds and the counts by form;
+        under ``decode_graph`` the LM decode graphs' captures, replays and
+        the launches those replays made (``serve_lm.stats``: no wrapper runs
+        in a replay, so the wrappers do not count them)."""
+        from repro_torch.launch import serve_lm
+
         wrappers = self.kernel_wrappers()
         launches = {name: fn_.launches for name, fn_ in wrappers.items()}
         launches["hash_aggregate rounds"] = int(wrappers["hash_aggregate"].rounds)
         for name in FORMED:
             launches[f"{name} forms"] = dict(wrappers[name].forms)
+        st = serve_lm.stats
+        launches["decode_graph"] = {"captures": st.captures, "replays": st.replays,
+                                    "replay_launches": dict(st.replay_launches)}
         return launches
 
     def drive(self, name, fn, units):
@@ -4873,6 +5099,7 @@ class Smoke:
         torch = self.torch
         import numpy as np
         from repro_torch.configs.base import MAMBA2, RWKV6, get_arch
+        from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
 
         t_phase = time.perf_counter()
@@ -5011,22 +5238,14 @@ class Smoke:
         # logits against the CPU run (EXAMPLE_LM_TOL)
         mod, res, cpu, launch = drive("serve_lm")
         steps = mod.GEN
-        want = {"flash_attention": 0, "ssd_scan": 0, "rwkv6_scan": 0}
-        forms = {"flash_attention": {"f32": 0, "bf16-prefill": 0, "bf16-decode": 0},
-                 "ssd_scan": {"decode": 0, "prefill": 0},
-                 "rwkv6_scan": {"decode": 0, "prefill": 0}}
+        layers = {"flash_attention": 0, "ssd_scan": 0, "rwkv6_scan": 0}
         lm = {}
         for arch in mod.ARCHS:
             kinds = M.layer_kinds(get_arch(arch).reduced())
             n_ssm, n_rwkv = kinds.count(MAMBA2), kinds.count(RWKV6)
-            n_attn = len(kinds) - n_ssm - n_rwkv
-            want["flash_attention"] += n_attn * (1 + steps)
-            want["ssd_scan"] += n_ssm * (1 + steps)
-            want["rwkv6_scan"] += n_rwkv * (1 + steps)
-            forms["flash_attention"]["f32"] += n_attn * (1 + steps)  # reduced: f32
-            for kernel, n in (("ssd_scan", n_ssm), ("rwkv6_scan", n_rwkv)):
-                forms[kernel]["prefill"] += n
-                forms[kernel]["decode"] += n * steps
+            layers["flash_attention"] += len(kinds) - n_ssm - n_rwkv
+            layers["ssd_scan"] += n_ssm
+            layers["rwkv6_scan"] += n_rwkv
             tol = EXAMPLE_LM_TOL[arch]
             a, b = res[arch], cpu[arch]
             if not torch.equal(a["prompts"], b["prompts"]):
@@ -5051,11 +5270,22 @@ class Smoke:
             lm[arch] = {"logit_err": worst, "tol": tol, "logits_compared": compared,
                         "first_token_differences": first_diff, "decode_s": a["seconds"],
                         "tok_per_s": ta.numel() / a["seconds"]}
-        if self.dev.type == "cuda":
-            got = {k: launch[k] for k in want}
-            got_forms = {k: launch[f"{k} forms"] for k in forms}
-            if got != want or got_forms != forms:
-                fail("serve_lm", f"launches {got} {got_forms}, not {want} {forms}")
+        if self.dev.type == "cuda":  # reduced configs: K4's f32 form
+            out["serve_lm"]["counted"] = self.lm_launches(
+                "examples serve_lm", launch, layers, steps, models=len(mod.ARCHS), f32=True)
+        # its steps were replays of the captured step: each arch against an
+        # eager run on the card, and two replays of one step
+        for arch in mod.ARCHS:
+            c = get_arch(arch).reduced()
+            p = M.map_tree(lambda t: t.to(self.dev), M.init(torch.Generator().manual_seed(0), c))
+            prompts = res[arch]["prompts"].to(self.dev)
+            etoks, _, elogits = generate(c, p, prompts, mod.MAX_LEN, steps, return_logits=True,
+                                         capture=False)
+            got = (res[arch]["tokens"].to(self.dev), res[arch]["logits"].to(self.dev))
+            lm[arch]["captured_vs_eager"] = self.held_to_eager(
+                f"examples serve_lm {arch}", got, (etoks, elogits), EXAMPLE_LM_TOL[arch])
+            lm[arch].update(self.graph_step(p, c, prompts, etoks[:, -1:], steps, timed=False))
+            del p
         out["serve_lm"]["results"] = lm
 
         # K4's f32 form at train_lm's attention shape (a micro-batch of 4
@@ -5783,8 +6013,8 @@ class Smoke:
                                     generator=torch.Generator(device=dev).manual_seed(2))
             self.sync()
             t0 = time.perf_counter()
-            with torch.no_grad():
-                want_toks, _ = generate(cfg, params, prompts, max_len, gen)
+            with torch.no_grad():  # eager: no capture while an NCCL group is up
+                want_toks, _ = generate(cfg, params, prompts, max_len, gen, capture=False)
             self.sync()
             plain_serve_s = time.perf_counter() - t0
             sp = convert.distribute(params, SH.param_pspecs(cfg, params, mi, serving=True), mesh)
@@ -6017,10 +6247,14 @@ class Smoke:
         ``arch`` at full width and depth in bf16 (random weights from seed
         0): batch 8, a 512-token prompt, 32 greedy decode steps, K4 on every
         attention call, K5 on every Mamba-2 layer and K6 on every RWKV-6
-        layer, in the prefill and in every step.  Held against the same
+        layer, in the prefill and in every step; every step one replay of
+        the captured step (``serve_lm.DecodeGraph``; the launches counted
+        through the replays).  Held against the same
         model and weights on the plain path (``attn_impl="ref"``,
         ``scan_impl="chunked"``) teacher-forced along the same tokens, and
-        against the teacher-forced ``forward`` (module docstring)."""
+        against the teacher-forced ``forward`` (module docstring); against an
+        eager run (``capture=False``, ``held_to_eager``); two replays of one
+        step from the same caches must give the same bits (``graph_step``)."""
         torch = self.torch
         from repro_torch.configs.base import MAMBA2, RWKV6, get_arch
         from repro_torch.launch.serve_lm import generate
@@ -6038,34 +6272,14 @@ class Smoke:
             f"lm {arch}", lambda: generate(cfg, params, prompts, max_len, steps,
                                            return_logits=True), b * steps)
         self.path_launches[f"lm {arch}"] = launch
+        # K4 on every attention call, K5 on every Mamba-2 layer, K6 on every
+        # RWKV-6 layer, in the prefill and in every step (each replay's
+        # launches those of the captured step)
         kinds = M.layer_kinds(cfg)
         n_ssm, n_rwkv = kinds.count(MAMBA2), kinds.count(RWKV6)
-        expect = {"flash_attention": (len(kinds) - n_ssm - n_rwkv) * (1 + steps),
-                  "ssd_scan": n_ssm * (1 + steps), "rwkv6_scan": n_rwkv * (1 + steps)}
-        for kernel, count in expect.items():
-            if launch[kernel] != count:
-                raise AssertionError(f"lm {arch}: {kernel} launched {launch[kernel]} "
-                                     f"times, not {count}")
-        # Every bf16 K4 call: the prefill form in the prefill, the decode
-        # form in every step.
-        n_attn = expect["flash_attention"] // (1 + steps)
-        forms = {"f32": 0, "bf16-prefill": n_attn, "bf16-decode": n_attn * steps}
-        if launch["flash_attention forms"] != forms:
-            raise AssertionError(f"lm {arch}: K4 forms {launch['flash_attention forms']}, "
-                                 f"not {forms}")
-        # Every K5 call: the prefill form in the prefill, the decode form in
-        # every step.
-        n_ssd = expect["ssd_scan"] // (1 + steps)
-        ssd_forms = {"decode": n_ssd * steps, "prefill": n_ssd}
-        if launch["ssd_scan forms"] != ssd_forms:
-            raise AssertionError(f"lm {arch}: K5 forms {launch['ssd_scan forms']}, "
-                                 f"not {ssd_forms}")
-        # Every K6 call likewise.
-        n_rwkv6 = expect["rwkv6_scan"] // (1 + steps)
-        rwkv6_forms = {"decode": n_rwkv6 * steps, "prefill": n_rwkv6}
-        if launch["rwkv6_scan forms"] != rwkv6_forms:
-            raise AssertionError(f"lm {arch}: K6 forms {launch['rwkv6_scan forms']}, "
-                                 f"not {rwkv6_forms}")
+        counted = self.lm_launches(f"lm {arch}", launch, {
+            "flash_attention": len(kinds) - n_ssm - n_rwkv, "ssd_scan": n_ssm,
+            "rwkv6_scan": n_rwkv}, steps)
         if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
             raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
 
@@ -6110,6 +6324,10 @@ class Smoke:
             raise AssertionError(f"lm {arch}: in f32, a decided greedy token differs "
                                  "from the plain path")
         del ref, fwd, seq
+        etoks, eager_s, elogits = generate(cfg, params, prompts, max_len, steps,
+                                           return_logits=True, capture=False)
+        eager = self.held_to_eager(f"lm {arch}", (toks, logits), (etoks, elogits), tol)
+        del etoks, elogits
 
         caches = M.make_caches(cfg, b, max_len, self.dev)
         prefill_ms = self.time_ms(lambda: M.prefill(params, cfg, prompts, caches))
@@ -6120,6 +6338,7 @@ class Smoke:
         step_busy = self.device_busy_ms(
             lambda: M.decode_step(params, cfg, tok, caches, max_len - 1),
             names=(*K4_KERNELS, *K5_KERNELS, *K6_KERNELS))
+        graph = self.graph_step(params, cfg, prompts, tok, steps)
         # The vocab head: bf16 operands, f32 result (logits_fn) against the
         # naive f32 upcast of both operands.
         last = hidden[:, -1]
@@ -6148,7 +6367,9 @@ class Smoke:
             "batch": b, "prompt": plen, "steps": steps,
             "prefill_ms": prefill_ms,
             "decode_ms_per_step": decode_s / steps * 1e3,
+            "eager_decode_ms_per_step": eager_s / steps * 1e3,
             "decode_step_event_ms": step_ms, "decode_step_device_ms": step_busy,
+            **graph, "captured_vs_eager": eager,
             "head_ms": head_ms, "head_f32_upcast_ms": upcast_ms,
             "tok_per_s": b * steps / decode_s,
             "kv_cache_bytes": kv_bytes, "state_cache_bytes": state_bytes,
@@ -6159,10 +6380,7 @@ class Smoke:
             "logit_std": float(logits.std()),
             "near_tie_rows": int(near.any(1).sum()),
             "token_differences": int(differ.sum()),
-            "launches": {k: launch[k] for k in expect},
-            "k4_forms": launch["flash_attention forms"],
-            "k5_forms": launch["ssd_scan forms"],
-            "k6_forms": launch["rwkv6_scan forms"],
+            "launches": counted,
         }
 
     def lm_f32_check(self, arch):
@@ -6175,7 +6393,9 @@ class Smoke:
         decode path (a state carried wrong, a conv tail or shift row off by
         one) shows here far above rounding, and greedy tokens must be the
         plain path's argmax wherever its top-2 logits lie more than
-        ``2·LM_F32_TOL`` apart."""
+        ``2·LM_F32_TOL`` apart.  The run decodes through the captured step,
+        held to an eager run within ``LM_F32_TOL``; two replays of one step
+        must give the same bits."""
         torch = self.torch
         import dataclasses
         from repro_torch.configs.base import get_arch
@@ -6190,6 +6410,10 @@ class Smoke:
         prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
         toks, _, logits = generate(cfg, params, prompts, plen + steps + 1, steps,
                                    return_logits=True)
+        eager = self.held_to_eager(f"lm {arch} f32", (toks, logits), generate(
+            cfg, params, prompts, plen + steps + 1, steps, return_logits=True,
+            capture=False)[::2], LM_F32_TOL[arch])
+        graph = self.graph_step(params, cfg, prompts, toks[:, -1:], steps, timed=False)
         ref = self.teacher_forced(params, cfg, prompts, toks, plen + steps + 1,
                                   attn_impl="ref", scan_impl="chunked")
         hidden, _, _ = M.forward(params, cfg, torch.cat([prompts, toks], 1))
@@ -6200,23 +6424,65 @@ class Smoke:
                "f32_decode_vs_forward": float((logits - fwd).abs().max()),
                "f32_decided_tokens": int(decided.sum()),
                "f32_decided_token_differences": int(
-                   ((ref[:, :steps].argmax(-1) != toks) & decided).sum())}
+                   ((ref[:, :steps].argmax(-1) != toks) & decided).sum()),
+               "f32_captured_vs_eager_err": eager["captured_vs_eager_err"],
+               "f32_replay_bit_equal": graph["replay_bit_equal"]}
         del params, hidden, ref, fwd
         torch.cuda.empty_cache()
         return res
 
     # -- MoE and the embedding-input models ----------------------------------
 
-    def expect_k4(self, name, launch, n_attn, steps, prefills=1):
-        """K4 on every attention call and nothing else: ``n_attn`` calls a
-        prefill (the bf16 prefill form) and a step (the decode form)."""
-        want = {"flash_attention": n_attn * (prefills + steps), "ssd_scan": 0,
-                "rwkv6_scan": 0}
-        got = {k: launch[k] for k in want}
-        forms = {"f32": 0, "bf16-prefill": n_attn * prefills, "bf16-decode": n_attn * steps}
-        if got != want or launch["flash_attention forms"] != forms:
-            raise AssertionError(f"{name}: launches {got} forms "
-                                 f"{launch['flash_attention forms']}, not {want} {forms}")
+    def lm_launches(self, name, launch, layers, steps, *, captured=True, models=1,
+                    f32=False):
+        """Hold an LM run's launches (``drive``'s ``launch``) to what its
+        ``steps`` decode steps a model must make, and return them.
+        ``layers`` maps K4, K5 and K6 to their calls in one pass over the
+        layers (the prefill, or one step), summed over the ``models`` the
+        run serves.  A captured run's wrappers count three passes a model
+        (the prefill, the step's warm-up and its capture: each wrapper counts
+        where it launches, and a replay calls none), its decode graph
+        ``steps`` replays and their launches the ``steps`` other passes
+        (``launch["decode_graph"]``); an eager run's wrappers count all ``1 +
+        steps`` and it captures nothing.  K4 takes its f32 form throughout
+        with ``f32``, else its bf16 prefill form in the prefill and its
+        decode form in every step; K5 and K6 their prefill and decode forms.
+        The result's ``path`` is each kernel's launches on the path, by form
+        too: the wrappers' plus the decode graph replays'."""
+        graphs = launch["decode_graph"]
+        dec = 2 if captured else steps  # the decode passes the wrappers count
+        want_graphs = (models, models * steps) if captured else (0, 0)
+        n = {k: layers.get(k, 0) for k in ("flash_attention", "ssd_scan", "rwkv6_scan")}
+        wrappers = {k: c * (1 + dec) for k, c in n.items()}
+        k4 = n["flash_attention"]
+        forms = {"flash_attention": ({"f32": k4 * (1 + dec), "bf16-prefill": 0,
+                                      "bf16-decode": 0} if f32 else
+                                     {"f32": 0, "bf16-prefill": k4, "bf16-decode": k4 * dec}),
+                 **{k: {"decode": n[k] * dec, "prefill": n[k]}
+                    for k in ("ssd_scan", "rwkv6_scan")}}
+        decode_form = {"flash_attention": "f32" if f32 else "bf16-decode",
+                       "ssd_scan": "decode", "rwkv6_scan": "decode"}
+        replays = {}
+        if captured:
+            for k, c in n.items():
+                if c:
+                    replays[k] = replays[f"{k}/{decode_form[k]}"] = c * steps
+        got = {k: launch[k] for k in wrappers}
+        got_forms = {k: launch[f"{k} forms"] for k in forms}
+        got_graphs = (graphs["captures"], graphs["replays"])
+        if (got, got_forms, got_graphs, graphs["replay_launches"]) != (
+                wrappers, forms, want_graphs, replays):
+            raise AssertionError(
+                f"{name}: wrappers {got} {got_forms}, decode graph captures and replays "
+                f"{got_graphs} launching {graphs['replay_launches']}; want {wrappers} "
+                f"{forms}, {want_graphs} launching {replays}")
+        path = {k: got[k] + replays.get(k, 0) for k in got}
+        path_forms = {k: {f: c + replays.get(f"{k}/{f}", 0) for f, c in fs.items()}
+                      for k, fs in got_forms.items()}
+        return {"path": path, "path_forms": path_forms, "wrappers": got,
+                "wrapper_forms": got_forms, "decode_graph_captures": got_graphs[0],
+                "decode_graph_replays": got_graphs[1], "replay_launches": replays,
+                "counted_as": "wrappers + decode graph replays"}
 
     def teacher_forced(self, params, cfg, first, rest, max_len, **kw):
         """Prefill ``first`` (tokens ``[B, P]`` or embeds ``[B, P, d]``), then
@@ -6230,6 +6496,105 @@ class Smoke:
             out.append(M.decode_step(params, cfg, rest[:, i:i + 1], caches,
                                      first.shape[1] + i, **kw)[0])
         return self.torch.stack(out, 1)
+
+    def held_to_eager(self, name, got, want, tol):
+        """A run through the captured step (``got``: tokens ``[B, n]`` or
+        None for embedding inputs, logits ``[B, n + 1, V]``) against an eager
+        run of the same model and inputs (``want``): the decode form's splits
+        come from the cache in one and from the offset in the other, so bits
+        may differ.  Each row's logits up to its first differing token (they
+        follow the same tokens) within ``tol``; a token may differ only where
+        the eager run's top-2 logits lie within ``2·tol``."""
+        (ta, la), (tb, lb) = got, want
+        if la.shape != lb.shape or not bool(self.torch.isfinite(la).all()):
+            raise AssertionError(f"{name}: captured logits {tuple(la.shape)} against "
+                                 f"{tuple(lb.shape)}, or not finite")
+        worst, compared, first = 0.0, 0, []
+        for row in range(la.shape[0]):
+            n_same = la.shape[1] - 1
+            if ta is not None:
+                diff = (ta[row] != tb[row]).nonzero()
+                n_same = int(diff[0]) if len(diff) else ta.shape[1]
+            worst = max(worst, float((la[row, :n_same + 1] - lb[row, :n_same + 1])
+                                     .abs().max()))
+            compared += min(n_same + 1, la.shape[1])
+            if ta is not None and n_same < ta.shape[1]:
+                top2 = self.torch.topk(lb[row, n_same], 2).values
+                if float(top2[0] - top2[1]) > 2 * tol:
+                    raise AssertionError(f"{name} row {row}: captured token {n_same} "
+                                         "differs from the eager run's, which was decided")
+                first.append(n_same)
+        res = {"captured_vs_eager_err": worst, "captured_vs_eager_bit_equal": bool(
+            self.torch.equal(la, lb)), "logits_compared": compared,
+            "first_token_differences": first, "tol": tol}
+        print(json.dumps({"lm_check": name, "pair": "captured_vs_eager", **res}), flush=True)
+        if worst > tol:
+            raise AssertionError(f"{name}: captured logits off the eager run's by {worst}, "
+                                 f"tolerance {tol}")
+        return res
+
+    def graph_step(self, params, cfg, first, step_in, steps, timed=True):
+        """The captured decode step (``serve_lm.DecodeGraph``) after a
+        prefill of ``first``, at the run's last position (as the eager
+        step's timing): two replays from the same snapshot of the caches must
+        give the same bits; with ``timed``, a replay's event ms and the card's
+        busy ms (each replay after a ``seek`` back to that position), the
+        profile holding each K4/K5/K6 kernel the captured step launches as
+        many times a replay as it was captured (``STEP_KERNELS``; asked twice
+        before it fails, as a profile may miss launches)."""
+        torch = self.torch
+        from repro_torch.launch.serve_lm import DecodeGraph
+        from repro_torch.models import model as M
+
+        b, plen = first.shape[:2]
+        max_len = plen + steps + 1
+        caches = M.make_caches(cfg, b, max_len, self.dev)
+        M.prefill(params, cfg, first, caches)
+        pos = max_len - 1
+        self.sync()
+        t0 = time.perf_counter()
+        graph = DecodeGraph(cfg, params, caches, step_in, pos,
+                            capture=self.dev.type == "cuda")
+        self.sync()
+        res = {"capture_s": time.perf_counter() - t0}
+        live = [t for c in caches for t in c]
+        snap = [t.clone() for t in live]
+        once = graph.step(step_in).clone()
+        for t, u in zip(live, snap):
+            t.copy_(u)
+        graph.seek(pos)
+        if not torch.equal(graph.step(step_in), once):
+            raise AssertionError(f"{cfg.name}: two replays of one decode step from the same "
+                                 "caches differ")
+        res["replay_bit_equal"] = True
+        del snap, once
+        if timed:
+            def replay():
+                graph.seek(pos)
+                return graph.step(step_in)
+
+            res["captured_step_event_ms"] = self.time_ms(replay)
+            expect = {}
+            for form, n in graph.captured_launches.items():
+                for name in STEP_KERNELS.get(form, ()):
+                    expect[name] = expect.get(name, 0) + n
+            if not expect:
+                raise AssertionError(f"{cfg.name}: the captured step launched no kernel: "
+                                     f"{graph.captured_launches}")
+            for _ in range(2):
+                busy = self.device_busy_ms(replay, names=(*K4_KERNELS, *K5_KERNELS,
+                                                          *K6_KERNELS), expect=expect)
+                if busy is not None and busy["total"] is not None:
+                    break
+            else:
+                raise AssertionError(f"{cfg.name}: a replay's profile shows the kernels "
+                                     f"{busy and busy['events']}, not the captured step's "
+                                     f"{expect} a replay")
+            res["captured_step_device_ms"] = busy
+            res["captured_launches"] = graph.captured_launches
+        del graph, caches, live
+        torch.cuda.empty_cache()
+        return res
 
     @staticmethod
     def masked_err(got, want, rows):
@@ -6354,7 +6719,8 @@ class Smoke:
         experts compute every expert each step) but an untied embedding
         table, of which a step gathers ``B`` rows (none when a frontend feeds
         the embeddings), and the cached K/V rows of the run's mean step
-        (``first``: the prompt, then ``steps`` steps)."""
+        (``first``: the prompt, then ``steps`` steps); and the captured
+        step's (``graph_step``)."""
         from repro_torch.models import model as M
 
         b, plen = first.shape[:2]
@@ -6368,6 +6734,7 @@ class Smoke:
         res["decode_step_event_ms"] = self.time_ms(step)
         res["decode_step_device_ms"] = self.device_busy_ms(step, names=K4_KERNELS)
         res.update(self.block_shares(params, cfg, step))
+        res.update(self.graph_step(params, cfg, first, step_in, steps))
         nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
         kv = sum(nbytes(c.k) + nbytes(c.v) for c in caches)
         kv_read = kv / max_len * sum(plen + i + 1 for i in range(steps)) / steps
@@ -6450,9 +6817,11 @@ class Smoke:
         """An MoE model (module docstring) at full width and ``MOE_LAYERS``
         layers in bf16 (random weights from seed 0): ``generate`` for batch
         8, 512-token prompts, 32 greedy steps, K4 on every attention call,
-        routes recorded on every MoE call, held by ``moe_checks``; then
-        timed without the recording; mixtral also takes the window run;
-        then the f32 check."""
+        routes recorded on every MoE call of an eager run (``capture=False``:
+        a replay calls no Python), held by ``moe_checks``; then the main
+        path's run through the captured step, its launches counted through
+        the replays, held to the eager run (``held_to_eager``); mixtral also
+        takes the window run; then the f32 check."""
         torch = self.torch
         from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
@@ -6466,13 +6835,21 @@ class Smoke:
         params = M.init(g, cfg)
         prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
         with RouteLog() as rk:
-            (toks, _, logits), _, launch = self.drive(
-                f"lm {arch}", lambda: generate(cfg, params, prompts, max_len, steps,
-                                               return_logits=True), b * steps)
+            (toks, eager_s, logits), _, launch = self.drive(
+                f"lm {arch} eager", lambda: generate(cfg, params, prompts, max_len, steps,
+                                                     return_logits=True, capture=False),
+                b * steps)
+        self.lm_launches(f"lm {arch} eager", launch, {"flash_attention": n}, steps,
+                         captured=False)
+        (ctoks, decode_s, clogits), _, launch = self.drive(
+            f"lm {arch}", lambda: generate(cfg, params, prompts, max_len, steps,
+                                           return_logits=True), b * steps)
         self.path_launches[f"lm {arch}"] = launch
-        self.expect_k4(f"lm {arch}", launch, n, steps)
+        counted = self.lm_launches(f"lm {arch}", launch, {"flash_attention": n}, steps)
         if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
             raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
+        eager = self.held_to_eager(f"lm {arch}", (ctoks, clogits), (toks, logits), tol)
+        del ctoks, clogits
         kept = torch.stack([t["kept"] for t in rk.trace(n)[0]])  # [L, B, T, k]
         res = {"arch": cfg.name, "layers": n, **self.param_counts(params, cfg),
                "batch": b, "prompt": plen, "steps": steps,
@@ -6480,10 +6857,9 @@ class Smoke:
                                  "steps": float((~kept[:, :, plen:]).float().mean())},
                **self.moe_checks(f"lm {arch}", params, cfg, prompts, toks, logits, rk, tol),
                "logit_tol": tol, "logit_std": float(logits.std()),
-               "launches": launch["flash_attention"],
-               "k4_forms": launch["flash_attention forms"]}
-        _, decode_s = generate(cfg, params, prompts, max_len, steps)
-        res.update(decode_ms_per_step=decode_s / steps * 1e3, tok_per_s=b * steps / decode_s)
+               "launches": counted, "captured_vs_eager": eager}
+        res.update(decode_ms_per_step=decode_s / steps * 1e3, tok_per_s=b * steps / decode_s,
+                   eager_decode_ms_per_step=eager_s / steps * 1e3)
         res.update(self.lm_timings(params, cfg, prompts, toks[:, -1:], steps))
         if arch == "mixtral-8x22b":
             res["window_run"] = self.lm_window_run(params, cfg)
@@ -6497,7 +6873,10 @@ class Smoke:
         window masked in the prefill), 16 greedy steps, each reading the
         last ``window + 1`` cache rows through ``attn_apply``'s view: every
         decode call of K4 must see ``window + 1`` keys at offset ``window``.
-        Held by ``moe_checks``."""
+        Held by ``moe_checks``.  That run is eager (its routes recorded); the
+        main path's run decodes through the captured step, whose K4 calls
+        (the warm-up's and the capture's) must see the whole cache with the
+        offset on the device, held to the eager run (``held_to_eager``)."""
         torch = self.torch
         from repro_torch.kernels import ops
         from repro_torch.launch.serve_lm import generate
@@ -6511,34 +6890,55 @@ class Smoke:
         seen, kernel = [], ops._flash_kernel
 
         def shapes(q, k, v, **kw):
-            seen.append((q.shape[2], k.shape[2], kw["q_offset"], kw["window"]))
+            off = kw["q_offset"]
+            seen.append((q.shape[2], k.shape[2],
+                         "device" if isinstance(off, torch.Tensor) else off, kw["window"]))
             return kernel(q, k, v, **kw)
 
         ops._flash_kernel = shapes
         try:
             with RouteLog() as rk:
-                (toks, decode_s, logits), _, launch = self.drive(
-                    "lm mixtral window", lambda: generate(cfg, params, prompts, max_len,
-                                                          steps, return_logits=True),
-                    b * steps)
+                (toks, eager_s, logits), _, launch = self.drive(
+                    "lm mixtral window eager", lambda: generate(
+                        cfg, params, prompts, max_len, steps, return_logits=True,
+                        capture=False), b * steps)
+            self.lm_launches("lm mixtral window eager", launch, {"flash_attention": n},
+                             steps, captured=False)
+            want = [(plen, max_len, 0, w)] * n + [(1, w + 1, w, w)] * (n * steps)
+            if seen != want:
+                raise AssertionError(f"window run: K4 calls saw (Sq, Skv, q_offset, window) "
+                                     f"{sorted(set(seen))}, not {sorted(set(want))}")
+            seen.clear()
+            (ctoks, decode_s, clogits), _, launch = self.drive(
+                "lm mixtral window", lambda: generate(cfg, params, prompts, max_len,
+                                                      steps, return_logits=True),
+                b * steps)
         finally:
             ops._flash_kernel = kernel
         self.path_launches["lm mixtral window"] = launch
-        self.expect_k4("lm mixtral window", launch, n, steps)
-        want = [(plen, max_len, 0, w)] * n + [(1, w + 1, w, w)] * (n * steps)
+        counted = self.lm_launches("lm mixtral window", launch, {"flash_attention": n}, steps)
+        # the prefill, then the warm-up's and the capture's calls of the step
+        want = [(plen, max_len, 0, w)] * n + [(1, max_len, "device", w)] * (2 * n)
         if seen != want:
-            raise AssertionError(f"window run: K4 calls saw (Sq, Skv, q_offset, window) "
-                                 f"{sorted(set(seen))}, not {sorted(set(want))}")
+            raise AssertionError(f"window run, captured: K4 calls saw (Sq, Skv, q_offset, "
+                                 f"window) {sorted(set(seen), key=str)}, not "
+                                 f"{sorted(set(want), key=str)}")
+        eager = self.held_to_eager("lm mixtral window", (ctoks, clogits), (toks, logits),
+                                   LM_LOGIT_TOL[cfg.name])
+        del ctoks, clogits
         res = self.moe_checks("lm mixtral window", params, cfg, prompts, toks, logits, rk,
                               LM_LOGIT_TOL[cfg.name])
         caches = M.make_caches(cfg, b, max_len, self.dev)
         res.update(
             batch=b, prompt=plen, steps=steps, k4_calls=len(seen), decode_keys=w + 1,
-            decode_ms_per_step=decode_s / steps * 1e3, launches=launch["flash_attention"],
+            decode_ms_per_step=decode_s / steps * 1e3,
+            eager_decode_ms_per_step=eager_s / steps * 1e3,
+            launches=counted, captured_vs_eager=eager,
             prefill_ms=self.time_ms(lambda: M.prefill(params, cfg, prompts, caches)),
             decode_step_event_ms=self.time_ms(lambda: M.decode_step(
                 params, cfg, toks[:, -1:], caches, max_len - 1)))
         del caches
+        res.update(self.graph_step(params, cfg, prompts, toks[:, -1:], steps))
         torch.cuda.empty_cache()
         return res
 
@@ -6548,7 +6948,10 @@ class Smoke:
         batch 1, a 4608-token prompt, 8 steps: the window view), held by
         ``moe_checks`` (no step-local check) within ``LM_F32_TOL`` where the
         routes leave the logits clean; f32 rounding leaves far fewer
-        near-ties than bf16's, and at least half the logits must be clean."""
+        near-ties than bf16's, and at least half the logits must be clean.
+        Those runs are eager (routes recorded); each is run again through the
+        captured step, held to it within ``LM_F32_TOL``, and two replays of
+        one step must give the same bits."""
         torch = self.torch
         from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
@@ -6563,10 +6966,16 @@ class Smoke:
             prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
             with RouteLog() as rk:
                 toks, _, logits = generate(cfg, params, prompts, plen + steps + 1, steps,
-                                           return_logits=True)
+                                           return_logits=True, capture=False)
             key = f"b{b}_p{plen}"
             out[key] = self.moe_checks(f"lm {arch} f32 {key}", params, cfg, prompts, toks,
                                        logits, rk, LM_F32_TOL[arch])
+            out[key]["captured_vs_eager"] = self.held_to_eager(
+                f"lm {arch} f32 {key}", generate(cfg, params, prompts, plen + steps + 1,
+                                                 steps, return_logits=True)[::2],
+                (toks, logits), LM_F32_TOL[arch])
+            out[key].update(self.graph_step(params, cfg, prompts, toks[:, -1:], steps,
+                                            timed=False))
         del params
         torch.cuda.empty_cache()
         return {"layers": MOE_F32_LAYERS, "tol": LM_F32_TOL[arch], **out}
@@ -6588,10 +6997,11 @@ class Smoke:
         medium) at full width and ``EMBED_LAYERS`` layers in bf16 (random
         weights and embeddings from seed 0): ``serve_embeddings`` of ``[8, 512, d]``
         prompts, then 32 steps on ``[8, 1, d]`` embeddings, K4 on every
-        attention call; held against the plain path along the same
-        embeddings and against the teacher-forced forward.  qwen2-vl also
-        takes one forward with distinct ``(t, h, w)`` triples against the
-        plain path's."""
+        attention call, every step a replay of the captured step; held
+        against the plain path along the same embeddings, against the
+        teacher-forced forward and against an eager run (``capture=False``).
+        qwen2-vl also takes one forward with distinct ``(t, h, w)`` triples
+        against the plain path's."""
         torch = self.torch
         from repro_torch.launch.serve_lm import serve_embeddings
         from repro_torch.models import model as M
@@ -6609,9 +7019,14 @@ class Smoke:
             f"lm {arch}", lambda: serve_embeddings(cfg, params, first, rest, max_len),
             b * steps)
         self.path_launches[f"lm {arch}"] = launch
-        self.expect_k4(f"lm {arch}", launch, cfg.n_layers, steps)
+        counted = self.lm_launches(f"lm {arch}", launch, {"flash_attention": cfg.n_layers},
+                                   steps)
         if not bool(torch.isfinite(logits).all()) or logits.shape != (b, steps + 1, cfg.vocab):
             raise AssertionError(f"lm {arch}: non-finite logits or a wrong shape")
+        eager_logits, eager_s = serve_embeddings(cfg, params, first, rest, max_len,
+                                                 capture=False)
+        eager = self.held_to_eager(f"lm {arch}", (None, logits), (None, eager_logits), tol)
+        del eager_logits
         ref = self.teacher_forced(params, cfg, first, rest, max_len, attn_impl="ref")
         hidden, _, _ = M.forward(params, cfg, emb)
         fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:])
@@ -6623,8 +7038,8 @@ class Smoke:
         res = {"arch": cfg.name, **self.param_counts(params, cfg),
                "batch": b, "prompt": plen, "steps": steps, "checks": checks,
                "logit_tol": tol, "logit_std": float(logits.std()),
-               "launches": launch["flash_attention"],
-               "k4_forms": launch["flash_attention forms"]}
+               "launches": counted, "captured_vs_eager": eager,
+               "eager_decode_ms_per_step": eager_s / steps * 1e3}
         if cfg.mrope_sections is not None:
             pos = self.mrope_positions(b, plen)
             got = M.logits_fn(params, cfg, M.forward(params, cfg, first, positions=pos)[0][:, -32:])
@@ -7170,6 +7585,7 @@ class Smoke:
                 "kmeans_assign@fig6": "kmeans fig6",
                 "flash_attention@qwen3-prefill": "lm qwen3-0.6b",
                 "flash_attention@qwen3-decode": "lm qwen3-0.6b",
+                "flash_attention@qwen3-decode-at": "lm qwen3-0.6b",
                 "flash_attention@gemma2-local f32": "lm qwen3-0.6b",
                 "flash_attention@gemma2-local bf16": "lm qwen3-0.6b",
                 "flash_attention@gemma2-local-decode bf16": "lm qwen3-0.6b",
@@ -7184,6 +7600,7 @@ class Smoke:
                 "flash_attention@mixtral-decode": "lm mixtral-8x22b",
                 "flash_attention@mixtral-window-prefill": "lm mixtral window",
                 "flash_attention@mixtral-window-decode": "lm mixtral window",
+                "flash_attention@mixtral-window-decode-at": "lm mixtral window",
                 "flash_attention@grok-prefill": "lm grok-1-314b",
                 "flash_attention@grok-decode": "lm grok-1-314b",
                 "flash_attention@qwen2vl-prefill": "lm qwen2-vl-2b",
@@ -7199,20 +7616,31 @@ class Smoke:
             rec = self.summary[key]
             source, replaces = sources[rec["kernel"]]
             busy = rec.get("device_ms")  # K2 records it per kernel
+            # an LM path's launches: the wrappers' (its prefill, its decode
+            # step's warm-up and capture) plus its decode graph's replays'
+            counts = self.path_launches[path]
+            replayed = counts.get("decode_graph", {}).get("replay_launches", {})
+            path_forms = counts.get(f"{rec['kernel']} forms")
+            if path_forms:
+                path_forms = {f: n + replayed.get(f"{rec['kernel']}/{f}", 0)
+                              for f, n in path_forms.items()}
             kernels.append({
                 "name": key, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": self.path_launches[path][rec["kernel"]],
+                "launches": counts[rec["kernel"]] + replayed.get(rec["kernel"], 0),
+                **({"launches_by": {"wrappers": counts[rec["kernel"]],
+                                    "decode_graph_replays": replayed[rec["kernel"]]}}
+                   if rec["kernel"] in replayed else {}),
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "device_ms": busy["total"] if isinstance(busy, dict) else busy,
+                **({"device_ms_by": rec["device_ms_by"]} if "device_ms_by" in rec else {}),
                 "shape": rec["shape"], **({"form": rec["form"]} if "form" in rec else {}),
                 **({"checked_forms": checked} if (checked := sorted({
                     r["form"] for r in self.summary.values()
                     if r.get("kernel") == rec["kernel"] and "form" in r})) else {}),
-                **({"path_forms": forms} if (forms := self.path_launches[path].get(
-                    f"{rec['kernel']} forms")) else {}),
+                **({"path_forms": path_forms} if path_forms else {}),
                 "candidates_checked": self.candidates_checked.get(key),
                 # a shape that no path of the smoke runs: `launches` is its
                 # kernel's count on the path named, at that path's shapes

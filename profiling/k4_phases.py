@@ -104,7 +104,8 @@ def main() -> int:
                    capture_output=True)
     fn = ctypes.CDLL(str(lib_path)).blaze_flash_attention
     ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [ptr] * 4 + [ll] * 12 + [i32] * 10 + [ctypes.c_float] * 2 + [i32] * 3 + [ptr] * 2
+    fn.argtypes = ([ptr] * 4 + [ll] * 12 + [i32] * 10 + [ptr] + [ctypes.c_float] * 2
+                  + [i32] * 3 + [ptr] * 2)
     g = torch.Generator(device="cuda").manual_seed(0)
     for name, (b, hq, hkv, sq, skv, d, window, cap) in SHAPES.items():
         ck, cv = (torch.randn((b, skv, hkv, d), generator=g, device="cuda").bfloat16()
@@ -116,7 +117,7 @@ def main() -> int:
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *FA._strides("q", q), *FA._strides("k", k), *FA._strides("v", v),
                 *FA._strides("out", out), b, hq, hkv, sq, skv, d, 1, int(window is not None),
-                window or 0, 0, d ** -0.5, cap, FA.FORMS.index("bf16-prefill"), 1, 1,
+                window or 0, 0, None, d ** -0.5, cap, FA.FORMS.index("bf16-prefill"), 1, 1,
                 rec.data_ptr(), torch.cuda.current_stream().cuda_stream]
         for _ in range(3):  # the last run's records are read
             _build.check(fn(*args), "k4_phases")

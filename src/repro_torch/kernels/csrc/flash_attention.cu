@@ -39,7 +39,9 @@
 // costs O(position), not O(S_max)), and a window starts at the first key
 // its first row sees.  The inputs are read through their strides, so the
 // KV cache's [B, S, H, D] layout is read in place; q_offset is a run-time
-// argument.  D is any multiple of 8 up to 256.
+// argument, or, where q_offset_ptr is set, an int32 the kernel reads from
+// device memory (a decode step captured in a CUDA graph keeps its position
+// there, so one graph serves every step).  D is any multiple of 8 up to 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,8 +85,15 @@ struct Args {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int hq, hkv, sq, skv, d;
   int causal, has_window, window, q_offset;
+  const int* q_offset_ptr;  // when set, the offset is read here
   float scale, softcap;
 };
+
+// The query rows' offset: the launch's, or the one in device memory.
+template <typename A>
+__device__ __forceinline__ int query_offset(const A& a) {
+  return a.q_offset_ptr != nullptr ? *a.q_offset_ptr : a.q_offset;
+}
 
 // Copy rows [row0, row0 + rows) of a strided [S, D] matrix into shared
 // memory as f32 with row stride ld, zeros past row nvalid.
@@ -141,8 +150,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(Args a) {
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
   // Keys [k_lo, k_hi) are the only ones any real row of this tile sees.
-  const int q_first = q0 + a.q_offset;
-  const int q_last = min(q0 + BQ, a.sq) - 1 + a.q_offset;
+  const int q_offset = query_offset(a);
+  const int q_first = q0 + q_offset;
+  const int q_last = min(q0 + BQ, a.sq) - 1 + q_offset;
   int k_hi = a.skv;
   if (a.causal) k_hi = min(k_hi, q_last + 1);
   int k_lo = 0;
@@ -189,7 +199,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(Args a) {
 #pragma unroll
     for (int r = 0; r < RI; ++r) {
       const int qi = q0 + ty + kTY * r;
-      const int pos = a.q_offset + qi;
+      const int pos = q_offset + qi;
       bool live[kRJ];
       float tile_max = kNegInf;
 #pragma unroll
@@ -337,6 +347,7 @@ struct Args {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int hkv, sq, skv, d;
   int causal, has_window, window, q_offset;
+  const int* q_offset_ptr;  // when set, the offset is read here
   float scale, softcap;
   int rep;              // Hq / Hkv
   int heads, pos;       // prefill: G heads × P positions in a CTA's tile
@@ -498,13 +509,23 @@ __device__ __forceinline__ void attend_decode(const Args& a) {
   const bf16* vp = a.v + b * a.v_sb + hk * a.v_sh;
 
   // This split's key tiles: tiles_per_split of the tiles [k_lo, k_hi) that
-  // some row sees (the wrapper's key_tiles).
+  // some row sees (the wrapper's key_tiles).  With the offset in device
+  // memory the wrapper sizes the grid for the most tiles any offset can
+  // leave live, and each split takes ceil(live tiles / splits) of the tiles
+  // this offset leaves live, so the work stays spread over the grid however
+  // short the live range is; a split past them walks no tile and writes the
+  // empty partial (m = -1e30, l = 0), which the combine weighs 0.
+  const int q_offset = query_offset(a);
   int k_hi = a.skv;
-  if (a.causal) k_hi = min(k_hi, a.sq + a.q_offset);
+  if (a.causal) k_hi = min(k_hi, a.sq + q_offset);
   int k_lo = 0;
-  if (a.has_window) k_lo = max(0, a.q_offset - a.window + 1);
-  const int t0 = k_lo / kBK + blockIdx.x * a.tiles_per_split;
-  const int t1 = min(k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0, t0 + a.tiles_per_split);
+  if (a.has_window) k_lo = max(0, q_offset - a.window + 1);
+  const int t_lo = k_lo / kBK, t_hi = k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0;
+  const int per = a.q_offset_ptr != nullptr
+                      ? max(1, (t_hi - t_lo + (int)gridDim.x - 1) / (int)gridDim.x)
+                      : a.tiles_per_split;
+  const int t0 = t_lo + blockIdx.x * per;
+  const int t1 = min(t_hi, t0 + per);
 
   // Zero the pad columns [d, DP) of Q and of the K/V ring; the copies below
   // never write them.
@@ -540,7 +561,7 @@ __device__ __forceinline__ void attend_decode(const Args& a) {
   const int kb = 16 * warp;
   int pos[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) pos[h] = (lane / 4 + 8 * h) % a.sq + a.q_offset;
+  for (int h = 0; h < 2; ++h) pos[h] = (lane / 4 + 8 * h) % a.sq + q_offset;
   // Logits in log2 units (s·log2 e), so p = 2^(s − m).
   const bool capped = a.softcap > 0.0f;
   const float to_log2 = capped ? a.softcap * kLog2e : a.scale * kLog2e;
@@ -705,8 +726,9 @@ __device__ __forceinline__ void attend_wgmma(const Args& a) {
   const bf16* vp = a.v + b * a.v_sb + hk * a.v_sh;
 
   // Key tiles [t0, t1) hold every key a live row of this tile sees.
-  const int pos_lo = q0 + a.q_offset;
-  const int pos_hi = min(q0 + a.pos, a.sq) - 1 + a.q_offset;
+  const int q_offset = query_offset(a);
+  const int pos_lo = q0 + q_offset;
+  const int pos_hi = min(q0 + a.pos, a.sq) - 1 + q_offset;
   int k_hi = a.skv;
   if (a.causal) k_hi = min(k_hi, pos_hi + 1);
   int k_lo = 0;
@@ -758,7 +780,7 @@ __device__ __forceinline__ void attend_wgmma(const Args& a) {
   // This thread's rows of S and acc: 16·warp + lane / 4 and 8 below it.
   int pos[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) pos[h] = q0 + (16 * warp + lane / 4 + 8 * h) % a.pos + a.q_offset;
+  for (int h = 0; h < 2; ++h) pos[h] = q0 + (16 * warp + lane / 4 + 8 * h) % a.pos + q_offset;
   // p = 2^(x·c − m·c) for x the logit before scaling (q·k, or with a softcap
   // softcap·tanh(scale·q·k / softcap)) and m the row's running max of x.
   const bool capped = a.softcap > 0.0f;
@@ -989,7 +1011,9 @@ int launch_dp(const Args& a, dim3 grid, cudaStream_t stream) {
 // 1 = bf16 prefill, 2 = bf16 decode over `splits` CTAs of `tiles_per_split`
 // key tiles each, with ws an f32 workspace of B·Hkv·4·splits·R·(D + 2)
 // floats (R = Hq / Hkv · Sq <= 16); the decode form launches the combine
-// kernel after the split kernel.
+// kernel after the split kernel.  q_offset_ptr, when not null, points to an
+// int32 on the device that every form reads in place of q_offset; the
+// wrapper then sizes the decode form's splits from the cache, not the offset.
 extern "C" int blaze_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,
@@ -997,22 +1021,23 @@ extern "C" int blaze_flash_attention(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     int batch, int hq, int hkv, int sq, int skv, int d,
-    int causal, int has_window, int window, int q_offset,
+    int causal, int has_window, int window, int q_offset, const void* q_offset_ptr,
     float scale, float softcap, int form, int splits, int tiles_per_split,
     void* ws, void* stream) {
+  const int* off_ptr = static_cast<const int*>(q_offset_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form == 0) {
     Args a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, hq, hkv, sq, skv, d, causal, has_window, window,
-           q_offset, scale, softcap};
+           q_offset, off_ptr, scale, softcap};
     return launch_t<float>(a, batch, s);
   }
   const int rep = hq / hkv;
   tc::Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
              static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
              q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-             hkv, sq, skv, d, causal, has_window, window, q_offset, scale, softcap,
-             rep, 0, 0, 1, tiles_per_split, nullptr, nullptr};
+             hkv, sq, skv, d, causal, has_window, window, q_offset, off_ptr, scale,
+             softcap, rep, 0, 0, 1, tiles_per_split, nullptr, nullptr};
   if (form == 1) {
     a.heads = rep < 4 ? rep : 4;
     a.pos = tc::kPrefillRows / a.heads;

@@ -9,7 +9,13 @@ the same function in plain PyTorch.
 
 Unlike the TPU kernel, which takes ``q_offset`` as a compile-time constant
 and so cannot serve from a KV cache whose length is a traced value, this
-one takes it as a run-time argument of the launch.  Inputs are read through
+one takes it as a run-time argument of the launch, or as a 0-d integer
+tensor on the card that the kernel reads from device memory: a decode step
+captured in a CUDA graph keeps its position there, and each replay moves
+it on (``launch.serve_lm.DecodeGraph``).  The decode form then sizes its
+split over the keys from the cache and the window (:func:`static_tiles`),
+not from the offset, and each split finds its tiles from the offset it
+reads: the live tiles spread over the splits.  Inputs are read through
 their strides: ``k`` and ``v`` may be ``[B, S, H, D]`` cache buffers seen as
 ``[B, H, S, D]`` through ``.transpose(1, 2)``, with no copy.
 
@@ -79,6 +85,18 @@ def key_tiles(sq: int, skv: int, q_offset: int, causal: bool,
     return k_lo // KEY_TILE, -(-k_hi // KEY_TILE) if k_hi > 0 else 0
 
 
+def static_tiles(sq: int, skv: int, window: int | None) -> int:
+    """The most 64-key tiles :func:`key_tiles` can give ``sq`` query rows
+    over ``skv`` keys at any offset: every tile of the keys, or for a window
+    the most that ``L = window + sq - 1`` consecutive keys can touch,
+    ``ceil((L - 1) / 64) + 1`` (the decode form's grid where the offset is
+    read on the device)."""
+    full = -(-skv // KEY_TILE)
+    if window is None:
+        return full
+    return min(full, max(1, -(-(window + sq - 2) // KEY_TILE) + 1))
+
+
 def decode_splits(batch: int, hkv: int, n_tiles: int, sm_count: int) -> tuple[int, int]:
     """``(splits, tiles per split)`` for the decode form: enough splits that
     the ``batch·hkv·splits`` CTAs give each of the card's ``sm_count`` SMs
@@ -93,9 +111,12 @@ def decode_splits(batch: int, hkv: int, n_tiles: int, sm_count: int) -> tuple[in
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        splits: int, causal: bool = True, window: int | None = None,
                        softcap: float = 0.0, scale: float | None = None,
-                       q_offset: int | None = None) -> torch.Tensor:
+                       q_offset: int | torch.Tensor | None = None) -> torch.Tensor:
     """The decode form's arithmetic in plain PyTorch (f32): the key tiles of
-    :func:`key_tiles` cut into ``splits`` runs of whole tiles, each run into
+    :func:`key_tiles` cut into ``splits`` runs of whole tiles (with a 0-d
+    tensor ``q_offset`` the kernel reads on the device, ``splits`` comes from
+    :func:`static_tiles` and the runs' length from the live tiles, worked
+    out on the device as the kernel does: no host read), each run into
     4 partials (keys ``16w..16w+15`` of every 64-key tile, the kernel's
     warps), each partial's ``(m, l, acc)`` of every row with masked logits at
     -1e30, ``p`` rounded to ``q``'s dtype for ``acc``; then the combine: ``M
@@ -105,10 +126,17 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     rep = hq // hkv
-    off = skv - sq if q_offset is None else int(q_offset)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    t_lo, t_hi = key_tiles(sq, skv, off, causal, window)
-    per = max(1, -(-(t_hi - t_lo) // splits))
+    if isinstance(q_offset, torch.Tensor):
+        off = q_offset.to(q.device)
+        t_lo = (off - window + 1).clamp_min(0) // KEY_TILE if window is not None else 0
+        k_hi = (off + sq).clamp_max(skv) if causal else torch.tensor(skv, device=q.device)
+        t_hi = (-(-k_hi // KEY_TILE)).clamp_min(0)
+        per = (-(-(t_hi - t_lo) // splits)).clamp_min(1)
+    else:
+        off = skv - sq if q_offset is None else int(q_offset)
+        t_lo, t_hi = key_tiles(sq, skv, off, causal, window)
+        per = max(1, -(-(t_hi - t_lo) // splits))
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
                      k.repeat_interleave(rep, 1).float()) * scale
     if softcap > 0:
@@ -167,7 +195,7 @@ def _kernel() -> ctypes._CFuncPtr:
     """The C entry point, built, loaded and typed once per process."""
     ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     return _build.entry("flash_attention", "blaze_flash_attention", [
-        ptr, ptr, ptr, ptr, *[ll] * 12, *[i32] * 10, ctypes.c_float, ctypes.c_float,
+        ptr, ptr, ptr, ptr, *[ll] * 12, *[i32] * 10, ptr, ctypes.c_float, ctypes.c_float,
         i32, i32, i32, ptr, ptr,
     ])
 
@@ -175,13 +203,16 @@ def _kernel() -> ctypes._CFuncPtr:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float = 0.0, scale: float | None = None,
-                    q_offset: int | None = None, block_q: int = 128,
+                    q_offset: int | torch.Tensor | None = None, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """Attention of ``q [B, Hq, Sq, D]`` over ``k, v [B, Hkv, Skv, D]``, f32
     or bf16 (all three alike), output in ``q``'s dtype.
 
     Query row ``i`` sits at absolute position ``q_offset + i`` (default
-    ``Skv - Sq``), an ``int`` read at run time.  ``block_q``/``block_k``
+    ``Skv - Sq``): an ``int`` read at run time, or a 0-d integer tensor on
+    ``q``'s device that the kernel reads from device memory (the host never
+    reads it; the decode form's split is then sized by
+    :func:`static_tiles`).  ``block_q``/``block_k``
     keep the TPU kernel's signature; the CUDA kernel picks its own tiles.
     On the card the form follows :func:`form`: f32 on the CUDA cores, bf16
     on the tensor cores, split over the keys when ``(Hq / Hkv)·Sq <= 16``.
@@ -197,13 +228,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "B and D, and Hq a multiple of Hkv")
     if window is not None and window < 0:
         raise ValueError(f"window must be None or >= 0, got {window}")
-    off = skv - sq if q_offset is None else int(q_offset)
+    off_dev = None
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.numel() != 1 or q_offset.dtype.is_floating_point:
+            raise ValueError(f"a tensor q_offset must hold one integer, got "
+                             f"{tuple(q_offset.shape)} {q_offset.dtype}")
+        off_dev, off = q_offset.reshape(()), 0
+    else:
+        off = skv - sq if q_offset is None else int(q_offset)
     if q.device.type == k.device.type == v.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
-                             q_offset=off, scale=scale)
+                             q_offset=off if off_dev is None else off_dev, scale=scale)
     if not (q.device == k.device == v.device and q.device.type == "cuda"):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}: need "
                          "all on one CUDA device (or all on the CPU)")
+    if off_dev is not None:
+        if off_dev.device != q.device:
+            raise ValueError(f"q_offset on {off_dev.device}, q on {q.device}: the kernel "
+                             "reads the offset on q's device")
+        off_dev = off_dev.to(torch.int32)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"need q, k, v all f32 or all bf16, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
@@ -219,12 +262,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     splits = per = 1
     ws = None
     if kind == "bf16-decode":
-        t_lo, t_hi = key_tiles(sq, skv, off, causal, window)
-        splits, per = decode_splits(b, hkv, t_hi - t_lo, _build.sm_count(q.device.index))
+        if off_dev is None:
+            t_lo, t_hi = key_tiles(sq, skv, off, causal, window)
+            n_tiles = t_hi - t_lo
+        else:
+            n_tiles = static_tiles(sq, skv, window)
+        splits, per = decode_splits(b, hkv, n_tiles, _build.sm_count(q.device.index))
         ws = torch.empty(b * hkv * SPLIT_PARTS * splits * (hq // hkv) * sq * (d + 2),
                          dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
             b, hq, hkv, sq, skv, d, int(causal), int(window is not None), window or 0, off,
+            off_dev.data_ptr() if off_dev is not None else None,
             float(scale), float(softcap), FORMS.index(kind), splits, per,
             ws.data_ptr() if ws is not None else None)
     _launch(_kernel(), args, q.device.index, "flash_attention")

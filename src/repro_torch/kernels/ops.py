@@ -20,8 +20,9 @@ not write a cache in place (``out_state``).  Otherwise the kernel runs
 alone, as on the serving path.
 
 K4, K5 and K6 are custom ops (``torch.ops.blaze.flash_attention``,
-``dh_logits``, ``dh_softmax_pv``, ``ssd_scan``, ``ssd_scan_into``,
-``rwkv6_scan``, ``rwkv6_scan_into``): the
+``flash_attention_at`` (the query offset a 0-d tensor on the device, as a
+captured decode step passes it), ``dh_logits``, ``dh_softmax_pv``,
+``ssd_scan``, ``ssd_scan_into``, ``rwkv6_scan``, ``rwkv6_scan_into``): the
 real implementation is the kernel's wrapper, a fake one gives the output
 shapes (a fake or meta tensor has no ``data_ptr()``), a flop formula gives
 ``torch.utils.flop_counter`` each call's operations, and each differentiates
@@ -117,6 +118,22 @@ def _(q, k, v, causal, window, softcap, scale, q_offset):
     return torch.empty_like(q)
 
 
+def _flash_at_impl(q, k, v, q_offset, causal, window, softcap, scale):
+    return _flash_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                         scale=scale, q_offset=q_offset)
+
+
+_flash_at_op = torch.library.custom_op(
+    "blaze::flash_attention_at", _flash_at_impl, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor q_offset, bool causal, int? window, "
+           "float softcap, float? scale) -> Tensor")
+
+
+@_flash_at_op.register_fake
+def _(q, k, v, q_offset, causal, window, softcap, scale):
+    return torch.empty_like(q)
+
+
 def _live_pairs(sq: int, skv: int, off: int, causal: bool, window: int | None) -> int:
     """(query, key) pairs the masks keep, query ``i`` at ``off + i``."""
     pos = torch.arange(sq, dtype=torch.int64) + off
@@ -132,6 +149,14 @@ def _flash_flops(q, k, v, causal, window, softcap, scale, q_offset, *args, **kwa
     skv = k[2]
     off = skv - sq if q_offset is None else q_offset
     return 4 * b * hq * d * _live_pairs(sq, skv, off, causal, window)
+
+
+@register_flop_formula(torch.ops.blaze.flash_attention_at)
+def _flash_at_flops(q, k, v, q_offset, causal, window, softcap, scale, *args, **kwargs):
+    """As ``blaze::flash_attention``'s at the largest offset the keys allow
+    (``Skv - Sq``): a formula sees shapes, not the offset on the device."""
+    b, hq, sq, d = q
+    return 4 * b * hq * d * _live_pairs(sq, k[2], k[2] - sq, causal, window)
 
 
 _dh_logits_op = torch.library.custom_op(
@@ -273,21 +298,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (see ``kernels.ref.attention_ref`` for the masking rules).  On
     ``DTensor``s, ``shard_hint="dh"`` runs K4's "dh" form on each rank's
     slice of ``d_head``; otherwise the kernel runs on each rank's heads
-    (module doc)."""
+    (module doc).  ``q_offset`` may be a 0-d integer tensor on ``q``'s
+    device (``blaze::flash_attention_at``: the kernel reads it there), but
+    not on ``DTensor``s."""
     del block_q, block_k
     kw = dict(causal=causal, window=window, softcap=float(softcap), scale=scale,
               q_offset=q_offset)
+    at = isinstance(q_offset, torch.Tensor)
     if isinstance(q, DTensor):
+        if at:
+            raise ValueError("ops.attention: the sharded route takes an int q_offset, "
+                             "not a tensor")
         if shard_hint == "dh":
             return _dh_attention(q, k, v, kw, impl)
         return _sharded_attention(q, k, v, kw, impl)
     if _resolve(impl, q) != "pallas":
         return R.attention_ref(q, k, v, **kw)
-    opts = tuple(kw.values())
+    if at:
+        opts = (q_offset, causal, window, float(softcap), scale)
+        op = lambda *t: _flash_at_op(*t, *opts)  # noqa: E731
+    else:
+        opts = tuple(kw.values())
+        op = lambda *t: _flash_op(*t, *opts)  # noqa: E731
     if needs_grad(q, k, v):
-        return kernel_with_grad(lambda *t: _flash_op(*t, *opts),
-                                lambda *t: R.attention_ref(*t, **kw), q, k, v)
-    return _flash_op(q, k, v, *opts)
+        return kernel_with_grad(op, lambda *t: R.attention_ref(*t, **kw), q, k, v)
+    return op(q, k, v)
 
 
 attention.dh_plain_calls = 0  # sharded "dh" calls that ran the plain pair

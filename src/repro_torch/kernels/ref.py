@@ -13,14 +13,14 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
-                  softcap: float = 0.0, q_offset: int | None = None,
+                  softcap: float = 0.0, q_offset: int | torch.Tensor | None = None,
                   scale: float | None = None) -> torch.Tensor:
     """Attention of ``q [B, Hq, Sq, D]`` over ``k, v [B, Hkv, Skv, D]``
     (GQA: query head ``h`` reads kv head ``h // (Hq / Hkv)``), with the whole
     ``[Sq, Skv]`` logits materialised in f32.
 
     Query row ``i`` sits at absolute position ``q_offset + i`` (default
-    ``Skv - Sq``); key ``j`` at ``j``.  Causal keeps ``j <= pos``, a window
+    ``Skv - Sq``; an int or a 0-d integer tensor); key ``j`` at ``j``.  Causal keeps ``j <= pos``, a window
     ``j > pos - window``, a softcap maps logits through ``c·tanh(s/c)``.
     Masked logits are ``-inf``; a row with every key masked gives zeros.
     The output is in ``q``'s dtype.
@@ -40,7 +40,8 @@ def attention_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Te
 
 def attention_from_logits(logits: torch.Tensor, v: torch.Tensor, dtype, *,
                           causal: bool = True, window: int | None = None,
-                          softcap: float = 0.0, q_offset: int | None = None) -> torch.Tensor:
+                          softcap: float = 0.0,
+                          q_offset: int | torch.Tensor | None = None) -> torch.Tensor:
     """The rest of :func:`attention_ref` from its logits: softcap, masks,
     softmax and the product with ``v [B, Hkv, Skv, Dv]``, in ``dtype``."""
     sq, skv = logits.shape[2], logits.shape[3]

@@ -7,6 +7,14 @@ CPU.  The cache keeps JAX's ``[B, S_max, Hkv, Dh]`` layout and is written in
 place (JAX returns an updated copy); the kernel reads it through a
 transposed view, so no step copies it.
 
+``cache_len`` is a host ``int`` or a 0-d integer tensor on the step's device
+(a captured decode step's position, ``launch.serve_lm.DecodeGraph``).  With
+a tensor nothing is read on the host: the new rows go in by ``index_copy_``
+at the device index, a local layer passes the whole cache and its window to
+K4, which skips the tiles outside the window (so the step stays O(window)
+and copies no rows), and K4 reads the offset on the device.  The ``int``
+route keeps the window's view of the last ``window + S`` rows.
+
 On ``DTensor`` inputs (a model sharded over a ``DeviceMesh``) the block
 keeps the reference's constraints (``distributed.sharding.constrain``): q,
 k and v over (dp, heads on model), or, for decode with kv heads that do not
@@ -56,7 +64,8 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor, *, local: bool = False,
-               cache: KVCache | None = None, cache_len: int | None = None,
+               cache: KVCache | None = None,
+               cache_len: int | torch.Tensor | None = None,
                attn_impl: str = "auto") -> tuple[torch.Tensor, KVCache | None]:
     """``x [B, S, d]`` at ``positions [B, S]`` → ``([B, S, d], cache)``.
     Where the config has M-RoPE sections, ``positions [3, B, S]`` are
@@ -67,10 +76,18 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
     S)`` and the queries attend over the cache, at ``q_offset = cache_len``.
     A write past the cache's ``S_max`` rows raises ``ValueError`` (the
     reference's ``dynamic_update_slice`` clamps the start instead, and so
-    overwrites the last rows).
+    overwrites the last rows); a tensor ``cache_len`` is not read on the
+    host, so its caller checks that (``DecodeGraph`` does, before each
+    step).  A tensor ``cache_len`` with ``DTensor`` inputs raises
+    ``ValueError``: the sharded route writes each rank's rows by host
+    index.
     """
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    at = cache is not None and isinstance(cache_len, torch.Tensor)
+    if at and (isinstance(x, DTensor) or isinstance(cache.k, DTensor)):
+        raise ValueError("attn_apply: a tensor cache_len needs plain tensors; the "
+                         "sharded route takes an int")
     q = SH.split_heads(x @ params["wq"], hq, dh)
     k = SH.split_heads(x @ params["wk"], hkv, dh)
     v = SH.split_heads(x @ params["wv"], hkv, dh)
@@ -96,7 +113,12 @@ def attn_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
     if dh_layout:  # after the rotary pairs (i, i + D/2) have met
         q, k, v = (constrain(t, *axes) for t in (q, k, v))
 
-    if cache is not None:
+    if at:
+        rows = cache_len + torch.arange(s, device=cache.k.device)
+        cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, rows, v.to(cache.v.dtype))
+        k_all, v_all, q_offset = cache.k, cache.v, cache_len
+    elif cache is not None:
         idx = int(cache_len)
         if idx + s > cache.k.shape[1]:
             raise ValueError(f"KV cache of {cache.k.shape[1]} rows: cannot write {s} "

@@ -104,7 +104,8 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
 
 
 def block_apply(params: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
-                positions: torch.Tensor, *, cache=None, cache_len: int | None = None,
+                positions: torch.Tensor, *, cache=None,
+                cache_len: int | torch.Tensor | None = None,
                 par: ParallelCfg = ParallelCfg(), attn_impl: str = "auto",
                 scan_impl: str = "auto"):
     """Pre-norm residual block; returns ``(h, cache, aux)``, the cache (if
@@ -206,7 +207,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
             positions: torch.Tensor | None = None,
-            caches: list | None = None, cache_len: int | None = None,
+            caches: list | None = None, cache_len: int | torch.Tensor | None = None,
             par: ParallelCfg = ParallelCfg(), attn_impl: str = "auto",
             scan_impl: str = "auto", remat: bool = False,
             remat_policy: str = "full", scan_layers: bool = True):
@@ -215,7 +216,10 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     inputs continue a sequence of ``cache_len`` tokens already cached, and
     every cache is updated in place.  ``positions`` default to ``cache_len +
     arange(S)`` for every row (an M-RoPE config: the same in all three
-    coordinates, ``[3, B, S]``).  ``attn_impl`` goes to the attention
+    coordinates, ``[3, B, S]``).  ``cache_len`` is an ``int`` or a 0-d
+    integer tensor on the inputs' device, which nothing reads on the host
+    (``attention.attn_apply``; a captured decode step's position); a tensor
+    with ``DTensor`` inputs raises ``ValueError``.  ``attn_impl`` goes to the attention
     kernels (``ops.attention``), ``scan_impl`` to the recurrences
     (``ops.ssd``, ``ops.rwkv6``), ``par.dispatch_groups`` to the MoE
     blocks.  ``aux`` is the sum of every MoE block's balance loss (0
@@ -248,8 +252,12 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
         # activation (the remat boundary) is sharded over (dp, model)
         h = constrain(h, SH.DP, SH.MODEL, None)
         b, s = h.shape[0], h.shape[1]
+        on_device = isinstance(cache_len, torch.Tensor)
+        if on_device and isinstance(h, DTensor):
+            raise ValueError("forward: a tensor cache_len needs plain tensors; the "
+                             "sharded route takes an int")
         if positions is None:
-            start = 0 if cache_len is None else int(cache_len)
+            start = cache_len if on_device else 0 if cache_len is None else int(cache_len)
             positions = (torch.arange(s, device=h.device) + start).expand(b, s)
             if cfg.mrope_sections is not None:
                 positions = positions.expand(3, b, s)
@@ -481,10 +489,11 @@ def prefill(params: dict, cfg: ArchConfig, inputs: torch.Tensor, caches: list, *
 
 
 def decode_step(params: dict, cfg: ArchConfig, inputs: torch.Tensor, caches: list,
-                cache_len: int, *, par: ParallelCfg = ParallelCfg(),
+                cache_len: int | torch.Tensor, *, par: ParallelCfg = ParallelCfg(),
                 attn_impl: str = "auto", scan_impl: str = "auto"):
     """One token for every sequence: ``inputs [B, 1]`` (or embeds ``[B, 1,
-    d]``) at position ``cache_len``; ``(logits [B, V], caches)``."""
+    d]``) at position ``cache_len`` (an ``int``, or a 0-d integer tensor on
+    the device: :func:`forward`); ``(logits [B, V], caches)``."""
     hidden, caches, _ = forward(params, cfg, inputs, caches=caches,
                                 cache_len=cache_len, par=par, attn_impl=attn_impl,
                                 scan_impl=scan_impl)

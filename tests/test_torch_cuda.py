@@ -32,7 +32,7 @@ import torch
 from repro_torch.core import BlazeSession
 from repro_torch.core.algorithms import gmm_em, pagerank
 from repro_torch.data.synthetic import cluster_points, rmat_edges
-from repro_torch.configs.base import get_arch
+from repro_torch.configs.base import MAMBA2, RWKV6, get_arch
 from repro_torch.kernels import hash_combine as HK
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, form
@@ -631,6 +631,165 @@ def test_qwen3_full_width_decode_step_matches_the_plain_path(dev):
     assert out["auto"].dtype == torch.float32 and out["auto"].shape == (2, cfg.vocab)
     err = float((out["auto"] - out["ref"]).abs().max())
     assert err <= chip_smoke.LM_LOGIT_TOL["qwen3-0.6b"], err
+
+
+# B, Hq, Hkv, Sq, Skv, D, window, softcap, offsets: decode (split) forms, with
+# offsets whose live tiles are fewer than the static grid's splits (the last
+# splits empty), an early offset in a long cache, and a prefill
+DEVICE_OFFSET_CASES = [
+    (8, 16, 8, 1, 545, 128, None, 0.0, (0, 63, 300, 543)),    # qwen3's decode
+    (8, 16, 8, 1, 8192, 128, None, 0.0, (4095, 8191)),        # qwen3, a long cache
+    (1, 48, 8, 1, 4625, 128, 4096, 0.0, (4096, 4500, 4623)),  # mixtral's window run
+    (1, 16, 8, 1, 2048, 256, 1024, 50.0, (100, 1100, 2047)),  # gemma2 local
+    (2, 8, 2, 40, 100, 64, 16, 0.0, (0, 50)),                  # a prefill over a cache
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEVICE_OFFSET_CASES)
+def test_flash_attention_reads_its_offset_from_device_memory(dev, case, dtype):
+    """K4 with the offset a 0-d int32 tensor on the card against the same
+    call with a host offset and against ``attention_ref``, each within the
+    bf16 bound (the decode form's splits differ: the static grid); the
+    decode form also against ``flash_decode_plain`` on the same offset."""
+    from repro_torch.kernels import flash_attention as FA
+
+    b, hq, hkv, sq, skv, d, window, cap, offsets = case
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g).mul(0.5).to(dev, dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    kw = dict(causal=True, window=window, softcap=cap)
+    for off in offsets:
+        at = torch.tensor(off, dtype=torch.int32, device=dev)
+        got = flash_attention(q, k, v, q_offset=at, **kw)
+        host = flash_attention(q, k, v, q_offset=off, **kw)
+        want = attention_ref(q, k, v, q_offset=off, **kw)
+        tol = 3e-5 + (2.0 ** -7 * want.float().abs()
+                      + 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(),
+                                                  q_offset=off, **kw)
+                      if dtype == torch.bfloat16 else 0.0)
+        for other in (host, want):
+            err = (got.float() - other.float()).abs()
+            assert bool((err <= 2 * tol).all()), (off, float((err - 2 * tol).max()))
+        if form(q, k) == "bf16-decode":
+            splits, _ = FA.decode_splits(b, hkv, FA.static_tiles(sq, skv, window),
+                                         sm_count(dev.index))
+            plain = FA.flash_decode_plain(q, k, v, splits=splits, q_offset=at, **kw)
+            err = (got.float() - plain.float()).abs()
+            assert bool((err <= tol).all()), (off, float((err - tol).max()))
+
+
+def _bf16_reduced(arch):
+    import dataclasses
+
+    return dataclasses.replace(get_arch(arch).reduced(), param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b", "gemma2-9b"])
+def test_decode_graph_replays_bit_for_bit_and_counts_its_launches(dev, arch):
+    """Two replays of one captured step from the same snapshot of the caches
+    give the same bits; the warm-up and the capture each count one step's
+    K4/K5/K6 calls (by form) on the wrappers, the captured step's launches
+    are those, and a replay adds them to the graph's stats and leaves the
+    wrappers' counts alone."""
+    from repro_torch.core.program import launch_counts
+    from repro_torch.launch.serve_lm import DecodeGraph
+    from repro_torch.models.attention import KVCache
+
+    cfg = _bf16_reduced(arch)
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 24), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    caches = M.make_caches(cfg, 2, 30, dev)
+    M.prefill(params, cfg, prompts, caches)
+    kinds = M.layer_kinds(cfg)
+    n_attn = sum(k in M._ATTN_KINDS for k in kinds)
+    n_ssm, n_rwkv = kinds.count(MAMBA2), kinds.count(RWKV6)
+    step = {k: n for k, n in (("flash_attention", n_attn), ("flash_attention/bf16-decode", n_attn),
+                              ("ssd_scan", n_ssm), ("ssd_scan/decode", n_ssm),
+                              ("rwkv6_scan", n_rwkv), ("rwkv6_scan/decode", n_rwkv)) if n}
+    before = launch_counts()
+    graph = DecodeGraph(cfg, params, caches, prompts[:, -1:], 24)
+    captured = launch_counts()
+    assert graph.captured_launches == step
+    assert {k: n - before[k] for k, n in captured.items() if n != before[k]} == {
+        k: 2 * n for k, n in step.items()}  # the warm-up's and the capture's calls
+    snap = [t.clone() for c in caches for t in c]
+    first = graph.step(prompts[:, -1:]).clone()
+    assert launch_counts() == captured and graph.replays == 1
+    assert graph.replay_launches == step
+    after = [t.clone() for c in caches for t in c]
+    for t, u in zip((t for c in caches for t in c), snap):
+        t.copy_(u)
+    graph.seek(24)
+    again = graph.step(prompts[:, -1:])
+    assert torch.equal(again, first)
+    assert all(torch.equal(t, u) for t, u in zip((t for c in caches for t in c), after))
+    assert int(graph.position) == graph.pos == 25
+    assert any(isinstance(c, KVCache) for c in caches) == (n_attn > 0)
+
+
+def test_qwen3_full_width_generate_captured_matches_eager(dev):
+    """qwen3-0.6b at full width and depth: ``generate`` through the captured
+    step against the eager step, tokens and logits (within
+    ``chip_smoke.LM_LOGIT_TOL``; the decode form's splits come from the
+    cache in one and from the offset in the other), and the same launches:
+    captured, the wrappers count the prefill, the warm-up and the capture,
+    and the 8 replays the other steps."""
+    import chip_smoke
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.serve_lm import generate
+
+    cfg = get_arch("qwen3-0.6b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = M.init(g, cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 64), generator=g, device=dev)
+    runs = {}
+    for capture in (True, False):
+        flash_attention.launches, flash_attention.forms = 0, dict.fromkeys(flash_attention.forms, 0)
+        serve_lm.stats.reset()
+        toks, _, logits = generate(cfg, params, prompts, 73, 8, return_logits=True,
+                                   capture=capture)
+        replayed = serve_lm.stats.replay_launches
+        runs[capture] = (toks, logits, flash_attention.launches + replayed.get(
+            "flash_attention", 0), {f: n + replayed.get(f"flash_attention/{f}", 0)
+                                    for f, n in flash_attention.forms.items()})
+        assert serve_lm.stats.replays == (8 if capture else 0)
+        assert flash_attention.launches == cfg.n_layers * (3 if capture else 9)
+    (ta, la, na, fa), (tb, lb, nb, fb) = runs[True], runs[False]
+    # the captured path's launches also count its warm-up and capture calls
+    assert na == nb + 2 * cfg.n_layers == cfg.n_layers * 11
+    assert fa["bf16-decode"] == fb["bf16-decode"] + 2 * cfg.n_layers
+    tol = chip_smoke.LM_LOGIT_TOL["qwen3-0.6b"]
+    for row in range(2):
+        diff = (ta[row] != tb[row]).nonzero()
+        n_same = int(diff[0]) if len(diff) else ta.shape[1]
+        err = float((la[row, :n_same + 1] - lb[row, :n_same + 1]).abs().max())
+        assert err <= tol, (row, err)
+        if n_same < ta.shape[1]:  # only at the eager run's near-tie
+            top2 = torch.topk(lb[row, n_same], 2).values
+            assert float(top2[0] - top2[1]) <= 2 * tol
+
+
+def test_decode_graph_raises_before_a_replay_past_the_cache(dev):
+    from repro_torch.launch.serve_lm import DecodeGraph
+
+    cfg = _bf16_reduced("qwen3-0.6b")
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 8), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    caches = M.make_caches(cfg, 2, 9, dev)
+    M.prefill(params, cfg, prompts, caches)
+    graph = DecodeGraph(cfg, params, caches, prompts[:, -1:], 8)
+    graph.step(prompts[:, -1:])  # the last row
+    launches, snap = flash_attention.launches, [t.clone() for c in caches for t in c]
+    with pytest.raises(ValueError, match="cannot write 1 rows at cache_len 9"):
+        graph.step(prompts[:, -1:])
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches and int(graph.position) == 9
+    assert graph.replays == 1
+    assert all(torch.equal(t, u) for t, u in zip((t for c in caches for t in c), snap))
 
 
 def _scan_close(got, want, dtype):
