@@ -30,10 +30,11 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    that no path of the smoke runs carry a ``launches_note`` in the
    kernels line;
 2. path phase — runs the LM serving path (``repro_torch.launch.serve_lm.
-   generate`` at full width and depth on qwen3-0.6b, zamba2-7b and
-   rwkv6-1.6b: batch 8, a 512-token prompt, 32 greedy steps, K4 on every
-   attention call, K5 on every Mamba-2 layer, K6 on every RWKV-6 layer;
-   then mixtral-8x22b and grok-1-314b at full width, cut in depth, and
+   generate`` at full width and depth on qwen3-0.6b, zamba2-7b,
+   rwkv6-1.6b, gemma2-9b, stablelm-3b and starcoder2-15b: batch 8, a
+   512-token prompt, 32 greedy steps, K4 on every attention call, K5 on
+   every Mamba-2 layer, K6 on every RWKV-6 layer; gemma2-9b also a window
+   run past its local layers' window of 4096; then mixtral-8x22b and grok-1-314b at full width, cut in depth, and
    qwen2-vl-2b and musicgen-medium on embeddings: below; every decode step
    one replay of the captured step, ``serve_lm.DecodeGraph``, the
    counterpart of the reference's ``jax.jit(decode_step)``, its K4/K5/K6
@@ -315,7 +316,18 @@ forward and the plain path teacher-forced along its tokens, and greedy
 tokens must be the plain path's argmax wherever its top-2 logits lie more
 than twice that apart.  A fault of a kernel or of the decode path (a state
 carried wrong, a conv tail or a shift row off by a step) moves the logits
-by far more.
+by far more.  The dense three served at full depth (logits' standard
+deviation 1.20, 1.00, 1.00) took decode within 0.129 (gemma2-9b), 0.0937
+(stablelm-3b) and 0.108 (starcoder2-15b) of the forward on an H100, and
+the plain path within 0.140, 0.105 and 0.108: ``LM_LOGIT_TOL`` 0.35, 0.28
+and 0.3 are 2.7, 3.0 and 2.8 times that noise (2.5, 2.7, 2.8 times the
+plain path's).  gemma2's window run took 0.117 against the forward and
+0.121 against the plain path, within the same tolerance.  Their f32 checks
+(``F32_LAYERS``: gemma2-9b and starcoder2-15b at 2 layers, whose f32
+weights beside the bf16 model's would not fit at full depth; stablelm-3b
+whole) took decode within 2.83e-5, 1.99e-5 and 2.41e-5 of the forward and
+the plain path within 1.82e-5, 1.26e-5 and 1.81e-5: ``LM_F32_TOL`` 1e-4,
+7e-5 and 8.5e-5 are 3.5 times the forward's.
 
 The MoE models run at full width, mixtral-8x22b cut to its first 8 of 56
 layers (2.50 B parameters a layer: 40.9 GB of bf16 weights with the
@@ -352,7 +364,12 @@ with the forward within ``LM_F32_TOL`` (1e-4: 3.3 times the 3.0e-5
 measured).  mixtral's window run (batch 1, a 4608-token prompt, 16 steps)
 must call K4 with every key of the 4625-row cache in the prefill (keys past
 the window masked) and ``window + 1 = 4097`` keys at offset 4096 in every
-step (``attn_apply``'s view of the cache), held as above.  qwen2-vl-2b and
+step (``attn_apply``'s view of the cache), held as above.  gemma2-9b's
+window run (``lm_window_run``, the same traffic after its 545-row path,
+whose window masks nothing) must call K4 so in its local layers and, in its
+global ones, with every key of the cache at the step's offset; a dense
+model's window run is held by ``dense_checks`` (the plain path and the
+forward) within ``LM_LOGIT_TOL``.  qwen2-vl-2b and
 musicgen-medium run at full width, cut to half their depth
 (``EMBED_LAYERS``: 14 of 28 and 24 of 48 layers), on random ``[8, 512, d]``
 prompts and 32 ``[8, 1, d]`` steps (``serve_lm.serve_embeddings``),
@@ -383,11 +400,13 @@ from the same snapshot of the caches must give the same bits
 (``graph_step``, which also times a replay: event ms and the card's busy
 ms beside the eager step's).  The MoE paths record routes on an eager run
 (a replay calls no Python) and hold the captured run to it; in mixtral's
-window run the captured step's K4 calls (warm-up and capture) must see the
-whole 4625-row cache with the offset on the device.  K4's decode form with
-that offset (``kernel_attention_at``) is held to ``attention_ref`` and to
-``flash_decode_plain`` on the same offset within ``attention_tolerance``
-at the qwen3, zamba2, mixtral window and gemma2 local decode shapes over
+and gemma2's window runs the captured step's K4 calls (warm-up and
+capture) must see the whole 4625-row cache with the offset on the device.
+K4's decode form with that offset (``kernel_attention_at``) is held to
+``attention_ref`` and to ``flash_decode_plain`` on the same offset within
+``attention_tolerance`` at the qwen3, zamba2, mixtral window, gemma2 local,
+stablelm, starcoder2, gemma2 and gemma2 window (local and global) decode
+shapes over
 the whole cache, at the path's last offset and at offsets whose live tiles
 are fewer than the static grid's splits (the kernel spreads the live tiles
 over the splits it has); at qwen3's heads over a 32768-row cache, an early
@@ -662,6 +681,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -704,11 +724,18 @@ STEP_KERNELS = {"flash_attention/f32": ("flash_kernel",),
                 "rwkv6_scan/decode": ("rwkv6_step_kernel",)}
 LM_LOGIT_TOL = {"qwen3-0.6b": 0.15, "zamba2-7b": 2.5, "rwkv6-1.6b": 0.5,
                 "mixtral-8x22b": 0.25, "grok-1-314b": 0.25, "qwen2-vl-2b": 0.25,
-                "musicgen-medium": 0.35}
+                "musicgen-medium": 0.35, "gemma2-9b": 0.35, "stablelm-3b": 0.28,
+                "starcoder2-15b": 0.3}
 LM_LOGIT_RMS_TOL = {"zamba2-7b": 0.4, "rwkv6-1.6b": 0.1}  # RMS of the same differences
 LM_F32_TOL = {"zamba2-7b": 2e-3, "rwkv6-1.6b": 2e-4,  # f32: vs plain path and forward
-              "mixtral-8x22b": 1e-4, "grok-1-314b": 1e-4}
-LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b")
+              "mixtral-8x22b": 1e-4, "grok-1-314b": 1e-4, "gemma2-9b": 1e-4,
+              "stablelm-3b": 7e-5, "starcoder2-15b": 8.5e-5}
+# The models served at full width and depth (each freed before the next);
+# the f32 check's depth where the f32 weights would not fit beside the bf16
+# model's (whole stages: gemma2's is a local and a global layer)
+LM_ARCHS = ("qwen3-0.6b", "zamba2-7b", "rwkv6-1.6b", "gemma2-9b", "stablelm-3b",
+            "starcoder2-15b")
+F32_LAYERS = {"gemma2-9b": 2, "starcoder2-15b": 2}
 # The examples phase's serve_lm (reduced configs: f32) against its CPU run:
 # the f32 tolerances above, qwen3's that of the other attention-only models
 EXAMPLE_LM_TOL = {"qwen3-0.6b": LM_F32_TOL["mixtral-8x22b"],
@@ -795,6 +822,19 @@ def attention_tolerance(q, k, v, want, n_keys, **kw):
                + 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(), **kw))
     return tol
 
+
+
+def pass_launches(cfg) -> dict:
+    """K4's, K5's and K6's calls in one pass over ``cfg``'s layers (a
+    prefill or a decode step): K4 on every attention layer, K5 on every
+    Mamba-2 layer, K6 on every RWKV-6 layer."""
+    from repro_torch.configs.base import MAMBA2, RWKV6
+    from repro_torch.models import model as M
+
+    kinds = M.layer_kinds(cfg)
+    n_ssm, n_rwkv = kinds.count(MAMBA2), kinds.count(RWKV6)
+    return {"flash_attention": len(kinds) - n_ssm - n_rwkv, "ssd_scan": n_ssm,
+            "rwkv6_scan": n_rwkv}
 
 
 def decode_weight_bytes(params, cfg, batch):
@@ -2280,7 +2320,8 @@ class Smoke:
         on the device (``kernel_attention_at``) at the captured path's qwen3,
         zamba2, mixtral window run and gemma2 local decode shapes, over the
         whole cache; and at qwen3's heads over a 32768-row cache (batch 8 and
-        1, offsets 4095 and 32767), its device ms beside the host offset's."""
+        1, offsets 4095 and 32767), its device ms beside the host offset's.
+        Then the dense models' rows (``attention_dense_rows``)."""
         torch = self.torch
         g = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -2391,7 +2432,75 @@ class Smoke:
         self.kernel_attention("flash_attention@musicgen-decode", q, ck.transpose(1, 2),
                               cv.transpose(1, 2), q_offset=543)
         del ck, cv, q
+        self.attention_dense_rows()
         torch.cuda.empty_cache()
+
+    def attention_dense_rows(self):
+        """K4 at the shapes of the dense models served at full depth:
+        stablelm-3b's prefill (q ``[8, 32, 512, 80]`` over ``[8, 545, 32,
+        80]``), starcoder2-15b's (q ``[8, 48, 512, 128]`` over ``[8, 545, 4,
+        128]``) and gemma2-9b's (q ``[8, 16, 512, 256]`` over ``[8, 545, 8,
+        256]``, window 4096, softcap 50), each with its decode at offset 543
+        and its captured decode (the offset on the device, over the whole
+        cache); gemma2's window run: the prefill (q ``[1, 16, 4608, 256]``
+        over the 4625-row cache) local and global, the eager local decode
+        over the view of rows 527–4623, and the captured decode over the
+        whole cache, local and global."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(0)
+
+        def randn(*shape, dtype):
+            return torch.randn(shape, generator=g, device=self.dev).to(dtype)
+
+        bf16 = torch.bfloat16
+        # the dense models served at full depth: stablelm-3b (32 MHA heads of
+        # 80: the prefill pads D to 128, the decode to 96), starcoder2-15b
+        # (48 query heads over 4 kv heads: 12 rows a kv head in the decode
+        # form) and gemma2-9b (16 over 8 heads of 256, softcap 50; its local
+        # layers' window of 4096 masks nothing in 545 rows), each prefill,
+        # the eager run's decode at offset 543 and the captured step's over
+        # the whole cache with the offset on the device
+        for name, hq, hkv, d, window, cap in (("stablelm", 32, 32, 80, None, 0.0),
+                                              ("starcoder2", 48, 4, 128, None, 0.0),
+                                              ("gemma2", 16, 8, 256, 4096, 50.0)):
+            ck = randn(8, 545, hkv, d, dtype=bf16)
+            cv = randn(8, 545, hkv, d, dtype=bf16)
+            q = randn(8, 512, hq, d, dtype=bf16).transpose(1, 2)
+            self.kernel_attention(f"flash_attention@{name}-prefill", q, ck.transpose(1, 2),
+                                  cv.transpose(1, 2), q_offset=0, window=window, softcap=cap)
+            q = randn(8, 1, hq, d, dtype=bf16).transpose(1, 2)
+            self.kernel_attention(f"flash_attention@{name}-decode", q, ck.transpose(1, 2),
+                                  cv.transpose(1, 2), q_offset=543, window=window,
+                                  softcap=cap)
+            self.kernel_attention_at(f"flash_attention@{name}-decode-at", q,
+                                     ck.transpose(1, 2), cv.transpose(1, 2), (543, 100, 0),
+                                     window=window, softcap=cap)
+        # gemma2-9b's window run: the 4608-token prompt in a 4625-row cache,
+        # local (window 4096) and global; the eager run's local decode over
+        # the view of the window + 1 rows (start 527); the captured step's
+        # over the whole cache, local and global
+        b, plen, steps = WINDOW_RUN
+        rows = plen + steps + 1
+        ck = randn(b, rows, 8, 256, dtype=bf16)
+        cv = randn(b, rows, 8, 256, dtype=bf16)
+        q = randn(b, plen, 16, 256, dtype=bf16).transpose(1, 2)
+        for name, window in (("gemma2-window-prefill", 4096),
+                             ("gemma2-window-global-prefill", None)):
+            self.kernel_attention(f"flash_attention@{name}", q, ck.transpose(1, 2),
+                                  cv.transpose(1, 2), q_offset=0, window=window,
+                                  softcap=50.0)
+        start = plen + steps - 1 + 1 - 4097
+        q = randn(b, 1, 16, 256, dtype=bf16).transpose(1, 2)
+        self.kernel_attention("flash_attention@gemma2-window-decode", q,
+                              ck[:, start:start + 4097].transpose(1, 2),
+                              cv[:, start:start + 4097].transpose(1, 2), q_offset=4096,
+                              window=4096, softcap=50.0)
+        for name, window in (("gemma2-window-decode-at", 4096),
+                             ("gemma2-window-global-decode-at", None)):
+            self.kernel_attention_at(f"flash_attention@{name}", q, ck.transpose(1, 2),
+                                     cv.transpose(1, 2), (plen + steps - 1, 4200, 1000),
+                                     window=window, softcap=50.0)
+        del ck, cv, q
 
     # -- K4's "dh" form -----------------------------------------------------
 
@@ -2931,10 +3040,12 @@ class Smoke:
         results.update(self.knn_path(sess, data))
         print(json.dumps({"path_results": results}), flush=True)
         kernels = {"wordcount": "hash_aggregate", "kmeans fig6": "kmeans_assign",
-                   "lm qwen3-0.6b": "flash_attention", "lm zamba2-7b": "ssd_scan",
-                   "lm rwkv6-1.6b": "rwkv6_scan", "train qwen3-0.6b": "flash_attention",
-                   **{f"lm {arch}": "flash_attention" for arch in (*MOE_LAYERS, *EMBED_ARCHS)},
-                   "lm mixtral window": "flash_attention"}
+                   "lm zamba2-7b": "ssd_scan", "lm rwkv6-1.6b": "rwkv6_scan",
+                   "train qwen3-0.6b": "flash_attention",
+                   **{f"lm {arch}": "flash_attention" for arch in (
+                       "qwen3-0.6b", "gemma2-9b", "stablelm-3b", "starcoder2-15b",
+                       *MOE_LAYERS, *EMBED_ARCHS)},
+                   "lm mixtral window": "flash_attention", "lm gemma2 window": "flash_attention"}
         for name, launch in self.path_launches.items():
             kernel = kernels.get(name, "segment_reduce")
             if launch[kernel] == 0:
@@ -5098,7 +5209,7 @@ class Smoke:
         form at train_lm's attention shape as a row of the kernel phase."""
         torch = self.torch
         import numpy as np
-        from repro_torch.configs.base import MAMBA2, RWKV6, get_arch
+        from repro_torch.configs.base import get_arch
         from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
 
@@ -5241,11 +5352,8 @@ class Smoke:
         layers = {"flash_attention": 0, "ssd_scan": 0, "rwkv6_scan": 0}
         lm = {}
         for arch in mod.ARCHS:
-            kinds = M.layer_kinds(get_arch(arch).reduced())
-            n_ssm, n_rwkv = kinds.count(MAMBA2), kinds.count(RWKV6)
-            layers["flash_attention"] += len(kinds) - n_ssm - n_rwkv
-            layers["ssd_scan"] += n_ssm
-            layers["rwkv6_scan"] += n_rwkv
+            for kernel, n in pass_launches(get_arch(arch).reduced()).items():
+                layers[kernel] += n
             tol = EXAMPLE_LM_TOL[arch]
             a, b = res[arch], cpu[arch]
             if not torch.equal(a["prompts"], b["prompts"]):
@@ -6252,11 +6360,14 @@ class Smoke:
         through the replays).  Held against the same
         model and weights on the plain path (``attn_impl="ref"``,
         ``scan_impl="chunked"``) teacher-forced along the same tokens, and
-        against the teacher-forced ``forward`` (module docstring); against an
-        eager run (``capture=False``, ``held_to_eager``); two replays of one
-        step from the same caches must give the same bits (``graph_step``)."""
+        against the teacher-forced ``forward`` (``dense_checks``; module
+        docstring); against an eager run (``capture=False``,
+        ``held_to_eager``); two replays of one step from the same caches must
+        give the same bits (``graph_step``).  Then, for the archs
+        ``LM_F32_TOL`` names, the f32 check (``lm_f32_check``), and for a
+        model with a window (gemma2-9b) the window run (``lm_window_run``)."""
         torch = self.torch
-        from repro_torch.configs.base import MAMBA2, RWKV6, get_arch
+        from repro_torch.configs.base import get_arch
         from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
         from repro_torch.models.attention import KVCache
@@ -6265,6 +6376,8 @@ class Smoke:
         tol = LM_LOGIT_TOL[arch]
         b, plen, steps = 8, 512, 32
         max_len = plen + steps + 1
+        if self.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         g = torch.Generator(device=self.dev).manual_seed(0)
         params = M.init(g, cfg)
         prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
@@ -6275,55 +6388,13 @@ class Smoke:
         # K4 on every attention call, K5 on every Mamba-2 layer, K6 on every
         # RWKV-6 layer, in the prefill and in every step (each replay's
         # launches those of the captured step)
-        kinds = M.layer_kinds(cfg)
-        n_ssm, n_rwkv = kinds.count(MAMBA2), kinds.count(RWKV6)
-        counted = self.lm_launches(f"lm {arch}", launch, {
-            "flash_attention": len(kinds) - n_ssm - n_rwkv, "ssd_scan": n_ssm,
-            "rwkv6_scan": n_rwkv}, steps)
+        counted = self.lm_launches(f"lm {arch}", launch, pass_launches(cfg), steps)
         if not bool(torch.isfinite(logits).all()) or toks.shape != (b, steps):
             raise AssertionError(f"lm {arch}: non-finite logits or a wrong token shape")
 
-        # The plain path, teacher-forced along the kernel path's tokens.
-        ref = self.teacher_forced(params, cfg, prompts, toks, max_len, attn_impl="ref",
-                                  scan_impl="chunked")
-        ref_err = float((logits - ref).abs().max())
-        # Greedy tokens: the plain path's argmax must be the kernel path's
-        # token wherever its top-2 logits are more than 2·tol apart.
-        top2 = torch.topk(ref[:, :steps], 2, dim=-1).values
-        near = (top2[..., 0] - top2[..., 1]) <= 2 * tol
-        differ = ref[:, :steps].argmax(-1) != toks
-        del top2
-        # Teacher-forced forward over prompt + generated tokens, with the
-        # kernels: decode against it is the bf16 model's own noise.
-        seq = torch.cat([prompts, toks], 1)
-        hidden, _, _ = M.forward(params, cfg, seq)
-        fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:plen + steps])
-        fwd_err = float((logits - fwd).abs().max())
-        rms = [float((logits - x).pow(2).mean().sqrt()) for x in (ref, fwd)]
+        checks, hidden = self.dense_checks(f"lm {arch}", params, cfg, prompts, toks, logits,
+                                           tol, LM_LOGIT_RMS_TOL.get(arch, tol))
         f32 = self.lm_f32_check(arch) if arch in LM_F32_TOL else {}
-        print(json.dumps({"lm_check": arch, "logit_err_vs_plain": ref_err,
-                          "logit_err_vs_forward": fwd_err, "tol": tol,
-                          "logit_rms_vs_plain": rms[0], "logit_rms_vs_forward": rms[1],
-                          "rms_tol": LM_LOGIT_RMS_TOL.get(arch), **f32,
-                          "f32_tol": LM_F32_TOL.get(arch),
-                          "logit_std": float(logits.std()),
-                          "decided_token_differences": int((differ & ~near).sum())}),
-              flush=True)
-        if bool((differ & ~near).any()):
-            raise AssertionError(f"lm {arch}: a decided greedy token differs from the "
-                                 "plain path")
-        if max(ref_err, fwd_err) > tol or max(rms) > LM_LOGIT_RMS_TOL.get(arch, tol):
-            raise AssertionError(f"lm {arch}: logits off by {ref_err} (plain path) and "
-                                 f"{fwd_err} (forward), tolerance {tol}; RMS {rms}")
-        if f32 and max(f32["f32_vs_plain"], f32["f32_decode_vs_forward"]) > LM_F32_TOL[arch]:
-            raise AssertionError(f"lm {arch}: in f32, logits off the plain path by "
-                                 f"{f32['f32_vs_plain']} and off the forward by "
-                                 f"{f32['f32_decode_vs_forward']}, tolerance "
-                                 f"{LM_F32_TOL[arch]}")
-        if f32 and f32["f32_decided_token_differences"]:
-            raise AssertionError(f"lm {arch}: in f32, a decided greedy token differs "
-                                 "from the plain path")
-        del ref, fwd, seq
         etoks, eager_s, elogits = generate(cfg, params, prompts, max_len, steps,
                                            return_logits=True, capture=False)
         eager = self.held_to_eager(f"lm {arch}", (toks, logits), (etoks, elogits), tol)
@@ -6362,7 +6433,7 @@ class Smoke:
         kv_read = sum((plen + i + 1) * row_bytes for i in range(steps)) / steps
         state_bytes = sum(nbytes(t) for c in caches if not isinstance(c, KVCache)
                           for t in c)
-        return {
+        res = {
             "arch": cfg.name, "params": M.param_count(params),
             "batch": b, "prompt": plen, "steps": steps,
             "prefill_ms": prefill_ms,
@@ -6375,60 +6446,120 @@ class Smoke:
             "kv_cache_bytes": kv_bytes, "state_cache_bytes": state_bytes,
             "decode_bound_ms": (weight_bytes + kv_read + 2 * state_bytes)
             / HBM_BYTES_PER_S * 1e3,
-            "logit_err_vs_plain": ref_err, "logit_err_vs_forward": fwd_err,
-            "logit_tol": tol, "logit_rms": rms, **f32,
-            "logit_std": float(logits.std()),
-            "near_tie_rows": int(near.any(1).sum()),
-            "token_differences": int(differ.sum()),
-            "launches": counted,
+            **checks, "logit_tol": tol, **f32, "launches": counted,
+            # the run's peak device memory (the window run's apart)
+            "peak_allocated_bytes": (torch.cuda.max_memory_allocated()
+                                     if self.dev.type == "cuda" else None),
         }
+        del caches, hidden, last
+        if cfg.window:  # gemma2: its local layers past their window
+            res["window_run"] = self.lm_window_run(params, cfg)
+        return res
+
+    def dense_checks(self, name, params, cfg, prompts, toks, logits, tol, rms_tol):
+        """A ``generate`` run of a model with no MoE layer (``logits [B, n +
+        1, V]`` after ``prompts [B, P]``, along ``toks [B, n]``) against the
+        plain path (``attn_impl="ref"``, ``scan_impl="chunked"``)
+        teacher-forced along the same tokens, and against the teacher-forced
+        ``forward`` with the kernels (decode against it is the model's own
+        rounding noise): each max within ``tol``, each RMS within
+        ``rms_tol``; greedy tokens must be the plain path's argmax wherever
+        its top-2 logits lie more than ``2·tol`` apart.  Prints the errors
+        before it fails; returns them and the forward's hidden states."""
+        torch = self.torch
+        from repro_torch.models import model as M
+
+        plen, steps = prompts.shape[1], toks.shape[1]
+        ref = self.teacher_forced(params, cfg, prompts, toks, plen + steps + 1,
+                                  attn_impl="ref", scan_impl="chunked")
+        top2 = torch.topk(ref[:, :steps], 2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= 2 * tol
+        differ = ref[:, :steps].argmax(-1) != toks
+        del top2
+        hidden, _, _ = M.forward(params, cfg, torch.cat([prompts, toks], 1))
+        fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:plen + steps])
+        res = {"logit_err_vs_plain": float((logits - ref).abs().max()),
+               "logit_err_vs_forward": float((logits - fwd).abs().max()),
+               "logit_rms": [float((logits - x).pow(2).mean().sqrt()) for x in (ref, fwd)],
+               "logit_std": float(logits.std()),
+               "near_tie_rows": int(near.any(1).sum()),
+               "token_differences": int(differ.sum()),
+               "decided_token_differences": int((differ & ~near).sum())}
+        del ref, fwd
+        print(json.dumps({"lm_check": name, **res, "tol": tol, "rms_tol": rms_tol}),
+              flush=True)
+        if res["decided_token_differences"]:
+            raise AssertionError(f"{name}: a decided greedy token differs from the plain "
+                                 "path")
+        if (max(res["logit_err_vs_plain"], res["logit_err_vs_forward"]) > tol
+                or max(res["logit_rms"]) > rms_tol):
+            raise AssertionError(f"{name}: logits off by {res['logit_err_vs_plain']} "
+                                 f"(plain path) and {res['logit_err_vs_forward']} (forward), "
+                                 f"tolerance {tol}; RMS {res['logit_rms']}, tolerance "
+                                 f"{rms_tol}")
+        return res, hidden
 
     def lm_f32_check(self, arch):
-        """``arch`` built in f32 (random weights from seed 0; batch 2, a
-        512-token prompt, 8 greedy steps through ``generate``, the same
-        kernels): max |kernel path − plain path| of the logits, the plain
-        path (``attn_impl="ref"``, ``scan_impl="chunked"``) teacher-forced
-        along the same tokens, and max |decode − teacher-forced forward|.
-        With f32 rounding in place of bf16's, a fault of a kernel or of the
-        decode path (a state carried wrong, a conv tail or shift row off by
-        one) shows here far above rounding, and greedy tokens must be the
-        plain path's argmax wherever its top-2 logits lie more than
-        ``2·LM_F32_TOL`` apart.  The run decodes through the captured step,
-        held to an eager run within ``LM_F32_TOL``; two replays of one step
-        must give the same bits."""
+        """``arch`` built in f32 (random weights from seed 0; at
+        ``F32_LAYERS`` layers where it names the arch, else at full depth;
+        batch 2, a 512-token prompt, 8 greedy steps through ``generate``,
+        the same kernels, K4 in its f32 form on every attention call): max
+        |kernel path − plain path| of the logits, the plain path
+        (``attn_impl="ref"``, ``scan_impl="chunked"``) teacher-forced along
+        the same tokens, and max |decode − teacher-forced forward|, both
+        within ``LM_F32_TOL``.  With f32 rounding in place of bf16's, a
+        fault of a kernel or of the decode path (a state carried wrong, a
+        conv tail or shift row off by one) shows here far above rounding,
+        and greedy tokens must be the plain path's argmax wherever its top-2
+        logits lie more than ``2·LM_F32_TOL`` apart.  The run decodes
+        through the captured step, held to an eager run within
+        ``LM_F32_TOL``; two replays of one step must give the same bits."""
         torch = self.torch
         import dataclasses
         from repro_torch.configs.base import get_arch
         from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
 
-        cfg = dataclasses.replace(get_arch(arch), param_dtype="float32",
-                                  compute_dtype="float32")
+        tol = LM_F32_TOL[arch]
+        f32 = dict(param_dtype="float32", compute_dtype="float32")
+        cfg = (self.cut_config(arch, F32_LAYERS[arch], **f32) if arch in F32_LAYERS
+               else dataclasses.replace(get_arch(arch), **f32))
         b, plen, steps = 2, 512, 8
         g = torch.Generator(device=self.dev).manual_seed(0)
         params = M.init(g, cfg)
         prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
-        toks, _, logits = generate(cfg, params, prompts, plen + steps + 1, steps,
-                                   return_logits=True)
+        (toks, _, logits), _, launch = self.drive(
+            f"lm {arch} f32", lambda: generate(cfg, params, prompts, plen + steps + 1, steps,
+                                               return_logits=True), b * steps)
+        self.lm_launches(f"lm {arch} f32", launch, pass_launches(cfg), steps, f32=True)
         eager = self.held_to_eager(f"lm {arch} f32", (toks, logits), generate(
             cfg, params, prompts, plen + steps + 1, steps, return_logits=True,
-            capture=False)[::2], LM_F32_TOL[arch])
+            capture=False)[::2], tol)
         graph = self.graph_step(params, cfg, prompts, toks[:, -1:], steps, timed=False)
         ref = self.teacher_forced(params, cfg, prompts, toks, plen + steps + 1,
                                   attn_impl="ref", scan_impl="chunked")
         hidden, _, _ = M.forward(params, cfg, torch.cat([prompts, toks], 1))
         fwd = M.logits_fn(params, cfg, hidden[:, plen - 1:plen + steps])
         top2 = torch.topk(ref[:, :steps], 2, dim=-1).values
-        decided = (top2[..., 0] - top2[..., 1]) > 2 * LM_F32_TOL[arch]
-        res = {"f32_vs_plain": float((logits - ref).abs().max()),
+        decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
+        res = {"f32_layers": cfg.n_layers,
+               "f32_vs_plain": float((logits - ref).abs().max()),
                "f32_decode_vs_forward": float((logits - fwd).abs().max()),
                "f32_decided_tokens": int(decided.sum()),
                "f32_decided_token_differences": int(
                    ((ref[:, :steps].argmax(-1) != toks) & decided).sum()),
                "f32_captured_vs_eager_err": eager["captured_vs_eager_err"],
-               "f32_replay_bit_equal": graph["replay_bit_equal"]}
+               "f32_replay_bit_equal": graph["replay_bit_equal"], "f32_tol": tol}
         del params, hidden, ref, fwd
         torch.cuda.empty_cache()
+        print(json.dumps({"lm_check": f"{arch} f32", **res}), flush=True)
+        if max(res["f32_vs_plain"], res["f32_decode_vs_forward"]) > tol:
+            raise AssertionError(f"lm {arch}: in f32, logits off the plain path by "
+                                 f"{res['f32_vs_plain']} and off the forward by "
+                                 f"{res['f32_decode_vs_forward']}, tolerance {tol}")
+        if res["f32_decided_token_differences"]:
+            raise AssertionError(f"lm {arch}: in f32, a decided greedy token differs "
+                                 "from the plain path")
         return res
 
     # -- MoE and the embedding-input models ----------------------------------
@@ -6744,13 +6875,17 @@ class Smoke:
         return res
 
     def cut_config(self, arch, layers, **kw):
-        """``arch`` cut to its first ``layers`` layers (every layer is one
-        stage of one block: the MoE and embedding-fed models), with ``kw``
-        replaced."""
+        """``arch`` cut to its first ``layers`` layers, whole stages (a stage
+        is one block in the MoE, embedding-fed and dense models, a local and
+        a global layer in gemma2-9b's), with ``kw`` replaced."""
         import dataclasses
         from repro_torch.configs.base import get_arch
 
-        return dataclasses.replace(get_arch(arch), n_layers=layers, n_stages=layers, **kw)
+        cfg = get_arch(arch)
+        per = len(cfg.stage_pattern)
+        if layers % per or cfg.tail_pattern:
+            raise ValueError(f"{arch}: {layers} layers are not whole stages of {per}")
+        return dataclasses.replace(cfg, n_layers=layers, n_stages=layers // per, **kw)
 
     def param_counts(self, params, cfg):
         """Total and active parameters of the cut model, and of the model at
@@ -6869,25 +7004,37 @@ class Smoke:
         return res
 
     def lm_window_run(self, params, cfg):
-        """mixtral's window run: batch 1, a 4608-token prompt (keys beyond the
-        window masked in the prefill), 16 greedy steps, each reading the
-        last ``window + 1`` cache rows through ``attn_apply``'s view: every
-        decode call of K4 must see ``window + 1`` keys at offset ``window``.
-        Held by ``moe_checks``.  That run is eager (its routes recorded); the
-        main path's run decodes through the captured step, whose K4 calls
-        (the warm-up's and the capture's) must see the whole cache with the
-        offset on the device, held to the eager run (``held_to_eager``)."""
+        """A window run of a model with local layers (mixtral-8x22b: every
+        layer; gemma2-9b: a local and a global layer a stage): batch 1, a
+        4608-token prompt (a local layer's keys beyond the window masked in
+        the prefill), 16 greedy steps.  An eager run first: each step's
+        local layers read the last ``window + 1`` cache rows through
+        ``attn_apply``'s view, so every local decode call of K4 must see
+        ``window + 1`` keys at offset ``window``, and every global one the
+        whole cache at the step's offset.  Then the main path's run through
+        the captured step, whose K4 calls (the warm-up's and the capture's)
+        must see the whole cache with the offset on the device, local layers
+        with their window; held to the eager run (``held_to_eager``).  An
+        MoE model's eager run records its routes and is held by
+        ``moe_checks``; a dense one's by ``dense_checks``."""
         torch = self.torch
+        from repro_torch.configs.base import ATTN_LOCAL, ATTN_LOCAL_MOE
         from repro_torch.kernels import ops
         from repro_torch.launch.serve_lm import generate
         from repro_torch.models import model as M
 
+        name = f"lm {cfg.name.split('-')[0]} window"
+        tol = LM_LOGIT_TOL[cfg.name]
         b, plen, steps = WINDOW_RUN
-        n, w = len(params["layers"]), cfg.window
+        w = cfg.window
+        local = [k in (ATTN_LOCAL, ATTN_LOCAL_MOE) for k in M.layer_kinds(cfg)]
+        n = len(local)
         max_len = plen + steps + 1
         g = torch.Generator(device=self.dev).manual_seed(1)
         prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=self.dev)
         seen, kernel = [], ops._flash_kernel
+        # each layer's K4 call, (Sq, Skv, q_offset, window), in the prefill
+        prefill = [(plen, max_len, 0, w if lw else None) for lw in local]
 
         def shapes(q, k, v, **kw):
             off = kw["q_offset"]
@@ -6896,41 +7043,48 @@ class Smoke:
             return kernel(q, k, v, **kw)
 
         ops._flash_kernel = shapes
+        routes = RouteLog() if cfg.is_moe else None
         try:
-            with RouteLog() as rk:
+            with routes or contextlib.nullcontext():
                 (toks, eager_s, logits), _, launch = self.drive(
-                    "lm mixtral window eager", lambda: generate(
+                    f"{name} eager", lambda: generate(
                         cfg, params, prompts, max_len, steps, return_logits=True,
                         capture=False), b * steps)
-            self.lm_launches("lm mixtral window eager", launch, {"flash_attention": n},
-                             steps, captured=False)
-            want = [(plen, max_len, 0, w)] * n + [(1, w + 1, w, w)] * (n * steps)
-            if seen != want:
-                raise AssertionError(f"window run: K4 calls saw (Sq, Skv, q_offset, window) "
-                                     f"{sorted(set(seen))}, not {sorted(set(want))}")
+            self.lm_launches(f"{name} eager", launch, {"flash_attention": n}, steps,
+                             captured=False)
+            eager_calls = prefill + [(1, w + 1, w, w) if lw else (1, max_len, plen + i, None)
+                                     for i in range(steps) for lw in local]
+            if seen != eager_calls:
+                raise AssertionError(f"{name}: K4 calls saw (Sq, Skv, q_offset, window) "
+                                     f"{sorted(set(seen), key=str)}, not "
+                                     f"{sorted(set(eager_calls), key=str)}")
             seen.clear()
             (ctoks, decode_s, clogits), _, launch = self.drive(
-                "lm mixtral window", lambda: generate(cfg, params, prompts, max_len,
-                                                      steps, return_logits=True),
-                b * steps)
+                name, lambda: generate(cfg, params, prompts, max_len, steps,
+                                       return_logits=True), b * steps)
         finally:
             ops._flash_kernel = kernel
-        self.path_launches["lm mixtral window"] = launch
-        counted = self.lm_launches("lm mixtral window", launch, {"flash_attention": n}, steps)
+        self.path_launches[name] = launch
+        counted = self.lm_launches(name, launch, {"flash_attention": n}, steps)
         # the prefill, then the warm-up's and the capture's calls of the step
-        want = [(plen, max_len, 0, w)] * n + [(1, max_len, "device", w)] * (2 * n)
-        if seen != want:
-            raise AssertionError(f"window run, captured: K4 calls saw (Sq, Skv, q_offset, "
+        captured_calls = prefill + [(1, max_len, "device", w if lw else None)
+                                    for lw in local] * 2
+        if seen != captured_calls:
+            raise AssertionError(f"{name}, captured: K4 calls saw (Sq, Skv, q_offset, "
                                  f"window) {sorted(set(seen), key=str)}, not "
-                                 f"{sorted(set(want), key=str)}")
-        eager = self.held_to_eager("lm mixtral window", (ctoks, clogits), (toks, logits),
-                                   LM_LOGIT_TOL[cfg.name])
+                                 f"{sorted(set(captured_calls), key=str)}")
+        eager = self.held_to_eager(name, (ctoks, clogits), (toks, logits), tol)
         del ctoks, clogits
-        res = self.moe_checks("lm mixtral window", params, cfg, prompts, toks, logits, rk,
-                              LM_LOGIT_TOL[cfg.name])
+        if routes:
+            res = self.moe_checks(name, params, cfg, prompts, toks, logits, routes, tol)
+        else:
+            res, hidden = self.dense_checks(name, params, cfg, prompts, toks, logits, tol,
+                                            LM_LOGIT_RMS_TOL.get(cfg.name, tol))
+            del hidden
         caches = M.make_caches(cfg, b, max_len, self.dev)
         res.update(
             batch=b, prompt=plen, steps=steps, k4_calls=len(seen), decode_keys=w + 1,
+            local_layers=sum(local), global_layers=n - sum(local),
             decode_ms_per_step=decode_s / steps * 1e3,
             eager_decode_ms_per_step=eager_s / steps * 1e3,
             launches=counted, captured_vs_eager=eager,
@@ -7586,12 +7740,14 @@ class Smoke:
                 "flash_attention@qwen3-prefill": "lm qwen3-0.6b",
                 "flash_attention@qwen3-decode": "lm qwen3-0.6b",
                 "flash_attention@qwen3-decode-at": "lm qwen3-0.6b",
-                "flash_attention@gemma2-local f32": "lm qwen3-0.6b",
-                "flash_attention@gemma2-local bf16": "lm qwen3-0.6b",
-                "flash_attention@gemma2-local-decode bf16": "lm qwen3-0.6b",
+                "flash_attention@gemma2-local f32": "lm gemma2-9b",
+                "flash_attention@gemma2-local bf16": "lm gemma2-9b",
+                "flash_attention@gemma2-local-decode bf16": "lm gemma2-9b",
+                "flash_attention@gemma2-local-decode-at bf16": "lm gemma2-9b",
                 "flash_attention@qwen3-train": "train qwen3-0.6b",
                 "flash_attention@zamba2-prefill": "lm zamba2-7b",
                 "flash_attention@zamba2-decode": "lm zamba2-7b",
+                "flash_attention@zamba2-decode-at": "lm zamba2-7b",
                 "ssd_scan@zamba2-prefill": "lm zamba2-7b",
                 "ssd_scan@zamba2-decode": "lm zamba2-7b",
                 "rwkv6_scan@rwkv6-prefill": "lm rwkv6-1.6b",
@@ -7607,6 +7763,14 @@ class Smoke:
                 "flash_attention@qwen2vl-decode": "lm qwen2-vl-2b",
                 "flash_attention@musicgen-prefill": "lm musicgen-medium",
                 "flash_attention@musicgen-decode": "lm musicgen-medium",
+                **{f"flash_attention@{model}-{shape}": f"lm {arch}"
+                   for model, arch in (("stablelm", "stablelm-3b"),
+                                       ("starcoder2", "starcoder2-15b"),
+                                       ("gemma2", "gemma2-9b"))
+                   for shape in ("prefill", "decode", "decode-at")},
+                **{f"flash_attention@gemma2-window-{shape}": "lm gemma2 window"
+                   for shape in ("prefill", "global-prefill", "decode", "decode-at",
+                                 "global-decode-at")},
                 "flash_attention@train_lm f32": "example train_lm",
                 # the "dh" form's main path: rank 0's gemma2-9b decode step
                 **{f"{kernel}@{shape}": "shard rank0 gemma2-9b decode_32k"

@@ -613,10 +613,28 @@ def test_sharded_dh_attention_on_the_card_launches_the_kernels(dev, tmp_path, im
     assert bool((err <= tol).all()), float((err - tol).max())
 
 
-def test_qwen3_full_width_decode_step_matches_the_plain_path(dev):
+def _full_width(arch, layers=None):
+    """``arch`` at full width, cut to its first ``layers`` layers (whole
+    stages: gemma2-9b's is a local and a global layer), else whole."""
+    import dataclasses
+
+    cfg = get_arch(arch)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers,
+                               n_stages=layers // len(cfg.stage_pattern))
+
+
+@pytest.mark.parametrize("arch, layers", [("qwen3-0.6b", None), ("gemma2-9b", 2),
+                                          ("stablelm-3b", 2), ("starcoder2-15b", 2)])
+def test_qwen3_full_width_decode_step_matches_the_plain_path(dev, arch, layers):
+    """A decode step at full width (qwen3-0.6b at full depth; gemma2-9b's
+    heads of 256 with its softcaps, stablelm-3b's MHA of 80 and
+    starcoder2-15b's 12 query rows a kv head at 2 layers) against the plain
+    path, within the smoke's ``LM_LOGIT_TOL``, K4 launched once a layer."""
     import chip_smoke
 
-    cfg = get_arch("qwen3-0.6b")
+    cfg = _full_width(arch, layers)
     g = torch.Generator(device=dev).manual_seed(0)
     params = M.init(g, cfg)
     prompts = torch.randint(0, cfg.vocab, (2, 64), generator=g, device=dev)
@@ -630,7 +648,7 @@ def test_qwen3_full_width_decode_step_matches_the_plain_path(dev):
         assert flash_attention.launches == (cfg.n_layers if impl == "auto" else 0)
     assert out["auto"].dtype == torch.float32 and out["auto"].shape == (2, cfg.vocab)
     err = float((out["auto"] - out["ref"]).abs().max())
-    assert err <= chip_smoke.LM_LOGIT_TOL["qwen3-0.6b"], err
+    assert err <= chip_smoke.LM_LOGIT_TOL[arch], err
 
 
 # B, Hq, Hkv, Sq, Skv, D, window, softcap, offsets: decode (split) forms, with
@@ -730,18 +748,19 @@ def test_decode_graph_replays_bit_for_bit_and_counts_its_launches(dev, arch):
     assert any(isinstance(c, KVCache) for c in caches) == (n_attn > 0)
 
 
-def test_qwen3_full_width_generate_captured_matches_eager(dev):
-    """qwen3-0.6b at full width and depth: ``generate`` through the captured
-    step against the eager step, tokens and logits (within
-    ``chip_smoke.LM_LOGIT_TOL``; the decode form's splits come from the
-    cache in one and from the offset in the other), and the same launches:
-    captured, the wrappers count the prefill, the warm-up and the capture,
-    and the 8 replays the other steps."""
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "stablelm-3b"])
+def test_qwen3_full_width_generate_captured_matches_eager(dev, arch):
+    """qwen3-0.6b and stablelm-3b at full width and depth: ``generate``
+    through the captured step against the eager step, tokens and logits
+    (within ``chip_smoke.LM_LOGIT_TOL``; the decode form's splits come from
+    the cache in one and from the offset in the other), and the same
+    launches: captured, the wrappers count the prefill, the warm-up and the
+    capture, and the 8 replays the other steps."""
     import chip_smoke
     from repro_torch.launch import serve_lm
     from repro_torch.launch.serve_lm import generate
 
-    cfg = get_arch("qwen3-0.6b")
+    cfg = get_arch(arch)
     g = torch.Generator(device=dev).manual_seed(0)
     params = M.init(g, cfg)
     prompts = torch.randint(0, cfg.vocab, (2, 64), generator=g, device=dev)
@@ -761,7 +780,7 @@ def test_qwen3_full_width_generate_captured_matches_eager(dev):
     # the captured path's launches also count its warm-up and capture calls
     assert na == nb + 2 * cfg.n_layers == cfg.n_layers * 11
     assert fa["bf16-decode"] == fb["bf16-decode"] + 2 * cfg.n_layers
-    tol = chip_smoke.LM_LOGIT_TOL["qwen3-0.6b"]
+    tol = chip_smoke.LM_LOGIT_TOL[arch]
     for row in range(2):
         diff = (ta[row] != tb[row]).nonzero()
         n_same = int(diff[0]) if len(diff) else ta.shape[1]
