@@ -98,11 +98,14 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    serve_lm's logits within ``EXAMPLE_LM_TOL`` wherever both runs had taken
    the same tokens, a token differing only at a near-tie of the CPU's
    (top-2 within twice that), K4 (its f32 form: the reduced configs are f32),
-   K5 and K6 on every call; train_lm's 300 steps on the card, its first
-   loss within rtol 1e-5 of the CPU's and its second within one AdamW
-   step's reach (``Smoke.first_step_reach``), K4's f32 form on every
-   forward and remat recompute; and K4 at train_lm's attention shape as a
-   row of the kernel phase;
+   K5 and K6 on every call; train_lm's 300 steps on the card (its first
+   the warm-up, then one capture of the step and 299 replays of it), its
+   first loss within rtol 1e-5 of the CPU's and its second within one
+   AdamW step's reach (``Smoke.first_step_reach``), K4's f32 form on every
+   forward and remat recompute, counted through the replays; its ms a step
+   beside an eager twin's (``TRAIN_LM_EAGER_STEPS`` steps of ``jit=False``
+   in the same run); and K4 at train_lm's attention shape as a row of the
+   kernel phase;
 10. process phase — the topology across processes, after every other phase
    so that none sees a process group: an NCCL group of world size 1 in
    this process (``init_process_group("nccl", store=FileStore)``), the
@@ -177,8 +180,13 @@ weights from seed 0): 8 steps of 4 sequences of 4096 Zipf tokens
 (``TokenPipeline``) in 2 micro-batches, remat on, ``AdamW`` with
 ``warmup_cosine(3e-4, 1, 8)``, a checkpoint at the end, K4 on every
 attention call (forward and the remat recompute; the backward recomputes
-``attention_ref``); one more step under ``torch.profiler``; and a crash at
-step 6 with a checkpoint every 4 steps, resumed from step 4.
+``attention_ref``), through ``train(jit=True)``: the first step the
+warm-up, then one capture of the step (``TrainGraph``) and 7 replays; the
+same step from the same parameters and batches as the eager twin twice
+and captured again (``Smoke.train_twins``, ``TRAIN_TWIN_STEPS`` steps
+each), an eager step and a replay under ``torch.profiler``; and a crash at
+step 6 with a checkpoint every 4 steps, resumed from step 4 through a new
+capture.
 
 K4 (``flash_attention``) is held against ``attention_ref``, which
 materialises the f32 logits.  Both compute each logit as an f32 dot product
@@ -423,18 +431,26 @@ largest magnitude, and whether it was bit-equal is printed.  The output of
 the kernel route must carry the autograd helper's ``grad_fn``, and the
 check must launch the kernel once.  The training run must launch K4 28
 layers × 2 micro-batches × 2 (forward, remat recompute) × 8 steps = 896
-times, all in the bf16 prefill form; its losses must be finite and the
+times, all in the bf16 prefill form, counted through the replays
+(``ran_launches``: the wrappers' calls in the warm-up and the capture, less
+the capture's, which launch nothing, plus the replays'), with one capture
+and 7 replays; its losses must be finite and the
 last below the first; its first loss must lie within ``TRAIN_LOSS_RTOL``
 (2e-3) relative of the same step's loss on the plain path (``attn_impl=
 "ref"``, the same parameters and micro-batches): the serving path's logits
 differ from the plain path's by up to 0.058 at single positions (above),
-and the loss averages 16,384 of them.  The restart must report one
-restart, step 8 and 10 steps run (6, then 4 from the step-4 checkpoint).
-It prints the losses, the median step (steps 2–8) and tokens a second,
-``train_mfu`` (model FLOPs ``6·N·tokens`` plus causal attention, no remat
-recompute, over 989 TFLOP/s), the peak memory, each save's bytes and
-seconds, the free disk before the restart, and the profiled step's busy
-share and top kernels.
+and the loss averages 16,384 of them.  The captured twin's losses,
+parameters, moments and step must equal the first eager twin's bit for
+bit, or lie no further from them than the second eager twin's do (an
+atomic sum in a backward may order its adds differently between runs);
+both differences are printed.  The restart must report one restart, step
+8 and 10 steps run (6, then 4 from the step-4 checkpoint), 2 captures and
+8 replays.  It prints the losses, the median step (steps 2–8: the
+replays) and tokens a second, ``train_mfu`` (model FLOPs ``6·N·tokens``
+plus causal attention, no remat recompute, over 989 TFLOP/s), the capture
+seconds, the peak memory allocated and reserved, each save's bytes and
+seconds, the free disk before the restart, the twins' step ms, and the
+profiled eager step's and replay's busy share and top kernels.
 
 Tolerances: integer results, min/max and hash-table layouts are exact.  A
 float sum is accumulated in f32 by atomics, in an order the kernel does not
@@ -778,6 +794,10 @@ KNN_QUERIES = ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [-2.0, 0.5, 1.0], [2.0, -1.0, 0
 # (module docstring).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4096, 2, 8
 TRAIN_LOSS_RTOL = 2e-3
+# Steps of each of the train phase's twins (eager twice, then captured: its
+# warm-up, the capture and the replays), and of train_lm's eager twin.
+TRAIN_TWIN_STEPS = 3
+TRAIN_LM_EAGER_STEPS = 20
 # The shard phase (module docstring, 11): (a) train steps (batch, tokens,
 # steps) and the serving run (batch, prompt, decode steps) at qwen3-0.6b's
 # full size; (b) the production-mesh cells rank 0 runs; the memory bound.
@@ -1190,6 +1210,22 @@ def serve_traffic() -> list[tuple[str, str, dict]]:
             )[i % 6]
             work.append((f"tenant{t}", q, p))
     return work
+
+
+def ran_launches(launch: dict, key: str) -> int:
+    """The launches of ``key`` (a wrapper, or ``"<wrapper>/<form>"``) in a
+    run that ``Smoke.read_launch_counts`` read, the training graphs counted
+    by what ran: the wrappers' count, plus the decode and training graphs'
+    replays', less what the training captures recorded (a training capture
+    follows a warm-up that is a real step, so its wrapper calls launch
+    nothing that ran; a decode path counts its capture's calls with the
+    wrappers', ``Smoke.lm_launches``)."""
+    name, _, form = key.partition("/")
+    wrappers = launch[f"{name} forms"].get(form, 0) if form else launch[name]
+    graphs = launch.get("train_graph", {})
+    return (wrappers + launch.get("decode_graph", {}).get("replay_launches", {}).get(key, 0)
+            + graphs.get("replay_launches", {}).get(key, 0)
+            - graphs.get("capture_launches", {}).get(key, 0))
 
 
 def main() -> int:
@@ -2905,8 +2941,10 @@ class Smoke:
 
     def zero_launch_counts(self):
         """Every wrapper's launch count to 0, K2's rounds and the counts by
-        form too, and the LM decode graphs' captures and replays."""
+        form too, and the LM decode and training graphs' captures and
+        replays."""
         from repro_torch.launch import serve_lm
+        from repro_torch.runtime import train_loop
 
         wrappers = self.kernel_wrappers()
         for fn_ in wrappers.values():
@@ -2915,13 +2953,18 @@ class Smoke:
         for name in FORMED:
             wrappers[name].forms = dict.fromkeys(wrappers[name].forms, 0)
         serve_lm.stats.reset()
+        train_loop.stats.reset()
 
     def read_launch_counts(self) -> dict:
         """Every wrapper's launch count, K2's rounds and the counts by form;
         under ``decode_graph`` the LM decode graphs' captures, replays and
         the launches those replays made (``serve_lm.stats``: no wrapper runs
-        in a replay, so the wrappers do not count them)."""
+        in a replay, so the wrappers do not count them); under
+        ``train_graph`` the same of the training steps' graphs
+        (``train_loop.stats``), and the launches their captures recorded
+        (:func:`ran_launches`)."""
         from repro_torch.launch import serve_lm
+        from repro_torch.runtime import train_loop
 
         wrappers = self.kernel_wrappers()
         launches = {name: fn_.launches for name, fn_ in wrappers.items()}
@@ -2931,6 +2974,10 @@ class Smoke:
         st = serve_lm.stats
         launches["decode_graph"] = {"captures": st.captures, "replays": st.replays,
                                     "replay_launches": dict(st.replay_launches)}
+        st = train_loop.stats
+        launches["train_graph"] = {"captures": st.captures, "replays": st.replays,
+                                   "replay_launches": dict(st.replay_launches),
+                                   "capture_launches": dict(st.capture_launches)}
         return launches
 
     def drive(self, name, fn, units):
@@ -5414,11 +5461,16 @@ class Smoke:
         mod, res, cpu, launch = drive("train_lm")
         self.path_launches["example train_lm"] = launch
         n_k4 = cfg.n_layers * 2 * 2 * 300  # (forward + recompute) x micro-batches x steps
+        # counted through the replays: the wrappers count the warm-up and the
+        # capture, the training graph the 299 replays (ran_launches)
         if self.dev.type == "cuda" and (
-                launch["flash_attention"] != n_k4
-                or launch["flash_attention forms"]["f32"] != n_k4):
-            fail("train_lm", f"K4 launched {launch['flash_attention']} times "
-                             f"({launch['flash_attention forms']}), not {n_k4} in f32")
+                ran_launches(launch, "flash_attention") != n_k4
+                or ran_launches(launch, "flash_attention/f32") != n_k4
+                or (res.captures, res.replays) != (1, 299)):
+            fail("train_lm", f"K4 launched {ran_launches(launch, 'flash_attention')} times "
+                             f"({launch['flash_attention forms']}, {launch['train_graph']}), "
+                             f"not {n_k4} in f32; {res.captures} captures, {res.replays} "
+                             "replays")
         err0 = abs(res.losses[0] - cpu.losses[0])
         if err0 > 1e-5 * abs(cpu.losses[0]):
             fail("train_lm", f"first loss {res.losses[0]} on the card, {cpu.losses[0]} on "
@@ -5428,12 +5480,27 @@ class Smoke:
         if err1 > bound + 1e-5 * abs(cpu.losses[1]):
             fail("train_lm", f"second loss {res.losses[1]} on the card, {cpu.losses[1]} on "
                              f"the CPU, bound {bound}")
+        # its eager twin in the same run: the first TRAIN_LM_EAGER_STEPS
+        # steps of the same job with jit=False
+        t0 = time.perf_counter()
+        eager = mod.run(device=self.dev, steps=TRAIN_LM_EAGER_STEPS, horizon=300, jit=False)
+        eager_wall = time.perf_counter() - t0
+        n = TRAIN_LM_EAGER_STEPS
         out["train_lm"]["results"] = {
             "losses_first_last": [res.losses[0], res.losses[-1]],
             "cpu_losses": cpu.losses, "loss0_err": err0, "loss1_err": err1,
             "loss1_bound": bound, "steps": res.final_step,
+            "captures": res.captures, "replays": res.replays, "capture_s": res.capture_s,
             "median_step_ms": res.straggler["median_s"] * 1e3,
-            "p99_step_ms": res.straggler["p99_s"] * 1e3}
+            "p99_step_ms": res.straggler["p99_s"] * 1e3,
+            "eager_twin": {
+                "steps": n, "wall_s": eager_wall, "captures": eager.captures,
+                "median_step_ms": statistics.median(eager.step_times[1:]) * 1e3,
+                "p99_step_ms": eager.straggler["p99_s"] * 1e3,
+                # the captured run's first steps against the twin's
+                "captured_median_step_ms": statistics.median(res.step_times[1:n]) * 1e3,
+                "loss_max_abs_diff": max(abs(a - b) for a, b in zip(res.losses, eager.losses)),
+                "losses_bit_equal": res.losses[:n] == eager.losses}}
 
         for name, r in out.items():
             print(json.dumps({"example": name, **r}, default=str), flush=True)
@@ -7447,13 +7514,84 @@ class Smoke:
         return {"wall_ms": wall * 1e3, "busy_ms": busy, "busy_share": busy / (wall * 1e3),
                 "top_kernels_ms": {name[:80]: ms for name, ms in top}}
 
+    def train_twins(self, cfg, params, pipe, accum):
+        """The training step from ``params`` over the pipeline's first
+        ``TRAIN_TWIN_STEPS`` batches three ways: the eager twin
+        (``TrainGraph(capture=False)``) twice, then captured (the warm-up,
+        the capture, replays).  The captured run's losses, parameters,
+        moments and step must equal the first eager run's bit for bit, or
+        lie no further from them than the second's do.  Each step's host ms
+        (the batch copied in, the step, the loss read on the host), and one
+        eager step and one replay under the profiler."""
+        torch = self.torch
+        from repro_torch.models import model as M
+        from repro_torch.optim.adamw import AdamW, warmup_cosine
+        from repro_torch.runtime.train_loop import TrainGraph, make_train_step
+
+        batches = [pipe.device_batch(i, self.dev) for i in range(TRAIN_TWIN_STEPS)]
+
+        def run(capture):
+            opt = AdamW(lr=warmup_cosine(3e-4, 1, TRAIN_STEPS))
+            p = M.map_tree(lambda t: t.detach().clone(), params)
+            state = opt.init(p)
+            graph = TrainGraph(make_train_step(cfg, opt, grad_accum=accum, device=self.dev),
+                               p, state, batches[0], capture=capture, name=cfg.name)
+            losses, ms = [], []
+            for b in batches:
+                self.sync()
+                t0 = time.perf_counter()
+                losses.append(float(graph.step(b)))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            bits = (M.distinct_leaves(p) + M.distinct_leaves(state["m"])
+                    + M.distinct_leaves(state["v"]) + [state["step"]])
+            return losses, ms, bits, graph
+
+        @torch.no_grad()
+        def diff(a, b):
+            if a[0] == b[0] and all(torch.equal(x, y) for x, y in zip(a[2], b[2])):
+                return 0.0
+            return max([abs(x - y) for x, y in zip(a[0], b[0])]
+                       + [float((x.float() - y.float()).abs().max())
+                          for x, y in zip(a[2], b[2])])
+
+        capture = self.dev.type == "cuda"
+        eager = run(False)
+        again = run(False)
+        eager_vs_eager = diff(eager, again)
+        del again
+        torch.cuda.empty_cache()
+        got = run(capture)
+        captured_vs_eager = diff(got, eager)
+        out = {"steps": TRAIN_TWIN_STEPS, "captured_vs_eager": captured_vs_eager,
+               "eager_vs_eager": eager_vs_eager, "bit_equal": captured_vs_eager == 0.0,
+               "eager_losses": eager[0], "captured_losses": got[0],
+               "eager_step_ms": eager[1], "captured_step_ms": got[1],
+               "replays": got[3].replays, "captured_launches": got[3].captured_launches}
+        print(json.dumps({"train_twins": out}), flush=True)
+        if not captured_vs_eager <= eager_vs_eager:
+            raise AssertionError(f"train: the captured step is {captured_vs_eager} off the "
+                                 f"eager twin's, which is {eager_vs_eager} off itself")
+        if capture and (got[3].replays != TRAIN_TWIN_STEPS - 1
+                        or not got[3].captured_launches):
+            raise AssertionError(f"train twins: {got[3].replays} replays, captured launches "
+                                 f"{got[3].captured_launches}")
+        # One eager step and one replay of the same job under the profiler:
+        # the card's busy share and where its time goes.
+        out["profiled_step"] = self.busy_share(lambda: eager[3].step(batches[0]))
+        out["profiled_replay"] = self.busy_share(lambda: got[3].step(batches[0]))
+        del eager, got, batches
+        torch.cuda.empty_cache()
+        return out
+
     def train_phase(self):
         """LM training on the card (module docstring): the kernels' gradient
         checks, K4's forward at the training shape, then qwen3-0.6b at full
         width and depth through ``repro_torch.runtime.train_loop.train`` (8
         steps of 4 × 4096 tokens in 2 micro-batches, remat, AdamW with
-        ``warmup_cosine(3e-4, 1, 8)``, a checkpoint at the end), and a crash
-        at step 6 resumed from the step-4 checkpoint."""
+        ``warmup_cosine(3e-4, 1, 8)``, a checkpoint at the end; the step
+        captured once and replayed), its eager and captured twins
+        (:meth:`train_twins`), and a crash at step 6 resumed from the
+        step-4 checkpoint through a new capture."""
         import shutil
         import tempfile
 
@@ -7462,7 +7600,7 @@ class Smoke:
         from repro_torch.data.pipeline import TokenPipeline
         from repro_torch.models import model as M
         from repro_torch.optim.adamw import AdamW, warmup_cosine
-        from repro_torch.runtime.train_loop import make_train_step, train
+        from repro_torch.runtime.train_loop import train
 
         t_phase = time.perf_counter()
         self.train_grad_checks()
@@ -7505,19 +7643,26 @@ class Smoke:
             res = train(cfg, steps=steps, batch=batch, seq_len=seq, pipeline=pipe,
                         ckpt_dir=os.path.join(tmp, "run"), ckpt_every=steps,
                         optimizer=AdamW(lr=warmup_cosine(3e-4, 1, steps)),
-                        grad_accum=accum, params=params, device=self.dev)
+                        grad_accum=accum, params=params, jit=True, device=self.dev)
             self.sync()
             wall = time.perf_counter() - t0
             launch = self.read_launch_counts()
             self.path_launches["train qwen3-0.6b"] = launch
             peak = torch.cuda.max_memory_allocated()
+            peak_reserved = torch.cuda.max_memory_reserved()
             n_layers = len(M.layer_kinds(cfg))
             want = n_layers * accum * 2 * steps  # forward + remat recompute
-            if launch["flash_attention"] != want or launch["flash_attention forms"] != {
-                    "f32": 0, "bf16-prefill": want, "bf16-decode": 0}:
-                raise AssertionError(f"train: K4 launched {launch['flash_attention']} times "
-                                     f"({launch['flash_attention forms']}), not {want} "
-                                     "in the bf16 prefill form")
+            ran = ran_launches(launch, "flash_attention")
+            ran_forms = {f: ran_launches(launch, f"flash_attention/{f}")
+                         for f in launch["flash_attention forms"]}
+            if ran != want or ran_forms != {"f32": 0, "bf16-prefill": want, "bf16-decode": 0}:
+                raise AssertionError(f"train: K4 launched {ran} times ({ran_forms}; "
+                                     f"{launch['train_graph']}), not {want} in the bf16 "
+                                     "prefill form")
+            graphed = self.dev.type == "cuda"
+            if (res.captures, res.replays) != ((1, steps - 1) if graphed else (0, 0)):
+                raise AssertionError(f"train: {res.captures} captures and {res.replays} "
+                                     f"replays in {steps} steps")
             losses = res.losses
             if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
                 raise AssertionError(f"train: losses {losses} not finite and falling")
@@ -7536,21 +7681,25 @@ class Smoke:
                 median_step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
                 model_flops_per_step=model_flops,
                 train_mfu=model_flops / step_s / BF16_OPS_PER_S,
-                peak_memory_bytes=peak, checkpoints=res.checkpoints,
-                k4_launches=launch["flash_attention"], expected_k4_launches=want)
+                peak_memory_bytes=peak, peak_reserved_bytes=peak_reserved,
+                checkpoints=res.checkpoints, captures=res.captures, replays=res.replays,
+                capture_s=res.capture_s, k4_launches=ran,
+                k4_launches_by={"wrappers": launch["flash_attention"],
+                                "train_graph": launch["train_graph"]},
+                expected_k4_launches=want)
             print(json.dumps({"train_run": {k: results[k] for k in (
-                "losses", "median_step_ms", "tokens_per_s", "train_mfu",
-                "peak_memory_bytes", "checkpoints")}}), flush=True)
-            # One more step of the same job under the profiler: the card's
-            # busy share and where its time goes.
-            opt = AdamW(lr=warmup_cosine(3e-4, 1, steps))
-            step_fn = make_train_step(cfg, opt, grad_accum=accum, device=self.dev)
-            state = opt.init(params)
-            batch1 = pipe.device_batch(1, self.dev)
-            results["profiled_step"] = self.busy_share(lambda: step_fn(params, state, batch1))
-            del state, step_fn, batch1, opt
+                "losses", "median_step_ms", "tokens_per_s", "train_mfu", "capture_s",
+                "peak_memory_bytes", "peak_reserved_bytes", "checkpoints")}}), flush=True)
             shutil.rmtree(os.path.join(tmp, "run"))
             torch.cuda.empty_cache()
+            # The same step eager twice and captured, from the same state:
+            # bits, step ms, and an eager step's and a replay's busy share.
+            twins = self.train_twins(cfg, params, pipe, accum)
+            results["twins"] = twins
+            results["profiled_step"] = twins.pop("profiled_step")
+            results["profiled_replay"] = twins.pop("profiled_replay")
+            twins["train_run_vs_captured_twin"] = max(
+                abs(a - b) for a, b in zip(losses, twins["captured_losses"]))
 
             # A crash at step 6, resumed from the step-4 checkpoint.
             ckpt = res.checkpoints[-1]["bytes"]
@@ -7563,13 +7712,17 @@ class Smoke:
             crash = train(cfg, steps=steps, batch=batch, seq_len=seq, pipeline=pipe,
                           ckpt_dir=os.path.join(tmp, "crash"), ckpt_every=4,
                           crash_at_step=6, optimizer=AdamW(lr=warmup_cosine(3e-4, 1, steps)),
-                          grad_accum=accum, device=self.dev)
+                          grad_accum=accum, jit=True, device=self.dev)
             results["restart"] = {
                 "wall_s": time.perf_counter() - t0, "restarts": crash.restarts,
                 "final_step": crash.final_step, "steps_run": crash.steps_run,
-                "checkpoints": crash.checkpoints,
+                "captures": crash.captures, "replays": crash.replays,
+                "capture_s": crash.capture_s, "checkpoints": crash.checkpoints,
                 "final_loss_vs_uninterrupted": crash.losses[-1] - losses[-1]}
-            if (crash.restarts, crash.final_step, crash.steps_run) != (1, 8, 10):
+            # steps 0-5 (step 0 the warm-up), then 4-7 from the step-4
+            # checkpoint (step 4 the warm-up)
+            if (crash.restarts, crash.final_step, crash.steps_run) != (1, 8, 10) or (
+                    (crash.captures, crash.replays) != ((2, 8) if graphed else (0, 0))):
                 raise AssertionError(f"train restart: {results['restart']}")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -7782,19 +7935,26 @@ class Smoke:
             busy = rec.get("device_ms")  # K2 records it per kernel
             # an LM path's launches: the wrappers' (its prefill, its decode
             # step's warm-up and capture) plus its decode graph's replays'
+            # (a train path: what ran, ran_launches)
             counts = self.path_launches[path]
             replayed = counts.get("decode_graph", {}).get("replay_launches", {})
+            trained = counts.get("train_graph", {})
             path_forms = counts.get(f"{rec['kernel']} forms")
             if path_forms:
-                path_forms = {f: n + replayed.get(f"{rec['kernel']}/{f}", 0)
-                              for f, n in path_forms.items()}
+                path_forms = {f: ran_launches(counts, f"{rec['kernel']}/{f}")
+                              for f in path_forms}
             kernels.append({
                 "name": key, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": counts[rec["kernel"]] + replayed.get(rec["kernel"], 0),
+                "launches": ran_launches(counts, rec["kernel"]),
                 **({"launches_by": {"wrappers": counts[rec["kernel"]],
                                     "decode_graph_replays": replayed[rec["kernel"]]}}
                    if rec["kernel"] in replayed else {}),
+                **({"launches_by": {
+                    "wrappers": counts[rec["kernel"]],
+                    "train_capture_recorded": trained["capture_launches"][rec["kernel"]],
+                    "train_graph_replays": trained["replay_launches"][rec["kernel"]]}}
+                   if rec["kernel"] in trained.get("replay_launches", {}) else {}),
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -7838,9 +7998,9 @@ class Smoke:
                     "rank0": ({cell: n[rec["kernel"]]
                                for cell, n in self.shard_launches["rank0"].items()}
                               if rec["kernel"] in RANK0_COUNTED else None)},
-                # the examples phase's: each example's main([]) on the card
-                # (the wrappers' counts; graph replays not counted)
-                "examples_launches": {name: n[rec["kernel"]] for name, n in
+                # the examples phase's: each example's main([]) on the card,
+                # its graphs' replays counted (ran_launches)
+                "examples_launches": {name: ran_launches(n, rec["kernel"]) for name, n in
                                       self.example_launches.items() if n[rec["kernel"]]},
                 # the process phase's dp_train (K4 only), per wire
                 "dp_train_launches": (self.dp_train_launches

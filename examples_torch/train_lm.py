@@ -11,8 +11,9 @@ micro-batches, ``warmup_cosine(3e-4, steps // 10, steps)``.  Weights come
 from a ``torch.Generator`` seeded 0 (made on the CPU, then moved, so every
 device starts from the same model).  On the card (the default; without
 CUDA it raises) every attention call runs K4's f32 form, in the forward and
-in the remat recompute (the backward recomputes the plain attention);
-``--device cpu`` runs the plain versions.
+in the remat recompute (the backward recomputes the plain attention), and
+every step after the first is one replay of the captured step
+(``train(jit=True)``); ``--device cpu`` runs the plain versions op by op.
 
 Run:  PYTHONPATH=src python3 examples_torch/train_lm.py [--steps 300] [--device cpu]
 """
@@ -42,12 +43,14 @@ def config():
 
 
 def run(device=None, steps: int = 300, batch: int = 8, seq: int = 256,
-        grad_accum: int = 2, params=None, cfg=None, horizon: int | None = None):
+        grad_accum: int = 2, params=None, cfg=None, horizon: int | None = None,
+        jit: bool = True):
     """Train ``steps`` steps on ``device`` (the card unless ``"cpu"``) and
     return ``runtime.train_loop.train``'s result.  ``cfg`` and ``params``
     replace the ~100M config and the seeded weights; ``horizon`` (default
     ``steps``) is the step count the learning-rate schedule spans, so that
-    a short run takes the first steps of a longer one."""
+    a short run takes the first steps of a longer one; ``jit=False`` runs
+    the step eagerly on the card too."""
     device = resolve_device(device)  # the card unless "cpu": before the model is built
     cfg = cfg or config()
     horizon = horizon or steps
@@ -58,7 +61,7 @@ def run(device=None, steps: int = 300, batch: int = 8, seq: int = 256,
     with tempfile.TemporaryDirectory() as ckpt_dir:
         return train(cfg, steps=steps, batch=batch, seq_len=seq, pipeline=pipe,
                      ckpt_dir=ckpt_dir, ckpt_every=max(steps // 5, 25), optimizer=opt,
-                     grad_accum=grad_accum, params=params, device=device)
+                     grad_accum=grad_accum, params=params, jit=jit, device=device)
 
 
 def main(argv=None):

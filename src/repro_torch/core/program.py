@@ -933,6 +933,47 @@ def _state_desc(leaves) -> str:
     return f"{len(leaves)} leaves: {descs}"
 
 
+def add_launches(into: dict, launches: dict) -> None:
+    """Add ``launches`` (by wrapper and form, as :func:`launch_counts`
+    names them) into ``into``."""
+    for k, n in launches.items():
+        into[k] = into.get(k, 0) + n
+
+
+@dataclasses.dataclass
+class GraphStats:
+    """What the CUDA graphs of one kind in the process have done (the LM
+    decode graphs: ``launch.serve_lm.stats``; the training steps:
+    ``runtime.train_loop.stats``): their captures, the kernel launches those
+    captures recorded, their replays, and the launches the replays made
+    (each replay its graph's recorded launches), by wrapper and by form as
+    :func:`launch_counts` names them.  A replay calls no wrapper, so the
+    wrappers' own counts keep only the calls that ran through them: the
+    warm-up's and the capture's, as for a ``Program``; a capture's calls
+    record their kernels and launch nothing, so the launches that ran are
+    the wrappers' less ``capture_launches`` plus ``replay_launches``."""
+
+    captures: int = 0
+    replays: int = 0
+    replay_launches: dict = dataclasses.field(default_factory=dict)
+    capture_launches: dict = dataclasses.field(default_factory=dict)
+
+    def reset(self) -> None:
+        self.captures = self.replays = 0
+        self.replay_launches = {}
+        self.capture_launches = {}
+
+    def captured(self, launches: dict) -> None:
+        """One capture that recorded ``launches``."""
+        self.captures += 1
+        add_launches(self.capture_launches, launches)
+
+    def replayed(self, launches: dict) -> None:
+        """One replay of a graph that recorded ``launches``."""
+        self.replays += 1
+        add_launches(self.replay_launches, launches)
+
+
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, and by form where it keeps one
     (``"segment_reduce/registers"``)."""

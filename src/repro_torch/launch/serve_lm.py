@@ -25,7 +25,6 @@ of ``[B, P, d]``, then one ``[B, 1, d]`` a step.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 
@@ -33,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import get_arch
 from repro_torch.core.containers import resolve_device
-from repro_torch.core.program import launch_counts
+from repro_torch.core.program import GraphStats, add_launches, launch_counts
 from repro_torch.models import model as M
 from repro_torch.models.attention import KVCache
 
@@ -43,25 +42,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-@dataclasses.dataclass
-class GraphStats:
-    """What every :class:`DecodeGraph` of the process has done: its
-    captures, its replays, and the kernel launches the replays made (each
-    replay the captured step's, by wrapper and by form as
-    ``core.program.launch_counts`` names them).  A replay calls no wrapper,
-    so the wrappers' own counts keep only the calls that ran through them:
-    the warm-up's and the capture's, as for a ``Program``."""
-
-    captures: int = 0
-    replays: int = 0
-    replay_launches: dict = dataclasses.field(default_factory=dict)
-
-    def reset(self) -> None:
-        self.captures = self.replays = 0
-        self.replay_launches = {}
-
-
-stats = GraphStats()
+stats = GraphStats()  # every DecodeGraph of the process
 
 
 class DecodeGraph:
@@ -161,7 +142,7 @@ class DecodeGraph:
         self.captured_launches = {k: after[k] - before[k] for k in after
                                   if after[k] != before[k]}
         self.graph, self.logits = graph, logits
-        stats.captures += 1
+        stats.captured(self.captured_launches)
 
     def step(self, inputs: torch.Tensor) -> torch.Tensor:
         """One decode step on ``inputs`` at ``pos``: the logits ``[B, V]``
@@ -171,10 +152,8 @@ class DecodeGraph:
         if self.graph is not None:
             self.graph.replay()
             self.replays += 1
-            stats.replays += 1
-            for launches in (self.replay_launches, stats.replay_launches):
-                for k, n in self.captured_launches.items():
-                    launches[k] = launches.get(k, 0) + n
+            add_launches(self.replay_launches, self.captured_launches)
+            stats.replayed(self.captured_launches)
         else:
             logits = self._run(self.caches, self.position)
             if self.logits is None:

@@ -8,9 +8,10 @@ cast back to its own dtype.  The state is a plain dict ``{"m", "v",
 ``CheckpointManager`` saves it like any tree.
 
 The reference returns new parameters and state; the port updates both in
-place under ``torch.no_grad()``, each *distinct* tensor once: zamba2's
-shared block, which every ``SHARED_ATTN`` layer refers to, is one set of
-tensors and takes one update, as it is one entry of JAX's pytree.
+place under ``torch.no_grad()`` (the step counter too), each *distinct*
+tensor once: zamba2's shared block, which every ``SHARED_ATTN`` layer
+refers to, is one set of tensors and takes one update, as it is one entry
+of JAX's pytree.
 """
 from __future__ import annotations
 
@@ -55,8 +56,12 @@ class AdamW:
         """One step, in place: returns ``(params, state)``, the objects passed
         in.  ``grads`` is shaped like ``params`` (any dtype); the learning
         rate is ``lr(step + 1)``; decay applies to tensors of 2 or more
-        dimensions only (norm scales and biases are left out)."""
-        step = state["step"] + 1
+        dimensions only (norm scales and biases are left out).  The step
+        counter advances in place, as the parameters and moments do, so it
+        stays the same tensor: a captured step (``TrainGraph``) moves it on
+        with every replay."""
+        step = state["step"]
+        step.add_(1)
         lr = self._lr(step)
         b1, b2 = self.b1, self.b2
         c1 = 1.0 - b1 ** step.float()
@@ -76,7 +81,6 @@ class AdamW:
             p.copy_(p.float() - lr * delta)
             m.copy_(mf)
             v.copy_(vf)
-        state["step"] = step
         return params, state
 
 

@@ -10,12 +10,16 @@
 * straggler monitor: per-step wall times, flags steps > ``k × median``,
 * failure injection (``crash_at_step``) for the restart tests.
 
-The port runs eager on one device (``device=None`` is the card; the CPU
-only when asked).  Where the reference jits its step and donates the
-parameters and optimiser state, the port updates its own copy of them in
-place; ``train(params=...)`` copies the caller's tensors first and leaves
-them as they were.  A checkpoint holds the parameters and the optimiser
-state with zamba2's shared block once (:func:`_unshared`), and a restore
+The port runs on one device (``device=None`` is the card; the CPU only
+when asked).  Where the reference jits its step and donates the parameters
+and optimiser state, the port updates its own copy of them in place;
+``train(params=...)`` copies the caller's tensors first and leaves them as
+they were.  With ``jit=True`` (the default, as the reference's) each step
+on the card after the first of a start is one replay of a CUDA graph
+(:class:`TrainGraph`: the counterpart of ``jax.jit(step_fn,
+donate_argnums=(0, 1))``); on the CPU, which has no graphs, the same
+object runs the step op by op.  A checkpoint holds the parameters and the
+optimiser state with zamba2's shared block once (:func:`_unshared`), and a restore
 copies into the live tensors, so every ``SHARED_ATTN`` layer still refers
 to the one block.
 
@@ -27,7 +31,9 @@ on its ``DeviceMesh`` (every rank calls ``train``), each batch placed by
 placements; its checkpoints are written shard by shard over the mesh and a
 restart restores onto the live tree's placements
 (``checkpoint/manager.py``), so a run resumes from a checkpoint that any
-mesh shape, or an unsharded run, wrote.
+mesh shape, or an unsharded run, wrote.  A sharded tree's step stays eager
+whatever ``jit`` says: capturing it would put NCCL and ``DTensor``'s
+dispatch inside the graph (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from repro_torch import convert
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.containers import resolve_device
+from repro_torch.core.program import GraphStats, add_launches, launch_counts
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW
@@ -148,6 +155,114 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, *,
     return train_step
 
 
+stats = GraphStats()  # every TrainGraph of the process
+
+
+class TrainGraph:
+    """One training step of :func:`make_train_step` as a CUDA graph, one
+    replay a step: the counterpart of the reference's ``jax.jit(step_fn,
+    donate_argnums=(0, 1))``.
+
+    It keeps static batch buffers on the device (``inputs``, ``labels``,
+    shaped as the first batch), into which :meth:`step` copies each batch,
+    and captures ``step_fn`` itself (the micro-batch loop, the forward with
+    remat, autograd's backward, the f32 gradient sums and the optimiser's
+    update) over them.  The parameters and the optimiser state are updated
+    in place by every replay (``AdamW`` advances its step counter in place
+    too); ``loss`` is a static output, overwritten by the next step.
+
+    The first :meth:`step` is the warm-up: a real step of the run, eager,
+    on a side stream; the capture follows it and records the next step
+    without running it, so every later step is one replay and the run's
+    steps, checkpoints and losses are the eager step's.  The capture runs
+    under sync-debug ``"error"`` into a private pool; a capture that fails
+    raises ``RuntimeError`` naming the model and the step, and nothing falls
+    back to the eager step.  ``captured_launches`` holds the kernel
+    launches (K4, K5, K6, by form) the captured step records, from the
+    wrappers' counts around the capture; each replay adds them to
+    ``replay_launches`` and to the module's ``stats`` and leaves the
+    wrappers' counts alone (no wrapper runs).
+
+    With ``capture=False`` the same step runs op by op over the same static
+    buffers (the eager twin, on any device, the CPU's included);
+    ``capture=True`` off the card raises ``ValueError``.  Drop the object
+    with the state it trains: the graph and its pool go with it."""
+
+    def __init__(self, step_fn: Callable, params, opt_state, batch: dict, *,
+                 capture: bool = True, name: str = "model", start: int = 0):
+        dev = batch["inputs"].device
+        if capture and dev.type != "cuda":
+            raise ValueError(f"TrainGraph: capture needs a CUDA device, the batch is on "
+                             f"{dev}")
+        self.step_fn, self.params, self.opt_state = step_fn, params, opt_state
+        self.inputs = torch.empty_like(batch["inputs"])
+        self.labels = torch.empty_like(batch["labels"])
+        self.capture, self.name = capture, name
+        self.next_step = start  # the run's index of the next step taken
+        self.graph = None
+        self.loss = None
+        self.capture_s = None  # the capture's seconds, the warm-up's not included
+        self.captured_launches: dict = {}  # one replay's launches, by wrapper and form
+        self.replays = 0
+        self.replay_launches: dict = {}
+
+    def _run(self) -> torch.Tensor:
+        self.params, self.opt_state, loss = self.step_fn(
+            self.params, self.opt_state, {"inputs": self.inputs, "labels": self.labels})
+        return loss
+
+    def _warm_up_and_capture(self) -> torch.Tensor:
+        dev = self.inputs.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            loss = self._run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        before = launch_counts()
+        debug = torch.cuda.get_sync_debug_mode()
+        try:
+            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
+                                  capture_error_mode="thread_local"):
+                # a host sync inside the step raises here rather than
+                # breaking the capture
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = self._run()
+                finally:
+                    torch.cuda.set_sync_debug_mode(debug)
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of {self.name}'s training step at "
+                               f"step {self.next_step + 1} failed: {e}") from e
+        after = launch_counts()
+        self.capture_s = time.perf_counter() - t0
+        self.captured_launches = {k: after[k] - before[k] for k in after
+                                  if after[k] != before[k]}
+        self.graph, self.loss = graph, out
+        stats.captured(self.captured_launches)
+        return loss
+
+    def step(self, batch: dict) -> torch.Tensor:
+        """One training step on ``batch`` (``{"inputs", "labels"}`` shaped as
+        the buffers): its loss, a 0-d f32 tensor on the device (once the
+        graph replays, the static output; read or clone it before the next
+        step)."""
+        self.inputs.copy_(batch["inputs"])
+        self.labels.copy_(batch["labels"])
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+            add_launches(self.replay_launches, self.captured_launches)
+            stats.replayed(self.captured_launches)
+            loss = self.loss
+        else:  # the capture records the step after its warm-up
+            loss = self._warm_up_and_capture() if self.capture else self._run()
+        self.next_step += 1
+        return loss
+
+
 def _mesh_of(tree):
     """The ``DeviceMesh`` of the tree's ``DTensor`` leaves (None when it has
     none)."""
@@ -234,6 +349,12 @@ class TrainResult:
     # each save, {"step", "kind": "save", "bytes" (all its files), "seconds"},
     # and each restore, {"step", "kind": "restore", "seconds"}, in order
     checkpoints: list = dataclasses.field(default_factory=list)
+    # CUDA-graph captures of the step (one a start or restart with jit=True
+    # on the card), the steps that were replays of them, and each capture's
+    # seconds (its warm-up step not included)
+    captures: int = 0
+    replays: int = 0
+    capture_s: list = dataclasses.field(default_factory=list)
 
 
 def _unshared(tree):
@@ -286,13 +407,19 @@ def train(
     (copied) or ``M.init`` from ``seed``.  A checkpoint is written at every
     ``ckpt_every``-th step and the last; a start (and a restart after a
     ``SimulatedFailure``, at most ``max_restarts``) resumes from the newest.
-    ``jit`` is accepted for the reference's signature and has no effect:
-    the port runs eager.
+
+    ``jit=True`` runs the step through a :class:`TrainGraph` made for each
+    start and restart (the last one's graph and pool dropped with its
+    state): on the card its first step is the warm-up and every later one
+    a replay (``captures`` 1 a start, ``replays`` the replayed steps); on
+    the CPU it runs op by op (``captures == 0``).  ``jit=False`` runs
+    :func:`make_train_step`'s step eagerly everywhere.  Either way the loss
+    is read on the host once a step.
 
     ``params`` of ``DTensor``s train sharded on their mesh (module
-    docstring), on its device type; a ``device`` of another type raises
-    ``ValueError``."""
-    del batch, seq_len, jit
+    docstring), on its device type, always eagerly (``captures == 0``); a
+    ``device`` of another type raises ``ValueError``."""
+    del batch, seq_len
     mesh = _mesh_of(params)
     if mesh is not None and device is not None and (
             resolve_device(device).type != mesh.device_type):
@@ -304,7 +431,8 @@ def train(
     monitor = StragglerMonitor()
     losses: list[float] = []
     records: list[dict] = []
-    restarts = 0
+    restarts = captures = replays = 0
+    capture_s: list[float] = []
 
     if mesh is None:
         step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum, device=dev)
@@ -326,7 +454,9 @@ def train(
             p = M.init(torch.Generator(device=dev).manual_seed(seed), cfg)
         return p, optimizer.init(p)
 
+    graphed = jit and mesh is None
     while True:
+        graph = None  # a restart drops the last start's graph with its state
         state_p, state_o = fresh_state()
         view = _ckpt_tree(state_p, state_o)
         t_restore = time.perf_counter()
@@ -349,7 +479,18 @@ def train(
                 if crash_at_step is not None and step == crash_at_step and restarts == 0:
                     restarts += 1
                     raise SimulatedFailure(f"injected failure at step {step}")
-                state_p, state_o, loss = step_fn(state_p, state_o, b)
+                if not graphed:
+                    state_p, state_o, loss = step_fn(state_p, state_o, b)
+                else:
+                    if graph is None:
+                        graph = TrainGraph(step_fn, state_p, state_o, b, name=cfg.name,
+                                           capture=dev.type == "cuda", start=step)
+                    replayed = graph.graph is not None
+                    loss = graph.step(b)
+                    replays += replayed
+                    if not replayed and graph.graph is not None:
+                        captures += 1
+                        capture_s.append(graph.capture_s)
                 losses.append(float(loss.to_local() if isinstance(loss, DTensor) else loss))
                 step += 1
                 monitor.record(step, time.perf_counter() - t0)
@@ -369,6 +510,9 @@ def train(
                 straggler=monitor.summary(),
                 step_times=list(monitor.times),
                 checkpoints=records,
+                captures=captures,
+                replays=replays,
+                capture_s=capture_s,
             )
         except SimulatedFailure:
             if restarts > max_restarts:

@@ -1988,14 +1988,159 @@ def test_train_steps_on_the_card_run_k4_forward_and_remat(dev, tmp_path):
     from repro_torch.optim.adamw import AdamW
     from repro_torch.runtime.train_loop import train
 
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.runtime import train_loop as T
+
     cfg = dataclasses.replace(get_arch("qwen3-0.6b").reduced(), param_dtype="bfloat16",
                               compute_dtype="bfloat16")
     FA.flash_attention.launches = 0
+    T.stats.reset()
     res = train(cfg, steps=6, batch=4, seq_len=64, grad_accum=2,
                 pipeline=TokenPipeline(cfg, batch=4, seq_len=64),
                 ckpt_dir=str(tmp_path), optimizer=AdamW(lr=1e-2), device=dev)
-    assert FA.flash_attention.launches == 2 * 2 * 2 * 6
+    # train(jit=True) captures the step: the wrappers count the warm-up's
+    # calls and the capture's (which launch nothing), the graph's stats the
+    # 5 replays'; the kernels that ran are the warm-up's and the replays'
+    step = 2 * 2 * 2
+    assert (res.captures, res.replays) == (1, 5) == (T.stats.captures, T.stats.replays)
+    assert FA.flash_attention.launches == 2 * step
+    assert T.stats.capture_launches["flash_attention"] == step
+    assert (FA.flash_attention.launches - T.stats.capture_launches["flash_attention"]
+            + T.stats.replay_launches["flash_attention"]) == step * 6
     assert all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0]
+    # the checkpoint after 6 steps (5 of them replays) holds step 6
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = AdamW(lr=1e-2)
+    step_at, tree = CheckpointManager(str(tmp_path)).restore_latest(
+        T._ckpt_tree(params, opt.init(params)))
+    assert step_at == 6 and int(tree["opt"]["step"]) == 6
+
+
+def _train_run(cfg, dev, batches, accum, capture):
+    """Steps of ``TrainGraph`` from the seeded state over ``batches``:
+    (losses, every distinct parameter, m, v and step, the graph, the
+    wrappers' launches over the run)."""
+    from repro_torch.core.program import launch_counts
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime import train_loop as T
+
+    opt = AdamW(lr=warmup_cosine(1e-2, 1, len(batches)))
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    state = opt.init(params)
+    step_fn = T.make_train_step(cfg, opt, grad_accum=accum, device=dev)
+    before = launch_counts()
+    graph = T.TrainGraph(step_fn, params, state, batches[0], capture=capture,
+                         name=cfg.name)
+    losses = [graph.step(b).clone() for b in batches]
+    torch.cuda.synchronize(dev)
+    after = launch_counts()
+    bits = (M.distinct_leaves(params) + M.distinct_leaves(state["m"])
+            + M.distinct_leaves(state["v"]) + [state["step"]])
+    return (torch.stack(losses), bits, graph,
+            {k: after[k] - before[k] for k in after if after[k] != before[k]})
+
+
+@torch.no_grad()
+def _max_diff(a, b) -> float:
+    (la, ba), (lb, bb) = a, b
+    return max([float((la - lb).abs().max())]
+               + [float((x.float() - y.float()).abs().max()) for x, y in zip(ba, bb)])
+
+
+@pytest.mark.parametrize("arch,accum", [("qwen3-0.6b", 2), ("zamba2-7b", 1),
+                                        ("rwkv6-1.6b", 1), ("mixtral-8x22b", 1),
+                                        ("gemma2-9b", 2)])
+def test_train_graph_replays_match_the_eager_twin(dev, arch, accum):
+    """Reduced models in bf16, 4 steps captured against the eager twin from
+    the same state and batches: the losses, parameters, moments and step
+    equal the twin's bit for bit, or lie no further from them than a second
+    eager run does (an atomic sum in a backward may differ between runs);
+    the graph's replays counted, and K4/K5/K6 counted through them: the
+    warm-up's and the replays' launches are the eager run's."""
+    from repro_torch.runtime import train_loop as T
+
+    cfg = _bf16_reduced(arch)
+    rng = np.random.RandomState(0)
+    batches = [{k: torch.from_numpy(rng.randint(0, cfg.vocab, (4, 64)).astype(np.int32))
+                .to(dev) for k in ("inputs", "labels")} for _ in range(4)]
+    T.stats.reset()
+    eager = _train_run(cfg, dev, batches, accum, capture=False)
+    again = _train_run(cfg, dev, batches, accum, capture=False)
+    got = _train_run(cfg, dev, batches, accum, capture=True)
+    spread = _max_diff(eager[:2], again[:2])
+    err = _max_diff(got[:2], eager[:2])
+    assert err <= spread, (err, spread)
+    assert bool(torch.isfinite(got[0]).all()) and int(got[1][-1]) == 4
+    graph, wrappers = got[2], got[3]
+    per_step = {k: n // 4 for k, n in eager[3].items()}
+    assert all(n * 4 == eager[3][k] for k, n in per_step.items())
+    kinds = M.layer_kinds(cfg)
+    for kernel, present in (("flash_attention", any(k in M._ATTN_KINDS for k in kinds)),
+                            ("ssd_scan", MAMBA2 in kinds), ("rwkv6_scan", RWKV6 in kinds)):
+        assert (per_step.get(kernel, 0) > 0) == present, (kernel, per_step)
+    assert graph.replays == 3 == T.stats.replays and T.stats.captures == 1
+    assert graph.captured_launches == per_step == T.stats.capture_launches
+    assert wrappers == {k: 2 * n for k, n in per_step.items()}  # warm-up + capture
+    assert graph.replay_launches == {k: 3 * n for k, n in per_step.items()}
+    ran = {k: wrappers[k] - graph.captured_launches[k] + graph.replay_launches[k]
+           for k in wrappers}
+    assert ran == eager[3]
+
+
+def test_train_capture_that_syncs_raises_naming_the_arch(dev, monkeypatch, tmp_path):
+    """A step that reads a value on the host cannot be captured: the capture
+    raises naming the model and the step, leaves no graph, and ``train``
+    does not fall back to the eager step."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime import train_loop as T
+
+    cfg = _bf16_reduced("qwen3-0.6b")
+    loss_fn = M.loss_fn
+
+    def syncing(*a, **kw):
+        loss = loss_fn(*a, **kw)
+        if loss.item() > -1.0:  # a host sync
+            return loss
+        return loss * 0
+
+    monkeypatch.setattr(M, "loss_fn", syncing)
+    opt = AdamW(lr=1e-3)
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    state = opt.init(params)
+    batch = TokenPipeline(cfg, batch=2, seq_len=32).device_batch(0, dev)
+    graph = T.TrainGraph(T.make_train_step(cfg, opt, device=dev), params, state, batch,
+                         name=cfg.name, start=3)
+    with pytest.raises(RuntimeError, match=r"capture of qwen3-0\.6b-reduced's training "
+                                           r"step at step 4"):
+        graph.step(batch)
+    assert graph.graph is None and graph.replays == 0
+    assert torch.cuda.get_sync_debug_mode() == 0
+    with pytest.raises(RuntimeError, match="capture of qwen3-0.6b-reduced's training step"):
+        T.train(cfg, steps=3, batch=2, seq_len=32, pipeline=TokenPipeline(cfg, 2, 32),
+                ckpt_dir=str(tmp_path), optimizer=opt, device=dev)
+
+
+def test_train_restart_captures_again(dev, tmp_path):
+    """A crash at step 3 (a checkpoint every 2) resumes from step 2 through
+    a new capture: 2 captures, and every step but each start's first a
+    replay; step 2's loss, taken by a replay before the crash and by the
+    warm-up after it from the step-2 checkpoint, the same bits."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import train
+
+    cfg = _bf16_reduced("qwen3-0.6b")
+    kw = dict(steps=6, batch=2, seq_len=32, pipeline=TokenPipeline(cfg, 2, 32),
+              ckpt_every=2, optimizer=AdamW(lr=1e-3), device=dev)
+    res = train(cfg, ckpt_dir=str(tmp_path / "crash"), crash_at_step=3, **kw)
+    # start 1: step 0 warm-up, 1-2 replays, crash before 3; start 2: step 2
+    # warm-up (from the step-2 checkpoint), 3-5 replays
+    assert (res.restarts, res.final_step, res.steps_run) == (1, 6, 3 + 4)
+    assert (res.captures, res.replays) == (2, 2 + 3)
+    assert res.losses[3] == res.losses[2]
+    eager = train(cfg, ckpt_dir=str(tmp_path / "eager"), jit=False, **kw)
+    assert (eager.captures, eager.replays, eager.steps_run) == (0, 0, 6)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "grok-1-314b", "qwen2-vl-2b",
